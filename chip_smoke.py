@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Build the PyTorch port's CUDA kernels and drive its forward path on one
-NVIDIA GPU at the bench working point.
+"""Build the PyTorch port's CUDA kernels and drive its two paths on one
+NVIDIA GPU at the bench working point: the serving path (rollout + render)
+and the end-to-end train step.
 
     python3 chip_smoke.py
 
@@ -8,21 +9,33 @@ Phases (each prints its own line; any failure raises and exits non-zero):
 1. device: name and power limit (nvidia-smi), torch and CUDA versions;
    TF32 off for every matmul and convolution;
 2. build: nvcc of csrc/*.cu for sm_90a, one process per source, timed;
-3. kernels: K1 (fused conv), K3 (ball sums), K5 (compositing weights),
-   each called at the shapes the main path gives it (recorded from one
-   warm-up pass) and held against its plain PyTorch version on the card,
-   with CUDA-event times (median of 10 after a warm-up) and the least time
-   the card could take for the same work;
-4. main path: a 10-step ParticleNet rollout of the 14,336-particle scene,
-   then the coarse (64) + fine (128) render of 1,024 rays, with seeded
-   random weights; launch counts from that run; the same path on the plain
-   versions on the card, within tolerance;
-5. the kernels line, the card line, and the result line last.
+3. forward kernels: K1 (fused conv), K3 (ball sums), K5 (compositing
+   weights), each called at the shapes the serving path gives it (recorded
+   from one warm-up pass) and held against its plain PyTorch version on the
+   card, with CUDA-event times (median of 10 after a warm-up) and the least
+   time the card could take for the same work;
+4. serving path: a 10-step ParticleNet rollout of the 14,336-particle
+   scene, then the coarse (64) + fine (128) render of 1,024 rays, with
+   seeded random weights; launch counts from that run; the same path on the
+   plain versions on the card, within tolerance;
+5. backward kernels: K2 (fused conv), K4 (ball sums), K6 (compositing
+   weights) at the shapes of one recorded warm-up train step, against their
+   plain backward versions, timed and bounded as in 3; K2 also once per
+   layer with every gradient asked for (its dq/dc path);
+6. train path: TRAIN_STEPS timed e2e train steps (Adam 3e-4 / 1e-5, one
+   view of 1,024 rays, state carried from step to step), launch counts per
+   step, finite loss and gradient norms, no overflow, an image gradient that
+   reaches the transition model; then the warm-up step again from its
+   weights and state: with the kernels, with the backward kernels on their
+   plain versions (each leaf's gradient within 1e-4 of its largest entry),
+   with the forward kernels on theirs, and with all six, within tolerance;
+7. the kernels line, the card line, and the result line last.
 
 Without a CUDA device, or without the package beside it, the script exits
 non-zero before printing any result.
 """
 
+import copy
 import json
 import statistics
 import subprocess
@@ -31,21 +44,54 @@ import time
 
 ROLLOUT_STEPS = 10
 EXPECTED_LAUNCHES = {"K1": 5 * ROLLOUT_STEPS, "K3": 2, "K5": 2}
+TRAIN_STEPS = 5
+STEP_LAUNCHES = {"K1": 5, "K2": 5, "K3": 2, "K4": 2, "K5": 2, "K6": 2}
+LR_RENDERER, LR_TRANSITION, BD_WEIGHT = 3e-4, 1e-5, 1.0
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and the
 # float32 rate outside the tensor cores (every kernel here is f32 SIMT)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
 # operations per in-radius pair of K1's geometry (offsets, distance,
-# window, ball -> cube map, trilinear corners); K3's per candidate test
-# and per selected neighbour
+# window, ball -> cube map, trilinear corners) and of K2's hand-derived
+# adjoint of it; K3's per candidate test and per selected neighbour, and
+# K4's per selected neighbour (the derivative and three atomics); K5's and
+# K6's per sample
 K1_GEOMETRY_OPS = 70
+K2_ADJOINT_OPS = 200
 K3_TEST_OPS = 9
 K3_SELECTED_OPS = 25
+K4_SELECTED_OPS = 45
+K5_SAMPLE_OPS = 10
+K6_SAMPLE_OPS = 30
 # kernel vs plain on the card, same inputs: K1 sums ~50 pairs x 8 taps and
 # then 64 * Cin terms per output in another order (relative to the largest
-# output); K3 sums <= 20 selected terms (relative); K5 weights are <= 1
-# products of <= 192 factors (absolute)
-TOL = {"K1": 1e-4, "K3": 1e-5, "K5": 1e-5}
+# output, at least 1); K3 sums <= 20 selected terms (the same); K5 weights
+# are <= 1 products of <= 192 factors (absolute). The backward kernels,
+# relative to the largest entry of each output: K2 sums the same pairs in
+# another order and dc, dfeats with atomics; K4 adds <= 20 terms per query
+# into each particle with atomics; K6 is a shuffle scan against cumulative
+# products and sums.
+TOL = {"K1": 1e-4, "K3": 1e-5, "K5": 1e-5, "K2": 1e-4, "K4": 1e-5,
+       "K6": 1e-5}
+RELATIVE = {"K1": "max1", "K3": "max1", "K5": "abs", "K2": "max", "K4": "max",
+            "K6": "max"}
+# the train step against the kernels', from the same weights and state.
+# With only K2, K4 and K6 on their plain versions the forward is bitwise
+# the kernels', and every leaf's gradient differs only by the backward
+# versions' summation order: held per leaf, relative to its largest entry.
+BWD_STEP_TOL = {"loss": 0.0, "next_pos": 0.0, "grad_norm_renderer": 1e-4,
+                "grad_norm_transition": 1e-4, "leaf_renderer": 1e-4,
+                "leaf_transition": 1e-4}
+# With K1, K3 and K5 (or all six) on their plain versions the forward agrees
+# to f32 rounding, but a particle moved by a rounding step can cross a
+# sample's radius shell: a count, a full-K mask or a first-K set changes,
+# and so, discretely, do that sample's features and every gradient through
+# it. The transition's gradient also passes the renderer's encoded variance
+# feature (a difference of near-equal sums under sin/cos at 2^9). So each
+# model's gradients are held relative to its largest entry.
+STEP_TOL = {"loss": 1e-4, "grad_norm_renderer": 1e-3,
+            "grad_norm_transition": 1e-2, "grads_renderer": 1e-3,
+            "grads_transition": 1e-2, "next_pos": 1e-5}
 # sigma-head bias of the seeded renderer, so that samples with K neighbours
 # are opaque (sigma ~ 10 per unit length: alpha ~ 0.5 per coarse step)
 SIGMA_BIAS = 10.0
@@ -58,7 +104,19 @@ def bound_ms(n_bytes, n_ops):
 
 
 def nbytes(*tensors):
-    return sum(t.numel() * t.element_size() for t in tensors)
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def ball_bytes(bf, q_rep, tables, gcell, dims, t, walked, *whole):
+    """Bytes a ball-sum kernel (K3, K4) has to move: each of `tables` at its
+    occupied slots of the distinct rows around the groups that hold a
+    walked slot (an empty slot is padding of the tables' fixed width), the
+    queries of the walked slots, and `whole` entire."""
+    groups = walked.reshape(-1, t).any(1)
+    rows = bf.neighbor_rows(gcell, dims)[groups].unique()
+    occupied = int((tables[0][rows] < 0.5 * bf.SENTINEL).sum())
+    return (occupied * sum(a.element_size() for a in tables)
+            + int(walked.sum()) * 3 * q_rep.element_size() + nbytes(*whole))
 
 
 def event_ms(torch, fn, reps=10):
@@ -113,6 +171,8 @@ def main():
     from neurofluid_torch.ops import ball_features as bf
     from neurofluid_torch.ops import composite as comp
     from neurofluid_torch.ops import fused_cconv as fc
+    from neurofluid_torch.train import losses
+    from neurofluid_torch.train.e2e import make_e2e_train_step
     from neurofluid_torch.train.transition import make_rollout_fn
 
     # ---- 1. device
@@ -130,73 +190,108 @@ def main():
     t0 = time.perf_counter()
     nf_cuda.build(["fused_cconv.cu", "ball_features.cu", "composite.cu"])
     build_s = time.perf_counter() - t0
-    print(f"build: 3 sources with nvcc -gencode arch=compute_90a,code=sm_90a "
-          f"in {build_s:.1f} s", flush=True)
+    print(f"build: 3 sources (K1-K6) with nvcc -gencode "
+          f"arch=compute_90a,code=sm_90a in {build_s:.1f} s", flush=True)
 
     # ---- scene and models
-    pos, vel, box, nrm, ro, rays, _ = scene.build_problem()
-    pos, vel, box, nrm = (torch.from_numpy(a).to(dev)
-                          for a in (pos, vel, box, nrm))
-    ro, rays = torch.from_numpy(ro[0]).to(dev), torch.from_numpy(rays[0]).to(dev)
+    pos, vel, box, nrm, ro_v, rays_v, rgbs_v = (
+        torch.from_numpy(a).to(dev) for a in scene.build_problem())
+    ro, rays = ro_v[0], rays_v[0]
     gen = torch.Generator().manual_seed(0)
     net = ParticleNet(**scene.particle_net_kwargs(), device=dev, generator=gen)
     ren = RenderNet(device=dev, generator=gen)
     with torch.no_grad():  # opaque fluid: random sigma heads are ~0 or < 0
         for nerf in (ren.nerf_coarse, ren.nerf_fine):
             nerf.sigma.bias.fill_(SIGMA_BIAS)
+    init_state = (copy.deepcopy(net.state_dict()),
+                  copy.deepcopy(ren.state_dict()))
     rollout = make_rollout_fn(net)
 
-    # ---- 3. kernels at the main path's shapes, against their plain versions
-    calls = {"K1": [], "K3": [], "K5": []}
-    originals = {"K1": fc.fused_cconv_cuda, "K3": bf.ball_sums_cuda,
-                 "K5": comp.composite_weights_cuda}
+    originals = {"K1": fc.fused_cconv_cuda, "K2": fc.fused_cconv_bwd_cuda,
+                 "K3": bf.ball_sums_cuda, "K4": bf.ball_sums_bwd_cuda,
+                 "K5": comp.composite_weights_cuda,
+                 "K6": comp.composite_weights_bwd_cuda}
+    plain = {"K1": fc.fused_cconv_plain, "K2": fc.fused_cconv_bwd_plain,
+             "K3": bf.ball_sums_plain, "K4": bf.ball_sums_bwd_plain,
+             "K5": comp.composite_weights_plain,
+             "K6": comp.composite_weights_bwd_plain}
+    wrapper_names = {"K1": (fc, "fused_cconv_cuda"),
+                     "K2": (fc, "fused_cconv_bwd_cuda"),
+                     "K3": (bf, "ball_sums_cuda"),
+                     "K4": (bf, "ball_sums_bwd_cuda"),
+                     "K5": (comp, "composite_weights_cuda"),
+                     "K6": (comp, "composite_weights_bwd_cuda")}
+    counters = {"K1": fc.KERNEL, "K2": fc.BWD_KERNEL, "K3": bf.KERNEL,
+                "K4": bf.BWD_KERNEL, "K5": comp.KERNEL,
+                "K6": comp.BWD_KERNEL}
 
-    def recording(name):
-        def fn(*args):
-            calls[name].append(args)
-            return originals[name](*args)
-        return fn
+    def recording(calls, names):
+        def wrap(name):
+            def fn(*args):
+                calls[name].append(args)
+                return originals[name](*args)
+            return fn
+        return Recorder([(*wrapper_names[n], wrap(n)) for n in names])
 
-    with torch.no_grad(), Recorder([
-            (fc, "fused_cconv_cuda", recording("K1")),
-            (bf, "ball_sums_cuda", recording("K3")),
-            (comp, "composite_weights_cuda", recording("K5"))]):
-        traj, _ = rollout(pos, vel, box, nrm, 1)
-        ren(traj[-1], ro, rays)
-    torch.cuda.synchronize()
+    def on_plain(names):
+        return Recorder([(*wrapper_names[n], plain[n]) for n in names])
+
+    def counts():
+        return {k: c.launches for k, c in counters.items()}
+
+    def reset_counts():
+        for c in counters.values():
+            c.launches = 0
 
     kernels = {}
 
-    def check(name, i, args, got, want, n_bytes, n_ops, exact=None):
-        """got/want: the float outputs; exact: integer-valued outputs that
-        must agree exactly (in-radius counts, selection counts)."""
-        err = float((got - want).abs().max())
-        tol = TOL[name] * (max(float(want.abs().max()), 1.0)
-                           if name != "K5" else 1.0)
+    def check(name, i, args, outputs, n_bytes, n_ops, exact=None,
+              timed=True):
+        """outputs: (label, got, want) float outputs, each held to TOL
+        scaled as RELATIVE says; exact: integer-valued outputs that must
+        agree exactly (in-radius counts, selection counts)."""
+        err = 0.0
+        for label, got, want in outputs:
+            if got is None and want is None:
+                continue
+            e = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            tol = TOL[name] * {"abs": 1.0, "max": scale,
+                               "max1": max(scale, 1.0)}[RELATIVE[name]]
+            if not e <= tol:
+                raise AssertionError(f"{name} call {i} {label}: max abs err "
+                                     f"{e:.3e} > tolerance {tol:.3e}")
+            err = max(err, e)
         if exact is not None:
             mismatch = int((exact[0] != exact[1]).sum())
             if mismatch:
                 raise AssertionError(f"{name} call {i}: {mismatch} integer "
                                      f"sums differ from the plain version")
-        if not err <= tol:
-            raise AssertionError(f"{name} call {i}: max abs err {err:.3e} > "
-                                 f"tolerance {tol:.3e}")
-        ms = event_ms(torch, lambda: originals[name](*args))
-        plain_ms = event_ms(torch, lambda: plain[name](*args))
-        b_ms, b_by = bound_ms(n_bytes, n_ops)
-        print(f"kernel {name} call {i}: max_abs_err {err:.3e} (tol {tol:.1e}) "
-              f"ms {ms:.4f} plain_ms {plain_ms:.3f} bound_ms {b_ms:.4f} "
-              f"({b_by})", flush=True)
         k = kernels.setdefault(name, dict(max_abs_err=0.0, ms=0.0,
                                           plain_ms=0.0, bound_ms=0.0,
                                           ops=0.0, bytes=0.0))
         k["max_abs_err"] = max(k["max_abs_err"], err)
+        if not timed:
+            print(f"kernel {name} call {i}: max_abs_err {err:.3e} (tol "
+                  f"{TOL[name]:.0e}, {RELATIVE[name]})", flush=True)
+            return
+        ms = event_ms(torch, lambda: originals[name](*args))
+        plain_ms = event_ms(torch, lambda: plain[name](*args))
+        b_ms, b_by = bound_ms(n_bytes, n_ops)
+        print(f"kernel {name} call {i}: max_abs_err {err:.3e} (tol "
+              f"{TOL[name]:.0e}, {RELATIVE[name]}) ms {ms:.4f} plain_ms "
+              f"{plain_ms:.3f} bound_ms {b_ms:.4f} ({b_by})", flush=True)
         for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b_ms),
                        ("ops", n_ops), ("bytes", n_bytes)):
             k[key] += v
 
-    plain = {"K1": fc.fused_cconv_plain, "K3": bf.ball_sums_plain,
-             "K5": comp.composite_weights_plain}
+    # ---- 3. forward kernels at the serving path's shapes
+    calls = {"K1": [], "K3": [], "K5": []}
+    with torch.no_grad(), recording(calls, calls):
+        traj, _ = rollout(pos, vel, box, nrm, 1)
+        ren(traj[-1], ro, rays)
+    torch.cuda.synchronize()
+
     with torch.no_grad():
         for i, args in enumerate(calls["K1"]):
             w, qplan, qpos_s, cplan, cpos_s, feats_s, radius, _ = args
@@ -210,29 +305,29 @@ def main():
                           feats_s[: cplan.n], w, qplan.gcol, qplan.gzlo,
                           qplan.gzhi, qplan.gstart, cplan.pstarts)
                    + nbytes(*got))
-            check("K1", i, args, got[0], want[0], n_b, ops,
+            check("K1", i, args, [("out", got[0], want[0])], n_b, ops,
                   exact=(got[1], want[1]))
         for i, args in enumerate(calls["K3"]):
             q_rep, tx, ty, tz, gcell, dims, radius, k, t = args
             got, want = bf.ball_sums_cuda(*args), bf.ball_sums_plain(*args)
-            live = (q_rep[:, 0] < 0.5 * bf.SENTINEL).reshape(-1, t).sum(1)
+            live = q_rep[:, 0] < 0.5 * bf.SENTINEL
             occupied = (tx < 0.5 * bf.SENTINEL).sum(1)
             tests = float((occupied[bf.neighbor_rows(gcell, dims)].sum(1)
-                           * live).sum())
+                           * live.reshape(-1, t).sum(1)).sum())
             ops = tests * K3_TEST_OPS + float(want[:, 1].sum()) * K3_SELECTED_OPS
-            n_b = nbytes(q_rep, tx, ty, tz, gcell, got)
-            check("K3", i, args, got[:, 3:], want[:, 3:], n_b, ops,
-                  exact=(got[:, :3], want[:, :3]))
+            n_b = ball_bytes(bf, q_rep, (tx, ty, tz), gcell, dims, t, live,
+                             gcell, got)
+            check("K3", i, args, [("sums", got[:, 3:], want[:, 3:])], n_b,
+                  ops, exact=(got[:, :3], want[:, :3]))
         for i, args in enumerate(calls["K5"]):
             got = comp.composite_weights_cuda(*args)
             want = comp.composite_weights_plain(*args)
-            check("K5", i, args, got, want, nbytes(*args, got),
-                  10.0 * got.numel())
+            check("K5", i, args, [("w", got, want)], nbytes(*args, got),
+                  K5_SAMPLE_OPS * got.numel())
     del calls
 
-    # ---- 4. main path, counted
-    for kern in (fc.KERNEL, bf.KERNEL, comp.KERNEL):
-        kern.launches = 0
+    # ---- 4. serving path, counted
+    reset_counts()
     torch.cuda.synchronize()
     with torch.no_grad():
         t0 = time.perf_counter()
@@ -242,11 +337,11 @@ def main():
         out = ren(traj[-1], ro, rays)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-    launches = {"K1": fc.KERNEL.launches, "K3": bf.KERNEL.launches,
-                "K5": comp.KERNEL.launches}
-    print(f"main path: launches {launches}", flush=True)
-    if launches != EXPECTED_LAUNCHES:
-        raise AssertionError(f"launches {launches} != {EXPECTED_LAUNCHES}")
+    serve_launches = {k: v for k, v in counts().items() if v}
+    print(f"serving path: launches {serve_launches}", flush=True)
+    if serve_launches != EXPECTED_LAUNCHES:
+        raise AssertionError(f"launches {serve_launches} != "
+                             f"{EXPECTED_LAUNCHES}")
     if traj.shape != (ROLLOUT_STEPS, scene.N_PARTICLES, 3):
         raise AssertionError(f"trajectory shape {tuple(traj.shape)}")
     if not bool(torch.isfinite(traj).all()):
@@ -277,7 +372,7 @@ def main():
     roll_med, render_med = statistics.median(roll_s), statistics.median(render_s)
     psteps = ROLLOUT_STEPS * scene.N_PARTICLES / roll_med
     rays_s = scene.N_RAYS / render_med
-    print(f"main path: rollout {ROLLOUT_STEPS} steps {roll_med * 1e3:.2f} ms "
+    print(f"serving path: rollout {ROLLOUT_STEPS} steps {roll_med * 1e3:.2f} ms "
           f"({psteps:.0f} particle-steps/s), render {render_med * 1e3:.2f} ms "
           f"({rays_s:.1f} rays/s), opacity1 mean "
           f"{float(out['opacity1'].mean()):.4f}, mask_0 {int(out['mask_0'].sum())}",
@@ -285,11 +380,8 @@ def main():
 
     # the same path on the plain versions on the card; the render is fed the
     # kernel rollout's last frame so each comparison sees the same inputs
-    before = (fc.KERNEL.launches, bf.KERNEL.launches, comp.KERNEL.launches)
-    with torch.no_grad(), Recorder([
-            (fc, "fused_cconv_cuda", fc.fused_cconv_plain),
-            (bf, "ball_sums_cuda", bf.ball_sums_plain),
-            (comp, "composite_weights_cuda", comp.composite_weights_plain)]):
+    before = counts()
+    with torch.no_grad(), on_plain(("K1", "K3", "K5")):
         t0 = time.perf_counter()
         traj_p, _ = rollout(pos, vel, box, nrm, ROLLOUT_STEPS)
         torch.cuda.synchronize()
@@ -297,16 +389,15 @@ def main():
         out_p = ren(traj[-1], ro, rays)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-    after = (fc.KERNEL.launches, bf.KERNEL.launches, comp.KERNEL.launches)
-    if after != before:
+    if counts() != before:
         raise AssertionError("the plain run launched a kernel")
     diffs = {"traj": float((traj_p - traj).abs().max())}
     for key in ("rgb0", "depth0", "opacity0", "rgb1", "depth1", "opacity1"):
         diffs[key] = float((out_p[key] - out[key]).abs().max())
         diffs[key + "_mean"] = float((out_p[key] - out[key]).abs().mean())
     diffs["num_nn_0_mismatch"] = int((out_p["num_nn_0"] != out["num_nn_0"]).sum())
-    print(f"plain path on the card: rollout {(t1 - t0) * 1e3:.1f} ms, render "
-          f"{(t2 - t1) * 1e3:.1f} ms; max abs diffs "
+    print(f"plain serving path on the card: rollout {(t1 - t0) * 1e3:.1f} ms, "
+          f"render {(t2 - t1) * 1e3:.1f} ms; max abs diffs "
           + ", ".join(f"{k} {v:.3e}" for k, v in diffs.items()), flush=True)
     # tolerances: f32 sums in another order compound over 10 steps; the
     # coarse pass sees identical inputs; the fine samples move with K5's
@@ -316,23 +407,240 @@ def main():
     bad = {k: diffs[k] for k, lim in limits.items() if not diffs[k] <= lim}
     if bad:
         raise AssertionError(f"plain path disagrees beyond tolerance: {bad}")
+    del traj, traj_p, out, out_p
 
-    # ---- 5. summary lines
-    sources = {"K1": ("fused_cconv", "neurofluid_torch/csrc/fused_cconv.cu",
-                      "neurofluid_tpu/ops/fused_cconv.py:622"),
-               "K3": ("ball_features", "neurofluid_torch/csrc/ball_features.cu",
-                      "neurofluid_tpu/ops/pallas_features.py:88"),
-               "K5": ("composite_weights", "neurofluid_torch/csrc/composite.cu",
-                      "neurofluid_tpu/ops/pallas_kernels.py:28")}
+    # ---- 5. backward kernels at the shapes of one recorded train step
+    bounds = losses.default_box_bounds(device=dev)
+    box_plan = net.make_box_plan(box)
+
+    def trainer():
+        """Fresh models and Adam states from the seeded initial weights."""
+        t_net = ParticleNet(**scene.particle_net_kwargs(), device=dev,
+                            generator=torch.Generator().manual_seed(1))
+        t_ren = RenderNet(device=dev, generator=torch.Generator().manual_seed(2))
+        t_net.load_state_dict(init_state[0])
+        t_ren.load_state_dict(init_state[1])
+        opt_r = torch.optim.Adam(t_ren.parameters(), lr=LR_RENDERER)
+        opt_t = torch.optim.Adam(t_net.parameters(), lr=LR_TRANSITION)
+        step = make_e2e_train_step(t_net, t_ren, opt_r, opt_t, bounds,
+                                   BD_WEIGHT)
+        return t_net, t_ren, step
+
+    def run_step(step, p, v):
+        return step(p, v, box, nrm, ro_v, rays_v, rgbs_v, box_plan=box_plan)
+
+    def grads_of(model):
+        return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+    t_net, t_ren, step = trainer()
+    calls = {"K2": [], "K4": [], "K6": []}
+    with recording(calls, calls):  # the warm-up step
+        loss_w, pos_w, vel_w, aux_w = run_step(step, pos, vel)
+    torch.cuda.synchronize()
+    warm = dict(loss=float(loss_w), next_pos=pos_w, aux=aux_w,
+                grads_renderer=grads_of(t_ren),
+                grads_transition=grads_of(t_net))
+    got_calls = {k: len(v) for k, v in calls.items()}
+    want_calls = {k: STEP_LAUNCHES[k] for k in calls}
+    if got_calls != want_calls:
+        raise AssertionError(f"warm-up step calls {got_calls} != {want_calls}")
+
+    with torch.no_grad():
+        for i, args in enumerate(calls["K2"]):
+            (w, qplan, qpos_s, cplan, cpos_s, feats_s, ct, radius, excl,
+             needs) = args
+            kz, ky, kx, cin, cout = w.shape
+            klen = kz * ky * kx * cin
+            pairs = float(fc.fused_cconv_cuda(w, qplan, qpos_s, cplan, cpos_s,
+                                              feats_s, radius, excl)[1].sum())
+            for form, nd in (("step", needs), ("all", (True,) * 4)):
+                a = args[:-1] + (nd,)
+                got = fc.fused_cconv_bwd_cuda(*a)
+                want = fc.fused_cconv_bwd_plain(*a)
+                need_w, need_q, need_c, need_f = nd
+                ops = pairs * K1_GEOMETRY_OPS
+                if need_w:  # the tap-feature rows again, and A^T ct
+                    ops += pairs * 16 * cin + 2.0 * qplan.n * klen * cout
+                if need_q or need_c or need_f:  # d_acc = ct W^T
+                    ops += 2.0 * qplan.n * klen * cout
+                if need_f:
+                    ops += pairs * 16 * cin
+                if need_q or need_c:  # 8 Cin-long dots and the adjoint
+                    ops += pairs * (16 * cin + K2_ADJOINT_OPS)
+                n_b = (nbytes(qpos_s[: qplan.n], cpos_s[: cplan.n],
+                              feats_s[: cplan.n], w, ct, qplan.gcol,
+                              qplan.gzlo, qplan.gzhi, qplan.gstart,
+                              cplan.pstarts)
+                       + nbytes(*got))
+                labels = ("dW", "dq", "dc", "dfeats")
+                check("K2", f"{i} ({form} {''.join(str(int(x)) for x in nd)})",
+                      a, list(zip(labels, got, want)), n_b, ops,
+                      timed=form == "step")
+        for i, args in enumerate(calls["K4"]):
+            (q_rep, cot_rep, tx, ty, tz, table_idx, gcell, dims, radius, k,
+             t, n_points) = args
+            got, want = bf.ball_sums_bwd_cuda(*args), bf.ball_sums_bwd_plain(*args)
+            # the slots the kernel walks: packed, in a cell, with a cotangent
+            sums = bf.ball_sums_cuda(q_rep, tx, ty, tz, gcell, dims, radius,
+                                     k, t)
+            walked = (cot_rep[:, 3:] != 0).any(1)
+            occupied = (tx < 0.5 * bf.SENTINEL).sum(1)
+            tests = occupied[bf.neighbor_rows(gcell, dims)].sum(1)
+            tests = float((tests.repeat_interleave(t) * walked).sum())
+            selected = float((sums[:, 1] * walked).sum())
+            ops = tests * K3_TEST_OPS + selected * K4_SELECTED_OPS
+            # the cotangent's gradient-carrying columns 3-12, of the slots
+            # of groups in a cell (the rest are zero by construction)
+            in_cell = gcell.long() < dims[0] * dims[1] * dims[2]
+            cot_read = cot_rep[in_cell.repeat_interleave(t), 3:]
+            n_b = ball_bytes(bf, q_rep, (tx, ty, tz, table_idx), gcell, dims,
+                             t, walked, gcell, cot_read, got)
+            check("K4", i, args, [("d_points", got, want)], n_b, ops)
+        for i, args in enumerate(calls["K6"]):
+            got = comp.composite_weights_bwd_cuda(*args)
+            want = comp.composite_weights_bwd_plain(*args)
+            check("K6", i, args, [("d_sigma", got, want)],
+                  nbytes(*args, got), K6_SAMPLE_OPS * got.numel())
+    del calls
+
+    # ---- 6. train path, counted: the state carried from step to step
+    reset_counts()
+    torch.cuda.synchronize()
+    step_s, auxes, step_losses = [], [], []
+    p, v = pos_w, vel_w
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        loss, p, v, aux = run_step(step, p, v)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        auxes.append(aux)
+        step_losses.append(loss)
+    train_launches = counts()
+    want_launches = {k: n * TRAIN_STEPS for k, n in STEP_LAUNCHES.items()}
+    print(f"train path: launches {train_launches} in {TRAIN_STEPS} steps",
+          flush=True)
+    if train_launches != want_launches:
+        raise AssertionError(f"launches {train_launches} != {want_launches}")
+    for i, (loss, aux) in enumerate(zip(step_losses, auxes)):
+        gn_r = float(aux["grad_norm_renderer"])
+        gn_t = float(aux["grad_norm_transition"])
+        if not (torch.isfinite(loss) and gn_r == gn_r and gn_t == gn_t
+                and gn_r < float("inf") and gn_t < float("inf")):
+            raise AssertionError(f"step {i}: loss {float(loss)}, grad norms "
+                                 f"{gn_r}, {gn_t}")
+        if bool(aux["search_overflow"]) or bool(aux["search_cap_exceeded"]):
+            raise AssertionError(f"step {i}: a search overflow flag is set")
+        if not gn_t > 0.0:
+            raise AssertionError(f"step {i}: grad_norm_transition {gn_t}: no "
+                                 f"image gradient reaches the simulator")
+    if p.shape != (scene.N_PARTICLES, 3) or not bool(torch.isfinite(p).all()):
+        raise AssertionError("non-finite or misshapen carried state")
+    step_med = statistics.median(step_s)
+    print(f"train path: {TRAIN_STEPS} steps, median {step_med * 1e3:.2f} ms "
+          f"(min {min(step_s) * 1e3:.2f}, max {max(step_s) * 1e3:.2f}); "
+          f"{scene.N_RAYS / step_med:.1f} rays/s, "
+          f"{scene.N_PARTICLES / step_med:.0f} particle-steps/s; losses "
+          + ", ".join(f"{float(x):.6f}" for x in step_losses)
+          + f"; grad norms renderer {float(auxes[-1]['grad_norm_renderer']):.4e}"
+          f" transition {float(auxes[-1]['grad_norm_transition']):.4e}",
+          flush=True)
+    del auxes, step_losses, p, v
+
+    def step_diffs(loss_x, pos_x, aux_x, net_x, ren_x):
+        """Differences of a step from the same weights and state against the
+        warm-up step: loss and grad norms relative, next_pos absolute, each
+        model's gradients relative to its largest gradient entry (grads_*)
+        and its worst leaf relative to the leaf's own largest entry
+        (leaf_*, named in the second result), and the neighbour counts that
+        differ."""
+        d = {"loss": abs(float(loss_x) - warm["loss"]) / abs(warm["loss"]),
+             "next_pos": float((pos_x - warm["next_pos"]).abs().max())}
+        for key in ("grad_norm_renderer", "grad_norm_transition"):
+            w_ = float(warm["aux"][key])
+            d[key] = abs(float(aux_x[key]) - w_) / w_
+        worst = {}
+        for key, model in (("renderer", ren_x), ("transition", net_x)):
+            ref = warm["grads_" + key]
+            top = max(float(g.abs().max()) for g in ref.values())
+            errs = {n: float((prm.grad - ref[n]).abs().max())
+                    for n, prm in model.named_parameters()}
+            rel = {n: e / max(float(ref[n].abs().max()), 1e-30)
+                   for n, e in errs.items()}
+            d["grads_" + key] = max(errs.values()) / top
+            worst[key] = max(rel, key=rel.get)
+            d["leaf_" + key] = rel[worst[key]]
+        mism = {k: int((aux_x[k] != warm["aux"][k]).sum())
+                for k in ("num_nn_0", "num_nn_1")}
+        return d, worst, mism
+
+    def show(what, d, worst, mism):
+        print(f"{what}: diffs " + ", ".join(f"{k} {v:.3e}" for k, v in d.items())
+              + " (loss, grad norms relative; grads_* relative to the model's "
+              "largest entry, leaf_* to the leaf's own; next_pos absolute); "
+              f"worst leaves {worst}; neighbour counts that differ {mism}",
+              flush=True)
+
+    def compare(what, swapped, tol):
+        """The warm-up step from the same weights and state with `swapped`
+        on their plain versions: those launch no kernel, the rest launch
+        as in a kernel step, and every difference is within `tol`."""
+        c_net, c_ren, c_step = trainer()
+        before = counts()
+        with on_plain(swapped):
+            t0 = time.perf_counter()
+            loss_c, pos_c, _, aux_c = run_step(c_step, pos, vel)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        launched = {k: v - before[k] for k, v in counts().items()}
+        want = {k: 0 if k in swapped else STEP_LAUNCHES[k] for k in launched}
+        if launched != want:
+            raise AssertionError(f"{what}: launches {launched} != {want}")
+        d, worst, mism = step_diffs(loss_c, pos_c, aux_c, c_net, c_ren)
+        show(f"{what} ({ms:.1f} ms)", d, worst, mism)
+        bad = {k: v for k, v in d.items() if k in tol and not v <= tol[k]}
+        if bad:
+            raise AssertionError(f"{what} disagrees beyond tolerance: {bad}")
+
+    # the warm-up step again with the kernels, from the same weights and
+    # state: its spread is the floor of the comparisons below (K2 and K4 add
+    # with atomics, in an order that varies from run to run)
+    compare("kernel train step rerun", (), {})
+    # only the backward kernels on their plain versions: the forward is the
+    # kernels' own (K1, K3 and K5 are deterministic), so every leaf's
+    # gradient is held to the backward versions' summation order alone
+    compare("train step with plain K2, K4, K6", ("K2", "K4", "K6"),
+            BWD_STEP_TOL)
+    # only the forward kernels on their plain versions, and then all six:
+    # the forward's rounding, not the backward, moves the gradients here
+    compare("train step with plain K1, K3, K5", ("K1", "K3", "K5"), STEP_TOL)
+    compare("plain train step on the card", tuple(STEP_LAUNCHES), STEP_TOL)
+
+    # ---- 7. summary lines. launches: each kernel's count over both counted
+    # runs (the serving path once, the train path TRAIN_STEPS times); the
+    # times are per serving pass (K1: per rollout step) or per train step
+    sources = {
+        "K1": ("fused_cconv", "fused_cconv.cu",
+               "neurofluid_tpu/ops/fused_cconv.py:622"),
+        "K2": ("fused_cconv_bwd", "fused_cconv.cu",
+               "neurofluid_tpu/ops/fused_cconv.py:698"),
+        "K3": ("ball_features", "ball_features.cu",
+               "neurofluid_tpu/ops/pallas_features.py:88"),
+        "K4": ("ball_features_bwd", "ball_features.cu",
+               "neurofluid_tpu/ops/pallas_features.py:183"),
+        "K5": ("composite_weights", "composite.cu",
+               "neurofluid_tpu/ops/pallas_kernels.py:28"),
+        "K6": ("composite_weights_bwd", "composite.cu",
+               "neurofluid_tpu/ops/pallas_kernels.py:51")}
     line = {"kernels": [
-        {"name": f"{kid} {sources[kid][0]}", "route": "cuda",
-         "source": sources[kid][1], "replaces": sources[kid][2],
-         "launches": launches[kid], "max_abs_err": kernels[kid]["max_abs_err"],
+        {"name": f"{kid} {name}", "route": "cuda",
+         "source": f"neurofluid_torch/csrc/{src}", "replaces": replaces,
+         "launches": serve_launches.get(kid, 0) + train_launches[kid],
+         "max_abs_err": kernels[kid]["max_abs_err"],
          "ms": kernels[kid]["ms"], "plain_ms": kernels[kid]["plain_ms"],
          "bound_ms": kernels[kid]["bound_ms"],
          "bound_by": bound_ms(kernels[kid]["bytes"], kernels[kid]["ops"])[1],
          "library_ms": None}
-        for kid in ("K1", "K3", "K5")]}
+        for kid, (name, src, replaces) in sources.items()]}
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -145,14 +145,6 @@ class Kernel:
         self.launches += 1
 
 
-def check_forward_only(*tensors) -> None:
-    """The kernels of this slice have no backward yet."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "backward kernel lands with the training slice"
-        )
-
-
 def check_tensor(name: str, t: torch.Tensor, device: torch.device,
                  dtype=torch.float32) -> None:
     """Raise unless `t` is a contiguous `dtype` tensor on the CUDA device

@@ -1,5 +1,6 @@
-"""Ball-query feature sums for the renderer: K3 (`csrc/ball_features.cu`)
-and its plain version (port of neurofluid_tpu/ops/ball_features.py, forward).
+"""Ball-query feature sums for the renderer: K3 (`csrc/ball_features.cu`
+`nf_ball_sums`), its backward K4 (`nf_ball_sums_bwd`, same source) and the
+plain version of each (port of neurofluid_tpu/ops/ball_features.py).
 
 Per query, 13 sums over the particles within `radius` (strict d^2 < r^2):
 
@@ -16,6 +17,13 @@ o -> (o//9 - 1, (o//3)%3 - 1, o%3 - 1) on (x, y, z), then table slots in
 order (ascending original particle index, see neighbor_search). Queries are
 culled to the particle AABB + radius, sorted by cell and packed into groups
 of `group_size` that share one cell, so a group reads exactly 27 table rows.
+
+`ball_feature_sums` is differentiable with respect to the particles only
+(`BallFeatureSums`); queries are detached, as in JAX. The gradient reaches a
+particle through the cell tables' slot -> particle map (`table_idx`), so a
+particle truncated by `max_per_cell` gets none (the overflow flag is set).
+Selection is discrete: only w and the coordinates of selected neighbours
+carry gradient.
 """
 
 from __future__ import annotations
@@ -26,7 +34,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from neurofluid_torch.cuda import Kernel, check_forward_only, check_tensor
+from neurofluid_torch.cuda import Kernel, check_tensor
 from neurofluid_torch.ops.neighbor_search import (
     build_cell_grid, cell_dims, cell_ids,
 )
@@ -36,7 +44,9 @@ SENTINEL = 1e9
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNEL = Kernel("ball_features.cu", "nf_ball_sums",
-                [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _I])
+                [_P] * 6 + [_I] * 6 + [_F, _F, _I])
+BWD_KERNEL = Kernel("ball_features.cu", "nf_ball_sums_bwd",
+                    [_P] * 8 + [_I] * 6 + [_F, _F, _I])
 
 
 class BallGrouping(NamedTuple):
@@ -118,6 +128,20 @@ def neighbor_rows(gcell: torch.Tensor, dims: tuple) -> torch.Tensor:
     return torch.where(ok, c + ox * d1 * d2 + oy * d2 + oz, num_cells)
 
 
+def _select(qc, cx, cy, cz, r2: float, k: int):
+    """The plain selection of a chunk of groups: (dx, dy, dz, d2, within,
+    selected) over (G, T, 27, cap)."""
+    dx = cx - qc[:, :, 0, None, None]
+    dy = cy - qc[:, :, 1, None, None]
+    dz = cz - qc[:, :, 2, None, None]
+    d2 = dx * dx + dy * dy + dz * dz
+    within = (cx < 0.5 * SENTINEL) & (d2 < r2)
+    rank = torch.cumsum(within.float(), dim=-1)
+    cnt = rank[..., -1]
+    off = torch.cumsum(cnt, dim=-1) - cnt
+    return dx, dy, dz, d2, within, within & (off[..., None] + rank <= k)
+
+
 def ball_sums_plain(q_rep, tx, ty, tz, gcell, dims, radius: float, k: int,
                     group_size: int, chunk_groups: int = 64) -> torch.Tensor:
     """(NG * T, 3) packed queries -> (NG * T, N_SUMS), the math of the TPU
@@ -133,16 +157,8 @@ def ball_sums_plain(q_rep, tx, ty, tz, gcell, dims, radius: float, k: int,
     for g0 in range(0, ng, chunk_groups):
         qc, rc = qg[g0:g0 + chunk_groups], rows[g0:g0 + chunk_groups]
         cx, cy, cz = tx[rc][:, None], ty[rc][:, None], tz[rc][:, None]
-        dx = cx - qc[:, :, 0, None, None]  # (G, T, 27, cap)
-        dy = cy - qc[:, :, 1, None, None]
-        dz = cz - qc[:, :, 2, None, None]
-        d2 = dx * dx + dy * dy + dz * dz
-        within = (cx < 0.5 * SENTINEL) & (d2 < r2)
-        wf = within.float()
-        rank = torch.cumsum(wf, dim=-1)
-        cnt = rank[..., -1]
-        off = torch.cumsum(cnt, dim=-1) - cnt
-        sf = (within & (off[..., None] + rank <= k)).float()
+        dx, dy, dz, d2, within, sel = _select(qc, cx, cy, cz, r2, k)
+        wf, sf = within.float(), sel.float()
         nn = sf * (d2 > 0.0)
         u = torch.sqrt(torch.clamp(d2, min=1e-24)) / radius
         w = torch.clamp(1.0 - u * u * u, min=0.0) * sf
@@ -152,39 +168,149 @@ def ball_sums_plain(q_rep, tx, ty, tz, gcell, dims, radius: float, k: int,
     return torch.cat(out, dim=0).reshape(ng * t, N_SUMS)
 
 
-def ball_sums_cuda(q_rep, tx, ty, tz, gcell, dims, radius: float, k: int,
-                   group_size: int) -> torch.Tensor:
-    """K3: one warp per packed query slot; ranks from a warp ballot."""
-    check_forward_only(q_rep, tx, ty, tz)
+def ball_sums_bwd_plain(q_rep, cot_rep, tx, ty, tz, table_idx, gcell, dims,
+                        radius: float, k: int, group_size: int,
+                        n_points: int, chunk_groups: int = 64):
+    """Plain PyTorch twin of K4, an explicit adjoint: cot_rep (NG * T,
+    N_SUMS) cotangent per packed slot -> d_points (n_points, 3). Per
+    selected pair, the derivative of the float sums (columns 3-12) with
+    respect to the neighbour's coordinates, summed over the group's queries,
+    then added into the particles through `table_idx`."""
+    ng, t = gcell.shape[0], group_size
+    rows = neighbor_rows(gcell, dims)
+    qg = q_rep.reshape(ng, t, 3)
+    cg = cot_rep.reshape(ng, t, N_SUMS)
+    r2 = float(np.float32(radius * radius))
+    d_points = q_rep.new_zeros((n_points + 1, 3))  # the last row: empty slots
+    idx = torch.where(table_idx < 0, n_points, table_idx)
+    for g0 in range(0, ng, chunk_groups):
+        qc, rc = qg[g0:g0 + chunk_groups], rows[g0:g0 + chunk_groups]
+        cx, cy, cz = tx[rc][:, None], ty[rc][:, None], tz[rc][:, None]
+        dx, dy, dz, d2, _, sel = _select(qc, cx, cy, cz, r2, k)
+        c = [v[..., None, None] for v in cg[g0:g0 + chunk_groups].unbind(-1)]
+        d = torch.sqrt(torch.clamp(d2, min=1e-24))
+        u = d / radius
+        base = 1.0 - u * u * u
+        w = torch.clamp(base, min=0.0) * sel
+        coef = torch.where(sel & (base > 0.0) & (d2 > 1e-24),
+                           -3.0 * u * u / (radius * d), 0.0)
+        a = (c[3] + c[4] * cx + c[5] * cy + c[6] * cz) * coef
+        nn = (sel & (d2 > 0.0)).float()
+        grads = [a * dx + w * c[4] + nn * (c[7] + 2.0 * c[10] * dx),
+                 a * dy + w * c[5] + nn * (c[8] + 2.0 * c[11] * dy),
+                 a * dz + w * c[6] + nn * (c[9] + 2.0 * c[12] * dz)]
+        per_slot = torch.stack([v.sum(dim=1) for v in grads], -1)
+        d_points.index_add_(0, idx[rc].reshape(-1), per_slot.reshape(-1, 3))
+    return d_points[:n_points]
+
+
+def _check_cuda_args(q_rep, tx, ty, tz, gcell, dims, group_size):
     dev = q_rep.device
     ng, t = gcell.shape[0], group_size
     d0, d1, d2 = dims
     for name, a in (("q_rep", q_rep), ("tx", tx), ("ty", ty), ("tz", tz)):
         check_tensor(name, a, dev)
     check_tensor("gcell", gcell, dev, torch.int32)
-    cap = tx.shape[1]
     if q_rep.shape != (ng * t, 3):
         raise ValueError(f"q_rep {tuple(q_rep.shape)} != ({ng * t}, 3)")
     for a in (tx, ty, tz):
-        if a.shape != (d0 * d1 * d2 + 1, cap):
+        if a.shape != (d0 * d1 * d2 + 1, tx.shape[1]):
             raise ValueError(f"table {tuple(a.shape)} != "
-                             f"({d0 * d1 * d2 + 1}, {cap})")
-    out = torch.empty((ng * t, N_SUMS), dtype=torch.float32, device=dev)
+                             f"({d0 * d1 * d2 + 1}, {tx.shape[1]})")
+
+
+def ball_sums_cuda(q_rep, tx, ty, tz, gcell, dims, radius: float, k: int,
+                   group_size: int) -> torch.Tensor:
+    """K3: one warp per packed query slot; ranks from a warp ballot."""
+    _check_cuda_args(q_rep, tx, ty, tz, gcell, dims, group_size)
+    ng, t = gcell.shape[0], group_size
+    d0, d1, d2 = dims
+    out = torch.empty((ng * t, N_SUMS), dtype=torch.float32,
+                      device=q_rep.device)
     if ng:
         KERNEL(q_rep.data_ptr(), tx.data_ptr(), ty.data_ptr(), tz.data_ptr(),
-               gcell.data_ptr(), out.data_ptr(), ng, t, d0, d1, d2, cap,
-               float(np.float32(radius * radius)), float(radius), int(k))
+               gcell.data_ptr(), out.data_ptr(), ng, t, d0, d1, d2,
+               tx.shape[1], float(np.float32(radius * radius)), float(radius),
+               int(k))
     return out
 
 
-def ball_sums(q_rep, tx, ty, tz, gcell, dims, radius: float, k: int,
-              group_size: int) -> torch.Tensor:
-    """K3 for CUDA tensors, the plain version for CPU tensors."""
-    if q_rep.is_cuda:
-        return ball_sums_cuda(q_rep, tx, ty, tz, gcell, dims, radius, k,
-                              group_size)
-    return ball_sums_plain(q_rep, tx, ty, tz, gcell, dims, radius, k,
-                           group_size)
+def ball_sums_bwd_cuda(q_rep, cot_rep, tx, ty, tz, table_idx, gcell, dims,
+                       radius: float, k: int, group_size: int,
+                       n_points: int) -> torch.Tensor:
+    """K4: one warp per packed query slot, K3's selection walk, one f32
+    atomic per selected neighbour and axis into d_points."""
+    _check_cuda_args(q_rep, tx, ty, tz, gcell, dims, group_size)
+    dev = q_rep.device
+    check_tensor("cot_rep", cot_rep, dev)
+    check_tensor("table_idx", table_idx, dev, torch.int32)
+    ng, t = gcell.shape[0], group_size
+    if cot_rep.shape != (ng * t, N_SUMS) or table_idx.shape != tx.shape:
+        raise ValueError(f"cot_rep {tuple(cot_rep.shape)} or table_idx "
+                         f"{tuple(table_idx.shape)} disagree with the tables")
+    d0, d1, d2 = dims
+    d_points = torch.zeros((n_points, 3), dtype=torch.float32, device=dev)
+    if ng:
+        BWD_KERNEL(q_rep.data_ptr(), cot_rep.data_ptr(), tx.data_ptr(),
+                   ty.data_ptr(), tz.data_ptr(), table_idx.data_ptr(),
+                   gcell.data_ptr(), d_points.data_ptr(), ng, t, d0, d1, d2,
+                   tx.shape[1], float(np.float32(radius * radius)),
+                   float(radius), int(k))
+    return d_points
+
+
+class BallFeatureSums(torch.autograd.Function):
+    """The sums with their backward with respect to the particles: K3/K4
+    for CUDA tensors, the plain versions for CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, queries, points, radius, k, lower, upper, max_per_cell,
+                capacity_frac, group_size):
+        n_q = queries.shape[0]
+        capacity = -(-int(n_q * capacity_frac) // 256) * 256
+        grouping = group_queries(queries, points, radius, lower, upper,
+                                 capacity, group_size)
+        capacity = grouping.capacity
+        grid, tx, ty, tz = build_tables(points, lower, upper, radius,
+                                        max_per_cell)
+        q_pad = torch.cat([queries[grouping.order[:capacity]],
+                           torch.full_like(queries[:1], SENTINEL)], dim=0)
+        q_rep = q_pad[grouping.rep_idx].contiguous()
+        fwd = ball_sums_cuda if q_rep.is_cuda else ball_sums_plain
+        sums_rep = fwd(q_rep, tx, ty, tz, grouping.gcell, grid.dims, radius,
+                       k, grouping.group_size)
+
+        # packed slot of each kept sorted query, then of each original query
+        live = grouping.rep_idx < capacity
+        slot_of_sorted = torch.zeros(capacity, dtype=torch.long,
+                                     device=queries.device)
+        slot_of_sorted[grouping.rep_idx[live]] = torch.nonzero(live)[:, 0]
+        r = grouping.inv_rank
+        kept = r < capacity
+        sums = sums_rep[slot_of_sorted[torch.clamp(r, max=capacity - 1)]]
+        sums = torch.where(kept[:, None], sums, 0.0)
+        overflow = grid.overflow | grouping.cull_overflow
+
+        ctx.save_for_backward(q_rep, tx, ty, tz,
+                              grid.table_idx.to(torch.int32), grouping.gcell,
+                              grouping.order, grouping.rep_idx)
+        ctx.static = (grid.dims, radius, k, grouping.group_size, capacity,
+                      points.shape[0])
+        ctx.mark_non_differentiable(overflow)
+        return sums, overflow
+
+    @staticmethod
+    def backward(ctx, g_sums, _g_overflow):
+        q_rep, tx, ty, tz, table_idx, gcell, order, rep_idx = ctx.saved_tensors
+        dims, radius, k, t, capacity, n_points = ctx.static
+        # the forward's final gather, reversed: slot s holds the original
+        # query order[rep_idx[s]]; padded slots and culled queries get zero
+        src = order[torch.clamp(rep_idx, max=capacity - 1)]
+        cot_rep = torch.where((rep_idx < capacity)[:, None], g_sums[src], 0.0)
+        bwd = ball_sums_bwd_cuda if q_rep.is_cuda else ball_sums_bwd_plain
+        d_points = bwd(q_rep, cot_rep.contiguous(), tx, ty, tz, table_idx,
+                       gcell, dims, radius, k, t, n_points)
+        return None, d_points, None, None, None, None, None, None, None
 
 
 def ball_feature_sums(queries, points, radius: float, k: int, lower, upper,
@@ -193,29 +319,11 @@ def ball_feature_sums(queries, points, radius: float, k: int, lower, upper,
     """Per-query sums (Q, N_SUMS) in the original query order, and the
     overflow flag (a table cell held more than max_per_cell particles, or
     more queries than the cull capacity lay inside the particle AABB).
-    Culled queries have all-zero sums."""
-    n_q = queries.shape[0]
-    capacity = -(-int(n_q * capacity_frac) // 256) * 256
-    grouping = group_queries(queries, points, radius, lower, upper, capacity,
-                             group_size)
-    capacity = grouping.capacity
-    grid, tx, ty, tz = build_tables(points, lower, upper, radius, max_per_cell)
-    q = queries.detach()
-    q_pad = torch.cat([q[grouping.order[:capacity]],
-                       torch.full_like(q[:1], SENTINEL)], dim=0)
-    q_rep = q_pad[grouping.rep_idx].contiguous()
-    sums_rep = ball_sums(q_rep, tx, ty, tz, grouping.gcell, grid.dims,
-                         radius, k, grouping.group_size)
-
-    # packed slot of each kept sorted query, then of each original query
-    live = grouping.rep_idx < capacity
-    slot_of_sorted = torch.zeros(capacity, dtype=torch.long, device=q.device)
-    slot_of_sorted[grouping.rep_idx[live]] = torch.nonzero(live)[:, 0]
-    r = grouping.inv_rank
-    kept = r < capacity
-    sums = sums_rep[slot_of_sorted[torch.clamp(r, max=capacity - 1)]]
-    sums = torch.where(kept[:, None], sums, 0.0)
-    return sums, grid.overflow | grouping.cull_overflow
+    Culled queries have all-zero sums. Differentiable with respect to
+    `points`; the queries are detached."""
+    return BallFeatureSums.apply(queries.detach(), points, radius, k,
+                                 tuple(lower), tuple(upper), max_per_cell,
+                                 capacity_frac, group_size)
 
 
 def assemble_features(sums, flat_xyz, radius: float, k: int):

@@ -1,11 +1,20 @@
 """Continuous-convolution geometry (port of neurofluid_tpu/ops/cconv.py
 :47-150): the volume-preserving ball -> cube map, the poly6 window and the
-trilinear filter taps, as used by the plain fused conv.
+trilinear filter taps, as used by the plain fused conv, and their adjoints
+derived by hand (the backward of the fused conv, K2 and its plain version,
+pushes the tap-weight cotangent of every pair through them).
 
 The disc -> square step uses the odd minimax polynomial `atan01` of the
 TPU kernel (neurofluid_tpu/ops/fused_cconv.py `_atan01`, |error| <= 1.4e-7
 on [-1, 1]) on the clamped ratio, so the plain conv agrees with the kernel
 to f32 rounding.
+
+The adjoints are those of the plain forward as written, branch by branch:
+the selected branch of every `where` is differentiated, sign' = abs'(0) =
+0, a clamp passes the gradient where its input lies inside the closed
+range, and the degenerate (coincident) offset gets zero. They agree with
+JAX's autodiff of `fused_cconv._slab_contrib` except on measure-zero kinks
+(the hat-form taps there, corner/fraction taps here).
 """
 
 from __future__ import annotations
@@ -29,6 +38,16 @@ def atan01(t: torch.Tensor) -> torch.Tensor:
     for c in ATAN_COEFFS[-2::-1]:
         acc = acc * u + c
     return acc * t
+
+
+def atan01_grad(t: torch.Tensor) -> torch.Tensor:
+    """d atan01 / dt: the derivative of the odd polynomial sum_i c_i t^(2i+1)."""
+    u = t * t
+    n = len(ATAN_COEFFS)
+    acc = torch.full_like(u, (2 * n - 1) * ATAN_COEFFS[-1])
+    for i in range(n - 2, -1, -1):
+        acc = acc * u + (2 * i + 1) * ATAN_COEFFS[i]
+    return acc
 
 
 def map_sphere_to_cylinder(xyz: torch.Tensor) -> torch.Tensor:
@@ -80,6 +99,13 @@ def window_poly6(normalized_sq_dist: torch.Tensor) -> torch.Tensor:
     return torch.clamp(t * t * t, 0.0, 1.0)
 
 
+def window_poly6_grad(normalized_sq_dist: torch.Tensor) -> torch.Tensor:
+    """d window_poly6 / d(d^2/r^2)."""
+    t = 1.0 - normalized_sq_dist
+    t3 = t * t * t
+    return torch.where((t3 >= 0.0) & (t3 <= 1.0), -3.0 * t * t, 0.0)
+
+
 def trilinear_taps(cube_xyz: torch.Tensor, kernel_size: tuple):
     """Corner/fraction form of trilinear interpolation on the filter grid
     (align_corners=True). kernel_size (kz, ky, kx), Open3D axis convention:
@@ -103,3 +129,123 @@ def trilinear_taps(cube_xyz: torch.Tensor, kernel_size: tuple):
                 corners.append(((iz + dz) * ky + iy + dy) * kx + ix + dx)
                 weights.append(wz * wy * wx)
     return torch.stack(corners, dim=-1), torch.stack(weights, dim=-1)
+
+
+def trilinear_taps_vjp(cube_xyz: torch.Tensor, kernel_size: tuple,
+                       g_weights: torch.Tensor) -> torch.Tensor:
+    """Adjoint of `trilinear_taps`' weights: (..., 8) cotangent on the
+    corner weights -> (..., 3) cotangent on the cube point. The corner
+    indices are discrete."""
+    kz, ky, kx = kernel_size
+    sizes = cube_xyz.new_tensor([kx, ky, kz])
+    t_raw = (cube_xyz * 0.5 + 0.5) * (sizes - 1.0)
+    t = torch.minimum(torch.clamp(t_raw, min=0.0), sizes - 1.0)
+    i0 = torch.minimum(torch.floor(t).long().clamp(min=0),
+                       torch.as_tensor([kx - 2, ky - 2, kz - 2],
+                                       device=t.device))
+    fx, fy, fz = (t - i0.to(t.dtype)).unbind(-1)
+    g = g_weights.unbind(-1)
+    g_f = [torch.zeros_like(fx) for _ in range(3)]  # x, y, z
+    c = 0
+    for dz, wz in ((0, 1.0 - fz), (1, fz)):
+        for dy, wy in ((0, 1.0 - fy), (1, fy)):
+            for dx, wx in ((0, 1.0 - fx), (1, fx)):
+                sx, sy, sz = (1.0 if d else -1.0 for d in (dx, dy, dz))
+                g_f[0] = g_f[0] + g[c] * (sx * wz * wy)
+                g_f[1] = g_f[1] + g[c] * (sy * wz * wx)
+                g_f[2] = g_f[2] + g[c] * (sz * wy * wx)
+                c += 1
+    inside = (t_raw >= 0.0) & (t_raw <= sizes - 1.0)
+    return torch.where(inside, torch.stack(g_f, -1) * (0.5 * (sizes - 1.0)),
+                       0.0)
+
+
+def ball_to_cube_vjp(xyz: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Adjoint of `ball_to_cube_volume_preserving` at `xyz`: (..., 3)
+    cotangent on the cube point -> (..., 3) on `xyz`."""
+    x, y, z = xyz.unbind(-1)
+    gu, gv, gw = g.unbind(-1)
+    # ball -> cylinder, forward
+    sq_norm = x * x + y * y + z * z
+    degenerate = sq_norm < EPS * EPS
+    norm = torch.sqrt(torch.where(degenerate, 1.0, sq_norm))
+    rho2 = x * x + y * y
+    cap = 1.25 * z * z > rho2
+    den = norm + torch.abs(z) + EPS
+    s_cap = torch.sqrt(3.0 * norm / den)
+    m = torch.sqrt(torch.clamp(rho2, min=EPS * EPS))
+    s = torch.where(cap, s_cap, norm / m)
+    cx = torch.where(degenerate, 0.0, x * s)
+    cy = torch.where(degenerate, 0.0, y * s)
+    # cylinder -> cube, forward: `lead` is the output on the wedge's major
+    # axis, the other output is 4/pi * lead * atan01(ratio)
+    crho2 = cx * cx + cy * cy
+    cdeg = crho2 < EPS * EPS
+    crho = torch.sqrt(torch.where(cdeg, 1.0, crho2))
+    x_ge = torch.abs(cx) >= torch.abs(cy)
+    num = torch.where(x_ge, cy, cx)
+    dnm = torch.where(x_ge, cx, cy)
+    small = torch.abs(dnm) < EPS
+    safe = torch.where(small, 1.0, dnm)
+    ratio_raw = num / safe
+    ratio = torch.clamp(ratio_raw, -1.0, 1.0)
+    lead = torch.sign(dnm) * crho
+    k4 = 4.0 / math.pi
+    # cylinder -> cube, backward
+    g_lead_out = torch.where(x_ge, gu, gv)
+    g_other = torch.where(x_ge, gv, gu)
+    g_crho = (g_lead_out + g_other * k4 * atan01(ratio)) * torch.sign(dnm)
+    g_ratio = g_other * k4 * lead * atan01_grad(ratio)
+    g_ratio = torch.where((ratio_raw >= -1.0) & (ratio_raw <= 1.0), g_ratio,
+                          0.0)
+    g_num = g_ratio / safe
+    g_dnm = torch.where(small, 0.0, -g_ratio * ratio_raw / safe)
+    g_cx = torch.where(x_ge, g_dnm, g_num) + g_crho * cx / crho
+    g_cy = torch.where(x_ge, g_num, g_dnm) + g_crho * cy / crho
+    g_cx = torch.where(cdeg, 0.0, g_cx)
+    g_cy = torch.where(cdeg, 0.0, g_cy)
+    # ball -> cylinder, backward
+    g_s = g_cx * x + g_cy * y
+    g_x, g_y = g_cx * s, g_cy * s
+    # cap: s = sqrt(3 norm / den), den = norm + |z| + eps, cz = sign(z) norm
+    g_v = g_s / (2.0 * s_cap)
+    g_norm_cap = gw * torch.sign(z) + g_v * 3.0 / den * (1.0 - norm / den)
+    g_z_cap = -g_v * 3.0 * norm / (den * den) * torch.sign(z)
+    # side: s = norm / m, m = sqrt(max(rho2, eps^2)), cz = 1.5 z
+    g_m = torch.where(rho2 >= EPS * EPS, -g_s * norm / (m * m * m), 0.0)
+    g_norm = torch.where(cap, g_norm_cap, g_s / m)
+    g_x = g_x + torch.where(cap, 0.0, g_m * x)
+    g_y = g_y + torch.where(cap, 0.0, g_m * y)
+    g_z = torch.where(cap, g_z_cap, 1.5 * gw)
+    # norm = sqrt(x^2 + y^2 + z^2)
+    out = torch.stack([g_x, g_y, g_z], -1) + (g_norm / norm)[..., None] * xyz
+    return torch.where(degenerate[..., None], 0.0, out)
+
+
+def tap_weights(off: torch.Tensor, kernel_size: tuple):
+    """Per pair of normalized offset `off` (..., 3): (corner (..., 8), the 8
+    trilinear tap weights times the poly6 window (..., 8)). The window
+    reads min(d^2/r^2, 2), so far pairs keep finite derivatives."""
+    d2n = off[..., 0] * off[..., 0] + off[..., 1] * off[..., 1] \
+        + off[..., 2] * off[..., 2]
+    win = window_poly6(torch.clamp(d2n, max=2.0))
+    corner, w8 = trilinear_taps(ball_to_cube_volume_preserving(off),
+                                kernel_size)
+    return corner, w8 * win[..., None]
+
+
+def tap_weights_vjp(off: torch.Tensor, kernel_size: tuple,
+                    g_weights: torch.Tensor) -> torch.Tensor:
+    """Adjoint of `tap_weights`: (..., 8) cotangent on the windowed tap
+    weights -> (..., 3) cotangent on `off`."""
+    d2n = off[..., 0] * off[..., 0] + off[..., 1] * off[..., 1] \
+        + off[..., 2] * off[..., 2]
+    win = window_poly6(torch.clamp(d2n, max=2.0))
+    cube = ball_to_cube_volume_preserving(off)
+    _, w8 = trilinear_taps(cube, kernel_size)
+    g_win = (g_weights * w8).sum(-1)
+    g_off = ball_to_cube_vjp(off, trilinear_taps_vjp(
+        cube, kernel_size, g_weights * win[..., None]))
+    g_d2n = torch.where(d2n <= 2.0, g_win * window_poly6_grad(
+        torch.clamp(d2n, max=2.0)), 0.0)
+    return g_off + (2.0 * g_d2n)[..., None] * off

@@ -1,5 +1,6 @@
-"""Fused continuous convolution: K1 (`csrc/fused_cconv.cu`) and its plain
-version (port of neurofluid_tpu/ops/fused_cconv.py, forward).
+"""Fused continuous convolution: K1 (`csrc/fused_cconv.cu`
+`nf_fused_cconv_fwd`), its backward K2 (`nf_fused_cconv_bwd`, same source)
+and the plain version of each (port of neurofluid_tpu/ops/fused_cconv.py).
 
 Particles are sorted by grid cell (cell size >= radius), so a cell's
 particles are a contiguous row range and the 27-cell neighbourhood of a
@@ -15,6 +16,11 @@ Per (query, candidate) pair: offset / radius -> ball-to-cube map ->
 trilinear taps on the (kz, ky, kx) filter grid, weighted by the window;
 the tap-feature sums are contracted with the (kz*ky*kx*Cin, Cout) filter.
 Outputs are in sorted query order; `unsort_values` restores the original.
+
+`fused_cconv` is differentiable with respect to the filter, the sorted
+query and candidate positions and the sorted candidate features
+(`FusedCConv`); the in-radius counts are discrete. Sentinel and zero pad
+rows get exactly zero gradient.
 """
 
 from __future__ import annotations
@@ -25,7 +31,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from neurofluid_torch.cuda import Kernel, check_forward_only, check_tensor
+from neurofluid_torch.cuda import Kernel, check_tensor
 from neurofluid_torch.ops import cconv
 from neurofluid_torch.ops.neighbor_search import cell_dims, cell_ids
 
@@ -37,6 +43,8 @@ _MIN_PAD = 64  # sorted arrays carry at least this many sentinel/zero rows
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNEL = Kernel("fused_cconv.cu", "nf_fused_cconv_fwd",
                 [_P] * 11 + [_I] * 11 + [_F, _I])
+BWD_KERNEL = Kernel("fused_cconv.cu", "nf_fused_cconv_bwd",
+                    [_P] * 16 + [_I] * 13 + [_F, _I])
 
 
 class CConvPlan(NamedTuple):
@@ -171,51 +179,119 @@ def slab_ranges(qplan: CConvPlan, cplan: CConvPlan):
     return start, torch.where(ok, ps[base + z1 + 1] - start, 0)
 
 
-def fused_cconv_plain(weights, qplan, qpos_s, cplan, cpos_s, feats_s,
-                      radius: float, exclude_self: bool,
-                      chunk_rows: int = 2048):
-    """Plain PyTorch twin of K1: every candidate of the query's 9 slabs
-    with d^2/r^2 <= 1 (and d > 0 when exclude_self: positional self
-    exclusion, a coincident twin goes too), window on min(d^2/r^2, 2),
-    corner/fraction taps, an index_add of the tap-feature sums, then one
-    matmul with the filter. Returns (out (Nq, Cout), counts (Nq,))."""
-    check_plans(qplan, cplan, radius)
-    kz, ky, kx, cin, cout = weights.shape
-    n_taps = kz * ky * kx
-    w2 = weights.reshape(n_taps * cin, cout)
-    n, dev = qplan.n, qpos_s.device
+def _pairs(rows, row_group, start, length, qpos_s, cpos_s, inv_r: float,
+           exclude_self: bool):
+    """In-radius pairs of the sorted query `rows`: every candidate of the
+    query's 9 slabs with d^2/r^2 <= 1 (and d > 0 when exclude_self:
+    positional self exclusion, a coincident twin goes too). Returns (index
+    into rows, candidate row, offset / radius (P, 3), counts (len(rows),))."""
+    nr, dev = rows.shape[0], rows.device
+    g = row_group[rows]
+    s, ln = start[g], length[g]  # (C, 9)
+    lane = torch.arange(max(int(ln.max()), 1), device=dev)
+    ok = (lane < ln[..., None]).reshape(nr, -1)
+    cand = torch.where(ok, (s[..., None] + lane).reshape(nr, -1), 0)
+    off = (cpos_s[cand] - qpos_s[rows][:, None, :]) * inv_r
+    ox, oy, oz = off.unbind(-1)
+    d2n = ox * ox + oy * oy + oz * oz
+    within = ok & (d2n <= 1.0)
+    if exclude_self:
+        within = within & (d2n > 0.0)
+    qi, ki = torch.nonzero(within, as_tuple=True)
+    return qi, cand[qi, ki], off[qi, ki], within.sum(dim=1)
+
+
+def _row_walk(qplan, cplan, radius, chunk_rows):
+    """(chunks of sorted query rows, the pair finder of `_pairs`)."""
+    n, dev = qplan.n, qplan.gstart.device
     start, length = slab_ranges(qplan, cplan)
     row_group = torch.searchsorted(qplan.gstart.long(),
                                    torch.arange(n, device=dev), right=True) - 1
     inv_r = float(np.float32(1.0 / radius))
+    chunks = [torch.arange(r0, min(n, r0 + chunk_rows), device=dev)
+              for r0 in range(0, n, chunk_rows)]
+    return chunks, lambda rows, qpos_s, cpos_s, excl: _pairs(
+        rows, row_group, start, length, qpos_s, cpos_s, inv_r, excl)
+
+
+def _tap_sums(rows, qi, cand, corner, cw, feats_s, n_taps):
+    """(len(rows) * n_taps, Cin) tap-feature sums of the pairs."""
+    cin = feats_s.shape[1]
+    contrib = cw[..., None] * feats_s[cand][:, None]
+    taps = feats_s.new_zeros((rows.shape[0] * n_taps, cin))
+    return taps.index_add(0, (qi[:, None] * n_taps + corner).reshape(-1),
+                          contrib.reshape(-1, cin))
+
+
+def fused_cconv_plain(weights, qplan, qpos_s, cplan, cpos_s, feats_s,
+                      radius: float, exclude_self: bool,
+                      chunk_rows: int = 2048):
+    """Plain PyTorch twin of K1: the in-radius pairs of `_pairs`, window on
+    min(d^2/r^2, 2), corner/fraction taps, an index_add of the tap-feature
+    sums, then one matmul with the filter. Returns (out (Nq, Cout),
+    counts (Nq,))."""
+    check_plans(qplan, cplan, radius)
+    kz, ky, kx, cin, cout = weights.shape
+    n_taps = kz * ky * kx
+    w2 = weights.reshape(n_taps * cin, cout)
+    chunks, pairs = _row_walk(qplan, cplan, radius, chunk_rows)
     outs, counts = [], []
-    for r0 in range(0, n, chunk_rows):
-        rows = torch.arange(r0, min(n, r0 + chunk_rows), device=dev)
-        nr = rows.shape[0]
-        g = row_group[rows]
-        s, ln = start[g], length[g]  # (C, 9)
-        lane = torch.arange(max(int(ln.max()), 1), device=dev)
-        ok = (lane < ln[..., None]).reshape(nr, -1)
-        cand = torch.where(ok, (s[..., None] + lane).reshape(nr, -1), 0)
-        off = (cpos_s[cand] - qpos_s[rows][:, None, :]) * inv_r
-        ox, oy, oz = off.unbind(-1)
-        d2n = ox * ox + oy * oy + oz * oz
-        within = ok & (d2n <= 1.0)
-        if exclude_self:
-            within = within & (d2n > 0.0)
-        counts.append(within.sum(dim=1).float())
-        qi, ki = torch.nonzero(within, as_tuple=True)
-        win = cconv.window_poly6(torch.clamp(d2n[qi, ki], max=2.0))
-        corner, w8 = cconv.trilinear_taps(
-            cconv.ball_to_cube_volume_preserving(off[qi, ki]), (kz, ky, kx))
-        contrib = (w8 * win[:, None])[..., None] * feats_s[cand[qi, ki]][:, None]
-        taps = torch.zeros(nr * n_taps, cin, dtype=w2.dtype, device=dev)
-        taps = taps.index_add(0, (qi[:, None] * n_taps + corner).reshape(-1),
-                              contrib.reshape(-1, cin))
-        outs.append(taps.reshape(nr, n_taps * cin) @ w2)
+    for rows in chunks:
+        qi, cand, off, cnt = pairs(rows, qpos_s, cpos_s, exclude_self)
+        counts.append(cnt.float())
+        corner, cw = cconv.tap_weights(off, (kz, ky, kx))
+        taps = _tap_sums(rows, qi, cand, corner, cw, feats_s, n_taps)
+        outs.append(taps.reshape(rows.shape[0], n_taps * cin) @ w2)
     if not outs:
         return qpos_s.new_zeros((0, cout)), qpos_s.new_zeros((0,))
     return torch.cat(outs), torch.cat(counts)
+
+
+def fused_cconv_bwd_plain(weights, qplan, qpos_s, cplan, cpos_s, feats_s,
+                          ct, radius: float, exclude_self: bool, needs,
+                          chunk_rows: int = 512):
+    """Plain PyTorch twin of K2, an explicit adjoint (not autograd through
+    the forward). ct: (Nq, Cout) cotangent of the conv output in sorted
+    query order; needs: which of (dW, dq, dc, dfeats) to compute.
+
+    Per chunk of query rows: d_acc = ct W^T as (rows, taps, Cin); per
+    in-radius pair, dfeats[c] += sum over its 8 taps of w * d_acc, and the
+    tap-weight cotangent <d_acc[tap], f_c> goes through
+    `cconv.tap_weights_vjp` into dq (minus) and dc (plus), over r; the
+    recomputed tap-feature sums give dW += acc^T ct. Returns (dW, dq, dc,
+    dfeats) shaped as their inputs, None where not needed."""
+    check_plans(qplan, cplan, radius)
+    need_w, need_q, need_c, need_f = needs
+    kz, ky, kx, cin, cout = weights.shape
+    n_taps = kz * ky * kx
+    w2 = weights.reshape(n_taps * cin, cout)
+    inv_r = float(np.float32(1.0 / radius))
+    dw = torch.zeros_like(w2) if need_w else None
+    dq = torch.zeros_like(qpos_s) if need_q else None
+    dc = torch.zeros_like(cpos_s) if need_c else None
+    df = torch.zeros_like(feats_s) if need_f else None
+    chunks, pairs = _row_walk(qplan, cplan, radius, chunk_rows)
+    for rows in chunks:
+        qi, cand, off, _ = pairs(rows, qpos_s, cpos_s, exclude_self)
+        corner, cw = cconv.tap_weights(off, (kz, ky, kx))
+        ct_rows = ct[rows]
+        if need_w:
+            acc = _tap_sums(rows, qi, cand, corner, cw, feats_s, n_taps)
+            dw += acc.reshape(rows.shape[0], n_taps * cin).T @ ct_rows
+        if not (need_q or need_c or need_f):
+            continue
+        d_acc = (ct_rows @ w2.T).reshape(rows.shape[0] * n_taps, cin)
+        d_pair = d_acc[qi[:, None] * n_taps + corner]  # (P, 8, Cin)
+        if need_f:
+            df.index_add_(0, cand, (cw[..., None] * d_pair).sum(1))
+        if need_q or need_c:
+            g_cw = (d_pair * feats_s[cand][:, None, :]).sum(-1)
+            g_off = cconv.tap_weights_vjp(off, (kz, ky, kx), g_cw) * inv_r
+            if need_q:
+                dq.index_add_(0, rows[qi], -g_off)
+            if need_c:
+                dc.index_add_(0, cand, g_off)
+    return (dw.reshape(weights.shape) if need_w else None), dq, dc, df
 
 
 def _queries_per_block(n_taps: int, cin: int) -> int:
@@ -227,15 +303,21 @@ def _queries_per_block(n_taps: int, cin: int) -> int:
     return qb
 
 
-def fused_cconv_cuda(weights, qplan, qpos_s, cplan, cpos_s, feats_s,
-                     radius: float, exclude_self: bool):
-    """K1. Returns (out (Nq, Cout), counts (Nq,)) in sorted query order."""
-    check_plans(qplan, cplan, radius)
-    check_forward_only(weights, qpos_s, cpos_s, feats_s)
+def dw_split(n: int, klen: int, cout: int) -> tuple:
+    """(splits over the query rows, rows per split) of K2's dW reduction:
+    enough (64 x 32)-tile blocks to fill the card, each split a multiple of
+    32 rows."""
+    tiles = -(-klen // 64) * -(-cout // 32)
+    n_split = max(1, min(-(-n // 256), -(-528 // tiles)))
+    rows = -(-n // n_split)
+    rows = -(-rows // 32) * 32
+    return -(-n // rows), rows
+
+
+def _check_cuda_args(weights, qplan, qpos_s, cplan, cpos_s, feats_s):
     dev = qpos_s.device
-    kz, ky, kx, cin, cout = weights.shape
-    n_taps = kz * ky * kx
-    if n_taps > 64 or min(kz, ky, kx) < 2:
+    kz, ky, kx, cin, _ = weights.shape
+    if kz * ky * kx > 64 or min(kz, ky, kx) < 2:
         raise ValueError(f"filter grid {(kz, ky, kx)}: each axis needs 2 to "
                          f"4 taps")
     for name, t in (("weights", weights), ("qpos_s", qpos_s),
@@ -251,6 +333,15 @@ def fused_cconv_cuda(weights, qplan, qpos_s, cplan, cpos_s, feats_s,
     if feats_s.shape[0] < cplan.n or feats_s.shape[1] != cin:
         raise ValueError(f"feats_s {tuple(feats_s.shape)} vs ({cplan.n}, "
                          f"{cin})")
+
+
+def fused_cconv_cuda(weights, qplan, qpos_s, cplan, cpos_s, feats_s,
+                     radius: float, exclude_self: bool):
+    """K1. Returns (out (Nq, Cout), counts (Nq,)) in sorted query order."""
+    check_plans(qplan, cplan, radius)
+    _check_cuda_args(weights, qplan, qpos_s, cplan, cpos_s, feats_s)
+    dev = qpos_s.device
+    kz, ky, kx, cin, cout = weights.shape
     out = torch.empty((qplan.n, cout), dtype=torch.float32, device=dev)
     cnt = torch.empty((qplan.n,), dtype=torch.float32, device=dev)
     d0, d1, d2 = qplan.dims
@@ -261,9 +352,86 @@ def fused_cconv_cuda(weights, qplan, qpos_s, cplan, cpos_s, feats_s,
                cpos_s.data_ptr(), feats_s.data_ptr(), weights.data_ptr(),
                out.data_ptr(), cnt.data_ptr(),
                qplan.n_groups, qplan.group_size,
-               _queries_per_block(n_taps, cin), d0, d1, d2, kz, ky, kx,
-               cin, cout, float(np.float32(1.0 / radius)), int(exclude_self))
+               _queries_per_block(kz * ky * kx, cin), d0, d1, d2, kz, ky,
+               kx, cin, cout, float(np.float32(1.0 / radius)),
+               int(exclude_self))
     return out, cnt
+
+
+def fused_cconv_bwd_cuda(weights, qplan, qpos_s, cplan, cpos_s, feats_s, ct,
+                         radius: float, exclude_self: bool, needs):
+    """K2: one launch computes what `needs` asks of (dW, dq, dc, dfeats).
+    The candidate walk is K1's; dq rows are stored by the block that owns
+    the query, dc and dfeats are added with f32 atomics (their summation
+    order varies from run to run), and dW is the tap-feature rows (written
+    by the walk) reduced against ct in fixed-order splits."""
+    check_plans(qplan, cplan, radius)
+    _check_cuda_args(weights, qplan, qpos_s, cplan, cpos_s, feats_s)
+    check_tensor("ct", ct, qpos_s.device)
+    need_w, need_q, need_c, need_f = needs
+    dev = qpos_s.device
+    kz, ky, kx, cin, cout = weights.shape
+    n_taps, n = kz * ky * kx, qplan.n
+    if ct.shape != (n, cout):
+        raise ValueError(f"ct {tuple(ct.shape)} != ({n}, {cout})")
+    klen = n_taps * cin
+    need_pos = need_q or need_c
+    dq = torch.zeros_like(qpos_s) if need_pos else None
+    dc = torch.zeros_like(cpos_s) if need_pos else None
+    df = torch.zeros_like(feats_s) if need_f else None
+    dw = torch.empty((klen, cout), dtype=torch.float32, device=dev) \
+        if need_w else None
+    acc = torch.empty((n, klen), dtype=torch.float32, device=dev) \
+        if need_w else None
+    n_split, rows = dw_split(n, klen, cout)
+    part = torch.empty((n_split, klen, cout), dtype=torch.float32,
+                       device=dev) if need_w else None
+    wt = weights.reshape(klen, cout).t().contiguous()
+    d0, d1, d2 = qplan.dims
+
+    def ptr(t):
+        return 0 if t is None else t.data_ptr()
+
+    if n and (need_w or need_pos or need_f):
+        BWD_KERNEL(qplan.gcol.data_ptr(), qplan.gzlo.data_ptr(),
+                   qplan.gzhi.data_ptr(), qplan.gstart.data_ptr(),
+                   cplan.pstarts.data_ptr(), qpos_s.data_ptr(),
+                   cpos_s.data_ptr(), feats_s.data_ptr(), wt.data_ptr(),
+                   ct.data_ptr(), ptr(acc), ptr(part), ptr(dw), ptr(dq),
+                   ptr(dc), ptr(df),
+                   qplan.n_groups, qplan.group_size, n, n_split, rows, d0, d1, d2, kz, ky, kx, cin, cout,
+                   float(np.float32(1.0 / radius)), int(exclude_self))
+    elif need_w:
+        dw.zero_()
+    return ((dw.reshape(weights.shape) if need_w else None),
+            dq if need_q else None, dc if need_c else None, df)
+
+
+class FusedCConv(torch.autograd.Function):
+    """The fused conv with its backward: K1/K2 for CUDA tensors, the plain
+    versions for CPU tensors. When one tensor is passed as both query and
+    candidate positions, autograd adds its dq and dc."""
+
+    @staticmethod
+    def forward(ctx, weights, qpos_s, cpos_s, feats_s, qplan, cplan,
+                radius, exclude_self):
+        fwd = fused_cconv_cuda if qpos_s.is_cuda else fused_cconv_plain
+        out, cnt = fwd(weights, qplan, qpos_s, cplan, cpos_s, feats_s,
+                       radius, exclude_self)
+        ctx.save_for_backward(weights, qpos_s, cpos_s, feats_s)
+        ctx.plans = (qplan, cplan, radius, exclude_self)
+        ctx.mark_non_differentiable(cnt)
+        return out, cnt
+
+    @staticmethod
+    def backward(ctx, g_out, _g_cnt):
+        weights, qpos_s, cpos_s, feats_s = ctx.saved_tensors
+        qplan, cplan, radius, exclude_self = ctx.plans
+        needs = tuple(ctx.needs_input_grad[:4])
+        bwd = fused_cconv_bwd_cuda if qpos_s.is_cuda else fused_cconv_bwd_plain
+        dw, dq, dc, df = bwd(weights, qplan, qpos_s, cplan, cpos_s, feats_s,
+                             g_out.contiguous(), radius, exclude_self, needs)
+        return dw, dq, dc, df, None, None, None, None
 
 
 def fused_cconv(weights, qplan, qpos_s, cplan, cpos_s, feats_s,
@@ -275,10 +443,7 @@ def fused_cconv(weights, qplan, qpos_s, cplan, cpos_s, feats_s,
     candidate layout, sorted positions and features (Nc + pad, .). For
     fluid -> fluid pass the same plan and positions on both sides with
     exclude_self=True. Returns (out (Nq, Cout), counts (Nq,) true in-radius
-    neighbour counts), both in sorted query order. K1 for CUDA tensors, the
-    plain version for CPU tensors."""
-    if qpos_s.is_cuda:
-        return fused_cconv_cuda(weights, qplan, qpos_s, cplan, cpos_s,
-                                feats_s, radius, exclude_self)
-    return fused_cconv_plain(weights, qplan, qpos_s, cplan, cpos_s, feats_s,
-                             radius, exclude_self)
+    neighbour counts), both in sorted query order. K1 (forward) and K2
+    (backward) for CUDA tensors, the plain versions for CPU tensors."""
+    return FusedCConv.apply(weights, qpos_s, cpos_s, feats_s, qplan, cplan,
+                            radius, exclude_self)

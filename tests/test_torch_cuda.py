@@ -1,5 +1,7 @@
-"""The port's CUDA kernels (K1, K3, K5) against their plain versions on the
-card, at small shapes. These need an NVIDIA GPU with nvcc: on a machine
+"""The port's CUDA kernels (K1-K6) against their plain versions on the
+card, at small shapes, and a gradcheck-style directional-derivative check
+of each differentiable wrapper (CompositeWeights, FusedCConv,
+BallFeatureSums) with its kernels on both sides. These need an NVIDIA GPU with nvcc: on a machine
 without one they skip. Run them on the card with
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -49,24 +51,11 @@ def test_composite_kernel_matches_plain(dev):
                                                    (True, 96, 64),
                                                    (False, 3, 32)])
 def test_fused_cconv_kernel_matches_plain(dev, exclude_self, cin, cout):
-    rng = np.random.default_rng(1)
-    lo, hi, r = (-0.6,) * 3, (0.6,) * 3, 0.25
-    q = torch.tensor(rng.uniform(-0.5, 0.5, (300, 3)), dtype=torch.float32)
-    c = q if exclude_self else torch.tensor(rng.uniform(-0.5, 0.5, (200, 3)),
-                                            dtype=torch.float32)
-    w = torch.tensor(rng.normal(size=(4, 4, 4, cin, cout)) * 0.05,
-                     dtype=torch.float32)
-    feats = torch.tensor(rng.normal(size=(len(c), cin)), dtype=torch.float32)
     outs = []
     for d in ("cpu", dev):
-        qplan = fc.build_plan(q.to(d), lo, hi, r)
-        cplan = qplan if exclude_self else fc.build_plan(
-            c.to(d), lo, hi, r, with_groups=False)
-        qpos_s = fc.sort_values(q.to(d), qplan, qplan.slab_cap, fc.SENTINEL)
-        cpos_s = qpos_s if exclude_self else cplan.pos_s
-        fs = fc.sort_values(feats.to(d), cplan, cplan.slab_cap)
-        outs.append(fc.fused_cconv(w.to(d), qplan, qpos_s.contiguous(), cplan,
-                                   cpos_s.contiguous(), fs.contiguous(), r,
+        w, qplan, qpos_s, cplan, cpos_s, fs, _ = _cconv_inputs(
+            d, 1, exclude_self, cin, cout, twin=False)
+        outs.append(fc.fused_cconv(w, qplan, qpos_s, cplan, cpos_s, fs, 0.25,
                                    exclude_self))
     (ow, cw), (og, cg) = outs
     np.testing.assert_array_equal(cg.cpu().numpy(), cw.numpy())
@@ -93,10 +82,214 @@ def test_ball_sums_kernel_matches_plain(dev):
                                atol=2e-6)
 
 
-def test_kernels_refuse_autograd(dev):
-    sig = torch.zeros(2, 8, device=dev, requires_grad=True)
-    z = torch.arange(16.0, device=dev).reshape(2, 8)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        comp.composite_weights(sig, z, torch.ones(2, device=dev))
-    with torch.no_grad():
-        comp.composite_weights(sig, z, torch.ones(2, device=dev))
+def _directional_check(fn, inputs, dirs, g_out, tol):
+    """gradcheck-style, in f32 on the card: the derivative of <fn(x), g_out>
+    along `dirs` (one step per input, None where the input is held) by
+    central differences, against <grad, dirs> from the backward. Checked
+    within `tol` of sqrt(sum_i ||grad_i * dir_i||^2), the typical size of
+    that derivative for a direction of independent normal entries."""
+    leaves = [x.detach().clone().requires_grad_(d is not None)
+              for x, d in zip(inputs, dirs)]
+    moved = [(x, d) for x, d in zip(leaves, dirs) if d is not None]
+    grads = torch.autograd.grad((fn(*leaves) * g_out).sum(),
+                                [x for x, _ in moved])
+    pairs = [(g.double(), d.double()) for g, (_, d) in zip(grads, moved)]
+    analytic = sum(float((g * d).sum()) for g, d in pairs)
+    scale = sum(float(((g * d) ** 2).sum()) for g, d in pairs) ** 0.5
+
+    def f(sign):
+        with torch.no_grad():
+            xs = [x if d is None else x + sign * d
+                  for x, d in zip(inputs, dirs)]
+            return float((fn(*xs).double() * g_out.double()).sum())
+
+    numeric = (f(1.0) - f(-1.0)) / 2.0
+    assert scale > 0
+    assert abs(numeric - analytic) <= tol * scale, (numeric, analytic, scale)
+
+
+def _cconv_inputs(d, rng_seed, exclude_self, cin, cout, twin=True):
+    """(weights, qplan, qpos_s, cplan, cpos_s, feats_s, ct) on device d,
+    from one numpy seed; `twin`: query 7 sits on query 3."""
+    rng = np.random.default_rng(rng_seed)
+    lo, hi, r = (-0.6,) * 3, (0.6,) * 3, 0.25
+    q = torch.tensor(rng.uniform(-0.5, 0.5, (300, 3)), dtype=torch.float32)
+    if twin:
+        q[7] = q[3]
+    c = q if exclude_self else torch.tensor(rng.uniform(-0.5, 0.5, (200, 3)),
+                                            dtype=torch.float32)
+    w = torch.tensor(rng.normal(size=(4, 4, 4, cin, cout)) * 0.05,
+                     dtype=torch.float32)
+    feats = torch.tensor(rng.normal(size=(len(c), cin)), dtype=torch.float32)
+    ct = torch.tensor(rng.normal(size=(len(q), cout)), dtype=torch.float32)
+    qplan = fc.build_plan(q.to(d), lo, hi, r)
+    cplan = qplan if exclude_self else fc.build_plan(c.to(d), lo, hi, r,
+                                                     with_groups=False)
+    qpos_s = fc.sort_values(q.to(d), qplan, qplan.slab_cap,
+                            fc.SENTINEL).contiguous()
+    cpos_s = qpos_s if exclude_self else cplan.pos_s.contiguous()
+    fs = fc.sort_values(feats.to(d), cplan, cplan.slab_cap).contiguous()
+    ct_s = fc.sort_values(ct.to(d), qplan).contiguous()
+    return w.to(d), qplan, qpos_s, cplan, cpos_s, fs, ct_s
+
+
+def test_composite_bwd_kernel_matches_plain(dev):
+    rng = np.random.default_rng(3)
+    n, s = 37, 192
+    sig = torch.tensor(rng.normal(size=(n, s)) * 5, dtype=torch.float32)
+    sig[:, 50] = 1e6
+    sig[0] = 0.0
+    z = torch.sort(torch.tensor(rng.uniform(9, 13, (n, s)),
+                                dtype=torch.float32), dim=-1).values
+    z[1, 4] = z[1, 3]
+    dn = torch.tensor(rng.uniform(0.5, 1.5, n), dtype=torch.float32)
+    g = torch.tensor(rng.normal(size=(n, s)), dtype=torch.float32)
+    want = comp.composite_weights_bwd_plain(sig, z, dn, g)
+    before = comp.BWD_KERNEL.launches
+    got = comp.composite_weights_bwd_cuda(*(t.to(dev) for t in (sig, z, dn, g)))
+    assert comp.BWD_KERNEL.launches == before + 1
+    # a shuffle scan vs cumulative products and sums: f32 rounding,
+    # relative to the largest entry
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
+    assert float(got[0].abs().max()) == 0.0  # relu'(0) = 0
+
+
+@pytest.mark.parametrize("exclude_self,cin,cout", [(True, 4, 32),
+                                                   (True, 96, 64),
+                                                   (False, 3, 32),
+                                                   (True, 64, 3)])
+def test_fused_cconv_bwd_kernel_matches_plain(dev, exclude_self, cin, cout):
+    cpu = _cconv_inputs("cpu", 1, exclude_self, cin, cout)
+    cud = _cconv_inputs(dev, 1, exclude_self, cin, cout)
+    r = 0.25
+    n, nc = cpu[1].n, cpu[3].n
+    # every output, then the e2e step's form (filter and features only)
+    for needs in ((True,) * 4, (True, False, False, True)):
+        w, qp, qs, cp, cs, fs, ct = cpu
+        want = fc.fused_cconv_bwd_plain(w, qp, qs, cp, cs, fs, ct, r,
+                                        exclude_self, needs)
+        w, qp, qs, cp, cs, fs, ct = cud
+        before = fc.BWD_KERNEL.launches
+        got = fc.fused_cconv_bwd_cuda(w, qp, qs, cp, cs, fs, ct, r,
+                                      exclude_self, needs)
+        assert fc.BWD_KERNEL.launches == before + 1
+        for name, a, b in zip(("dW", "dq", "dc", "dfeats"), got, want):
+            if b is None:
+                assert a is None, name
+                continue
+            # f32 sums over pairs, taps and queries in another order (and
+            # atomics for dc, dfeats), relative to the largest entry
+            np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=0,
+                                       atol=1e-4 * float(b.abs().max()),
+                                       err_msg=f"{name} {needs}")
+        for name, t, rows in (("dq", got[1], n), ("dc", got[2], nc),
+                              ("dfeats", got[3], nc)):
+            if t is not None:  # sentinel and zero pad rows: exactly zero
+                assert float(t[rows:].abs().max()) == 0.0, name
+
+
+def test_ball_sums_bwd_kernel_matches_plain(dev):
+    rng = np.random.default_rng(4)
+    lo, hi = (-0.7,) * 3, (0.7,) * 3
+    pts = torch.tensor(rng.uniform(-0.35, 0.35, (600, 3)), dtype=torch.float32)
+    qs = torch.tensor(rng.uniform(-0.65, 0.65, (500, 3)), dtype=torch.float32)
+    qs[:5] = pts[100:105]  # d == 0 pairs
+    cot = torch.tensor(rng.normal(size=(500, bf.N_SUMS)), dtype=torch.float32)
+    grads = []
+    for d in ("cpu", dev):
+        p = pts.to(d).requires_grad_(True)
+        sums, _ = bf.ball_feature_sums(qs.to(d), p, 0.225, 20, lo, hi,
+                                       max_per_cell=64)
+        before = bf.BWD_KERNEL.launches
+        g, = torch.autograd.grad((sums * cot.to(d)).sum(), p)
+        grads.append(g.cpu().numpy())
+    assert bf.BWD_KERNEL.launches == before + 1
+    want, got = grads[0], grads[1]
+    # <= 20 selected terms per query, summed over queries with atomics:
+    # f32 rounding, relative to the largest entry
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+    assert np.abs(want).max() > 1.0
+
+
+def test_composite_weights_gradcheck(dev):
+    """K5 forward, K6 backward. Sigmas keep 0.1 away from relu's kink."""
+    rng = np.random.default_rng(5)
+    n, s = 16, 64
+    mag = rng.normal(size=(n, s)) * 3
+    sig = torch.tensor(np.sign(mag) * (np.abs(mag) + 0.1), dtype=torch.float32)
+    z = torch.sort(torch.tensor(rng.uniform(9, 13, (n, s)),
+                                dtype=torch.float32), dim=-1).values
+    dn = torch.tensor(rng.uniform(0.5, 1.5, n), dtype=torch.float32)
+    u = torch.tensor(rng.normal(size=(n, s)) * 1e-2, dtype=torch.float32)
+    g = torch.tensor(rng.normal(size=(n, s)), dtype=torch.float32)
+    z, dn = z.to(dev), dn.to(dev)
+    _directional_check(lambda x: comp.composite_weights(x, z, dn),
+                       [sig.to(dev)], [u.to(dev)], g.to(dev), tol=1e-2)
+
+
+@pytest.mark.parametrize("exclude_self", [True, False])
+def test_fused_cconv_gradcheck(dev, exclude_self):
+    """K1 forward, K2 backward, with respect to the filter, the features and
+    the positions. With exclude_self one tensor is both query and candidate
+    positions, so autograd adds dq and dc. Positions move by ~2e-5 (r =
+    0.25), so few pairs cross a kink of the trilinear taps or of the
+    ball -> cube map (the plain versions on the CPU land within 2e-5 of
+    the scale); a wrong adjoint is off by O(1). No coincident twins:
+    moving them apart would switch their pair on."""
+    w, qplan, qpos_s, cplan, cpos_s, fs, ct = _cconv_inputs(
+        dev, 2, exclude_self, 8, 16, twin=False)
+    rng = np.random.default_rng(6)
+
+    def step(t, eps, live):
+        u = torch.tensor(rng.normal(size=tuple(t.shape)) * eps,
+                         dtype=torch.float32, device=dev)
+        u[live:] = 0.0  # sentinel and zero pad rows stay put
+        return u
+
+    n, nc = qplan.n, cplan.n
+    dw = step(w, 1e-2, w.shape[0])
+    df = step(fs, 1e-2, nc)
+    dq = step(qpos_s, 2e-5, n)
+    if exclude_self:
+        def fn(w_, p_, f_):
+            return fc.fused_cconv(w_, qplan, p_, qplan, p_, f_, 0.25, True)[0]
+        inputs, dirs = [w, qpos_s, fs], [dw, dq, df]
+    else:
+        def fn(w_, q_, c_, f_):
+            return fc.fused_cconv(w_, qplan, q_, cplan, c_, f_, 0.25,
+                                  False)[0]
+        inputs, dirs = [w, qpos_s, cpos_s, fs], [dw, dq, step(cpos_s, 2e-5,
+                                                              nc), df]
+    before = fc.BWD_KERNEL.launches
+    _directional_check(fn, inputs, dirs, ct, tol=1e-2)
+    assert fc.BWD_KERNEL.launches == before + 1
+
+
+def test_ball_feature_sums_gradcheck(dev):
+    """K3 forward, K4 backward, with respect to the particles. Fewer than K
+    neighbours per query, and no particle within 1e-3 of a query's radius
+    shell or of the query itself, so a 1e-5 move changes no selection and
+    no count."""
+    rng = np.random.default_rng(7)
+    lo, hi, r = (-0.7,) * 3, (0.7,) * 3, 0.225
+    pts = rng.uniform(-0.4, 0.4, (120, 3)).astype(np.float32)
+    qs = rng.uniform(-0.55, 0.55, (2000, 3)).astype(np.float32)
+    d = np.linalg.norm(qs[:, None] - pts[None], axis=-1)
+    qs = qs[np.all((np.abs(d - r) > 1e-3) & (d > 1e-3), axis=1)][:400]
+    cot = torch.tensor(rng.normal(size=(len(qs), bf.N_SUMS)),
+                       dtype=torch.float32, device=dev)
+    u = torch.tensor(rng.normal(size=pts.shape) * 1e-5, dtype=torch.float32,
+                     device=dev)
+    q_t = torch.from_numpy(qs).to(dev)
+
+    def fn(p):
+        sums, _ = bf.ball_feature_sums(q_t, p, r, 20, lo, hi,
+                                       max_per_cell=64)
+        return sums
+
+    counts = fn(torch.from_numpy(pts).to(dev))[:, 0]
+    assert 0 < float(counts.max()) < 20
+    _directional_check(fn, [torch.from_numpy(pts).to(dev)], [u], cot,
+                       tol=1e-2)

@@ -1,0 +1,46 @@
+"""The ctypes signature of every kernel entry point against its C
+declaration in neurofluid_torch/csrc/*.cu. ctypes cannot see the C side:
+an argument list that disagrees with it fails only when the card calls it,
+or passes a value in the wrong slot, so the two are held together here."""
+
+import ctypes
+import re
+
+import pytest
+
+from neurofluid_torch import cuda
+from neurofluid_torch.ops import ball_features, composite, fused_cconv
+
+_C_TYPES = {"int": ctypes.c_int, "float": ctypes.c_float}
+
+
+def _kernels():
+    return [k for mod in (ball_features, composite, fused_cconv)
+            for k in vars(mod).values() if isinstance(k, cuda.Kernel)]
+
+
+def _c_signature(source: str, symbol: str) -> list:
+    text = (cuda.CSRC / source).read_text()
+    m = re.search(r'extern "C" int ' + symbol + r"\(([^)]*)\)", text)
+    assert m, f"no extern \"C\" {symbol} in {source}"
+    types = []
+    for param in m.group(1).split(","):
+        decl = " ".join(param.split()[:-1])  # drop the parameter name
+        types.append(ctypes.c_void_p if "*" in param
+                     else _C_TYPES[decl.replace("const ", "")])
+    return types
+
+
+def test_every_module_declares_its_kernels():
+    names = sorted(k.symbol for k in _kernels())
+    assert names == sorted([
+        "nf_ball_sums", "nf_ball_sums_bwd", "nf_composite_weights",
+        "nf_composite_weights_bwd", "nf_fused_cconv_bwd",
+        "nf_fused_cconv_fwd"])
+
+
+@pytest.mark.parametrize("kernel", _kernels(), ids=lambda k: k.symbol)
+def test_argtypes_match_the_c_declaration(kernel):
+    # the stream is the last C parameter; Kernel appends it to argtypes
+    assert _c_signature(kernel.source, kernel.symbol) == [
+        *kernel.argtypes, ctypes.c_void_p]

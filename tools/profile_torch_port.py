@@ -1,21 +1,32 @@
-"""Device-time breakdown of the PyTorch port's forward path on one GPU.
+"""Device-time breakdown of the PyTorch port's serving path and train step
+on one GPU.
 
 Usage: python tools/profile_torch_port.py [--steps 10] [--rows 20]
 
 Builds the bench-point scene and the seeded models exactly as chip_smoke.py
-does, runs one warm-up pass, then traces a rollout of `--steps` steps and one
-1,024-ray render with torch.profiler (CPU + CUDA activities). Prints, for
-each of the two, the wall time, the summed device time of its kernels, the
-device idle share (1 - device time / wall time) and the kernels with the
-most device time. Needs a CUDA device; the kernels build at first use.
+does, runs one warm-up pass, then traces a rollout of `--steps` steps, one
+1,024-ray render and, after one warm-up step, TRAIN_TRACES end-to-end
+train steps (Adam 3e-4 / 1e-5), each traced on its own, with torch.profiler
+(CPU + CUDA activities); the train step reported is the one with the median
+wall time. Prints, for each of the three passes, the wall time, the summed
+device time of its kernels, the device idle share (1 - device time / wall
+time), that device time split by kind (the port's kernels K1-K6, matrix products, sorts, the rest) and the
+kernels with the most device time. Needs a CUDA device; the kernels build at
+first use.
 """
 
 import argparse
+import copy
 import os
+import re
 import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+# train steps traced, each on its own; the median-wall one is reported
+TRAIN_TRACES = 3
 
 
 def traced(torch, fn):
@@ -31,12 +42,43 @@ def traced(torch, fn):
     return wall, prof
 
 
+# device kernels by kind, first match wins (K2's entry point also runs the
+# two dW reduction kernels)
+KINDS = (
+    ("K1", r"fused_cconv_fwd_kernel"),
+    ("K2", r"fused_cconv_bwd_kernel|dw_partial_kernel|dw_sum_kernel"),
+    ("K3", r"ball_sums_kernel"),
+    ("K4", r"ball_sums_bwd_kernel"),
+    ("K5", r"composite_weights_kernel"),
+    ("K6", r"composite_weights_bwd_kernel"),
+    ("matmul", r"gemm|cutlass|sm90_xmma|splitK"),
+    ("sort", r"[Ss]ort|radix"),
+)
+
+
+def kind_of(key):
+    for kind, pattern in KINDS:
+        if re.search(pattern, key):
+            return kind
+    return "other"
+
+
 def report(name, wall_ms, prof, rows):
+    # a user annotation on the device timeline (Adam's optimizer-step range)
+    # spans kernels that are counted on their own
     events = [e for e in prof.key_averages()
-              if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
+              if e.device_type.name == "CUDA" and e.self_device_time_total > 0
+              and not getattr(e, "is_user_annotation", False)]
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
     print(f"{name}: wall {wall_ms:.2f} ms, device {device_ms:.2f} ms, idle "
           f"share {1 - device_ms / wall_ms:.3f}")
+    split = {}
+    for e in events:
+        kind = kind_of(e.key)
+        split[kind] = split.get(kind, 0.0) + e.self_device_time_total / 1e3
+    print("  by kind: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in sorted(split.items(),
+                                             key=lambda kv: -kv[1])))
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:rows]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  "
               f"{e.key[:110]}")
@@ -58,19 +100,22 @@ def main():
     import chip_smoke
     from neurofluid_torch import scene
     from neurofluid_torch.models import ParticleNet, RenderNet
+    from neurofluid_torch.train import losses
+    from neurofluid_torch.train.e2e import make_e2e_train_step
     from neurofluid_torch.train.transition import make_rollout_fn
 
     dev = torch.device("cuda")
-    pos, vel, box, nrm, ro, rays, _ = scene.build_problem()
-    pos, vel, box, nrm = (torch.from_numpy(a).to(dev)
-                          for a in (pos, vel, box, nrm))
-    ro, rays = torch.from_numpy(ro[0]).to(dev), torch.from_numpy(rays[0]).to(dev)
+    pos, vel, box, nrm, ro_v, rays_v, rgbs_v = (
+        torch.from_numpy(a).to(dev) for a in scene.build_problem())
+    ro, rays = ro_v[0], rays_v[0]
     gen = torch.Generator().manual_seed(0)
     net = ParticleNet(**scene.particle_net_kwargs(), device=dev, generator=gen)
     ren = RenderNet(device=dev, generator=gen)
     with torch.no_grad():
         for nerf in (ren.nerf_coarse, ren.nerf_fine):
             nerf.sigma.bias.fill_(chip_smoke.SIGMA_BIAS)
+    init_state = (copy.deepcopy(net.state_dict()),
+                  copy.deepcopy(ren.state_dict()))
     rollout = make_rollout_fn(net)
 
     with torch.no_grad():
@@ -81,6 +126,34 @@ def main():
         report(f"rollout ({args.steps} steps)", wall, prof, args.rows)
         wall, prof = traced(torch, lambda: ren(traj[-1], ro, rays))
         report("render (1024 rays)", wall, prof, args.rows)
+
+    # the train step of chip_smoke.py, from the same initial weights
+    net.load_state_dict(init_state[0])
+    ren.load_state_dict(init_state[1])
+    step = make_e2e_train_step(
+        net, ren, torch.optim.Adam(ren.parameters(), lr=chip_smoke.LR_RENDERER),
+        torch.optim.Adam(net.parameters(), lr=chip_smoke.LR_TRANSITION),
+        losses.default_box_bounds(device=dev), chip_smoke.BD_WEIGHT)
+    box_plan = net.make_box_plan(box)
+
+    def train_step(p, v):
+        return step(p, v, box, nrm, ro_v, rays_v, rgbs_v, box_plan=box_plan)
+
+    # one traced step's wall time is a single sample of the host, which can
+    # stall for hundreds of ms on a shared machine: trace a few steps (the
+    # state carried) and report the one with the median wall time
+    _, p, v, _ = train_step(pos, vel)  # warm-up
+    runs = []
+    for _ in range(TRAIN_TRACES):
+        out = []
+        runs.append(traced(torch, lambda: out.append(train_step(p, v))))
+        _, p, v, _ = out[0]
+    walls = sorted(w for w, _ in runs)
+    print("train step traced walls (ms): "
+          + ", ".join(f"{w:.2f}" for w in walls))
+    wall, prof = next(r for r in runs if r[0] == walls[len(walls) // 2])
+    report("train step (1024 rays), the median traced step", wall, prof,
+           args.rows)
     print(f"card: {torch.cuda.get_device_name(0)}")
     return 0
 
