@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Build the PyTorch port's CUDA kernels and drive its two paths on one
-NVIDIA GPU at the bench working point: the serving path (rollout + render)
-and the end-to-end train step.
+"""Build the PyTorch port's CUDA kernels and drive its three paths on one
+NVIDIA GPU at the bench working point: the serving path (rollout + render),
+the end-to-end train step, and the transition-only train step on both
+search backends.
 
     python3 chip_smoke.py
 
@@ -29,7 +30,22 @@ Phases (each prints its own line; any failure raises and exits non-zero):
    weights and state: with the kernels, with the backward kernels on their
    plain versions (each leaf's gradient within 1e-4 of its largest entry),
    with the forward kernels on theirs, and with all six, within tolerance;
-7. the kernels line, the card line, and the result line last.
+7. list kernels: K7 (compact ball query) and K8 (segment sum) at the
+   shapes of one recorded warm-up transition train step on the `fused`
+   backend, against their plain versions (K7: ids and counts equal; K8:
+   1e-5 of the largest entry), timed and bounded as in 3, K8 also beside
+   `index_add_` on the same inputs (its library time); K2 timed at the
+   calls of a transition step on `fused_cconv`, whose second rollout step
+   asks it for the position gradients;
+8. transition train path: TRANSITION_STEPS timed 2-step train steps (clip
+   by global norm 1.0, Adam 1e-4, targets pos + 0.001 / pos + 0.002) on
+   `fused_cconv` and on `fused`, launch counts per step, a finite loss that
+   falls, a gradient, no overflow and no neighbour cap exceeded; the two
+   backends' first prediction and first loss within tolerance of each
+   other; the warm-up step again with the path's kernels on their plain
+   versions, and on `fused` with K8 alone on its plain version (loss
+   bitwise equal, each leaf's gradient within 1e-4 of its largest entry);
+9. the kernels line, the card line, and the result line last.
 
 Without a CUDA device, or without the package beside it, the script exits
 non-zero before printing any result.
@@ -45,8 +61,19 @@ import time
 ROLLOUT_STEPS = 10
 EXPECTED_LAUNCHES = {"K1": 5 * ROLLOUT_STEPS, "K3": 2, "K5": 2}
 TRAIN_STEPS = 5
-STEP_LAUNCHES = {"K1": 5, "K2": 5, "K3": 2, "K4": 2, "K5": 2, "K6": 2}
+STEP_LAUNCHES = {"K1": 5, "K2": 5, "K3": 2, "K4": 2, "K5": 2, "K6": 2,
+                 "K7": 0, "K8": 0}
 LR_RENDERER, LR_TRANSITION, BD_WEIGHT = 3e-4, 1e-5, 1.0
+# the transition-only train step (two chained ParticleNet steps): launches
+# per step on each search backend. `fused`: a fluid and a box query per
+# ParticleNet step; K8 is the adjoint of each gather from the fluid list
+# whose table carries a gradient: the three hidden layers' inputs in the
+# first rollout step, and also the positions and the input features in the
+# second, whose state depends on the weights.
+TRANSITION_STEPS = 10
+TRANSITION_LAUNCHES = {"fused_cconv": {"K1": 10, "K2": 10},
+                       "fused": {"K7": 4, "K8": 8}}
+LR_TRANSITION_ONLY, TRANSITION_CLIP = 1e-4, 1.0
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and the
 # float32 rate outside the tensor cores (every kernel here is f32 SIMT)
 PEAK_BYTES_PER_S = 3.35e12
@@ -63,6 +90,8 @@ K3_SELECTED_OPS = 25
 K4_SELECTED_OPS = 45
 K5_SAMPLE_OPS = 10
 K6_SAMPLE_OPS = 30
+# K7's per candidate test (the distance, two compares, ballot and rank)
+K7_TEST_OPS = 10
 # kernel vs plain on the card, same inputs: K1 sums ~50 pairs x 8 taps and
 # then 64 * Cin terms per output in another order (relative to the largest
 # output, at least 1); K3 sums <= 20 selected terms (the same); K5 weights
@@ -71,10 +100,12 @@ K6_SAMPLE_OPS = 30
 # another order and dc, dfeats with atomics; K4 adds <= 20 terms per query
 # into each particle with atomics; K6 is a shuffle scan against cumulative
 # products and sums.
+# K7 emits integers and copies of table entries: equal, no tolerance. K8
+# sums <= 64 rows per segment in another order than the plain version.
 TOL = {"K1": 1e-4, "K3": 1e-5, "K5": 1e-5, "K2": 1e-4, "K4": 1e-5,
-       "K6": 1e-5}
+       "K6": 1e-5, "K7": 0.0, "K8": 1e-5}
 RELATIVE = {"K1": "max1", "K3": "max1", "K5": "abs", "K2": "max", "K4": "max",
-            "K6": "max"}
+            "K6": "max", "K7": "abs", "K8": "max"}
 # the train step against the kernels', from the same weights and state.
 # With only K2, K4 and K6 on their plain versions the forward is bitwise
 # the kernels', and every leaf's gradient differs only by the backward
@@ -92,6 +123,15 @@ BWD_STEP_TOL = {"loss": 0.0, "next_pos": 0.0, "grad_norm_renderer": 1e-4,
 STEP_TOL = {"loss": 1e-4, "grad_norm_renderer": 1e-3,
             "grad_norm_transition": 1e-2, "grads_renderer": 1e-3,
             "grads_transition": 1e-2, "next_pos": 1e-5}
+# the transition train step against the kernels' own, from the same weights.
+# With K8 (and K7, which is exact) on the plain version the forward is
+# bitwise the kernels'; only the segment sums' order differs. With K1 and K2
+# on theirs the forward agrees to f32 rounding and so do the gradients (no
+# renderer amplifies them here).
+LIST_STEP_TOL = {"loss": 0.0, "grad_norm": 1e-4, "leaf": 1e-4}
+CCONV_STEP_TOL = {"loss": 1e-5, "grad_norm": 1e-3, "grads": 1e-3}
+# the two backends sum the same pairs wherever no count exceeds its cap
+BACKEND_TOL = {"loss": 1e-5, "pred_pos": 1e-5}
 # sigma-head bias of the seeded renderer, so that samples with K neighbours
 # are opaque (sigma ~ 10 per unit length: alpha ~ 0.5 per coarse step)
 SIGMA_BIAS = 10.0
@@ -171,9 +211,13 @@ def main():
     from neurofluid_torch.ops import ball_features as bf
     from neurofluid_torch.ops import composite as comp
     from neurofluid_torch.ops import fused_cconv as fc
+    from neurofluid_torch.ops import fused_query as fq
+    from neurofluid_torch.ops import segment_ops as so
     from neurofluid_torch.train import losses
     from neurofluid_torch.train.e2e import make_e2e_train_step
-    from neurofluid_torch.train.transition import make_rollout_fn
+    from neurofluid_torch.train.transition import (
+        make_rollout_fn, make_transition_train_step,
+    )
 
     # ---- 1. device
     smi = subprocess.run(
@@ -188,9 +232,10 @@ def main():
 
     # ---- 2. build
     t0 = time.perf_counter()
-    nf_cuda.build(["fused_cconv.cu", "ball_features.cu", "composite.cu"])
+    nf_cuda.build(["fused_cconv.cu", "ball_features.cu", "composite.cu",
+                   "fused_query.cu", "segment_sum.cu"])
     build_s = time.perf_counter() - t0
-    print(f"build: 3 sources (K1-K6) with nvcc -gencode "
+    print(f"build: 5 sources (K1-K8) with nvcc -gencode "
           f"arch=compute_90a,code=sm_90a in {build_s:.1f} s", flush=True)
 
     # ---- scene and models
@@ -210,20 +255,24 @@ def main():
     originals = {"K1": fc.fused_cconv_cuda, "K2": fc.fused_cconv_bwd_cuda,
                  "K3": bf.ball_sums_cuda, "K4": bf.ball_sums_bwd_cuda,
                  "K5": comp.composite_weights_cuda,
-                 "K6": comp.composite_weights_bwd_cuda}
+                 "K6": comp.composite_weights_bwd_cuda,
+                 "K7": fq.ball_query_compact_cuda, "K8": so.segment_sum_cuda}
     plain = {"K1": fc.fused_cconv_plain, "K2": fc.fused_cconv_bwd_plain,
              "K3": bf.ball_sums_plain, "K4": bf.ball_sums_bwd_plain,
              "K5": comp.composite_weights_plain,
-             "K6": comp.composite_weights_bwd_plain}
+             "K6": comp.composite_weights_bwd_plain,
+             "K7": fq.ball_query_compact_plain, "K8": so.segment_sum_plain}
     wrapper_names = {"K1": (fc, "fused_cconv_cuda"),
                      "K2": (fc, "fused_cconv_bwd_cuda"),
                      "K3": (bf, "ball_sums_cuda"),
                      "K4": (bf, "ball_sums_bwd_cuda"),
                      "K5": (comp, "composite_weights_cuda"),
-                     "K6": (comp, "composite_weights_bwd_cuda")}
+                     "K6": (comp, "composite_weights_bwd_cuda"),
+                     "K7": (fq, "ball_query_compact_cuda"),
+                     "K8": (so, "segment_sum_cuda")}
     counters = {"K1": fc.KERNEL, "K2": fc.BWD_KERNEL, "K3": bf.KERNEL,
                 "K4": bf.BWD_KERNEL, "K5": comp.KERNEL,
-                "K6": comp.BWD_KERNEL}
+                "K6": comp.BWD_KERNEL, "K7": fq.KERNEL, "K8": so.KERNEL}
 
     def recording(calls, names):
         def wrap(name):
@@ -246,10 +295,12 @@ def main():
     kernels = {}
 
     def check(name, i, args, outputs, n_bytes, n_ops, exact=None,
-              timed=True):
+              timed=True, library=None):
         """outputs: (label, got, want) float outputs, each held to TOL
         scaled as RELATIVE says; exact: integer-valued outputs that must
-        agree exactly (in-radius counts, selection counts)."""
+        agree exactly (in-radius counts, selection counts, ids); library:
+        one PyTorch call that computes the same function, timed beside the
+        kernel and used nowhere else."""
         err = 0.0
         for label, got, want in outputs:
             if got is None and want is None:
@@ -269,7 +320,8 @@ def main():
                                      f"sums differ from the plain version")
         k = kernels.setdefault(name, dict(max_abs_err=0.0, ms=0.0,
                                           plain_ms=0.0, bound_ms=0.0,
-                                          ops=0.0, bytes=0.0))
+                                          ops=0.0, bytes=0.0,
+                                          library_ms=None))
         k["max_abs_err"] = max(k["max_abs_err"], err)
         if not timed:
             print(f"kernel {name} call {i}: max_abs_err {err:.3e} (tol "
@@ -278,9 +330,14 @@ def main():
         ms = event_ms(torch, lambda: originals[name](*args))
         plain_ms = event_ms(torch, lambda: plain[name](*args))
         b_ms, b_by = bound_ms(n_bytes, n_ops)
+        lib = ""
+        if library is not None:
+            lib_ms = event_ms(torch, library)
+            k["library_ms"] = (k["library_ms"] or 0.0) + lib_ms
+            lib = f" library_ms {lib_ms:.4f}"
         print(f"kernel {name} call {i}: max_abs_err {err:.3e} (tol "
               f"{TOL[name]:.0e}, {RELATIVE[name]}) ms {ms:.4f} plain_ms "
-              f"{plain_ms:.3f} bound_ms {b_ms:.4f} ({b_by})", flush=True)
+              f"{plain_ms:.3f} bound_ms {b_ms:.4f} ({b_by}){lib}", flush=True)
         for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b_ms),
                        ("ops", n_ops), ("bytes", n_bytes)):
             k[key] += v
@@ -338,6 +395,7 @@ def main():
         torch.cuda.synchronize()
         t2 = time.perf_counter()
     serve_launches = {k: v for k, v in counts().items() if v}
+    total_launches = counts()
     print(f"serving path: launches {serve_launches}", flush=True)
     if serve_launches != EXPECTED_LAUNCHES:
         raise AssertionError(f"launches {serve_launches} != "
@@ -516,6 +574,8 @@ def main():
         auxes.append(aux)
         step_losses.append(loss)
     train_launches = counts()
+    total_launches = {k: v + train_launches[k]
+                      for k, v in total_launches.items()}
     want_launches = {k: n * TRAIN_STEPS for k, n in STEP_LAUNCHES.items()}
     print(f"train path: launches {train_launches} in {TRAIN_STEPS} steps",
           flush=True)
@@ -615,9 +675,216 @@ def main():
     compare("train step with plain K1, K3, K5", ("K1", "K3", "K5"), STEP_TOL)
     compare("plain train step on the card", tuple(STEP_LAUNCHES), STEP_TOL)
 
-    # ---- 7. summary lines. launches: each kernel's count over both counted
-    # runs (the serving path once, the train path TRAIN_STEPS times); the
-    # times are per serving pass (K1: per rollout step) or per train step
+
+    # ---- 7. list kernels at the shapes of one recorded transition step
+    pos1, pos2 = pos + 0.001, pos + 0.002
+
+    def transition_trainer(backend):
+        """A fresh ParticleNet on `backend` from the seeded initial weights,
+        its Adam state, train step and box plan."""
+        t_net = ParticleNet(**scene.particle_net_kwargs(),
+                            search_backend=backend, device=dev,
+                            generator=torch.Generator().manual_seed(1))
+        t_net.load_state_dict(init_state[0])
+        opt = torch.optim.Adam(t_net.parameters(), lr=LR_TRANSITION_ONLY)
+        t_step = make_transition_train_step(t_net, opt, bounds,
+                                            TRANSITION_CLIP)
+        return t_net, t_step, t_net.make_box_plan(box)
+
+    def run_transition(t_step, plan):
+        return t_step(pos, vel, pos1, pos2, box, nrm, box_plan=plan)
+
+    def first_prediction(t_net, plan):
+        with torch.no_grad():
+            pred, _, nn, _ = t_net(pos, vel, box, nrm, box_plan=plan)
+        return pred, nn
+
+    trainers = {b: transition_trainer(b) for b in TRANSITION_LAUNCHES}
+    first = {b: first_prediction(t_net, plan)
+             for b, (t_net, _, plan) in trainers.items()}
+    warm_t = {}
+    calls = {"K2": [], "K7": [], "K8": []}
+    for backend, (t_net, t_step, plan) in trainers.items():
+        with recording(calls, calls):  # the warm-up steps
+            loss_w, aux_w = run_transition(t_step, plan)
+        torch.cuda.synchronize()
+        warm_t[backend] = dict(loss=float(loss_w), aux=aux_w,
+                               grads=grads_of(t_net))
+    got_calls = {k: len(v) for k, v in calls.items()}
+    want_calls = {"K2": TRANSITION_LAUNCHES["fused_cconv"]["K2"],
+                  **TRANSITION_LAUNCHES["fused"]}
+    if got_calls != want_calls:
+        raise AssertionError(f"warm-up transition steps: calls {got_calls} "
+                             f"!= {want_calls}")
+
+    with torch.no_grad():
+        for i, args in enumerate(calls["K7"]):
+            (q_rep, tx, ty, tz, ti, gcell, dims, radius, k, t, excl,
+             emit) = args
+            got = fq.ball_query_compact_cuda(*args)
+            want = fq.ball_query_compact_plain(*args)
+            live = ((q_rep[:, 0] < 0.5 * bf.SENTINEL)
+                    & (gcell.long() < dims[0] * dims[1] * dims[2])
+                    .repeat_interleave(t))
+            occupied = (tx < 0.5 * bf.SENTINEL).sum(1)
+            tests = float((occupied[bf.neighbor_rows(gcell, dims)].sum(1)
+                           * live.reshape(-1, t).sum(1)).sum())
+            n_b = ball_bytes(bf, q_rep, (tx, ty, tz, ti), gcell, dims, t,
+                             live, gcell, *got)
+            mask = [torch.arange(k, device=dev)[None, :]
+                    < torch.clamp(c, max=k)[:, None] for c in (got[1], want[1])]
+            check("K7", f"{i} (k {k}, exclude_self {int(excl)})", args, [],
+                  n_b, tests * K7_TEST_OPS,
+                  exact=tuple(torch.cat([o[0].reshape(-1), o[1],
+                                         m.reshape(-1).int()])
+                              for o, m in zip((got, want), mask)))
+        for i, (vals, plan) in enumerate(calls["K8"]):
+            got, want = so.segment_sum_cuda(vals, plan), \
+                so.segment_sum_plain(vals, plan)
+            m, c = vals.shape
+            ids = plan.ids
+
+            def library():
+                vals.new_zeros((plan.n + 1, c)).index_add_(0, ids, vals)
+
+            # the rows of the trash segment (the lists' padding slots) need
+            # not be read: only their ids
+            kept = int((ids < plan.n).sum())
+            check("K8", f"{i} (M {m}, kept {kept}, C {c})", (vals, plan),
+                  [("sums", got, want)],
+                  kept * c * vals.element_size() + nbytes(ids, got),
+                  float(kept * c), library=library)
+        # K2 as the transition step calls it on fused_cconv: autograd runs
+        # the second rollout step's backward first, and that one asks for
+        # the position gradients too
+        k2_ms = []
+        for i, args in enumerate(calls["K2"]):
+            ms = event_ms(torch, lambda: fc.fused_cconv_bwd_cuda(*args))
+            needs = "".join(str(int(x)) for x in args[-1])
+            cin, cout = args[0].shape[-2:]
+            k2_ms.append(ms)
+            print(f"transition step K2 call {i}: Cin {cin} Cout {cout} needs "
+                  f"(dW, dq, dc, dfeats) {needs} ms {ms:.4f}", flush=True)
+        print(f"transition step K2: second rollout step {sum(k2_ms[:5]):.4f} "
+              f"ms, first rollout step {sum(k2_ms[5:]):.4f} ms, "
+              f"{sum(k2_ms):.4f} ms per train step", flush=True)
+    del calls
+
+    # ---- 8. transition train path, counted, on each search backend
+    d_first = {
+        "loss": abs(warm_t["fused"]["loss"] - warm_t["fused_cconv"]["loss"])
+        / abs(warm_t["fused_cconv"]["loss"]),
+        "pred_pos": float((first["fused"][0]
+                           - first["fused_cconv"][0]).abs().max())}
+    print("transition backends, first step from the same weights: diffs "
+          + ", ".join(f"{k} {v:.3e}" for k, v in d_first.items())
+          + f" (loss relative, pred_pos absolute); neighbour counts that "
+          f"differ {int((first['fused'][1] != first['fused_cconv'][1]).sum())}"
+          f", largest count {int(first['fused'][1].max())}", flush=True)
+    bad = {k: v for k, v in d_first.items() if not v <= BACKEND_TOL[k]}
+    if bad:
+        raise AssertionError(f"the two backends disagree beyond tolerance: "
+                             f"{bad}")
+
+    for backend, (t_net, t_step, plan) in trainers.items():
+        per_step = {k: TRANSITION_LAUNCHES[backend].get(k, 0)
+                    for k in counters}
+        reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step_s, step_losses, auxes = [], [], []
+        for _ in range(TRANSITION_STEPS):
+            t0 = time.perf_counter()
+            loss, aux = run_transition(t_step, plan)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            step_losses.append(float(loss))
+            auxes.append(aux)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        launched = counts()
+        total_launches = {k: v + launched[k]
+                          for k, v in total_launches.items()}
+        want = {k: n * TRANSITION_STEPS for k, n in per_step.items()}
+        print(f"transition train path ({backend}): launches "
+              f"{ {k: v for k, v in launched.items() if v} } in "
+              f"{TRANSITION_STEPS} steps", flush=True)
+        if launched != want:
+            raise AssertionError(f"{backend}: launches {launched} != {want}")
+        for i, (loss, aux) in enumerate(zip(step_losses, auxes)):
+            gn = float(aux["grad_norm"])
+            if not (loss == loss and abs(loss) < float("inf")
+                    and 0.0 < gn < float("inf")):
+                raise AssertionError(f"{backend} step {i}: loss {loss}, "
+                                     f"grad_norm {gn}")
+            if bool(aux["search_overflow"]) or bool(aux["search_cap_exceeded"]):
+                raise AssertionError(f"{backend} step {i}: a search overflow "
+                                     f"or neighbour cap flag is set")
+        if not step_losses[-1] < warm_t[backend]["loss"]:
+            raise AssertionError(f"{backend}: the loss does not fall: "
+                                 f"{warm_t[backend]['loss']} -> {step_losses}")
+        med = statistics.median(step_s)
+        print(f"transition train path ({backend}): {TRANSITION_STEPS} steps, "
+              f"median {med * 1e3:.2f} ms (min {min(step_s) * 1e3:.2f}, max "
+              f"{max(step_s) * 1e3:.2f}); "
+              f"{2 * scene.N_PARTICLES / med:.0f} particle-steps/s; peak "
+              f"memory {peak_gb:.2f} GB; losses {warm_t[backend]['loss']:.6f} "
+              "(warm-up), " + ", ".join(f"{x:.6f}" for x in step_losses)
+              + f"; grad_norm {float(auxes[-1]['grad_norm']):.4e}", flush=True)
+        del auxes
+
+    def compare_transition(backend, what, swapped, tol):
+        """The warm-up transition step of `backend` from the same weights
+        with `swapped` on their plain versions: those launch no kernel, the
+        rest launch as in a kernel step, every difference within `tol`."""
+        c_net, c_step, c_plan = transition_trainer(backend)
+        before = counts()
+        with on_plain(swapped):
+            t0 = time.perf_counter()
+            loss_c, aux_c = run_transition(c_step, c_plan)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        launched = {k: v - before[k] for k, v in counts().items()}
+        want = {k: 0 if k in swapped
+                else TRANSITION_LAUNCHES[backend].get(k, 0) for k in launched}
+        if launched != want:
+            raise AssertionError(f"{what}: launches {launched} != {want}")
+        ref = warm_t[backend]
+        errs = {n: float((prm.grad - ref["grads"][n]).abs().max())
+                for n, prm in c_net.named_parameters()}
+        rel = {n: e / max(float(ref["grads"][n].abs().max()), 1e-30)
+               for n, e in errs.items()}
+        worst = max(rel, key=rel.get)
+        gn = float(ref["aux"]["grad_norm"])
+        d = {"loss": abs(float(loss_c) - ref["loss"]) / abs(ref["loss"]),
+             "grad_norm": abs(float(aux_c["grad_norm"]) - gn) / gn,
+             "grads": max(errs.values()) / max(
+                 float(g.abs().max()) for g in ref["grads"].values()),
+             "leaf": rel[worst]}
+        print(f"{what} ({ms:.1f} ms): diffs "
+              + ", ".join(f"{k} {v:.3e}" for k, v in d.items())
+              + " (loss, grad_norm relative; grads relative to the model's "
+              f"largest entry, leaf to the leaf's own); worst leaf {worst}",
+              flush=True)
+        bad = {k: v for k, v in d.items() if k in tol and not v <= tol[k]}
+        if bad:
+            raise AssertionError(f"{what} disagrees beyond tolerance: {bad}")
+
+    compare_transition("fused", "fused transition step rerun", (), {})
+    compare_transition("fused", "fused transition step with plain K8",
+                       ("K8",), LIST_STEP_TOL)
+    compare_transition("fused", "fused transition step with plain K7, K8",
+                       ("K7", "K8"), LIST_STEP_TOL)
+    compare_transition("fused_cconv", "fused_cconv transition step rerun",
+                       (), {})
+    compare_transition("fused_cconv",
+                       "fused_cconv transition step with plain K1, K2",
+                       ("K1", "K2"), CCONV_STEP_TOL)
+
+    # ---- 9. summary lines. launches: each kernel's count over the counted
+    # runs (the serving path once, the e2e train path TRAIN_STEPS times, the
+    # transition train path TRANSITION_STEPS times on each backend); the
+    # times are per serving pass (K1: per rollout step), per e2e train step
+    # (K2, K4, K6) or per transition train step on `fused` (K7, K8)
     sources = {
         "K1": ("fused_cconv", "fused_cconv.cu",
                "neurofluid_tpu/ops/fused_cconv.py:622"),
@@ -630,16 +897,20 @@ def main():
         "K5": ("composite_weights", "composite.cu",
                "neurofluid_tpu/ops/pallas_kernels.py:28"),
         "K6": ("composite_weights_bwd", "composite.cu",
-               "neurofluid_tpu/ops/pallas_kernels.py:51")}
+               "neurofluid_tpu/ops/pallas_kernels.py:51"),
+        "K7": ("ball_query_compact", "fused_query.cu",
+               "neurofluid_tpu/ops/fused_query.py:194"),
+        "K8": ("segment_sum_accumulate", "segment_sum.cu",
+               "neurofluid_tpu/ops/segment_ops.py:157")}
     line = {"kernels": [
         {"name": f"{kid} {name}", "route": "cuda",
          "source": f"neurofluid_torch/csrc/{src}", "replaces": replaces,
-         "launches": serve_launches.get(kid, 0) + train_launches[kid],
+         "launches": total_launches[kid],
          "max_abs_err": kernels[kid]["max_abs_err"],
          "ms": kernels[kid]["ms"], "plain_ms": kernels[kid]["plain_ms"],
          "bound_ms": kernels[kid]["bound_ms"],
          "bound_by": bound_ms(kernels[kid]["bytes"], kernels[kid]["ops"])[1],
-         "library_ms": None}
+         "library_ms": kernels[kid]["library_ms"]}
         for kid, (name, src, replaces) in sources.items()]}
     print(json.dumps(line))
     print(smi)

@@ -1,5 +1,6 @@
 """ParticleNet: the learned Lagrangian fluid transition model (port of
-neurofluid_tpu/models/particle_net.py, the `fused_cconv` backend).
+neurofluid_tpu/models/particle_net.py, the `fused_cconv` and `fused` search
+backends, unsharded).
 
 One step (reference models/transmodel.py:100-148):
 1. semi-implicit Euler with gravity: v' = v + g dt; x' = x + (v + v')/2 dt;
@@ -11,8 +12,17 @@ One step (reference models/transmodel.py:100-148):
    - layers 1-3: ReLU -> conv + dense, plus a residual where widths match;
    - the result scaled by 1/128;
 3. x'' = x' + dx; v'' = (x'' - x) / dt.
-The whole layer stack runs in cell-sorted order (K1 on the card) and is
-unsorted once at the end.
+
+`search_backend='fused_cconv'`: no neighbour lists and no caps; the whole
+layer stack runs in cell-sorted order through the fused conv (K1 and K2 on
+the card) and is unsorted once at the end. `search_backend='fused'`: one
+compact fixed-K neighbour list of the fluid and one of the box per step
+(`ops.fused_query`, K7 on the card), shared by all layers; the conv
+geometry and the fluid tap matrix are computed once per list and each layer
+is a gather and two matrix products (`ops.cconv`), the gathers' adjoint
+being the segment sum (K8 on the card). The two backends compute the same
+sums wherever no neighbourhood exceeds its cap; `cap_exceeded` says when
+one does.
 """
 
 from __future__ import annotations
@@ -26,12 +36,18 @@ from neurofluid_torch.cuda import resolve_device
 from neurofluid_torch.models.init import (
     generator_or_default, init_linear, uniform_,
 )
+from neurofluid_torch.ops import cconv
 from neurofluid_torch.ops import fused_cconv as fc
+from neurofluid_torch.ops import fused_query, segment_ops
+from neurofluid_torch.ops.neighbor_search import CellGrid, build_cell_grid
+
+SEARCH_BACKENDS = ("fused_cconv", "fused")
 
 
 class ContinuousConvLayer(nn.Module):
     """Open3D ContinuousConv parameters: `kernel` (kz, ky, kx, Cin, Cout)
-    and `bias` (Cout,); the conv itself is `ops.fused_cconv`."""
+    and `bias` (Cout,); the conv itself is `ops.fused_cconv` (`forward`) or
+    `ops.cconv` over a neighbour list (`forward_list`)."""
 
     def __init__(self, in_channels: int, filters: int, kernel_size: tuple):
         super().__init__()
@@ -54,19 +70,45 @@ class ContinuousConvLayer(nn.Module):
                                      cpos_s, feats_s, radius, exclude_self)
         return out + self.bias, counts
 
+    def forward_list(self, feats, neighbors, corner, tapw, plan,
+                     tap_matrix=None):
+        return cconv.continuous_conv_apply(
+            self.kernel, corner, tapw, feats, neighbors, plan=plan,
+            tap_matrix=tap_matrix) + self.bias
+
 
 class ParticleNet(nn.Module):
     def __init__(self, layer_channels: tuple = (32, 64, 64, 3),
                  kernel_size: tuple = (4, 4, 4), radius_scale: float = 1.5,
                  particle_radius: float = 0.025, timestep: float = 1.0 / 50.0,
                  gravity: tuple = (0.0, -9.81, 0.0),
+                 other_feats_channels: int = 0,
                  correction_scale: float = 1.0 / 128.0,
+                 fluid_neighbor_k: int = 64, obstacle_neighbor_k: int = 48,
+                 search_backend: str = "fused_cconv",
                  fused_group_size: int = 16, fused_slab_cap: int = 128,
                  fused_cell_scale: float = 1.0,
                  grid_lower: tuple = (-1.05, -1.05, -1.05),
                  grid_upper: tuple = (1.05, 1.05, 2.55),
+                 grid_max_per_cell: int = 32,
                  device="cuda", generator: torch.Generator | None = None):
+        """`fluid_neighbor_k`, `obstacle_neighbor_k` and `grid_max_per_cell`
+        are the static caps of the `fused` backend's lists and cell tables
+        (about 47 fluid neighbours and 11 particles per cell at rest
+        density); `fused_*` size the `fused_cconv` backend's plan.
+        `other_feats_channels`: width of the optional per-particle `feats`
+        of `forward`."""
         super().__init__()
+        if search_backend not in SEARCH_BACKENDS:
+            raise NotImplementedError(
+                f"search_backend {search_backend!r} is not ported; this "
+                f"package has {SEARCH_BACKENDS} ('auto', 'grid' and 'brute' "
+                f"are listed in ROADMAP.md, Queue 1 item 13)")
+        self.search_backend = search_backend
+        self.fluid_neighbor_k = fluid_neighbor_k
+        self.obstacle_neighbor_k = obstacle_neighbor_k
+        self.grid_max_per_cell = grid_max_per_cell
+        self.kernel_size = tuple(kernel_size)
         self.layer_channels = tuple(layer_channels)
         self.timestep = timestep
         self.gravity = tuple(gravity)
@@ -80,9 +122,10 @@ class ParticleNet(nn.Module):
 
         c0 = self.layer_channels[0]
         ks = tuple(kernel_size)
-        self.conv0_fluid = ContinuousConvLayer(4, c0, ks)
+        fluid_ch = 4 + other_feats_channels
+        self.conv0_fluid = ContinuousConvLayer(fluid_ch, c0, ks)
         self.conv0_obstacle = ContinuousConvLayer(3, c0, ks)
-        self.dense0_fluid = nn.Linear(4, c0, device="meta")
+        self.dense0_fluid = nn.Linear(fluid_ch, c0, device="meta")
         width = 3 * c0
         for i, ch in enumerate(self.layer_channels[1:], start=1):
             setattr(self, f"conv{i}", ContinuousConvLayer(width, ch, ks))
@@ -102,29 +145,54 @@ class ParticleNet(nn.Module):
         vel_new = vel + g * dt
         return pos + (vel + vel_new) / 2.0 * dt, vel_new
 
-    def make_box_plan(self, box: torch.Tensor) -> fc.CConvPlan:
-        """Candidate-only plan of the static boundary particles: build it
-        once per scene and pass it to every step."""
+    def make_box_plan(self, box: torch.Tensor):
+        """Search structure of the static boundary particles: build it once
+        per scene and pass it to every step. A candidate-only `CConvPlan`
+        on the `fused_cconv` backend, a `CellGrid` (cell = radius) on the
+        `fused` backend."""
+        if self.search_backend == "fused":
+            return build_cell_grid(box, self.grid_lower, self.grid_upper,
+                                   max(self.radius, 1e-6),
+                                   self.grid_max_per_cell)
         return fc.build_plan(box, self.grid_lower, self.grid_upper,
                              self.cell_size, with_groups=False,
                              slab_cap=self.fused_slab_cap)
 
-    def forward(self, pos, vel, box, box_feats, box_plan=None):
-        """One transition step. pos, vel (N, 3); box, box_feats (M, 3).
+    def forward(self, pos, vel, box, box_feats, feats=None, box_plan=None):
+        """One transition step. pos, vel (N, 3); box, box_feats (M, 3);
+        feats: optional (N, other_feats_channels) extra fluid features;
+        box_plan: `make_box_plan(box)`, built here when absent.
 
         Returns (pos, vel, num_fluid_neighbors (N,), diag) where diag holds
-        the search-health flags {"grid_overflow", "cap_exceeded"}; this
-        path has no neighbour cap, so cap_exceeded is always False."""
+        the search-health flags {"grid_overflow", "cap_exceeded"}: a cell
+        table or grouping bound was hit, or (the `fused` backend only; the
+        `fused_cconv` backend has no cap) a neighbourhood held more than
+        `fluid_neighbor_k` / `obstacle_neighbor_k` particles and the conv
+        saw only the first k."""
+        box, box_feats = box.detach(), box_feats.detach()
         pos_new, vel_new = self.integrate_pos_vel(pos, vel)
+        fluid = [torch.ones_like(pos_new[:, :1]), vel_new]
+        if feats is not None:
+            fluid.append(feats)
+        fluid = torch.cat(fluid, dim=-1)
+        layers = (self._fused_cconv_layers
+                  if self.search_backend == "fused_cconv"
+                  else self._list_layers)
+        correction, counts, diag = layers(pos_new, fluid, box, box_feats,
+                                          box_plan)
+        pos_corrected = pos_new + correction
+        vel_corrected = (pos_corrected - pos) / self.timestep
+        return pos_corrected, vel_corrected, counts, diag
+
+    def _fused_cconv_layers(self, pos_new, fluid, box, box_feats, box_plan):
         radius = self.radius
         qplan = fc.build_plan(pos_new, self.grid_lower, self.grid_upper,
                               self.cell_size, group_size=self.fused_group_size,
                               slab_cap=self.fused_slab_cap)
-        if box_plan is None:
+        if not isinstance(box_plan, fc.CConvPlan):
             box_plan = self.make_box_plan(box)
         pad = qplan.slab_cap
         qpos_s = fc.sort_values(pos_new, qplan, pad, fc.SENTINEL).contiguous()
-        fluid = torch.cat([torch.ones_like(pos_new[:, :1]), vel_new], dim=-1)
         ff = fc.sort_values(fluid, qplan)
         bfeats_s = fc.sort_values(box_feats, box_plan,
                                   box_plan.slab_cap).contiguous()
@@ -146,10 +214,54 @@ class ParticleNet(nn.Module):
             out = ans_conv + getattr(self, f"dense{i}")(inp)
             h = out + h if out.shape[-1] == h.shape[-1] else out
 
-        pos_corrected = pos_new + fc.unsort_values(self.correction_scale * h,
-                                                   qplan)
-        vel_corrected = (pos_corrected - pos) / self.timestep
         diag = {"grid_overflow": qplan.overflow,
                 "cap_exceeded": torch.zeros_like(qplan.overflow)}
-        return (pos_corrected, vel_corrected, fc.unsort_values(counts, qplan),
-                diag)
+        return (fc.unsort_values(self.correction_scale * h, qplan),
+                fc.unsort_values(counts, qplan), diag)
+
+    def _search(self, queries, grid: CellGrid, k: int, exclude_self: bool):
+        return fused_query.ball_query_compact(
+            queries, grid, self.grid_lower, self.grid_upper, self.radius, k,
+            exclude_self=exclude_self)
+
+    def _list_layers(self, pos_new, fluid, box, box_feats, box_grid):
+        extent = 2.0 * self.radius
+        fluid_grid = build_cell_grid(pos_new, self.grid_lower,
+                                     self.grid_upper, max(self.radius, 1e-6),
+                                     self.grid_max_per_cell)
+        if not isinstance(box_grid, CellGrid):
+            box_grid = self.make_box_plan(box)
+        fluid_nbrs, ov_fluid = self._search(pos_new, fluid_grid,
+                                            self.fluid_neighbor_k, True)
+        box_nbrs, ov_box = self._search(pos_new, box_grid,
+                                        self.obstacle_neighbor_k, False)
+
+        # the geometry and the backward plans, once per list for all layers
+        fluid_plan = segment_ops.AdjointPlan(fluid_nbrs.idx, pos_new.shape[0])
+        box_plan = segment_ops.AdjointPlan(box_nbrs.idx, box.shape[0])
+        fl_corner, fl_tapw = cconv.cconv_geometry(
+            pos_new, pos_new, fluid_nbrs, extent, self.kernel_size, fluid_plan)
+        bx_corner, bx_tapw = cconv.cconv_geometry(
+            box, pos_new, box_nbrs, extent, self.kernel_size, box_plan)
+        # the fluid list feeds every fluid layer; the box list only one
+        fl_tw = cconv.cconv_tap_matrix(fl_corner, fl_tapw,
+                                       math.prod(self.kernel_size))
+
+        ans_fluid = self.conv0_fluid.forward_list(
+            fluid, fluid_nbrs, None, None, fluid_plan, tap_matrix=fl_tw)
+        ans_obstacle = self.conv0_obstacle.forward_list(
+            box_feats, box_nbrs, bx_corner, bx_tapw, box_plan)
+        h = torch.cat([ans_obstacle, ans_fluid, self.dense0_fluid(fluid)],
+                      dim=-1)
+        for i in range(1, len(self.layer_channels)):
+            inp = torch.relu(h)
+            ans_conv = getattr(self, f"conv{i}").forward_list(
+                inp, fluid_nbrs, None, None, fluid_plan, tap_matrix=fl_tw)
+            out = ans_conv + getattr(self, f"dense{i}")(inp)
+            h = out + h if out.shape[-1] == h.shape[-1] else out
+
+        diag = {"grid_overflow": ov_fluid | ov_box,
+                "cap_exceeded": (
+                    (fluid_nbrs.count > self.fluid_neighbor_k).any()
+                    | (box_nbrs.count > self.obstacle_neighbor_k).any())}
+        return self.correction_scale * h, fluid_nbrs.count.float(), diag

@@ -66,10 +66,17 @@ class BallGrouping(NamedTuple):
 
 
 def group_queries(queries, points, radius: float, lower, upper,
-                  capacity: int, group_size: int = 32) -> BallGrouping:
+                  capacity: int, group_size: int = 32,
+                  max_groups: int | None = None) -> BallGrouping:
     """Cull to the particle AABB (+radius), stable-sort by clamped cell id,
     and split each cell's run into groups of <= group_size. The static
-    group bound is capacity // T + num_cells + 2."""
+    group bound is capacity // T + num_cells + 2.
+
+    `max_groups` caps that bound. Group ids are assigned compactly (empty
+    cells get none), so the groups really used number about capacity // T
+    plus the occupied cells, far below the bound on a fine grid. A query
+    whose group id passes the cap has no packed slot; that is detected and
+    OR-ed into `cull_overflow`."""
     q, p = queries.detach(), points.detach()
     n_q, t, dev = q.shape[0], int(group_size), q.device
     capacity = int(min(max(capacity, t), n_q))
@@ -93,6 +100,9 @@ def group_queries(queries, points, radius: float, lower, upper,
     rank_in_cell = torch.arange(capacity, device=dev) - starts_cell[qcell]
     group_of_q = gbase[qcell] + rank_in_cell // t
     ng = capacity // t + num_cells + 2
+    if max_groups is not None:
+        ng = min(ng, max(int(max_groups), capacity // t + 2))
+        cull_overflow = cull_overflow | (gbase[-1] > ng)
     gstart = torch.searchsorted(group_of_q, torch.arange(ng + 1, device=dev))
     gcount = torch.diff(gstart)
     first = torch.clamp(gstart[:-1], max=capacity - 1)

@@ -1,8 +1,12 @@
-"""Continuous-convolution geometry (port of neurofluid_tpu/ops/cconv.py
-:47-150): the volume-preserving ball -> cube map, the poly6 window and the
-trilinear filter taps, as used by the plain fused conv, and their adjoints
-derived by hand (the backward of the fused conv, K2 and its plain version,
-pushes the tap-weight cotangent of every pair through them).
+"""Continuous-convolution geometry (port of neurofluid_tpu/ops/cconv.py):
+the volume-preserving ball -> cube map, the poly6 window and the trilinear
+filter taps, as used by the plain fused conv, and their adjoints derived by
+hand (the backward of the fused conv, K2 and its plain version, pushes the
+tap-weight cotangent of every pair through them); and the continuous
+convolution over a neighbour list (`cconv_geometry`, `cconv_tap_matrix`,
+`continuous_conv_apply`), differentiable by autograd with respect to the
+filter, the features and the positions, the neighbour gathers' adjoint being
+the segment sum of `segment_ops` (K8 on the card).
 
 The disc -> square step uses the odd minimax polynomial `atan01` of the
 TPU kernel (neurofluid_tpu/ops/fused_cconv.py `_atan01`, |error| <= 1.4e-7
@@ -22,6 +26,9 @@ from __future__ import annotations
 import math
 
 import torch
+
+from neurofluid_torch.ops import segment_ops
+from neurofluid_torch.ops.neighbor_search import NeighborList
 
 EPS = 1e-8
 ATAN_COEFFS = (
@@ -249,3 +256,72 @@ def tap_weights_vjp(off: torch.Tensor, kernel_size: tuple,
     g_d2n = torch.where(d2n <= 2.0, g_win * window_poly6_grad(
         torch.clamp(d2n, max=2.0)), 0.0)
     return g_off + (2.0 * g_d2n)[..., None] * off
+
+
+def cconv_geometry(points: torch.Tensor, queries: torch.Tensor,
+                   neighbors: NeighborList, extent: float,
+                   kernel_size: tuple = (4, 4, 4),
+                   plan: segment_ops.AdjointPlan | None = None):
+    """What a conv over `neighbors` needs of the positions, computed once
+    and shared by every layer on the same list: (corner (Q, K, 8) flat tap
+    ids, discrete; tapw (Q, K, 8) trilinear tap weights times the poly6
+    window, 0 at masked slots, differentiable with respect to `points` and
+    `queries`). `extent` is the full filter extent (radius = extent / 2);
+    `plan` the shared `segment_ops.AdjointPlan(neighbors.idx, N)`."""
+    radius = extent / 2.0
+    if plan is None:
+        plan = segment_ops.AdjointPlan(neighbors.idx, points.shape[0])
+    if neighbors.xyz is not None:
+        nb = segment_ops.gather3_values(points, neighbors.idx, *neighbors.xyz,
+                                        plan)
+    else:
+        nb = segment_ops.take_rows_planned(points, neighbors.idx,
+                                           plan).unbind(-1)
+    off = torch.stack([
+        torch.where(neighbors.mask, (nb[ax] - queries[:, ax, None]) / radius,
+                    0.0) for ax in range(3)], dim=-1)
+    norm_sq = off[..., 0] ** 2 + off[..., 1] ** 2 + off[..., 2] ** 2
+    corner, w8 = trilinear_taps(ball_to_cube_volume_preserving(off),
+                                kernel_size)
+    win = torch.where(neighbors.mask, window_poly6(norm_sq), 0.0)
+    return corner, w8 * win[..., None]
+
+
+def cconv_tap_matrix(corner: torch.Tensor, tapw: torch.Tensor,
+                     num_taps: int) -> torch.Tensor:
+    """Dense per-pair tap weights tw (Q, T, K): tw[q, t, k] = sum_j
+    tapw[q, k, j] * [corner[q, k, j] == t]. It depends on the positions
+    only, so the layers that share a neighbour list share it. Taps come
+    before neighbours so that `tw @ feats` is a batched matrix product as it
+    stands. A pair's 8 corners are 8 different taps, so the scatter has no
+    collisions and its sums no order."""
+    q, k = corner.shape[:2]
+    tw = tapw.new_zeros((q, num_taps, k))
+    return tw.scatter_add(1, corner.transpose(1, 2), tapw.transpose(1, 2))
+
+
+def continuous_conv_apply(filters: torch.Tensor, corner, tapw,
+                          feats: torch.Tensor, neighbors: NeighborList,
+                          plan: segment_ops.AdjointPlan | None = None,
+                          tap_matrix: torch.Tensor | None = None):
+    """Contract one layer's features against the shared geometry.
+
+    filters (kz, ky, kx, Cin, Cout); corner/tapw from `cconv_geometry`, or
+    `tap_matrix` (Q, T, K) from `cconv_tap_matrix`, then corner/tapw are
+    ignored; feats (N, Cin), gathered at neighbors.idx (zero rows at masked
+    slots). Returns (Q, Cout):
+
+        basis[q, t, c] = sum_k tw[q, t, k] * feats[idx[q, k], c]
+        out[q, o]      = sum_{t, c} basis[q, t, c] * filters[t, c, o]
+
+    Both contractions are plain matrix products, as in the JAX package."""
+    *ks, cin, cout = filters.shape
+    num_taps = math.prod(ks)
+    if plan is None:
+        plan = segment_ops.AdjointPlan(neighbors.idx, feats.shape[0])
+    nb_feats = segment_ops.take_rows_planned(feats, neighbors.idx, plan)
+    tw = tap_matrix if tap_matrix is not None else cconv_tap_matrix(
+        corner, tapw, num_taps)
+    basis = torch.bmm(tw, nb_feats)  # (Q, T, Cin)
+    return basis.reshape(-1, num_taps * cin) @ filters.reshape(
+        num_taps * cin, cout)

@@ -1,5 +1,6 @@
-"""Dense per-cell particle tables (port of
-neurofluid_tpu/ops/neighbor_search.py `build_cell_grid`)."""
+"""Dense per-cell particle tables and the fixed-K neighbour list (port of
+neurofluid_tpu/ops/neighbor_search.py `build_cell_grid`, `NeighborList` and
+`_recompute_sq_dists`)."""
 
 from __future__ import annotations
 
@@ -7,6 +8,8 @@ import math
 from typing import NamedTuple
 
 import torch
+
+from neurofluid_torch.ops import segment_ops
 
 
 def cell_dims(lower, upper, cell_size: float) -> tuple:
@@ -27,11 +30,29 @@ def cell_ids(points: torch.Tensor, lower, dims: tuple,
     return (cell[:, 0] * dims[1] + cell[:, 1]) * dims[2] + cell[:, 2]
 
 
+class NeighborList(NamedTuple):
+    """Fixed-K padded neighbourhoods.
+
+    idx: (Q, K) int32 point indices, -1 where no neighbour; sq_dists: (Q, K)
+    squared distances, 0 where no neighbour, differentiable with respect to
+    the points and the queries; mask: (Q, K) bool; count: (Q,) int32 true
+    number of in-radius neighbours (may exceed K); xyz: optionally the
+    selected neighbours' coordinates as three detached (Q, K) tensors
+    (arbitrary finite values at masked slots)."""
+
+    idx: torch.Tensor
+    sq_dists: torch.Tensor
+    mask: torch.Tensor
+    count: torch.Tensor
+    xyz: tuple | None = None
+
+
 class CellGrid(NamedTuple):
     """table_x/y/z: (num_cells + 1, cap) coordinates, 0 at empty slots;
     table_idx: (num_cells + 1, cap) original point index, -1 at empty;
     row num_cells is the all-empty sentinel row. overflow: () bool, some
-    cell held more than `cap` points (the tail was dropped)."""
+    cell held more than `cap` points (the tail was dropped). points: the
+    (N, 3) points the tables were built from, not detached."""
 
     table_x: torch.Tensor
     table_y: torch.Tensor
@@ -40,6 +61,7 @@ class CellGrid(NamedTuple):
     dims: tuple
     cap: int
     overflow: torch.Tensor
+    points: torch.Tensor
 
 
 def build_cell_grid(points: torch.Tensor, lower, upper, cell_size: float,
@@ -72,5 +94,19 @@ def build_cell_grid(points: torch.Tensor, lower, upper, cell_size: float,
         table_x=densify(rows[..., 0]), table_y=densify(rows[..., 1]),
         table_z=densify(rows[..., 2]),
         table_idx=torch.cat([ids, torch.full_like(ids[:1], -1)], dim=0),
-        dims=dims, cap=cap, overflow=overflow,
+        dims=dims, cap=cap, overflow=overflow, points=points,
     )
+
+
+def recompute_sq_dists(queries, points, idx, mask, xyz=None):
+    """Squared distances of the selected pairs, differentiable with respect
+    to `points` and `queries` (the search itself is discrete); 0 at masked
+    slots. With `xyz` (the search's selected coordinates) the forward
+    gather is skipped (`segment_ops.gather3_values`)."""
+    if xyz is not None:
+        nb = segment_ops.gather3_values(
+            points, idx, *xyz, segment_ops.AdjointPlan(idx, points.shape[0]))
+    else:
+        nb = segment_ops.take_rows(points, idx).unbind(-1)
+    sq = sum((nb[ax] - queries[:, ax, None]) ** 2 for ax in range(3))
+    return torch.where(mask, sq, 0.0)

@@ -24,13 +24,22 @@ import torch
 from neurofluid_torch.train import losses
 
 
-def _grads(params):
+def grads_or_zeros(params):
     return [p.grad if p.grad is not None else torch.zeros_like(p)
             for p in params]
 
 
 def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(t * t) for t in tensors))
+
+
+def clip_grads_(params, grads, norm: torch.Tensor, clip: torch.Tensor):
+    """Set each `p.grad` to its gradient clipped by the global norm `norm`
+    as optax's `clip_by_global_norm` does: unchanged below `clip`, else
+    g / norm * clip."""
+    keep = norm < clip
+    for p, g in zip(params, grads):
+        p.grad = torch.where(keep, g, g / norm * clip)
 
 
 def leaf_norms(tensors) -> torch.Tensor:
@@ -72,7 +81,7 @@ def make_e2e_train_step(transition, renderer, opt_r, opt_t, bounds,
         loss = torch.sum(mse0 + mse1) + bd_weight * bd
         loss.backward()
 
-        g_r, g_t = _grads(params_r), _grads(params_t)
+        g_r, g_t = grads_or_zeros(params_r), grads_or_zeros(params_t)
         gn_r, gn_t = global_norm(g_r), global_norm(g_t)
         overflow = diag["grid_overflow"]
         for o in outs:
@@ -98,9 +107,7 @@ def make_e2e_train_step(transition, renderer, opt_r, opt_t, bounds,
                 aux[f"grad_hist_{name}_before"] = before
                 aux[f"grad_hist_{name}_after"] = before * torch.minimum(
                     torch.ones_like(clip), clip / (gn + 1e-16))
-                keep = gn < clip
-                for p, g in zip(params, grads):
-                    p.grad = torch.where(keep, g, g / gn * clip)
+                clip_grads_(params, grads, gn, clip)
         opt_r.step()
         opt_t.step()
         return loss.detach(), pred_pos.detach(), pred_vel.detach(), aux

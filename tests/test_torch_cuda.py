@@ -1,8 +1,9 @@
-"""The port's CUDA kernels (K1-K6) against their plain versions on the
+"""The port's CUDA kernels (K1-K8) against their plain versions on the
 card, at small shapes, and a gradcheck-style directional-derivative check
 of each differentiable wrapper (CompositeWeights, FusedCConv,
-BallFeatureSums) with its kernels on both sides. These need an NVIDIA GPU with nvcc: on a machine
-without one they skip. Run them on the card with
+BallFeatureSums, take_rows_planned) with its kernels on both sides. These
+need an NVIDIA GPU with nvcc: on a machine without one they skip. Run them
+on the card with
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -18,6 +19,9 @@ import torch
 from neurofluid_torch.ops import ball_features as bf
 from neurofluid_torch.ops import composite as comp
 from neurofluid_torch.ops import fused_cconv as fc
+from neurofluid_torch.ops import fused_query as fq
+from neurofluid_torch.ops import neighbor_search as ns
+from neurofluid_torch.ops import segment_ops as so
 
 pytestmark = pytest.mark.cuda
 
@@ -293,3 +297,87 @@ def test_ball_feature_sums_gradcheck(dev):
     assert 0 < float(counts.max()) < 20
     _directional_check(fn, [torch.from_numpy(pts).to(dev)], [u], cot,
                        tol=1e-2)
+
+
+def _cloud(rng, n, spread):
+    centers = rng.uniform(-spread, spread, (8, 3))
+    pts = centers[rng.integers(0, 8, n)] + rng.normal(size=(n, 3)) * 0.08
+    return torch.tensor(np.clip(pts, -1.0, 1.0), dtype=torch.float32)
+
+
+@pytest.mark.parametrize("exclude_self,k,cap,emit_xyz,spread", [
+    (True, 48, 32, False, 0.5), (False, 48, 32, True, 0.5),
+    (True, 4, 128, True, 0.1), (True, 64, 40, False, 0.3)])
+def test_ball_query_kernel_matches_plain(dev, exclude_self, k, cap, emit_xyz,
+                                         spread):
+    """K7 against its plain version: ids, counts, masks, coordinates and
+    the flag all equal (integers and copies of table entries). k = 4 at cap
+    128 truncates most lists; cap 40 is no multiple of the warp."""
+    rng = np.random.default_rng(8)
+    lo, hi, r = (-1.05,) * 3, (1.05,) * 3, 0.1125
+    pts = _cloud(rng, 600, spread)
+    qs = pts if exclude_self else _cloud(rng, 256, spread)
+    qs = torch.cat([qs, torch.tensor([[50.0, 50.0, 50.0]])])
+    res = []
+    for d in ("cpu", dev):
+        grid = ns.build_cell_grid(pts.to(d), lo, hi, r, cap)
+        before = fq.KERNEL.launches
+        res.append(fq.ball_query_compact(qs.to(d), grid, lo, hi, r, k,
+                                         exclude_self=exclude_self,
+                                         emit_xyz=emit_xyz))
+    assert fq.KERNEL.launches == before + 1
+    (want, ow), (got, og) = res
+    assert bool(og) == bool(ow)
+    assert int(want.count.max()) > 0
+    for name in ("idx", "count", "mask"):
+        np.testing.assert_array_equal(getattr(got, name).cpu().numpy(),
+                                      getattr(want, name).numpy(), name)
+    np.testing.assert_allclose(got.sq_dists.cpu().numpy(),
+                               want.sq_dists.numpy(), rtol=0, atol=1e-7)
+    if emit_xyz:
+        for a, b in zip(got.xyz, want.xyz):
+            np.testing.assert_array_equal(a.cpu().numpy(), b.numpy())
+
+
+@pytest.mark.parametrize("c", [1, 3, 4, 24, 32, 64, 96, 200])
+def test_segment_sum_kernel_matches_plain(dev, c):
+    """K8 against its plain version: trash ids, empty segments and one long
+    segment; both lane layouts (c <= 32 and wider) and a width past one
+    128-channel pass."""
+    rng = np.random.default_rng(9)
+    m, n = 20_000, 700
+    idx = rng.integers(-1, n, size=(m,)).astype(np.int32)
+    idx[idx == 5] = 6          # an empty segment
+    idx[:3000] = 17            # a long one
+    vals = torch.tensor(rng.normal(size=(m, c)), dtype=torch.float32)
+    want = so.segment_sum_accumulate(vals, so.AdjointPlan(
+        torch.from_numpy(idx), n))
+    plan = so.AdjointPlan(torch.from_numpy(idx).to(dev), n)
+    before = so.KERNEL.launches
+    got = so.segment_sum_accumulate(vals.to(dev), plan)
+    assert so.KERNEL.launches == before + 1
+    assert float(got[5].abs().max()) == 0.0
+    # f32 sums of up to 3,000 rows in another order, relative to the
+    # largest entry
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
+    again = so.segment_sum_accumulate(vals.to(dev), plan)
+    assert torch.equal(got, again)  # deterministic: no atomics
+
+
+def test_take_rows_planned_gradcheck(dev):
+    """A gather forward, K8 backward, with respect to the table. The gather
+    is linear, so central differences are exact up to f32 rounding."""
+    rng = np.random.default_rng(10)
+    n, c, q, k = 300, 24, 200, 16
+    table = torch.tensor(rng.normal(size=(n, c)), dtype=torch.float32)
+    idx = rng.integers(0, n, size=(q, k)).astype(np.int32)
+    idx[rng.uniform(size=idx.shape) < 0.25] = -1
+    idx = torch.from_numpy(idx).to(dev)
+    plan = so.AdjointPlan(idx, n)
+    u = torch.tensor(rng.normal(size=(n, c)) * 1e-2, dtype=torch.float32)
+    g = torch.tensor(rng.normal(size=(q, k, c)), dtype=torch.float32)
+    before = so.KERNEL.launches
+    _directional_check(lambda t: so.take_rows_planned(t, idx, plan),
+                       [table.to(dev)], [u.to(dev)], g.to(dev), tol=1e-2)
+    assert so.KERNEL.launches == before + 1

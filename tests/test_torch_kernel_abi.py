@@ -9,13 +9,16 @@ import re
 import pytest
 
 from neurofluid_torch import cuda
-from neurofluid_torch.ops import ball_features, composite, fused_cconv
+from neurofluid_torch.ops import (
+    ball_features, composite, fused_cconv, fused_query, segment_ops,
+)
 
 _C_TYPES = {"int": ctypes.c_int, "float": ctypes.c_float}
 
 
 def _kernels():
-    return [k for mod in (ball_features, composite, fused_cconv)
+    return [k for mod in (ball_features, composite, fused_cconv, fused_query,
+                        segment_ops)
             for k in vars(mod).values() if isinstance(k, cuda.Kernel)]
 
 
@@ -34,9 +37,10 @@ def _c_signature(source: str, symbol: str) -> list:
 def test_every_module_declares_its_kernels():
     names = sorted(k.symbol for k in _kernels())
     assert names == sorted([
-        "nf_ball_sums", "nf_ball_sums_bwd", "nf_composite_weights",
-        "nf_composite_weights_bwd", "nf_fused_cconv_bwd",
-        "nf_fused_cconv_fwd"])
+        "nf_ball_query_compact", "nf_ball_sums", "nf_ball_sums_bwd",
+        "nf_composite_weights", "nf_composite_weights_bwd",
+        "nf_fused_cconv_bwd", "nf_fused_cconv_fwd",
+        "nf_segment_sum_accumulate"])
 
 
 @pytest.mark.parametrize("kernel", _kernels(), ids=lambda k: k.symbol)

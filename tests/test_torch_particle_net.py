@@ -1,7 +1,11 @@
 """Port parity: ParticleNet (fused_cconv backend) and the rollout against
 neurofluid_tpu, at the sizes of tests/test_models.py's fused-backend test
 (n=64, m=24, tight grid, fused_cell_scale=2, channels (8, 24, 3)), with the
-flax weights carried across by `transition_state_from_flax`."""
+flax weights carried across by `transition_state_from_flax`; and the `fused`
+backend (compact neighbour lists, K7 and K8 on the card, their plain
+versions here) against JAX's `fused` backend and against the port's own
+`fused_cconv`, at the sizes of tests/test_fused_query.py's ParticleNet test
+(512 fluid and 256 box particles in clustered clouds, default caps)."""
 
 import jax
 import jax.numpy as jnp
@@ -79,3 +83,157 @@ def test_box_plan_reuse_matches_rebuild(nets):
         a = tnet(pos, vel, box, nrm)
         b = tnet(pos, vel, box, nrm, box_plan=tnet.make_box_plan(box))
     assert torch.equal(a[0], b[0]) and torch.equal(a[2], b[2])
+
+
+# ---- the `fused` backend (neighbour lists)
+
+LIST = dict(fluid_neighbor_k=64, obstacle_neighbor_k=48, grid_max_per_cell=32,
+            gravity=(0, 0, -9.81))
+
+
+def _cloud(rng, n, spread):
+    centers = rng.uniform(-spread, spread, (8, 3))
+    pts = (centers[rng.integers(0, 8, n)]
+           + rng.normal(size=(n, 3)) * 0.08).astype(np.float32)
+    return np.clip(pts, -1.0, 1.0)
+
+
+def _list_scene(rng):
+    pos = _cloud(rng, 512, 0.3)
+    vel = (rng.normal(size=(512, 3)) * 0.1).astype(np.float32)
+    box = _cloud(rng, 256, 0.8)
+    nrm = rng.normal(size=(256, 3)).astype(np.float32)
+    return pos, vel, box, nrm
+
+
+def _loss_t(out):
+    p1, v1, nn, _ = out
+    return (p1 ** 2).sum() + 0.1 * (v1 ** 2).sum() + nn.sum()
+
+
+@pytest.fixture(scope="module")
+def list_nets():
+    scene = _list_scene(np.random.default_rng(10))
+    jnet = JParticleNet(search_backend="fused", **LIST)
+    params = jnet.init(jax.random.PRNGKey(0), *map(jnp.asarray, scene))
+    state = transition_state_from_flax(
+        jax.tree_util.tree_map(np.asarray, params))
+    tnet = ParticleNet(device="cpu", search_backend="fused", **LIST)
+    tnet.load_state_dict(state)
+    return scene, jnet, params, tnet, state
+
+
+def test_fused_backend_matches_jax(list_nets):
+    """Counts and flags equal; positions, velocities and the gradients with
+    respect to the weights and the positions at the bounds JAX holds its
+    own `fused` backend to against its grid search
+    (tests/test_fused_query.py: pos 2e-6, vel 1e-4, gradients 5e-4)."""
+    scene, jnet, params, tnet, _ = list_nets
+    pos, vel, box, nrm = map(jnp.asarray, scene)
+    pj, vj, nj, dj = jnet.apply(params, pos, vel, box, nrm, return_diag=True)
+
+    def jloss(p, x):
+        p1, v1, nn = jnet.apply(p, x, vel, box, nrm)
+        return jnp.sum(p1 ** 2) + 0.1 * jnp.sum(v1 ** 2) + jnp.sum(nn)
+
+    gp_j, gx_j = jax.grad(jloss, argnums=(0, 1))(params, pos)
+
+    tpos = torch.from_numpy(scene[0]).requires_grad_(True)
+    out = tnet(tpos, *map(torch.from_numpy, scene[1:]))
+    tnet.zero_grad()
+    _loss_t(out).backward()
+    pt, vt, nt, dt = out
+    np.testing.assert_array_equal(nt.numpy(), np.asarray(nj))
+    assert nt.max() > 20
+    np.testing.assert_allclose(pt.detach().numpy(), np.asarray(pj), rtol=0,
+                               atol=2e-6)
+    np.testing.assert_allclose(vt.detach().numpy(), np.asarray(vj), rtol=0,
+                               atol=1e-4)
+    for key in ("grid_overflow", "cap_exceeded"):
+        assert bool(dt[key]) == bool(dj[key])
+    np.testing.assert_allclose(tpos.grad.numpy(), np.asarray(gx_j), rtol=0,
+                               atol=5e-4)
+    want = transition_state_from_flax(
+        jax.tree_util.tree_map(np.asarray, gp_j))
+    for name, p in tnet.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), want[name].numpy(), rtol=0,
+                                   atol=5e-4, err_msg=name)
+
+
+def test_fused_backend_matches_fused_cconv(list_nets):
+    """Where no count exceeds its cap the two backends sum the same pairs:
+    equal counts, and positions, velocities and gradients to f32 rounding
+    (the bounds of the JAX comparison above)."""
+    scene, _, _, tnet, state = list_nets
+    cnet = ParticleNet(device="cpu", search_backend="fused_cconv",
+                       gravity=(0, 0, -9.81))
+    cnet.load_state_dict(state)
+    res = []
+    for net in (tnet, cnet):
+        tpos = torch.from_numpy(scene[0]).requires_grad_(True)
+        out = net(tpos, *map(torch.from_numpy, scene[1:]))
+        net.zero_grad()
+        _loss_t(out).backward()
+        res.append((out, tpos.grad))
+    (a, ga), (b, gb) = res
+    assert not bool(a[3]["cap_exceeded"])
+    np.testing.assert_array_equal(a[2].numpy(), b[2].numpy())
+    np.testing.assert_allclose(a[0].detach().numpy(), b[0].detach().numpy(),
+                               rtol=0, atol=2e-6)
+    np.testing.assert_allclose(a[1].detach().numpy(), b[1].detach().numpy(),
+                               rtol=0, atol=1e-4)
+    np.testing.assert_allclose(ga.numpy(), gb.numpy(), rtol=0, atol=5e-4)
+    for (name, p), q in zip(tnet.named_parameters(), cnet.parameters()):
+        np.testing.assert_allclose(p.grad.numpy(), q.grad.numpy(), rtol=0,
+                                   atol=5e-4, err_msg=name)
+
+
+def test_fused_backend_flags_cap_exceeded(list_nets):
+    scene, jnet, params, _, state = list_nets
+    small = dict(LIST, fluid_neighbor_k=8)
+    tnet = ParticleNet(device="cpu", search_backend="fused", **small)
+    tnet.load_state_dict(state)
+    jsmall = JParticleNet(search_backend="fused", **small)
+    with torch.no_grad():
+        pt, _, nt, dt = tnet(*map(torch.from_numpy, scene))
+    pj, _, nj, dj = jsmall.apply(params, *map(jnp.asarray, scene),
+                                 return_diag=True)
+    assert bool(dt["cap_exceeded"]) and bool(dj["cap_exceeded"])
+    np.testing.assert_array_equal(nt.numpy(), np.asarray(nj))  # true counts
+    np.testing.assert_allclose(pt.numpy(), np.asarray(pj), rtol=0, atol=2e-6)
+
+
+@pytest.mark.parametrize("backend", ["fused_cconv", "fused"])
+def test_other_feats_match_jax(backend):
+    """The optional per-particle features (`other_feats_channels`), on both
+    backends: they widen conv0_fluid and dense0_fluid. The small scene and
+    tight grid of the fused_cconv tests above; tolerances as there."""
+    rng = np.random.default_rng(11)
+    scene = _scene(rng)
+    feats = rng.normal(size=(64, 2)).astype(np.float32)
+    jnet = JParticleNet(search_backend=backend, other_feats_channels=2,
+                        **TIGHT)
+    jargs = [jnp.asarray(x) for x in scene]
+    params = jnet.init(jax.random.PRNGKey(3), *jargs, jnp.asarray(feats))
+    pj, vj, nj = jnet.apply(params, *jargs, jnp.asarray(feats))
+    tnet = ParticleNet(device="cpu", search_backend=backend,
+                       other_feats_channels=2, **TIGHT)
+    assert tnet.conv0_fluid.kernel.shape[-2] == 6
+    tnet.load_state_dict(transition_state_from_flax(
+        jax.tree_util.tree_map(np.asarray, params)))
+    with torch.no_grad():
+        pt, vt, nt, _ = tnet(*map(torch.from_numpy, scene),
+                             feats=torch.from_numpy(feats))
+        p0 = tnet(*map(torch.from_numpy, scene),
+                  feats=torch.zeros(64, 2))[0]
+    np.testing.assert_array_equal(nt.numpy(), np.asarray(nj))
+    np.testing.assert_allclose(pt.numpy(), np.asarray(pj), rtol=0, atol=2e-5)
+    np.testing.assert_allclose(vt.numpy(), np.asarray(vj), rtol=0,
+                               atol=1.5e-3)
+    assert float((pt - p0).abs().max()) > 1e-5  # the features are used
+
+
+@pytest.mark.parametrize("backend", ["auto", "grid", "brute"])
+def test_unported_backends_are_refused(backend):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        ParticleNet(device="cpu", search_backend=backend)

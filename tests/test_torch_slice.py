@@ -115,7 +115,9 @@ def test_package_imports_no_jax():
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'neurofluid_tpu')]\n"
         "assert not bad, bad\n"
-        "assert 'neurofluid_torch.models.render_net' in sys.modules\n"
+        "for name in ('models.render_net', 'ops.fused_query', "
+        "'ops.segment_ops', 'train.transition'):\n"
+        "    assert 'neurofluid_torch.' + name in sys.modules, name\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)

@@ -1,4 +1,4 @@
-"""Device-time breakdown of the PyTorch port's serving path and train step
+"""Device-time breakdown of the PyTorch port's serving path and train steps
 on one GPU.
 
 Usage: python tools/profile_torch_port.py [--steps 10] [--rows 20]
@@ -8,11 +8,13 @@ does, runs one warm-up pass, then traces a rollout of `--steps` steps, one
 1,024-ray render and, after one warm-up step, TRAIN_TRACES end-to-end
 train steps (Adam 3e-4 / 1e-5), each traced on its own, with torch.profiler
 (CPU + CUDA activities); the train step reported is the one with the median
-wall time. Prints, for each of the three passes, the wall time, the summed
-device time of its kernels, the device idle share (1 - device time / wall
-time), that device time split by kind (the port's kernels K1-K6, matrix products, sorts, the rest) and the
-kernels with the most device time. Needs a CUDA device; the kernels build at
-first use.
+wall time; then, in the same way, the transition-only train step of
+chip_smoke.py (clip 1.0, Adam 1e-4) on the `fused_cconv` and the `fused`
+search backend. Prints, for each pass, the wall time, the summed device time
+of its kernels, the device idle share (1 - device time / wall time), that
+device time split by kind (the port's kernels K1-K8, matrix products, sorts,
+the rest) and the kernels with the most device time. Needs a CUDA device;
+the kernels build at first use.
 """
 
 import argparse
@@ -51,6 +53,8 @@ KINDS = (
     ("K4", r"ball_sums_bwd_kernel"),
     ("K5", r"composite_weights_kernel"),
     ("K6", r"composite_weights_bwd_kernel"),
+    ("K7", r"ball_query_compact_kernel"),
+    ("K8", r"segment_sum_kernel"),
     ("matmul", r"gemm|cutlass|sm90_xmma|splitK"),
     ("sort", r"[Ss]ort|radix"),
 )
@@ -102,7 +106,9 @@ def main():
     from neurofluid_torch.models import ParticleNet, RenderNet
     from neurofluid_torch.train import losses
     from neurofluid_torch.train.e2e import make_e2e_train_step
-    from neurofluid_torch.train.transition import make_rollout_fn
+    from neurofluid_torch.train.transition import (
+        make_rollout_fn, make_transition_train_step,
+    )
 
     dev = torch.device("cuda")
     pos, vel, box, nrm, ro_v, rays_v, rgbs_v = (
@@ -139,21 +145,44 @@ def main():
     def train_step(p, v):
         return step(p, v, box, nrm, ro_v, rays_v, rgbs_v, box_plan=box_plan)
 
-    # one traced step's wall time is a single sample of the host, which can
-    # stall for hundreds of ms on a shared machine: trace a few steps (the
-    # state carried) and report the one with the median wall time
+    def report_median(name, runs):
+        """One traced step's wall time is a single sample of the host, which
+        can stall for hundreds of ms on a shared machine: of a few traced
+        steps, report the one with the median wall time."""
+        walls = sorted(w for w, _ in runs)
+        print(f"{name} traced walls (ms): "
+              + ", ".join(f"{w:.2f}" for w in walls))
+        wall, prof = next(r for r in runs if r[0] == walls[len(walls) // 2])
+        report(f"{name}, the median traced step", wall, prof, args.rows)
+
     _, p, v, _ = train_step(pos, vel)  # warm-up
     runs = []
-    for _ in range(TRAIN_TRACES):
+    for _ in range(TRAIN_TRACES):  # the state carried
         out = []
         runs.append(traced(torch, lambda: out.append(train_step(p, v))))
         _, p, v, _ = out[0]
-    walls = sorted(w for w, _ in runs)
-    print("train step traced walls (ms): "
-          + ", ".join(f"{w:.2f}" for w in walls))
-    wall, prof = next(r for r in runs if r[0] == walls[len(walls) // 2])
-    report("train step (1024 rays), the median traced step", wall, prof,
-           args.rows)
+    report_median("train step (1024 rays)", runs)
+
+    # the transition-only train step of chip_smoke.py on each backend
+    pos1, pos2 = pos + 0.001, pos + 0.002
+    for backend in chip_smoke.TRANSITION_LAUNCHES:
+        t_net = ParticleNet(**scene.particle_net_kwargs(),
+                            search_backend=backend, device=dev,
+                            generator=torch.Generator().manual_seed(1))
+        t_net.load_state_dict(init_state[0])
+        t_step = make_transition_train_step(
+            t_net, torch.optim.Adam(t_net.parameters(),
+                                    lr=chip_smoke.LR_TRANSITION_ONLY),
+            losses.default_box_bounds(device=dev), chip_smoke.TRANSITION_CLIP)
+        plan = t_net.make_box_plan(box)
+
+        def transition_step():
+            return t_step(pos, vel, pos1, pos2, box, nrm, box_plan=plan)
+
+        transition_step()  # warm-up
+        report_median(f"transition train step ({backend})",
+                      [traced(torch, transition_step)
+                       for _ in range(TRAIN_TRACES)])
     print(f"card: {torch.cuda.get_device_name(0)}")
     return 0
 
