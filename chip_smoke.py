@@ -10,11 +10,18 @@ Phases (each prints its own line; any failure raises and exits non-zero):
 1. device: name and power limit (nvidia-smi), torch and CUDA versions;
    TF32 off for every matmul and convolution;
 2. build: nvcc of csrc/*.cu for sm_90a, one process per source, timed;
+   then the tensor-core product of csrc/split_gemm.cuh (3xTF32 mma.sync,
+   the contractions of K1 and K2) on its own at the shapes of its three
+   uses at the bench point, against a float64 product of the same seeded
+   inputs (error relative to sum |a||b|, held to GEMM_TOL), timed beside
+   `torch.matmul` in f32 (its library time, used nowhere in the port);
 3. forward kernels: K1 (fused conv), K3 (ball sums), K5 (compositing
    weights), each called at the shapes the serving path gives it (recorded
    from one warm-up pass) and held against its plain PyTorch version on the
    card, with CUDA-event times (median of 10 after a warm-up) and the least
-   time the card could take for the same work;
+   time the card could take for the same work; where a K1 or K2 call is a
+   walk plus tensor-core products, the products' time at that call's
+   shapes and the walk's share beside it;
 4. serving path: a 10-step ParticleNet rollout of the 14,336-particle
    scene, then the coarse (64) + fine (128) render of 1,024 rays, with
    seeded random weights; launch counts from that run; the same path on the
@@ -74,10 +81,19 @@ TRANSITION_STEPS = 10
 TRANSITION_LAUNCHES = {"fused_cconv": {"K1": 10, "K2": 10},
                        "fused": {"K7": 4, "K8": 8}}
 LR_TRANSITION_ONLY, TRANSITION_CLIP = 1e-4, 1.0
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and the
-# float32 rate outside the tensor cores (every kernel here is f32 SIMT)
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth, the float32
+# rate outside the tensor cores, and the dense TF32 tensor-core rate. The
+# contractions of K1 and K2 with a filter too large for shared memory run
+# on the tensor cores in TF32_PASSES passes (hi*hi + hi*lo + lo*hi of the
+# split operands); everything else is f32 SIMT.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
+PEAK_TF32_PER_S = 495e12
+TF32_PASSES = 3
+# the tensor-core product against float64, relative to sum |a||b|: 8 units
+# of f32's rounding (2^-24), the limit tests/test_torch_split_gemm.py holds
+# the split scheme's emulation to (one TF32 pass alone is ~1e-4)
+GEMM_TOL = 2.0 ** -21
 # operations per in-radius pair of K1's geometry (offsets, distance,
 # window, ball -> cube map, trilinear corners) and of K2's hand-derived
 # adjoint of it; K3's per candidate test and per selected neighbour, and
@@ -137,9 +153,12 @@ BACKEND_TOL = {"loss": 1e-5, "pred_pos": 1e-5}
 SIGMA_BIAS = 10.0
 
 
-def bound_ms(n_bytes, n_ops):
+def bound_ms(n_bytes, n_ops, n_tc_ops=0.0):
+    """n_ops: f32 SIMT operations; n_tc_ops: operations of a contraction
+    that runs on the tensor cores, once (the passes are counted here)."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_ops / PEAK_F32_PER_S * 1e3
+    t_ops = (n_ops / PEAK_F32_PER_S
+             + TF32_PASSES * n_tc_ops / PEAK_TF32_PER_S) * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -235,8 +254,63 @@ def main():
     nf_cuda.build(["fused_cconv.cu", "ball_features.cu", "composite.cu",
                    "fused_query.cu", "segment_sum.cu"])
     build_s = time.perf_counter() - t0
-    print(f"build: 5 sources (K1-K8) with nvcc -gencode "
+    print(f"build: 5 sources (K1-K8; fused_cconv.cu includes "
+          f"split_gemm.cuh) with nvcc -gencode "
           f"arch=compute_90a,code=sm_90a in {build_s:.1f} s", flush=True)
+
+    def product_operands(m_, k_, n_, trans, gen=None):
+        """Random operands of one tensor-core product (M, K) x (K, N) and
+        the keywords of its call; `trans`: K2's dW form, A stored (K, M) and
+        the K range in the splits `dw_split` gives."""
+        a_ = torch.randn((k_, m_) if trans else (m_, k_), device=dev,
+                         generator=gen)
+        b_ = torch.randn((k_, n_), device=dev, generator=gen)
+        kw = {}
+        if trans:
+            n_split, per = fc.dw_split(k_, m_, n_)
+            kw = dict(trans_a=True, n_split=n_split, k_per_split=per)
+        return a_, b_, kw
+
+    # the tensor-core product at its three uses' shapes: the 14,336 sorted
+    # fluid rows of the bench point in scratch chunks, Cin 96 and 64 ->
+    # Cout 64 (conv1, conv2) and Cin 64 -> Cout 3 (conv3's dW)
+    gen_g = torch.Generator(device=dev).manual_seed(3)
+    for use, n_rows, cin_g, cout_g in (("K1 fold", 14336, 96, 64),
+                                       ("K1 fold", 14336, 64, 64),
+                                       ("K2 d_acc", 14336, 96, 64),
+                                       ("K2 dW", 14336, 96, 64),
+                                       ("K2 dW", 14336, 64, 3)):
+        klen_g = 64 * cin_g
+        rows_g = min(n_rows, fc.scratch_chunk_rows(n_rows, klen_g))
+        mkn = {"K1 fold": (rows_g, klen_g, cout_g, False),
+               "K2 d_acc": (rows_g, cout_g, klen_g, False),
+               "K2 dW": (klen_g, rows_g, cout_g, True)}[use]
+        a_g, b_g, kw = product_operands(*mkn, gen=gen_g)
+        before = fc.GEMM_KERNEL.launches
+        got = fc.split_gemm_cuda(a_g, b_g, **kw)
+        torch.cuda.synchronize()
+        if fc.GEMM_KERNEL.launches != before + 1:
+            raise AssertionError("the tensor-core product did not launch")
+        a_op = a_g.t() if kw else a_g
+        want = a_op.double() @ b_g.double()
+        scale = a_op.double().abs() @ b_g.double().abs()
+        err = float(((got.double() - want).abs() / scale).max())
+        err_lib = float((((a_op @ b_g).double() - want).abs() / scale).max())
+        ms = event_ms(torch, lambda: fc.split_gemm_cuda(a_g, b_g, **kw))
+        lib_ms = event_ms(torch, lambda: a_op @ b_g)
+        m_g, k_g = a_op.shape
+        b_ms, b_by = bound_ms(nbytes(a_g, b_g, got), 0.0,
+                              2.0 * m_g * k_g * b_g.shape[1])
+        print(f"tensor-core product, {use} ({m_g} x {k_g}) x ({k_g} x "
+              f"{b_g.shape[1]}){', %d splits' % kw['n_split'] if kw else ''}: "
+              f"max err / sum|a||b| {err:.3e} (tol {GEMM_TOL:.3e}; "
+              f"torch.matmul f32 {err_lib:.3e}) ms {ms:.4f} bound_ms "
+              f"{b_ms:.4f} ({b_by}) library_ms {lib_ms:.4f} (torch.matmul, "
+              f"f32, TF32 off)", flush=True)
+        if not err <= GEMM_TOL:
+            raise AssertionError(f"tensor-core product {use}: error {err:.3e} "
+                                 f"> {GEMM_TOL:.3e}")
+        del a_g, b_g, got, want, scale, a_op
 
     # ---- scene and models
     pos, vel, box, nrm, ro_v, rays_v, rgbs_v = (
@@ -294,8 +368,21 @@ def main():
 
     kernels = {}
 
+    def gemm_ms(shapes):
+        """CUDA-event time of the tensor-core products of one K1 or K2
+        call: (M, K, N, trans_a) per product, on random operands."""
+        total = 0.0
+        for shape in shapes:
+            a_, b_, kw = product_operands(*shape)
+            total += event_ms(torch, lambda: fc.split_gemm_cuda(a_, b_, **kw))
+        return total
+
+    def chunks_of(n, klen):
+        rows = fc.scratch_chunk_rows(n, klen)
+        return [min(rows, n - lo) for lo in range(0, n, rows)]
+
     def check(name, i, args, outputs, n_bytes, n_ops, exact=None,
-              timed=True, library=None):
+              timed=True, library=None, n_tc_ops=0.0, products=()):
         """outputs: (label, got, want) float outputs, each held to TOL
         scaled as RELATIVE says; exact: integer-valued outputs that must
         agree exactly (in-radius counts, selection counts, ids); library:
@@ -320,7 +407,7 @@ def main():
                                      f"sums differ from the plain version")
         k = kernels.setdefault(name, dict(max_abs_err=0.0, ms=0.0,
                                           plain_ms=0.0, bound_ms=0.0,
-                                          ops=0.0, bytes=0.0,
+                                          ops=0.0, bytes=0.0, tc_ops=0.0,
                                           library_ms=None))
         k["max_abs_err"] = max(k["max_abs_err"], err)
         if not timed:
@@ -329,17 +416,21 @@ def main():
             return
         ms = event_ms(torch, lambda: originals[name](*args))
         plain_ms = event_ms(torch, lambda: plain[name](*args))
-        b_ms, b_by = bound_ms(n_bytes, n_ops)
+        b_ms, b_by = bound_ms(n_bytes, n_ops, n_tc_ops)
         lib = ""
+        if products:  # a walk plus tensor-core products
+            g_ms = gemm_ms(products)
+            lib = f" products_ms {g_ms:.4f} walk_ms {ms - g_ms:.4f}"
         if library is not None:
             lib_ms = event_ms(torch, library)
             k["library_ms"] = (k["library_ms"] or 0.0) + lib_ms
-            lib = f" library_ms {lib_ms:.4f}"
+            lib += f" library_ms {lib_ms:.4f}"
         print(f"kernel {name} call {i}: max_abs_err {err:.3e} (tol "
               f"{TOL[name]:.0e}, {RELATIVE[name]}) ms {ms:.4f} plain_ms "
               f"{plain_ms:.3f} bound_ms {b_ms:.4f} ({b_by}){lib}", flush=True)
         for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b_ms),
-                       ("ops", n_ops), ("bytes", n_bytes)):
+                       ("ops", n_ops), ("bytes", n_bytes),
+                       ("tc_ops", n_tc_ops)):
             k[key] += v
 
     # ---- 3. forward kernels at the serving path's shapes
@@ -356,14 +447,22 @@ def main():
             want = fc.fused_cconv_plain(*args)
             kz, ky, kx, cin, cout = w.shape
             pairs = float(want[1].sum())
-            ops = (pairs * (K1_GEOMETRY_OPS + 16 * cin)
-                   + 2.0 * qplan.n * kz * ky * kx * cin * cout)
+            klen = kz * ky * kx * cin
+            ops = pairs * (K1_GEOMETRY_OPS + 16 * cin)
+            fold_ops = 2.0 * qplan.n * klen * cout
+            in_walk = fc.w_fits_shared(kz * ky * kx, cin, cout)
             n_b = (nbytes(qpos_s[: qplan.n], cpos_s[: cplan.n],
                           feats_s[: cplan.n], w, qplan.gcol, qplan.gzlo,
                           qplan.gzhi, qplan.gstart, cplan.pstarts)
                    + nbytes(*got))
-            check("K1", i, args, [("out", got[0], want[0])], n_b, ops,
-                  exact=(got[1], want[1]))
+            check("K1", f"{i} (Cin {cin}, Cout {cout})", args,
+                  [("out", got[0], want[0])], n_b,
+                  ops + (fold_ops if in_walk else 0.0),
+                  exact=(got[1], want[1]),
+                  n_tc_ops=0.0 if in_walk else fold_ops,
+                  products=() if in_walk else [
+                      (m_, klen, cout, False)
+                      for m_ in chunks_of(qplan.n, klen)])
         for i, args in enumerate(calls["K3"]):
             q_rep, tx, ty, tz, gcell, dims, radius, k, t = args
             got, want = bf.ball_sums_cuda(*args), bf.ball_sums_plain(*args)
@@ -516,11 +615,20 @@ def main():
                 got = fc.fused_cconv_bwd_cuda(*a)
                 want = fc.fused_cconv_bwd_plain(*a)
                 need_w, need_q, need_c, need_f = nd
-                ops = pairs * K1_GEOMETRY_OPS
-                if need_w:  # the tap-feature rows again, and A^T ct
-                    ops += pairs * 16 * cin + 2.0 * qplan.n * klen * cout
+                in_walk = fc.w_fits_shared(kz * ky * kx, cin, cout)
+                ops, tc_ops, products = pairs * K1_GEOMETRY_OPS, 0.0, []
                 if need_q or need_c or need_f:  # d_acc = ct W^T
-                    ops += 2.0 * qplan.n * klen * cout
+                    if in_walk:
+                        ops += 2.0 * qplan.n * klen * cout
+                    else:
+                        tc_ops += 2.0 * qplan.n * klen * cout
+                        products += [(m_, cout, klen, False)
+                                     for m_ in chunks_of(qplan.n, klen)]
+                if need_w:  # the tap-feature rows again, and A^T ct
+                    ops += pairs * 16 * cin
+                    tc_ops += 2.0 * qplan.n * klen * cout
+                    products += [(klen, m_, cout, True)
+                                 for m_ in chunks_of(qplan.n, klen)]
                 if need_f:
                     ops += pairs * 16 * cin
                 if need_q or need_c:  # 8 Cin-long dots and the adjoint
@@ -531,9 +639,11 @@ def main():
                               cplan.pstarts)
                        + nbytes(*got))
                 labels = ("dW", "dq", "dc", "dfeats")
-                check("K2", f"{i} ({form} {''.join(str(int(x)) for x in nd)})",
+                check("K2", f"{i} (Cin {cin}, Cout {cout}, {form} "
+                      f"{''.join(str(int(x)) for x in nd)})",
                       a, list(zip(labels, got, want)), n_b, ops,
-                      timed=form == "step")
+                      timed=form == "step", n_tc_ops=tc_ops,
+                      products=products)
         for i, args in enumerate(calls["K4"]):
             (q_rep, cot_rep, tx, ty, tz, table_idx, gcell, dims, radius, k,
              t, n_points) = args
@@ -909,8 +1019,11 @@ def main():
          "max_abs_err": kernels[kid]["max_abs_err"],
          "ms": kernels[kid]["ms"], "plain_ms": kernels[kid]["plain_ms"],
          "bound_ms": kernels[kid]["bound_ms"],
-         "bound_by": bound_ms(kernels[kid]["bytes"], kernels[kid]["ops"])[1],
-         "library_ms": kernels[kid]["library_ms"]}
+         "bound_by": bound_ms(kernels[kid]["bytes"], kernels[kid]["ops"],
+                              kernels[kid]["tc_ops"])[1],
+         "library_ms": kernels[kid]["library_ms"],
+         "includes": (["neurofluid_torch/csrc/split_gemm.cuh"]
+                      if src == "fused_cconv.cu" else [])}
         for kid, (name, src, replaces) in sources.items()]}
     print(json.dumps(line))
     print(smi)

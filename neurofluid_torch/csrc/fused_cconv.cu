@@ -1,6 +1,6 @@
 // K1: fused continuous convolution, forward; K2: its backward.
 //
-// Replaces neurofluid_tpu/ops/fused_cconv.py `_fwd_kernel` (reached via
+// K1 replaces neurofluid_tpu/ops/fused_cconv.py `_fwd_kernel` (reached via
 // `_run_fwd` from `fused_cconv`, called by every ContinuousConvLayer of a
 // ParticleNet step). For each sorted query row:
 //
@@ -11,86 +11,111 @@
 //   cnt[q] = number of such candidates
 //
 // where tap_t is the trilinear weight of filter tap t (8 non-zero corners).
-//
-// Design. The TPU kernel builds a (64 * T_g, Cin) tap-feature block for a
-// whole 16-query group in VMEM (393 KB at Cin = 96) and walks candidates in
-// 128-lane chunks. A Hopper block has at most 227 KB of shared memory, so a
-// block here owns `qb` queries of one group (qb = 16, 8 or 4 as Cin grows,
-// so that qb * 64 * Cin floats stay under 132 KB) and keeps one (64, Cin)
-// accumulator per query in shared memory. All blocks of a group walk the
-// group's 9 slabs in tiles of 32 candidates:
-//   phase 1, one thread per (query, candidate): the in-radius test, the
-//     window, the ball-to-cube map and the trilinear corners in corner /
-//     fraction form, so a pair costs 8 taps, not 64;
-//   phase 2, one thread per (query, channel): add the 8 weighted features
-//     of every in-radius pair of the tile into its own accumulator column,
-//     so no two threads ever write the same word and no atomics are needed;
-//     the walk visits only the in-radius pairs (the phase-1 ballot mask,
-//     about one candidate in eight at the bench point);
-//   fold, once per query block: contract the accumulators with W; thread
-//     (o, ks) sums a contiguous k range for all qb queries, reading the
-//     accumulators as float4 and W coalesced across o, and the ks partial
-//     sums are reduced in a fixed order. qb is a template constant, so the
-//     per-query loops carry no predicated-off work.
-// Groups own disjoint ranges of sorted rows (gstart), so every output row is
-// written exactly once, by the block that owns its query: no zero-fill and
-// no cross-block ordering are needed (the TPU kernel zero-initialised its
-// outputs from program 0, valid only on a sequential grid).
-//
-// Bound on the card: operations. At the bench point the pair geometry
-// (about 70 operations per in-radius pair) and the tap accumulation
-// (16 * Cin per in-radius pair) dominate for small Cin, and the fold
-// (2 * 64 * Cin * Cout per query) for the wide layers; every input is read
-// once from device memory, with W re-read from L2 by each query block.
-// The squared distance is computed without contraction
-// (__fmul_rn/__fadd_rn), in the order of the plain version, so the two agree
-// exactly on which pairs are in radius.
-//
-// K2 (nf_fused_cconv_bwd, below) replaces fused_cconv.py `_bwd_kernel`
-// (reached via `_run_bwd` from the custom VJP of `fused_cconv`). With ct the
-// (Nq, Cout) cotangent of `out`, d_acc[q, t, :] = ct[q] W_t^T, and per
-// in-radius pair (q, p) the windowed tap weights w_t:
+// K2 replaces `_bwd_kernel` (reached via `_run_bwd` from the custom VJP of
+// `fused_cconv`). With ct the (Nq, Cout) cotangent of `out`,
+// d_acc[q, t, :] = ct[q] W_t^T, and per in-radius pair (q, p) the windowed
+// tap weights w_t:
 //   dfeats[p] += sum_t w_t d_acc[q, t, :]
 //   g_t        = <d_acc[q, t, :], f_p>, pushed through the geometry adjoint
 //                (window, ball -> cube map, taps) into g_off; then
 //                dc[p] += g_off / r and dq[q] -= g_off / r
 //   dW[t]      = sum_q A[q, t, :]^T ct[q]
-// Design. K2 walks the candidates exactly as K1 does (same query blocks,
-// same 32-candidate tiles, same in-radius test), with d_acc for the block's
-// queries in shared memory beside the recomputed accumulators A:
-//   phase 1, thread per (query, candidate): the pair geometry as K1; for
-//     the position gradient also the 8 tap-weight cotangents (a Cin-long
-//     dot each) and the hand-derived adjoint of the geometry. dq is summed
-//     over the warp (one warp is one query) into shared memory and stored
-//     once per query by the block that owns it; dc goes through shared
-//     atomics into a per-tile sum, then one global f32 atomic per candidate
-//     and axis;
-//   phase 2, thread per (query, channel): A as in K1;
-//   phase 3, thread per (candidate, channel): dfeats summed over the
-//     block's queries in registers, then one global f32 atomic.
-// Blocks of other groups add into the same dc and dfeats rows, so their
-// summation order varies from run to run. The walk writes A's rows (Nq, 64
-// Cin) to device memory, and two more kernels reduce them against ct: f32
-// (64 x 32)-tiles of A^T ct over fixed splits of the rows, then the splits
-// summed in order, so dW is deterministic. The TPU kernel accumulated all
-// four by read-modify-write on its sequential grid.
-// Bound on the card: operations, as K1 (the pair geometry and the 8 * Cin
-// products per pair for A and for dfeats), plus the dW reduction,
-// 2 * Nq * 64 * Cin * Cout. The A rows are scratch of this design, not
-// bytes the function has to move, so the bound leaves them out.
+//
+// Design for the H100. The TPU kernel keeps a (64 * T_g, Cin) tap-feature
+// block of a whole 16-query group in VMEM and contracts it with W on the
+// MXU in the same body. A Hopper block has 227 KB of shared memory, so the
+// work is cut into a candidate walk and matrix products:
+//
+// * The walk (`walk_fwd_kernel`). A block owns `qb` queries of one group
+//   and one (64, Cin) accumulator per query in shared memory; all blocks of
+//   a group walk the group's 9 slabs, taken as one sequence, in tiles of 32
+//   candidates (only the last tile of a walk is ragged). A slab is a
+//   contiguous row range of the sorted positions and features, so tile
+//   t + 1 is fetched by `cp.async` into the other half of a two-stage ring
+//   while tile t is processed; a tile costs two block barriers and no
+//   thread waits on a global load.
+//     phase 1, one thread per (query, candidate): the in-radius test, the
+//       window, the ball-to-cube map and the trilinear corners in corner /
+//       fraction form, so a pair costs 8 taps, not 64. The squared distance
+//       is computed without contraction (__fmul_rn/__fadd_rn) in the order
+//       of the plain version, so the two agree on which pairs are in radius;
+//     phase 2, one thread per (query, 4 channels): add the 8 weighted
+//       features of every in-radius pair of the tile (the phase-1 ballot
+//       mask, about one candidate in eight at the bench point) into its own
+//       accumulator columns with 16-byte shared-memory accesses: no two
+//       threads write the same word, no atomics.
+//   Groups own disjoint ranges of sorted rows, so every output row is
+//   written once by the block that owns its query.
+// * The contractions with W. Where W does not fit a block's shared memory
+//   (the wide layers: 1.5 MB at Cin 96, Cout 64) the walk owns no W: it
+//   writes its accumulator rows to a scratch buffer (a chunk of query rows
+//   at a time, so the scratch stays bounded) and `nf::split_gemm`
+//   (split_gemm.cuh: 3xTF32 `mma.sync` on the tensor cores, f32-class
+//   accuracy) computes out = rows W, d_acc = ct W^T and dW = rows^T ct in
+//   (64, 64) tiles: W leaves L2 once per 64 query rows instead of once per
+//   4- or 8-query block. Where W fits (<= 64 KB: the input layers and the
+//   3-channel output layer), it is staged once into the shared memory of a
+//   block that then walks at least 64 query rows, and the fold (K1) or
+//   d_acc (K2) stays in the walk kernel.
+// * K2 walks twice. `walk_fwd_kernel` recomputes the accumulator rows for
+//   dW (rows^T ct over fixed splits of the rows, the splits summed in
+//   order: dW is bitwise repeatable). `walk_bwd_kernel` holds d_acc of its
+//   queries in shared memory (copied from the scratch rows by `cp.async`,
+//   or contracted from the staged W^T) and per tile:
+//     phase 1 as in K1;
+//     position gradient, whole warps: the tile's in-radius pairs are
+//       numbered in (query, candidate) order from the ballot masks; a warp
+//       takes one pair at a time with its lanes over the channels, forms
+//       the 8 tap cotangents <d_acc[tap], f> and folds them across lanes
+//       with 9 shuffles; then one thread per pair runs the hand-derived
+//       geometry adjoint `pair_vjp`; then dq is summed per query and dc per
+//       candidate in pair order (no shared atomics), dq stored once by the
+//       block that owns the query, dc added with one global f32 atomic per
+//       candidate and axis;
+//     dfeats, one thread per (candidate in some query's radius, 4
+//       channels): summed over the block's queries in registers, then one
+//       global 16-byte f32 atomic.
+//   Blocks of other groups add into the same dc and dfeats rows, so their
+//   last bits vary from run to run; dW and dq do not.
+// Shared memory and blocks per SM (qb and the block size are chosen by
+// ops/fused_cconv.py `walk_config`: the qb that keeps the most queries
+// resident on an SM, 256 threads). Forward: Cin 96, qb 8, 226 KB, one block
+// per SM; Cin 64, qb 4, 85 KB, two blocks; the staged layers Cin 64 -> 3,
+// qb 8 with W, 210 KB, one block, and Cin 4, a whole 16-query group, 84 KB,
+// two blocks. Backward: Cin 96, qb 2, 77 KB, two blocks; Cin 64, qb 4,
+// 89 KB, two blocks.
+//
+// Bound on the card: operations. The pair geometry (about 70 operations per
+// in-radius pair) and the tap accumulation (16 * Cin per pair) run on the
+// f32 pipes, the contractions (2 * 64 * Cin * Cout per query, three TF32
+// passes each) on the tensor cores. What limits the kernels now is the
+// products and the walk's skeleton, not its arithmetic: with no pair in
+// radius at all (tile loads, barriers, distance tests, zeroing and writing
+// the rows, the products) K1 still takes two thirds of its time on an
+// H100; the tap accumulation is a quarter and the ball -> cube map under a
+// tenth (tools/profile_torch_port.py --walk-phases). No block shape (1 to
+// 16 queries, 128 to 512 threads) moved a walk by more than a tenth beyond
+// the one chosen, and neither did the 16-byte phase 2 nor tiles that run
+// across slab borders. The products take as long as the walk at the wide
+// layers (`mma.sync` TF32 reaches under a fifth of the card's
+// `wgmma` rate). The scratch rows are traffic of this design, not bytes
+// the function has to move, so the bound leaves them out.
 
 #include <cuda_runtime.h>
 
+#include "split_gemm.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTile = 32;  // candidates per pass; one warp per query in phase 1
-// W loads in flight per fold thread: the fold streams W from L2 and is
-// bound by the bytes in flight per SM (8 loads reached ~2.3 TB/s)
+constexpr int kMaxThreads = 512;
+constexpr int kTile = 32;  // candidates per tile; one warp per query in phase 1
+// W reads in flight per thread of the in-walk fold
 constexpr int kFoldBatch = 16;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kEps = 1e-8f;
 constexpr float kFourOverPi = 1.27323954473516f;
+// dynamic shared memory a block may take on this card
+constexpr size_t kSmemLimit = 232448;
 
 __device__ __forceinline__ float sgn(float x) {
   return static_cast<float>((x > 0.0f) - (x < 0.0f));
@@ -156,221 +181,365 @@ __device__ __forceinline__ void axis_tap(float u, int k, int& i0, float& f) {
   i0 = min(max(static_cast<int>(floorf(t)), 0), k - 2);
   f = t - static_cast<float>(i0);
 }
+// the 9 candidate slabs of a group: neighbour column (dx, dy) over the
+// group's z cells -1..+1, as first sorted row and length
+__device__ __forceinline__ void group_slabs(int col, int zlo, int zhi,
+                                            const int* __restrict__ pstarts,
+                                            int d0, int d1, int d2,
+                                            int* s_start, int* s_len) {
+  const int i = threadIdx.x;
+  if (i < 9) {
+    const int nx = col / d1 + i / 3 - 1, ny = col % d1 + i % 3 - 1;
+    const bool ok = nx >= 0 && nx < d0 && ny >= 0 && ny < d1;
+    const int base = (nx * d1 + ny) * d2;
+    const int z0 = max(zlo - 1, 0), z1 = min(zhi + 1, d2 - 1);
+    s_start[i] = ok ? pstarts[base + z0] : 0;
+    s_len[i] = ok ? pstarts[base + z1 + 1] - pstarts[base + z0] : 0;
+  }
+}
 
-template <int QB>
-__global__ void __launch_bounds__(kThreads) fused_cconv_fwd_kernel(
+// the candidates of the 9 slabs taken as one sequence: their number, and
+// the sorted row of candidate `flat` of it
+__device__ __forceinline__ int count_candidates(const int* s_len) {
+  int n = 0;
+  for (int sl = 0; sl < 9; ++sl) n += s_len[sl];
+  return n;
+}
+
+__device__ __forceinline__ int flat_row(int flat, const int* s_start,
+                                        const int* s_len) {
+  int sl = 0;
+  for (; sl < 8; ++sl) {
+    if (flat < s_len[sl]) break;
+    flat -= s_len[sl];
+  }
+  return s_start[sl] + flat;
+}
+
+// rows[j] = sorted row of candidate j of tile t (tiles run across slab
+// borders, so only the last tile of a walk is ragged)
+__device__ __forceinline__ void tile_rows(int t, int total, const int* s_start,
+                                          const int* s_len, int* rows) {
+  const int j = threadIdx.x;
+  if (j < kTile) {
+    const int flat = t * kTile + j;
+    rows[j] = flat < total ? flat_row(flat, s_start, s_len) : 0;
+  }
+}
+
+// start the asynchronous copy of a tile's positions and features
+__device__ __forceinline__ void fetch_tile(float* fe, float* cp,
+                                           const float* __restrict__ feats,
+                                           const float* __restrict__ cpos,
+                                           const int* rows, int nc, int cin,
+                                           bool fvec) {
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  for (int i = tid; i < nc * 3; i += nthreads)
+    nf::cp_async4(cp + i, cpos + static_cast<long>(rows[i / 3]) * 3 + i % 3,
+                  true);
+  if (fvec) {
+    const int c4 = cin / 4;
+    for (int i = tid; i < nc * c4; i += nthreads) {
+      const int j = i / c4, k = i - j * c4;
+      nf::cp_async16(fe + 4 * i,
+                     feats + static_cast<long>(rows[j]) * cin + 4 * k);
+    }
+  } else {
+    for (int i = tid; i < nc * cin; i += nthreads) {
+      const int j = i / cin, k = i - j * cin;
+      nf::cp_async4(fe + i, feats + static_cast<long>(rows[j]) * cin + k,
+                    true);
+    }
+  }
+}
+
+// normalized offset of candidate j from query q and its squared length, in
+// the plain version's order of operations
+__device__ __forceinline__ void pair_offset(const float* cp, const float* qp,
+                                            int q, int j, float inv_r,
+                                            float& ox, float& oy, float& oz,
+                                            float& d2n) {
+  ox = __fmul_rn(__fsub_rn(cp[3 * j], qp[3 * q]), inv_r);
+  oy = __fmul_rn(__fsub_rn(cp[3 * j + 1], qp[3 * q + 1]), inv_r);
+  oz = __fmul_rn(__fsub_rn(cp[3 * j + 2], qp[3 * q + 2]), inv_r);
+  d2n = __fadd_rn(__fadd_rn(__fmul_rn(ox, ox), __fmul_rn(oy, oy)),
+                  __fmul_rn(oz, oz));
+}
+
+__device__ __forceinline__ void axpy4(float4& a, float w, const float4& f) {
+  a.x += w * f.x;
+  a.y += w * f.y;
+  a.z += w * f.z;
+  a.w += w * f.w;
+}
+
+// Phase 1 for pair p = q * kTile + j: the in-radius test and, for a pair in
+// radius, its first tap pt[p] and the 8 windowed corner weights
+// pw[8 * p + c] (corners z outer, x inner).
+__device__ __forceinline__ bool pair_geometry(const float* cp, const float* qp,
+                                              int q, int j, bool live,
+                                              float inv_r, int exclude_self,
+                                              int kz, int ky, int kx, int p,
+                                              int* pt, float* pw) {
+  if (!live) return false;
+  float ox, oy, oz, d2n;
+  pair_offset(cp, qp, q, j, inv_r, ox, oy, oz, d2n);
+  const bool within = d2n <= 1.0f && (!exclude_self || d2n > 0.0f);
+  if (within) {
+    const float t = 1.0f - fminf(d2n, 2.0f);
+    const float win = fminf(fmaxf(t * t * t, 0.0f), 1.0f);
+    float ux, uy, uz;
+    ball_to_cube(ox, oy, oz, d2n, ux, uy, uz);
+    int ix, iy, iz;
+    float fx, fy, fz;
+    axis_tap(ux, kx, ix, fx);
+    axis_tap(uy, ky, iy, fy);
+    axis_tap(uz, kz, iz, fz);
+    pt[p] = (iz * ky + iy) * kx + ix;
+    const float wz[2] = {(1.0f - fz) * win, fz * win};
+    const float wy[2] = {1.0f - fy, fy};
+    const float wx[2] = {1.0f - fx, fx};
+    float4* dst = reinterpret_cast<float4*>(pw + 8 * p);
+    dst[0] = make_float4(wz[0] * wy[0] * wx[0], wz[0] * wy[0] * wx[1],
+                         wz[0] * wy[1] * wx[0], wz[0] * wy[1] * wx[1]);
+    dst[1] = make_float4(wz[1] * wy[0] * wx[0], wz[1] * wy[0] * wx[1],
+                         wz[1] * wy[1] * wx[0], wz[1] * wy[1] * wx[1]);
+  }
+  return within;
+}
+
+// The forward walk. A block takes work items item = (group, y) in turn and
+// in each the query rows b0 = lo + y * QB, lo + (y + ysplit) * QB, ... of
+// the group's rows inside [row_lo, row_hi). FOLD: W is staged into shared
+// memory once and out (Nq, Cout) = acc W is written; otherwise the
+// accumulator rows go to out ((row_hi - row_lo), 64 * Cin), row - row_lo.
+// cnt (absolute rows) may be null.
+template <int QB, bool FOLD>
+__global__ void __launch_bounds__(kMaxThreads) walk_fwd_kernel(
     const int* __restrict__ gcol, const int* __restrict__ gzlo,
     const int* __restrict__ gzhi, const int* __restrict__ gstart,
     const int* __restrict__ pstarts, const float* __restrict__ qpos,
     const float* __restrict__ cpos, const float* __restrict__ feats,
     const float* __restrict__ w, float* __restrict__ out,
-    float* __restrict__ cnt, int d0, int d1, int d2, int kz, int ky, int kx,
-    int cin, int cout, float inv_r, int exclude_self) {
+    float* __restrict__ cnt, int n_items, int ysplit, int row_lo, int row_hi,
+    int d0, int d1, int d2, int kz, int ky, int kx, int cin, int cout,
+    float inv_r, int exclude_self) {
   constexpr int qb = QB;
+  constexpr int pairs = QB * kTile;
   extern __shared__ __align__(16) float smem[];
-  __shared__ int s_start[9], s_len[9];
-  const int g = blockIdx.x;
-  const int col = gcol[g];
-  if (col >= d0 * d1) return;  // empty tail group: owns no rows
-  const int tid = threadIdx.x;
+  __shared__ int s_start[9], s_len[9], s_rows[3][kTile];
+  const int tid = threadIdx.x, nthreads = blockDim.x;
   const int lane = tid % 32;
   const int n_taps = kz * ky * kx;
   const int tap_len = n_taps * cin;
-  const int pairs = qb * kTile;
-  float* acc = smem;                                    // qb * tap_len
-  float* fe = acc + qb * tap_len;                       // kTile * cin
-  float* cp = fe + kTile * cin;                         // kTile * 3
-  float* pw = cp + kTile * 3;                           // 8 * pairs
-  int* pt = reinterpret_cast<int*>(pw + 8 * pairs);     // pairs
-  float* qp = reinterpret_cast<float*>(pt + pairs);     // qb * 3
-  int* qcnt = reinterpret_cast<int*>(qp + qb * 3);      // qb
+  float* wsm = smem;                                         // tap_len * cout
+  float* acc = wsm + (FOLD ? tap_len * cout : 0);            // qb * tap_len
+  float* fe = acc + qb * tap_len;                            // 2 * kTile * cin
+  float* cp = fe + 2 * kTile * cin;                          // 2 * kTile * 3
+  float* pw = cp + 2 * kTile * 3;                            // 8 * pairs
+  int* pt = reinterpret_cast<int*>(pw + 8 * pairs);          // pairs
+  float* qp = reinterpret_cast<float*>(pt + pairs);          // qb * 3
+  int* qcnt = reinterpret_cast<int*>(qp + qb * 3);           // qb
   unsigned* qmask = reinterpret_cast<unsigned*>(qcnt + qb);  // qb
-  float* red = reinterpret_cast<float*>(qmask + qb);    // kThreads * qb
+  float* red = reinterpret_cast<float*>(qmask + qb);         // nthreads * qb
+  const bool cvec = cin % 4 == 0;
+  const bool fvec = cvec && nf::aligned16(feats);
+  const int sy = kx, sz = ky * kx;
 
-  const int q0 = gstart[g];
-  const int gcount = gstart[g + 1] - q0;
-  if (tid < 9) {
-    const int nx = col / d1 + tid / 3 - 1, ny = col % d1 + tid % 3 - 1;
-    const bool ok = nx >= 0 && nx < d0 && ny >= 0 && ny < d1;
-    const int base = (nx * d1 + ny) * d2;
-    const int z0 = max(gzlo[g] - 1, 0), z1 = min(gzhi[g] + 1, d2 - 1);
-    s_start[tid] = ok ? pstarts[base + z0] : 0;
-    s_len[tid] = ok ? pstarts[base + z1 + 1] - pstarts[base + z0] : 0;
-  }
-  const int ks_count = kThreads / cout;  // fold: k split across threads
+  if (FOLD)
+    for (int i = tid; i < tap_len * cout; i += nthreads) wsm[i] = w[i];
+  const int ks_count = nthreads / cout;  // fold: k split across threads
   const int fo = tid % cout, fks = tid / cout;
 
-  // A group longer than group_size (only if the plan's overflow flag is
-  // set) is still covered: the blocks of the group stride over its rows.
-  for (int b0 = blockIdx.y * qb; b0 < gcount; b0 += gridDim.y * qb) {
-    const int nq = min(qb, gcount - b0);
-    for (int i = tid; i < qb * tap_len; i += kThreads) acc[i] = 0.0f;
-    if (tid < qb * 3)
-      qp[tid] = tid / 3 < nq ? qpos[static_cast<long>(q0 + b0) * 3 + tid]
-                             : 0.0f;
-    if (tid < qb) qcnt[tid] = 0;
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+    const int g = item / ysplit, y = item % ysplit;
+    const int col = gcol[g];
+    if (col >= d0 * d1) continue;  // empty tail group: owns no rows
+    const int lo = max(gstart[g], row_lo), hi = min(gstart[g + 1], row_hi);
+    if (lo >= hi) continue;
+    __syncthreads();  // the last item's readers of the slabs are done
+    group_slabs(col, gzlo[g], gzhi[g], pstarts, d0, d1, d2, s_start, s_len);
     __syncthreads();
+    const int total = count_candidates(s_len);
+    const int n_tiles = (total + kTile - 1) / kTile;
 
-    for (int sl = 0; sl < 9; ++sl) {
-      const int start = s_start[sl], len = s_len[sl];
-      for (int c0 = 0; c0 < len; c0 += kTile) {
-        const int nc = min(kTile, len - c0);
-        const long crow = static_cast<long>(start) + c0;
-        for (int i = tid; i < nc * 3; i += kThreads) cp[i] = cpos[crow * 3 + i];
-        for (int i = tid; i < nc * cin; i += kThreads)
-          fe[i] = feats[crow * cin + i];
-        __syncthreads();
+    // A group longer than group_size (only if the plan's overflow flag is
+    // set) is still covered: its blocks stride over its rows.
+    for (int b0 = lo + y * qb; b0 < hi; b0 += ysplit * qb) {
+      const int nq = min(qb, hi - b0);
+      for (int i = tid; i < qb * tap_len; i += nthreads) acc[i] = 0.0f;
+      if (tid < qb * 3)
+        qp[tid] = tid / 3 < nq ? qpos[static_cast<long>(b0) * 3 + tid] : 0.0f;
+      if (tid < qb) qcnt[tid] = 0;
+      tile_rows(0, total, s_start, s_len, s_rows[0]);
+      tile_rows(1, total, s_start, s_len, s_rows[1]);
+      __syncthreads();
 
-        // phase 1: pair geometry; a warp is the 32 candidates of one query
-        for (int p = tid; p < pairs; p += kThreads) {
+      if (n_tiles > 0)
+        fetch_tile(fe, cp, feats, cpos, s_rows[0], min(kTile, total), cin,
+                   fvec);
+      nf::cp_async_commit();
+      for (int t = 0; t < n_tiles; ++t) {
+        const int buf = t & 1;
+        nf::cp_async_wait<0>();  // tile t has landed
+        __syncthreads();  // ... for every thread; tile t - 1 is consumed
+        tile_rows(t + 2, total, s_start, s_len, s_rows[(t + 2) % 3]);
+        if (t + 1 < n_tiles)
+          fetch_tile(fe + (buf ^ 1) * kTile * cin, cp + (buf ^ 1) * kTile * 3,
+                     feats, cpos, s_rows[(t + 1) % 3],
+                     min(kTile, total - (t + 1) * kTile), cin, fvec);
+        nf::cp_async_commit();
+        const int nc = min(kTile, total - t * kTile);
+        const float* tcp = cp + buf * kTile * 3;
+        const float* tfe = fe + buf * kTile * cin;
+
+        // phase 1: a warp is the 32 candidates of one query
+        for (int p = tid; p < pairs; p += nthreads) {
           const int q = p / kTile, j = p % kTile;
-          bool within = false;
-          if (q < nq && j < nc) {
-            const float ox = __fmul_rn(__fsub_rn(cp[3 * j], qp[3 * q]), inv_r);
-            const float oy =
-                __fmul_rn(__fsub_rn(cp[3 * j + 1], qp[3 * q + 1]), inv_r);
-            const float oz =
-                __fmul_rn(__fsub_rn(cp[3 * j + 2], qp[3 * q + 2]), inv_r);
-            const float d2n = __fadd_rn(
-                __fadd_rn(__fmul_rn(ox, ox), __fmul_rn(oy, oy)),
-                __fmul_rn(oz, oz));
-            within = d2n <= 1.0f && (!exclude_self || d2n > 0.0f);
-            if (within) {
-              const float t = 1.0f - fminf(d2n, 2.0f);
-              const float win = fminf(fmaxf(t * t * t, 0.0f), 1.0f);
-              float ux, uy, uz;
-              ball_to_cube(ox, oy, oz, d2n, ux, uy, uz);
-              int ix, iy, iz;
-              float fx, fy, fz;
-              axis_tap(ux, kx, ix, fx);
-              axis_tap(uy, ky, iy, fy);
-              axis_tap(uz, kz, iz, fz);
-              pt[p] = (iz * ky + iy) * kx + ix;
-              const float wz[2] = {(1.0f - fz) * win, fz * win};
-              const float wy[2] = {1.0f - fy, fy};
-              const float wx[2] = {1.0f - fx, fx};
-#pragma unroll
-              for (int c = 0; c < 8; ++c)
-                pw[c * pairs + p] = wz[c >> 2] * wy[(c >> 1) & 1] * wx[c & 1];
-            }
-          }
+          const bool within =
+              pair_geometry(tcp, qp, q, j, q < nq && j < nc, inv_r,
+                            exclude_self, kz, ky, kx, p, pt, pw);
           const unsigned hits = __ballot_sync(kFull, within);
-          if (lane == 0) {  // one warp per q
+          if (lane == 0) {
             qcnt[q] += __popc(hits);
             qmask[q] = hits;
           }
         }
         __syncthreads();
 
-        // phase 2: thread (q, c) owns accumulator column acc[q, :, c]
-        const int sy = kx, sz = ky * kx;
-        for (int item = tid; item < qb * cin; item += kThreads) {
-          const int q = item / cin, c = item % cin;
-          float* a = acc + q * tap_len + c;
-          for (unsigned m = qmask[q]; m != 0; m &= m - 1) {
-            const int p = q * kTile + __ffs(m) - 1;
-            const int tap = pt[p];
-            const float f = fe[(p - q * kTile) * cin + c];
-            float* at = a + tap * cin;
-            at[0] += pw[p] * f;
-            at[cin] += pw[pairs + p] * f;
-            at[sy * cin] += pw[2 * pairs + p] * f;
-            at[(sy + 1) * cin] += pw[3 * pairs + p] * f;
-            at[sz * cin] += pw[4 * pairs + p] * f;
-            at[(sz + 1) * cin] += pw[5 * pairs + p] * f;
-            at[(sz + sy) * cin] += pw[6 * pairs + p] * f;
-            at[(sz + sy + 1) * cin] += pw[7 * pairs + p] * f;
+        // phase 2: a thread owns accumulator columns acc[q, :, c..c + 3]
+        // (one column where Cin is no multiple of 4). The 8 corners of a
+        // pair are 8 different words: read all, then write all.
+        if (cvec) {
+          const int c4n = cin / 4;
+          for (int item2 = tid; item2 < qb * c4n; item2 += nthreads) {
+            const int q = item2 / c4n, c = (item2 - q * c4n) * 4;
+            float* a = acc + q * tap_len + c;
+            for (unsigned m = qmask[q]; m != 0; m &= m - 1) {
+              const int j = __ffs(m) - 1;
+              const int p = q * kTile + j;
+              const float4 f =
+                  *reinterpret_cast<const float4*>(tfe + j * cin + c);
+              float* at = a + pt[p] * cin;
+              const float4 w0 = *reinterpret_cast<const float4*>(pw + 8 * p);
+              const float4 w1 =
+                  *reinterpret_cast<const float4*>(pw + 8 * p + 4);
+              float4* t0 = reinterpret_cast<float4*>(at);
+              float4* t1 = reinterpret_cast<float4*>(at + cin);
+              float4* t2 = reinterpret_cast<float4*>(at + sy * cin);
+              float4* t3 = reinterpret_cast<float4*>(at + (sy + 1) * cin);
+              float4* t4 = reinterpret_cast<float4*>(at + sz * cin);
+              float4* t5 = reinterpret_cast<float4*>(at + (sz + 1) * cin);
+              float4* t6 = reinterpret_cast<float4*>(at + (sz + sy) * cin);
+              float4* t7 = reinterpret_cast<float4*>(at + (sz + sy + 1) * cin);
+              float4 a0 = *t0, a1 = *t1, a2 = *t2, a3 = *t3;
+              float4 a4 = *t4, a5 = *t5, a6 = *t6, a7 = *t7;
+              axpy4(a0, w0.x, f);
+              axpy4(a1, w0.y, f);
+              axpy4(a2, w0.z, f);
+              axpy4(a3, w0.w, f);
+              axpy4(a4, w1.x, f);
+              axpy4(a5, w1.y, f);
+              axpy4(a6, w1.z, f);
+              axpy4(a7, w1.w, f);
+              *t0 = a0;
+              *t1 = a1;
+              *t2 = a2;
+              *t3 = a3;
+              *t4 = a4;
+              *t5 = a5;
+              *t6 = a6;
+              *t7 = a7;
+            }
           }
-        }
-        __syncthreads();
-      }
-    }
-
-    // fold: out[q, o] = sum_k acc[q, k] * W[k, o]; thread (o, ks) sums a
-    // contiguous k range (a multiple of 4 long, so float4 reads stay aligned)
-    if (fks < ks_count) {
-      float part[QB];
-#pragma unroll
-      for (int q = 0; q < QB; ++q) part[q] = 0.0f;
-      const int chunk = ((tap_len + ks_count - 1) / ks_count + 3) & ~3;
-      const int k_end = min(tap_len, (fks + 1) * chunk);
-      int k = fks * chunk;
-      if ((tap_len & 3) == 0) {
-        for (; k + kFoldBatch <= k_end; k += kFoldBatch) {
-          float wv[kFoldBatch];
-#pragma unroll
-          for (int u = 0; u < kFoldBatch; ++u)
-            wv[u] = __ldg(w + static_cast<long>(k + u) * cout + fo);
-#pragma unroll
-          for (int u = 0; u < kFoldBatch; u += 4) {
-#pragma unroll
-            for (int q = 0; q < QB; ++q) {
-              const float4 a =
-                  *reinterpret_cast<const float4*>(acc + q * tap_len + k + u);
-              part[q] += a.x * wv[u];
-              part[q] += a.y * wv[u + 1];
-              part[q] += a.z * wv[u + 2];
-              part[q] += a.w * wv[u + 3];
+        } else {
+          for (int item2 = tid; item2 < qb * cin; item2 += nthreads) {
+            const int q = item2 / cin, c = item2 % cin;
+            float* a = acc + q * tap_len + c;
+            for (unsigned m = qmask[q]; m != 0; m &= m - 1) {
+              const int j = __ffs(m) - 1;
+              const int p = q * kTile + j;
+              const float f = tfe[j * cin + c];
+              float* at = a + pt[p] * cin;
+              const float4 w0 = *reinterpret_cast<const float4*>(pw + 8 * p);
+              const float4 w1 =
+                  *reinterpret_cast<const float4*>(pw + 8 * p + 4);
+              const float a0 = at[0], a1 = at[cin], a2 = at[sy * cin];
+              const float a3 = at[(sy + 1) * cin], a4 = at[sz * cin];
+              const float a5 = at[(sz + 1) * cin], a6 = at[(sz + sy) * cin];
+              const float a7 = at[(sz + sy + 1) * cin];
+              at[0] = a0 + w0.x * f;
+              at[cin] = a1 + w0.y * f;
+              at[sy * cin] = a2 + w0.z * f;
+              at[(sy + 1) * cin] = a3 + w0.w * f;
+              at[sz * cin] = a4 + w1.x * f;
+              at[(sz + 1) * cin] = a5 + w1.y * f;
+              at[(sz + sy) * cin] = a6 + w1.z * f;
+              at[(sz + sy + 1) * cin] = a7 + w1.w * f;
             }
           }
         }
-        for (; k + 4 <= k_end; k += 4) {
-          float wv[4];
-#pragma unroll
-          for (int u = 0; u < 4; ++u)
-            wv[u] = __ldg(w + static_cast<long>(k + u) * cout + fo);
-#pragma unroll
-          for (int q = 0; q < QB; ++q) {
-            const float4 a =
-                *reinterpret_cast<const float4*>(acc + q * tap_len + k);
-            part[q] += a.x * wv[0];
-            part[q] += a.y * wv[1];
-            part[q] += a.z * wv[2];
-            part[q] += a.w * wv[3];
-          }
-        }
       }
-      for (; k < k_end; ++k) {
-        const float wv = __ldg(w + static_cast<long>(k) * cout + fo);
-#pragma unroll
-        for (int q = 0; q < QB; ++q) part[q] += acc[q * tap_len + k] * wv;
-      }
-#pragma unroll
-      for (int q = 0; q < QB; ++q) red[(fks * QB + q) * cout + fo] = part[q];
-    }
-    __syncthreads();
-    for (int item = tid; item < nq * cout; item += kThreads) {
-      const int q = item / cout, o = item % cout;
-      float v = 0.0f;
-      for (int ks = 0; ks < ks_count; ++ks) v += red[(ks * qb + q) * cout + o];
-      out[static_cast<long>(q0 + b0 + q) * cout + o] = v;
-    }
-    if (tid < nq) cnt[q0 + b0 + tid] = static_cast<float>(qcnt[tid]);
-    __syncthreads();
-  }
-}
+      nf::cp_async_wait<0>();
+      __syncthreads();
 
-template <int QB>
-int launch(const int* gcol, const int* gzlo, const int* gzhi,
-           const int* gstart, const int* pstarts, const float* qpos,
-           const float* cpos, const float* feats, const float* w, float* out,
-           float* cnt, int n_groups, int group_size, int d0, int d1, int d2,
-           int kz, int ky, int kx, int cin, int cout, float inv_r,
-           int exclude_self, cudaStream_t stream) {
-  const int tap_len = kz * ky * kx * cin;
-  const size_t smem =
-      sizeof(float) * (static_cast<size_t>(QB) * tap_len + kTile * cin +
-                       kTile * 3 + 8 * QB * kTile + QB * kTile + QB * 3 +
-                       2 * QB + static_cast<size_t>(kThreads) * QB);
-  const cudaError_t err = cudaFuncSetAttribute(
-      fused_cconv_fwd_kernel<QB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(n_groups, (group_size + QB - 1) / QB);
-  fused_cconv_fwd_kernel<QB><<<grid, kThreads, smem, stream>>>(
-      gcol, gzlo, gzhi, gstart, pstarts, qpos, cpos, feats, w, out, cnt, d0,
-      d1, d2, kz, ky, kx, cin, cout, inv_r, exclude_self);
-  return static_cast<int>(cudaGetLastError());
+      if (FOLD) {
+        // out[q, o] = sum_k acc[q, k] * W[k, o]; thread (o, ks) sums a
+        // contiguous k range (a multiple of 4 long, so float4 reads stay
+        // aligned), then the ks partial sums are added in order
+        if (fks < ks_count) {
+          float part[QB];
+#pragma unroll
+          for (int q = 0; q < QB; ++q) part[q] = 0.0f;
+          const int chunk = ((tap_len + ks_count - 1) / ks_count + 3) & ~3;
+          const int k_end = min(tap_len, (fks + 1) * chunk);
+          int k = fks * chunk;
+          for (; k + kFoldBatch <= k_end; k += kFoldBatch) {
+            float wv[kFoldBatch];
+#pragma unroll
+            for (int u = 0; u < kFoldBatch; ++u)
+              wv[u] = wsm[(k + u) * cout + fo];
+#pragma unroll
+            for (int u = 0; u < kFoldBatch; u += 4) {
+#pragma unroll
+              for (int q = 0; q < QB; ++q) {
+                const float4 a = *reinterpret_cast<const float4*>(
+                    acc + q * tap_len + k + u);
+                part[q] += a.x * wv[u];
+                part[q] += a.y * wv[u + 1];
+                part[q] += a.z * wv[u + 2];
+                part[q] += a.w * wv[u + 3];
+              }
+            }
+          }
+          for (; k < k_end; ++k) {
+            const float wv = wsm[k * cout + fo];
+#pragma unroll
+            for (int q = 0; q < QB; ++q) part[q] += acc[q * tap_len + k] * wv;
+          }
+#pragma unroll
+          for (int q = 0; q < QB; ++q)
+            red[(fks * QB + q) * cout + fo] = part[q];
+        }
+        __syncthreads();
+        for (int i = tid; i < nq * cout; i += nthreads) {
+          const int q = i / cout, o = i % cout;
+          float v = 0.0f;
+          for (int ks = 0; ks < ks_count; ++ks)
+            v += red[(ks * qb + q) * cout + o];
+          out[static_cast<long>(b0 - row_lo + q) * cout + o] = v;
+        }
+      } else {
+        float4* dst = reinterpret_cast<float4*>(
+            out + static_cast<long>(b0 - row_lo) * tap_len);
+        const float4* src = reinterpret_cast<const float4*>(acc);
+        for (int i = tid; i < nq * tap_len / 4; i += nthreads) dst[i] = src[i];
+      }
+      if (cnt != nullptr && tid < nq)
+        cnt[b0 + tid] = static_cast<float>(qcnt[tid]);
+      __syncthreads();
+    }
+  }
 }
 
 
@@ -498,399 +667,558 @@ __device__ void pair_vjp(float x, float y, float z, float d2n, int kz, int ky,
   gz += g_r * z;
 }
 
+// (query, candidate) of the tile's in-radius pair number i, pairs numbered
+// query by query and, within a query, by candidate
 template <int QB>
-__global__ void __launch_bounds__(kThreads) fused_cconv_bwd_kernel(
+__device__ __forceinline__ void nth_pair(const unsigned* qmask, int i, int& q,
+                                         int& j) {
+  q = 0;
+  while (q < QB - 1) {
+    const int n = __popc(qmask[q]);
+    if (i < n) break;
+    i -= n;
+    ++q;
+  }
+  j = __fns(qmask[q], 0, i + 1);
+}
+
+// The backward walk: dq, dc (both or neither) and dfeats of the query rows
+// in [row_lo, row_hi), work items as in walk_fwd_kernel. LOCAL: W^T
+// (cout, 64 * cin) is staged into shared memory once and d_acc = ct W^T is
+// contracted per query block; otherwise d_acc rows are read from
+// dacc_rows ((row_hi - row_lo), 64 * cin), row - row_lo.
+template <int QB, bool LOCAL>
+__global__ void __launch_bounds__(kMaxThreads) walk_bwd_kernel(
     const int* __restrict__ gcol, const int* __restrict__ gzlo,
     const int* __restrict__ gzhi, const int* __restrict__ gstart,
     const int* __restrict__ pstarts, const float* __restrict__ qpos,
     const float* __restrict__ cpos, const float* __restrict__ feats,
     const float* __restrict__ wt, const float* __restrict__ ct,
-    float* __restrict__ acc_out, float* __restrict__ dq,
-    float* __restrict__ dc, float* __restrict__ df, int d0, int d1, int d2,
-    int kz, int ky, int kx, int cin, int cout, float inv_r,
-    int exclude_self) {
+    const float* __restrict__ dacc_rows, float* __restrict__ dq,
+    float* __restrict__ dc, float* __restrict__ df, int n_items, int ysplit,
+    int row_lo, int row_hi, int d0, int d1, int d2, int kz, int ky, int kx,
+    int cin, int cout, float inv_r, int exclude_self) {
   constexpr int qb = QB;
+  constexpr int pairs = QB * kTile;
   extern __shared__ __align__(16) float smem[];
-  __shared__ int s_start[9], s_len[9];
-  const int g = blockIdx.x;
-  const int col = gcol[g];
-  if (col >= d0 * d1) return;  // empty tail group: owns no rows
-  const bool need_acc = acc_out != nullptr;
+  __shared__ int s_start[9], s_len[9], s_rows[3][kTile];
   const bool need_pos = dq != nullptr;
   const bool need_f = df != nullptr;
-  const bool need_dacc = need_pos || need_f;
-  const int tid = threadIdx.x;
-  const int lane = tid % 32;
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int lane = tid % 32, warp = tid / 32, n_warps = nthreads / 32;
   const int n_taps = kz * ky * kx;
   const int tap_len = n_taps * cin;
-  const int cs = cin | 1;  // odd row stride: no bank conflicts across taps
-  const int dlen = n_taps * cs;
-  const int pairs = qb * kTile;
-  float* acc = smem;                                        // qb * tap_len
-  float* dacc = acc + (need_acc ? qb * tap_len : 0);        // qb * dlen
-  float* fe = dacc + (need_dacc ? qb * dlen : 0);           // kTile * cs
-  float* cp = fe + kTile * cs;                              // kTile * 3
-  float* pw = cp + kTile * 3;                               // 8 * pairs
-  int* pt = reinterpret_cast<int*>(pw + 8 * pairs);         // pairs
-  float* qp = reinterpret_cast<float*>(pt + pairs);         // qb * 3
-  float* sct = qp + qb * 3;                                 // qb * cout
-  unsigned* qmask = reinterpret_cast<unsigned*>(sct + qb * cout);  // qb
-  float* sdq = reinterpret_cast<float*>(qmask + qb);        // qb * 3
-  float* sdc = sdq + qb * 3;                                // kTile * 3
-
-  const int q0 = gstart[g];
-  const int gcount = gstart[g + 1] - q0;
-  if (tid < 9) {
-    const int nx = col / d1 + tid / 3 - 1, ny = col % d1 + tid % 3 - 1;
-    const bool ok = nx >= 0 && nx < d0 && ny >= 0 && ny < d1;
-    const int base = (nx * d1 + ny) * d2;
-    const int z0 = max(gzlo[g] - 1, 0), z1 = min(gzhi[g] + 1, d2 - 1);
-    s_start[tid] = ok ? pstarts[base + z0] : 0;
-    s_len[tid] = ok ? pstarts[base + z1 + 1] - pstarts[base + z0] : 0;
-  }
+  float* wts = smem;                                         // cout * tap_len
+  float* dacc = wts + (LOCAL ? cout * tap_len : 0);          // qb * tap_len
+  float* fe = dacc + qb * tap_len;                           // 2 * kTile * cin
+  float* cp = fe + 2 * kTile * cin;                          // 2 * kTile * 3
+  float* pw = cp + 2 * kTile * 3;                            // 8 * pairs
+  float* g8s = pw + 8 * pairs;                               // 8 * pairs
+  int* pt = reinterpret_cast<int*>(g8s + 8 * pairs);         // pairs
+  float* qp = reinterpret_cast<float*>(pt + pairs);          // qb * 3
+  float* sdq = qp + qb * 3;                                  // qb * 3
+  unsigned* qmask = reinterpret_cast<unsigned*>(sdq + qb * 3);  // qb
+  float* sct = reinterpret_cast<float*>(qmask + qb);         // qb * cout
+  const bool cvec = cin % 4 == 0;
+  const bool fvec = cvec && nf::aligned16(feats);
   const int sy = kx, sz = ky * kx;
   const int coff[8] = {0, 1, sy, sy + 1, sz, sz + 1, sz + sy, sz + sy + 1};
 
-  for (int b0 = blockIdx.y * qb; b0 < gcount; b0 += gridDim.y * qb) {
-    const int nq = min(qb, gcount - b0);
-    const long row0 = static_cast<long>(q0 + b0);
-    if (need_acc)
-      for (int i = tid; i < qb * tap_len; i += kThreads) acc[i] = 0.0f;
-    if (tid < qb * 3) {
-      qp[tid] = tid / 3 < nq ? qpos[row0 * 3 + tid] : 0.0f;
-      sdq[tid] = 0.0f;
-    }
-    for (int i = tid; i < qb * cout; i += kThreads)
-      sct[i] = i / cout < nq ? ct[row0 * cout + i] : 0.0f;
-    __syncthreads();
-    // d_acc[q, t, c] = sum_o ct[q, o] W[t * cin + c, o] (wt is W^T)
-    if (need_dacc) {
-      for (int k = tid; k < tap_len; k += kThreads) {
-        float part[QB];
-#pragma unroll
-        for (int q = 0; q < QB; ++q) part[q] = 0.0f;
-        for (int o = 0; o < cout; ++o) {
-          const float wv = __ldg(wt + static_cast<long>(o) * tap_len + k);
-#pragma unroll
-          for (int q = 0; q < QB; ++q) part[q] += sct[q * cout + o] * wv;
-        }
-        const int t = k / cin, c = k % cin;
-#pragma unroll
-        for (int q = 0; q < QB; ++q) dacc[q * dlen + t * cs + c] = part[q];
-      }
-    }
-    __syncthreads();
+  if (LOCAL)
+    for (int i = tid; i < cout * tap_len; i += nthreads) wts[i] = wt[i];
 
-    for (int sl = 0; sl < 9; ++sl) {
-      const int start = s_start[sl], len = s_len[sl];
-      for (int c0 = 0; c0 < len; c0 += kTile) {
-        const int nc = min(kTile, len - c0);
-        const long crow = static_cast<long>(start) + c0;
-        for (int i = tid; i < nc * 3; i += kThreads) cp[i] = cpos[crow * 3 + i];
-        for (int i = tid; i < nc * cin; i += kThreads)
-          fe[(i / cin) * cs + i % cin] = feats[crow * cin + i];
-        if (tid < kTile * 3) sdc[tid] = 0.0f;
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+    const int g = item / ysplit, y = item % ysplit;
+    const int col = gcol[g];
+    if (col >= d0 * d1) continue;  // empty tail group: owns no rows
+    const int lo = max(gstart[g], row_lo), hi = min(gstart[g + 1], row_hi);
+    if (lo >= hi) continue;
+    __syncthreads();  // the last item's readers of the slabs are done
+    group_slabs(col, gzlo[g], gzhi[g], pstarts, d0, d1, d2, s_start, s_len);
+    __syncthreads();
+    const int total = count_candidates(s_len);
+    const int n_tiles = (total + kTile - 1) / kTile;
+
+    for (int b0 = lo + y * qb; b0 < hi; b0 += ysplit * qb) {
+      const int nq = min(qb, hi - b0);
+      if (tid < qb * 3) {
+        qp[tid] = tid / 3 < nq ? qpos[static_cast<long>(b0) * 3 + tid] : 0.0f;
+        sdq[tid] = 0.0f;
+      }
+      if (LOCAL) {
+        for (int i = tid; i < qb * cout; i += nthreads)
+          sct[i] = i / cout < nq ? ct[static_cast<long>(b0) * cout + i] : 0.0f;
+        __syncthreads();  // also after the staging of W^T
+        // d_acc[q, k] = sum_o ct[q, o] W^T[o, k]
+        for (int k = tid; k < tap_len; k += nthreads) {
+          float part[QB];
+#pragma unroll
+          for (int q = 0; q < QB; ++q) part[q] = 0.0f;
+          for (int o = 0; o < cout; ++o) {
+            const float wv = wts[o * tap_len + k];
+#pragma unroll
+            for (int q = 0; q < QB; ++q) part[q] += sct[q * cout + o] * wv;
+          }
+#pragma unroll
+          for (int q = 0; q < QB; ++q) dacc[q * tap_len + k] = part[q];
+        }
+      } else {
+        const float* src =
+            dacc_rows + static_cast<long>(b0 - row_lo) * tap_len;
+        for (int i = tid; i < nq * tap_len / 4; i += nthreads)
+          nf::cp_async16(dacc + 4 * i, src + 4 * i);
+      }
+      tile_rows(0, total, s_start, s_len, s_rows[0]);
+      tile_rows(1, total, s_start, s_len, s_rows[1]);
+      __syncthreads();
+
+      if (n_tiles > 0)
+        fetch_tile(fe, cp, feats, cpos, s_rows[0], min(kTile, total), cin,
+                   fvec);
+      nf::cp_async_commit();
+      for (int t = 0; t < n_tiles; ++t) {
+        const int buf = t & 1;
+        nf::cp_async_wait<0>();  // tile t (and d_acc) has landed
+        __syncthreads();  // ... for every thread; tile t - 1 is consumed
+        tile_rows(t + 2, total, s_start, s_len, s_rows[(t + 2) % 3]);
+        if (t + 1 < n_tiles)
+          fetch_tile(fe + (buf ^ 1) * kTile * cin, cp + (buf ^ 1) * kTile * 3,
+                     feats, cpos, s_rows[(t + 1) % 3],
+                     min(kTile, total - (t + 1) * kTile), cin, fvec);
+        nf::cp_async_commit();
+        const int nc = min(kTile, total - t * kTile);
+        const float* tcp = cp + buf * kTile * 3;
+        const float* tfe = fe + buf * kTile * cin;
+        const int* rows = s_rows[t % 3];
+
+        // phase 1: pair geometry as in the forward walk
+        for (int p = tid; p < pairs; p += nthreads) {
+          const int q = p / kTile, j = p % kTile;
+          const bool within =
+              pair_geometry(tcp, qp, q, j, q < nq && j < nc, inv_r,
+                            exclude_self, kz, ky, kx, p, pt, pw);
+          const unsigned hits = __ballot_sync(kFull, within);
+          if (lane == 0) qmask[q] = hits;
+        }
         __syncthreads();
 
-        // phase 1: pair geometry (as K1) and the position adjoint
-        for (int p = tid; p < pairs; p += kThreads) {
-          const int q = p / kTile, j = p % kTile;
-          bool within = false;
-          float gox = 0.0f, goy = 0.0f, goz = 0.0f;
-          if (q < nq && j < nc) {
-            const float ox = __fmul_rn(__fsub_rn(cp[3 * j], qp[3 * q]), inv_r);
-            const float oy =
-                __fmul_rn(__fsub_rn(cp[3 * j + 1], qp[3 * q + 1]), inv_r);
-            const float oz =
-                __fmul_rn(__fsub_rn(cp[3 * j + 2], qp[3 * q + 2]), inv_r);
-            const float d2n = __fadd_rn(
-                __fadd_rn(__fmul_rn(ox, ox), __fmul_rn(oy, oy)),
-                __fmul_rn(oz, oz));
-            within = d2n <= 1.0f && (!exclude_self || d2n > 0.0f);
-            if (within) {
-              const float t = 1.0f - fminf(d2n, 2.0f);
-              const float win = fminf(fmaxf(t * t * t, 0.0f), 1.0f);
-              float ux, uy, uz;
-              ball_to_cube(ox, oy, oz, d2n, ux, uy, uz);
-              int ix, iy, iz;
-              float fx, fy, fz;
-              axis_tap(ux, kx, ix, fx);
-              axis_tap(uy, ky, iy, fy);
-              axis_tap(uz, kz, iz, fz);
-              const int tap = (iz * ky + iy) * kx + ix;
-              pt[p] = tap;
-              const float wz[2] = {(1.0f - fz) * win, fz * win};
-              const float wy[2] = {1.0f - fy, fy};
-              const float wx[2] = {1.0f - fx, fx};
+        int n_in = 0;
 #pragma unroll
-              for (int c = 0; c < 8; ++c)
-                pw[c * pairs + p] = wz[c >> 2] * wy[(c >> 1) & 1] * wx[c & 1];
-              if (need_pos) {
-                float g8[8];
-                const float* fr = fe + j * cs;
+        for (int q = 0; q < QB; ++q) n_in += __popc(qmask[q]);
+
+        if (need_pos) {
+          // tap cotangents: a warp per in-radius pair, lanes over channels
+          for (int i = warp; i < n_in; i += n_warps) {
+            int q, j;
+            nth_pair<QB>(qmask, i, q, j);
+            const float* dr = dacc + q * tap_len + pt[q * kTile + j] * cin;
+            const float* fr = tfe + j * cin;
+            float v[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+            for (int ch = lane; ch < cin; ch += 32) {
+              const float f = fr[ch];
 #pragma unroll
-                for (int c = 0; c < 8; ++c) {
-                  const float* dr = dacc + q * dlen + (tap + coff[c]) * cs;
-                  float v = 0.0f;
-                  for (int ch = 0; ch < cin; ++ch) v += dr[ch] * fr[ch];
-                  g8[c] = v;
-                }
-                pair_vjp(ox, oy, oz, d2n, kz, ky, kx, g8, gox, goy, goz);
-                gox *= inv_r;
-                goy *= inv_r;
-                goz *= inv_r;
-                atomicAdd(&sdc[3 * j], gox);
-                atomicAdd(&sdc[3 * j + 1], goy);
-                atomicAdd(&sdc[3 * j + 2], goz);
+              for (int c = 0; c < 8; ++c) v[c] += dr[coff[c] * cin + ch] * f;
+            }
+            // fold the 8 sums across the warp: after the three halving
+            // steps lane l holds corner (l >> 2) & 7 (bit 4 of the lane is
+            // bit 2 of the corner), then two full steps finish the sum
+            float a4[4], a2[2], a1;
+            {
+              const bool up = (lane & 16) != 0;
+#pragma unroll
+              for (int c = 0; c < 4; ++c) {
+                const float send = up ? v[c] : v[c + 4];
+                const float keep = up ? v[c + 4] : v[c];
+                a4[c] = keep + __shfl_xor_sync(kFull, send, 16);
               }
             }
-          }
-          const unsigned hits = __ballot_sync(kFull, within);
-          if (need_pos) {  // one warp is one query: sum its dq over lanes
+            {
+              const bool up = (lane & 8) != 0;
 #pragma unroll
-            for (int m = 16; m > 0; m >>= 1) {
-              gox += __shfl_xor_sync(kFull, gox, m);
-              goy += __shfl_xor_sync(kFull, goy, m);
-              goz += __shfl_xor_sync(kFull, goz, m);
+              for (int c = 0; c < 2; ++c) {
+                const float send = up ? a4[c] : a4[c + 2];
+                const float keep = up ? a4[c + 2] : a4[c];
+                a2[c] = keep + __shfl_xor_sync(kFull, send, 8);
+              }
             }
+            {
+              const bool up = (lane & 4) != 0;
+              const float send = up ? a2[0] : a2[1];
+              const float keep = up ? a2[1] : a2[0];
+              a1 = keep + __shfl_xor_sync(kFull, send, 4);
+            }
+            a1 += __shfl_xor_sync(kFull, a1, 2);
+            a1 += __shfl_xor_sync(kFull, a1, 1);
+            if ((lane & 3) == 0) g8s[i * 8 + ((lane >> 2) & 7)] = a1;
           }
-          if (lane == 0) {
-            qmask[q] = hits;
-            if (need_pos) {
-              sdq[3 * q] -= gox;
-              sdq[3 * q + 1] -= goy;
-              sdq[3 * q + 2] -= goz;
-            }
+          __syncthreads();
+          // the geometry adjoint: a thread per in-radius pair; its offset
+          // cotangent over r replaces the pair's tap cotangents
+          for (int i = tid; i < n_in; i += nthreads) {
+            int q, j;
+            nth_pair<QB>(qmask, i, q, j);
+            float ox, oy, oz, d2n;
+            pair_offset(tcp, qp, q, j, inv_r, ox, oy, oz, d2n);
+            float g8[8];
+#pragma unroll
+            for (int c = 0; c < 8; ++c) g8[c] = g8s[i * 8 + c];
+            float gx, gy, gz;
+            pair_vjp(ox, oy, oz, d2n, kz, ky, kx, g8, gx, gy, gz);
+            g8s[i * 8] = gx * inv_r;
+            g8s[i * 8 + 1] = gy * inv_r;
+            g8s[i * 8 + 2] = gz * inv_r;
           }
         }
-        __syncthreads();
 
-        // phase 2: thread (q, c) owns accumulator column acc[q, :, c]
-        if (need_acc) {
-          for (int item = tid; item < qb * cin; item += kThreads) {
-            const int q = item / cin, c = item % cin;
-            float* a = acc + q * tap_len + c;
-            for (unsigned m = qmask[q]; m != 0; m &= m - 1) {
-              const int p = q * kTile + __ffs(m) - 1;
-              const float f = fe[(p - q * kTile) * cs + c];
-              float* at = a + pt[p] * cin;
-#pragma unroll
-              for (int k = 0; k < 8; ++k) at[coff[k] * cin] += pw[k * pairs + p] * f;
-            }
-          }
-        }
-        // phase 3: thread (candidate, c) sums dfeats over the block's queries
+        // dfeats: thread (candidate, c) over the candidates some query of
+        // the block has in radius, summed over those queries
         if (need_f) {
-          for (int item = tid; item < nc * cin; item += kThreads) {
-            const int j = item / cin, c = item % cin;
-            float v = 0.0f;
-            bool any = false;
-            for (int q = 0; q < nq; ++q) {
-              if (!((qmask[q] >> j) & 1u)) continue;
-              any = true;
-              const int p = q * kTile + j;
-              const float* dr = dacc + q * dlen + pt[p] * cs + c;
-#pragma unroll
-              for (int k = 0; k < 8; ++k) v += pw[k * pairs + p] * dr[coff[k] * cs];
+          unsigned some = 0;
+          for (int q = 0; q < nq; ++q) some |= qmask[q];
+          const int n_some = __popc(some);
+          if (cvec && nf::aligned16(df)) {
+            const int c4n = cin / 4;
+            for (int item2 = tid; item2 < n_some * c4n; item2 += nthreads) {
+              const int a = item2 / c4n, c = (item2 - a * c4n) * 4;
+              const int j = __fns(some, 0, a + 1);
+              float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+              for (int q = 0; q < nq; ++q) {
+                if (!((qmask[q] >> j) & 1u)) continue;
+                const int p = q * kTile + j;
+                const float* dr = dacc + q * tap_len + pt[p] * cin + c;
+                const float4 w0 = *reinterpret_cast<const float4*>(pw + 8 * p);
+                const float4 w1 =
+                    *reinterpret_cast<const float4*>(pw + 8 * p + 4);
+                axpy4(v, w0.x, *reinterpret_cast<const float4*>(dr));
+                axpy4(v, w0.y, *reinterpret_cast<const float4*>(dr + cin));
+                axpy4(v, w0.z, *reinterpret_cast<const float4*>(dr + sy * cin));
+                axpy4(v, w0.w,
+                      *reinterpret_cast<const float4*>(dr + (sy + 1) * cin));
+                axpy4(v, w1.x, *reinterpret_cast<const float4*>(dr + sz * cin));
+                axpy4(v, w1.y,
+                      *reinterpret_cast<const float4*>(dr + (sz + 1) * cin));
+                axpy4(v, w1.z,
+                      *reinterpret_cast<const float4*>(dr + (sz + sy) * cin));
+                axpy4(v, w1.w,
+                      *reinterpret_cast<const float4*>(dr +
+                                                       (sz + sy + 1) * cin));
+              }
+              atomicAdd(reinterpret_cast<float4*>(
+                            df + static_cast<long>(rows[j]) * cin + c),
+                        v);
             }
-            if (any) atomicAdd(&df[(crow + j) * cin + c], v);
+          } else {
+            for (int item2 = tid; item2 < n_some * cin; item2 += nthreads) {
+              const int a = item2 / cin, c = item2 - a * cin;
+              const int j = __fns(some, 0, a + 1);
+              float v = 0.0f;
+              for (int q = 0; q < nq; ++q) {
+                if (!((qmask[q] >> j) & 1u)) continue;
+                const int p = q * kTile + j;
+                const float* dr = dacc + q * tap_len + pt[p] * cin + c;
+                const float4 w0 = *reinterpret_cast<const float4*>(pw + 8 * p);
+                const float4 w1 =
+                    *reinterpret_cast<const float4*>(pw + 8 * p + 4);
+                v += w0.x * dr[0] + w0.y * dr[cin] + w0.z * dr[sy * cin] +
+                     w0.w * dr[(sy + 1) * cin] + w1.x * dr[sz * cin] +
+                     w1.y * dr[(sz + 1) * cin] + w1.z * dr[(sz + sy) * cin] +
+                     w1.w * dr[(sz + sy + 1) * cin];
+              }
+              atomicAdd(&df[static_cast<long>(rows[j]) * cin + c], v);
+            }
           }
         }
-        if (need_pos && tid < nc * 3) {
-          const float v = sdc[tid];
-          if (v != 0.0f) atomicAdd(&dc[crow * 3 + tid], v);
+
+        if (need_pos) {
+          __syncthreads();
+          // dq per query and dc per candidate, each summed in pair order
+          if (tid < qb * 3) {
+            const int q = tid / 3, a = tid % 3;
+            int base = 0;
+            for (int s = 0; s < q; ++s) base += __popc(qmask[s]);
+            const int n = __popc(qmask[q]);
+            float v = 0.0f;
+            for (int i = base; i < base + n; ++i) v += g8s[i * 8 + a];
+            sdq[tid] -= v;
+          } else if (tid >= 64 && tid < 64 + nc * 3) {
+            const int j = (tid - 64) / 3, a = (tid - 64) % 3;
+            int base = 0;
+            float v = 0.0f;
+            for (int q = 0; q < qb; ++q) {
+              const unsigned m = qmask[q];
+              if ((m >> j) & 1u)
+                v += g8s[(base + __popc(m & ((1u << j) - 1u))) * 8 + a];
+              base += __popc(m);
+            }
+            if (v != 0.0f)
+              atomicAdd(&dc[static_cast<long>(rows[j]) * 3 + a], v);
+          }
         }
-        __syncthreads();
       }
-    }
-
-    if (need_acc)
-      for (int i = tid; i < nq * tap_len; i += kThreads)
-        acc_out[row0 * tap_len + i] = acc[i];
-    if (need_pos && tid < nq * 3) dq[row0 * 3 + tid] = sdq[tid];
-    __syncthreads();
-  }
-}
-
-// dW partials: part[s, k, o] = sum over rows n of split s of A[n, k] ct[n, o]
-constexpr int kDwK = 64, kDwO = 32, kDwN = 32;
-
-__global__ void __launch_bounds__(256) dw_partial_kernel(
-    const float* __restrict__ a, const float* __restrict__ ct,
-    float* __restrict__ part, int n, int klen, int cout, int rows_per_split) {
-  __shared__ __align__(16) float sa[kDwN][kDwK];
-  __shared__ float sb[kDwN][kDwO];
-  const int k0 = blockIdx.x * kDwK, o0 = blockIdx.y * kDwO;
-  const int n_begin = blockIdx.z * rows_per_split;
-  const int n_end = min(n, n_begin + rows_per_split);
-  const int tid = threadIdx.x, tk = tid % 16, to = tid / 16;
-  float r[4][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}, {0.0f, 0.0f}, {0.0f, 0.0f}};
-  for (int nb = n_begin; nb < n_end; nb += kDwN) {
-    for (int i = tid; i < kDwN * kDwK; i += 256) {
-      const int rr = i / kDwK, kk = i % kDwK;
-      const int row = nb + rr, k = k0 + kk;
-      sa[rr][kk] = (row < n_end && k < klen)
-                       ? a[static_cast<long>(row) * klen + k] : 0.0f;
-    }
-    for (int i = tid; i < kDwN * kDwO; i += 256) {
-      const int rr = i / kDwO, oo = i % kDwO;
-      const int row = nb + rr, o = o0 + oo;
-      sb[rr][oo] = (row < n_end && o < cout)
-                       ? ct[static_cast<long>(row) * cout + o] : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int rr = 0; rr < kDwN; ++rr) {
-      const float4 av = *reinterpret_cast<const float4*>(&sa[rr][tk * 4]);
-      const float b0 = sb[rr][to * 2], b1 = sb[rr][to * 2 + 1];
-      r[0][0] += av.x * b0;
-      r[0][1] += av.x * b1;
-      r[1][0] += av.y * b0;
-      r[1][1] += av.y * b1;
-      r[2][0] += av.z * b0;
-      r[2][1] += av.z * b1;
-      r[3][0] += av.w * b0;
-      r[3][1] += av.w * b1;
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int k = k0 + tk * 4 + i, o = o0 + to * 2 + j;
-      if (k < klen && o < cout)
-        part[(static_cast<long>(blockIdx.z) * klen + k) * cout + o] = r[i][j];
+      nf::cp_async_wait<0>();
+      __syncthreads();
+      if (need_pos && tid < nq * 3)
+        dq[static_cast<long>(b0) * 3 + tid] = sdq[tid];
+      __syncthreads();
     }
   }
 }
 
-// dW = the splits summed in order
-__global__ void dw_sum_kernel(const float* __restrict__ part,
-                              float* __restrict__ dw, int n_split, int len) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= len) return;
-  float v = 0.0f;
-  for (int s = 0; s < n_split; ++s) v += part[static_cast<long>(s) * len + i];
-  dw[i] = v;
-}
-
-// shared memory a K2 block may take (the card allows 227 KB per block)
-constexpr size_t kBwdSmemBudget = 220 * 1024;
-
-// dynamic shared memory of one K2 block: the layout at the top of
-// fused_cconv_bwd_kernel
-size_t bwd_smem_bytes(int qb, int n_taps, int cin, int cout, bool need_acc,
-                      bool need_dacc) {
-  const size_t q = qb, cs = cin | 1;
+// dynamic shared memory of one block: the layouts at the top of the kernels
+size_t fwd_smem_bytes(int qb, int threads, int n_taps, int cin, int cout,
+                      bool fold) {
+  const size_t q = qb, tap_len = static_cast<size_t>(n_taps) * cin;
+  const size_t pairs = q * kTile;
   return sizeof(float) *
-         (q * n_taps * cin * need_acc + q * n_taps * cs * need_dacc +
-          kTile * cs + kTile * 3 + 8 * q * kTile + q * kTile + q * 3 +
-          q * cout + q + q * 3 + kTile * 3);
+         ((fold ? tap_len * cout : 0) + q * tap_len + 2 * kTile * cin +
+          2 * kTile * 3 + 8 * pairs + pairs + q * 3 + 2 * q +
+          (fold ? static_cast<size_t>(threads) * q : 0));
 }
 
-template <int QB>
-int launch_bwd(const int* gcol, const int* gzlo, const int* gzhi,
-               const int* gstart, const int* pstarts, const float* qpos,
-               const float* cpos, const float* feats, const float* wt,
-               const float* ct, float* acc, float* dq, float* dc, float* df,
-               int n_groups, int group_size, int d0, int d1, int d2, int kz,
-               int ky, int kx, int cin, int cout, float inv_r,
-               int exclude_self, cudaStream_t stream) {
-  const size_t smem = bwd_smem_bytes(QB, kz * ky * kx, cin, cout,
-                                     acc != nullptr,
-                                     dq != nullptr || df != nullptr);
-  const cudaError_t err = cudaFuncSetAttribute(
-      fused_cconv_bwd_kernel<QB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+size_t bwd_smem_bytes(int qb, int n_taps, int cin, int cout, bool local) {
+  const size_t q = qb, tap_len = static_cast<size_t>(n_taps) * cin;
+  const size_t pairs = q * kTile;
+  return sizeof(float) *
+         ((local ? tap_len * cout : 0) + q * tap_len + 2 * kTile * cin +
+          2 * kTile * 3 + 16 * pairs + pairs + 6 * q + q +
+          (local ? q * cout : 0));
+}
+
+// Blocks of a walk that stages W: each block reads W once, so at most one
+// block per 64 query rows, and no more blocks than the card holds at once.
+template <typename Kernel>
+int staged_grid(Kernel kernel, int threads, size_t smem, int n_items,
+                int n_rows) {
+  int dev = 0, sms = 1, per_sm = 1;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                smem);
+  const int grid = min(min(n_items, n_rows / 64), sms * per_sm);
+  return max(grid, 1);
+}
+
+struct Walk {
+  const int *gcol, *gzlo, *gzhi, *gstart, *pstarts;
+  const float *qpos, *cpos, *feats;
+  int n_groups, group_size, d0, d1, d2, kz, ky, kx, cin, cout;
+  float inv_r;
+  int exclude_self;
+  cudaStream_t stream;
+};
+
+template <int QB, bool FOLD>
+int launch_walk_fwd(const Walk& a, const float* w, float* out, float* cnt,
+                    int threads, int row_lo, int row_hi) {
+  const size_t smem =
+      fwd_smem_bytes(QB, threads, a.kz * a.ky * a.kx, a.cin, a.cout, FOLD);
+  if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = walk_fwd_kernel<QB, FOLD>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(n_groups, (group_size + QB - 1) / QB);
-  fused_cconv_bwd_kernel<QB><<<grid, kThreads, smem, stream>>>(
-      gcol, gzlo, gzhi, gstart, pstarts, qpos, cpos, feats, wt, ct, acc, dq,
-      dc, df, d0, d1, d2, kz, ky, kx, cin, cout, inv_r, exclude_self);
+  const int ysplit = (a.group_size + QB - 1) / QB;
+  const int n_items = a.n_groups * ysplit;
+  const int grid =
+      FOLD ? staged_grid(kernel, threads, smem, n_items, row_hi - row_lo)
+           : n_items;
+  kernel<<<grid, threads, smem, a.stream>>>(
+      a.gcol, a.gzlo, a.gzhi, a.gstart, a.pstarts, a.qpos, a.cpos, a.feats, w,
+      out, cnt, n_items, ysplit, row_lo, row_hi, a.d0, a.d1, a.d2, a.kz, a.ky,
+      a.kx, a.cin, a.cout, a.inv_r, a.exclude_self);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int QB, bool LOCAL>
+int launch_walk_bwd(const Walk& a, const float* wt, const float* ct,
+                    const float* dacc_rows, float* dq, float* dc, float* df,
+                    int threads, int row_lo, int row_hi) {
+  const size_t smem =
+      bwd_smem_bytes(QB, a.kz * a.ky * a.kx, a.cin, a.cout, LOCAL);
+  if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = walk_bwd_kernel<QB, LOCAL>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int ysplit = (a.group_size + QB - 1) / QB;
+  const int n_items = a.n_groups * ysplit;
+  const int grid =
+      LOCAL ? staged_grid(kernel, threads, smem, n_items, row_hi - row_lo)
+            : n_items;
+  kernel<<<grid, threads, smem, a.stream>>>(
+      a.gcol, a.gzlo, a.gzhi, a.gstart, a.pstarts, a.qpos, a.cpos, a.feats, wt,
+      ct, dacc_rows, dq, dc, df, n_items, ysplit, row_lo, row_hi, a.d0, a.d1,
+      a.d2, a.kz, a.ky, a.kx, a.cin, a.cout, a.inv_r, a.exclude_self);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// queries per block: a power of two up to 16, a template constant so that
+// the per-query loops carry no predicated-off work
+#define NF_DISPATCH_QB(qb, CALL)                       \
+  switch (qb) {                                        \
+    case 1: return CALL(1);                            \
+    case 2: return CALL(2);                            \
+    case 4: return CALL(4);                            \
+    case 8: return CALL(8);                            \
+    case 16: return CALL(16);                          \
+    default: return static_cast<int>(cudaErrorInvalidValue); \
+  }
+
+int walk_fwd(const Walk& a, bool fold, int qb, const float* w, float* out,
+             float* cnt, int threads, int row_lo, int row_hi) {
+  if (fold) {
+#define NF_CALL(Q) \
+  launch_walk_fwd<Q, true>(a, w, out, cnt, threads, row_lo, row_hi)
+    NF_DISPATCH_QB(qb, NF_CALL)
+#undef NF_CALL
+  }
+#define NF_CALL(Q) \
+  launch_walk_fwd<Q, false>(a, w, out, cnt, threads, row_lo, row_hi)
+  NF_DISPATCH_QB(qb, NF_CALL)
+#undef NF_CALL
+}
+
+int walk_bwd(const Walk& a, bool local, int qb, const float* wt,
+             const float* ct, const float* dacc_rows, float* dq, float* dc,
+             float* df, int threads, int row_lo, int row_hi) {
+  if (local) {
+#define NF_CALL(Q)                                                        \
+  launch_walk_bwd<Q, true>(a, wt, ct, dacc_rows, dq, dc, df, threads, row_lo, \
+                           row_hi)
+    NF_DISPATCH_QB(qb, NF_CALL)
+#undef NF_CALL
+  }
+#define NF_CALL(Q)                                                         \
+  launch_walk_bwd<Q, false>(a, wt, ct, dacc_rows, dq, dc, df, threads, row_lo, \
+                            row_hi)
+  NF_DISPATCH_QB(qb, NF_CALL)
+#undef NF_CALL
+}
+
+bool bad_block(int threads, int least) {
+  return threads % 32 != 0 || threads < least || threads > kMaxThreads;
 }
 
 }  // namespace
 
-// qb: queries per block, one of 1, 2, 4, 8, 16 (see _queries_per_block in
-// ops/fused_cconv.py).
+// K1. rows == null: W fits shared memory and the walk folds it itself.
+// Otherwise the walk writes its accumulator rows to `rows` (chunk_rows,
+// 64 * cin) one chunk of query rows at a time and the tensor-core product
+// folds each chunk with W. qb queries per block (1, 2, 4, 8 or 16) and the
+// block size come from ops/fused_cconv.py `walk_config`.
 extern "C" int nf_fused_cconv_fwd(
     const int* gcol, const int* gzlo, const int* gzhi, const int* gstart,
     const int* pstarts, const float* qpos, const float* cpos,
-    const float* feats, const float* w, float* out, float* cnt, int n_groups,
-    int group_size, int qb, int d0, int d1, int d2, int kz, int ky, int kx,
-    int cin, int cout, float inv_r, int exclude_self, void* stream) {
-  if (cout < 1 || cout > kThreads)
+    const float* feats, const float* w, float* out, float* cnt, float* rows,
+    int n_groups, int group_size, int n_q, int chunk_rows, int qb,
+    int threads, int d0, int d1, int d2, int kz, int ky, int kx, int cin,
+    int cout, float inv_r, int exclude_self, void* stream) {
+  const bool fold = rows == nullptr;
+  if (cout < 1 || cout > 256 || n_q < 1 || bad_block(threads, 32) ||
+      (fold && threads < cout) || (!fold && chunk_rows < 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define NF_LAUNCH(Q)                                                        \
-  case Q:                                                                   \
-    return launch<Q>(gcol, gzlo, gzhi, gstart, pstarts, qpos, cpos, feats, \
-                     w, out, cnt, n_groups, group_size, d0, d1, d2, kz, ky, \
-                     kx, cin, cout, inv_r, exclude_self, st);
-  switch (qb) {
-    NF_LAUNCH(1)
-    NF_LAUNCH(2)
-    NF_LAUNCH(4)
-    NF_LAUNCH(8)
-    NF_LAUNCH(16)
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  const Walk a{gcol, gzlo, gzhi, gstart, pstarts, qpos, cpos, feats,
+               n_groups, group_size, d0, d1, d2, kz, ky, kx, cin, cout,
+               inv_r, exclude_self, st};
+  if (fold) return walk_fwd(a, true, qb, w, out, cnt, threads, 0, n_q);
+  const int klen = kz * ky * kx * cin;
+  for (int lo = 0; lo < n_q; lo += chunk_rows) {
+    const int hi = min(n_q, lo + chunk_rows);
+    int err = walk_fwd(a, false, qb, w, rows, cnt, threads, lo, hi);
+    if (err != 0) return err;
+    err = nf::split_gemm(rows, w, out + static_cast<long>(lo) * cout, hi - lo,
+                         cout, klen, false, 1, 0, st);
+    if (err != 0) return err;
   }
-#undef NF_LAUNCH
+  return 0;
 }
 
-// K2. Null outputs are not computed: acc/part/dw (the filter gradient and
-// its scratch: acc (n_q, 64 * cin), part (n_split, 64 * cin, cout)), dq/dc
-// (positions; both or neither, each zeroed by the caller), df (features,
-// zeroed by the caller). wt is W^T, (cout, 64 * cin). Queries per block: the
-// largest of 16, 8, 4, 2, 1 whose block fits the shared-memory budget.
+// K2. Null outputs are not computed: dw (with its scratch: part
+// (n_chunks * splits_per_chunk, 64 * cin, cout)), dq/dc (positions; both or
+// neither, each zeroed by the caller), df (features, zeroed by the caller).
+// wt is W^T, (cout, 64 * cin). `local`: W^T fits shared memory and the
+// backward walk contracts d_acc itself; otherwise d_acc = ct W^T is a
+// tensor-core product into `scratch` (chunk_rows, 64 * cin), which then
+// also takes the accumulator rows of the dW product, chunk by chunk. Split
+// s of a chunk sums rows [s, s + 1) * rows_per_split of it (a multiple of
+// 32); the splits of all chunks are added in order.
 extern "C" int nf_fused_cconv_bwd(
     const int* gcol, const int* gzlo, const int* gzhi, const int* gstart,
     const int* pstarts, const float* qpos, const float* cpos,
-    const float* feats, const float* wt, const float* ct, float* acc,
+    const float* feats, const float* wt, const float* ct, float* scratch,
     float* part, float* dw, float* dq, float* dc, float* df, int n_groups,
-    int group_size, int n_q, int n_split, int rows_per_split, int d0, int d1,
-    int d2, int kz, int ky, int kx, int cin, int cout, float inv_r,
-    int exclude_self, void* stream) {
-  if (cout < 1 || (dq == nullptr) != (dc == nullptr) ||
-      (dw != nullptr) != (acc != nullptr) ||
-      (dw != nullptr && part == nullptr))
+    int group_size, int n_q, int chunk_rows, int splits_per_chunk,
+    int rows_per_split, int local, int qb_fwd, int threads_fwd, int qb_bwd,
+    int threads_bwd, int d0, int d1, int d2, int kz, int ky, int kx, int cin,
+    int cout, float inv_r, int exclude_self, void* stream) {
+  const bool need_w = dw != nullptr;
+  const bool need_dacc = dq != nullptr || df != nullptr;
+  if (cout < 1 || n_q < 1 || chunk_rows < 1 ||
+      (dq == nullptr) != (dc == nullptr) ||
+      (need_w && (part == nullptr || scratch == nullptr ||
+                  bad_block(threads_fwd, 32) || splits_per_chunk < 1 ||
+                  rows_per_split % 32 != 0 ||
+                  static_cast<long>(splits_per_chunk) * rows_per_split <
+                      min(chunk_rows, n_q))) ||
+      (need_dacc && (bad_block(threads_bwd, 160) ||
+                     (!local && scratch == nullptr))))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int qb = 16;
-  while (qb > 1 && bwd_smem_bytes(qb, kz * ky * kx, cin, cout, acc != nullptr,
-                                  dq != nullptr || df != nullptr) >
-                       kBwdSmemBudget)
-    qb /= 2;
-  int err = 0;
-#define NF_LAUNCH_BWD(Q)                                                     \
-  case Q:                                                                    \
-    err = launch_bwd<Q>(gcol, gzlo, gzhi, gstart, pstarts, qpos, cpos,       \
-                        feats, wt, ct, acc, dq, dc, df, n_groups,            \
-                        group_size, d0, d1, d2, kz, ky, kx, cin, cout,       \
-                        inv_r, exclude_self, st);                            \
-    break;
-  switch (qb) {
-    NF_LAUNCH_BWD(1)
-    NF_LAUNCH_BWD(2)
-    NF_LAUNCH_BWD(4)
-    NF_LAUNCH_BWD(8)
-    NF_LAUNCH_BWD(16)
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef NF_LAUNCH_BWD
-  if (err != 0 || dw == nullptr) return err;
+  const Walk a{gcol, gzlo, gzhi, gstart, pstarts, qpos, cpos, feats,
+               n_groups, group_size, d0, d1, d2, kz, ky, kx, cin, cout,
+               inv_r, exclude_self, st};
   const int klen = kz * ky * kx * cin;
-  const dim3 grid((klen + kDwK - 1) / kDwK, (cout + kDwO - 1) / kDwO,
-                  n_split);
-  dw_partial_kernel<<<grid, 256, 0, st>>>(acc, ct, part, n_q, klen, cout,
-                                          rows_per_split);
-  err = static_cast<int>(cudaGetLastError());
+  const long len = static_cast<long>(klen) * cout;
+  int n_chunks = 0;
+  for (int lo = 0; lo < n_q; lo += chunk_rows, ++n_chunks) {
+    const int hi = min(n_q, lo + chunk_rows);
+    const float* ct_lo = ct + static_cast<long>(lo) * cout;
+    int err = 0;
+    if (need_dacc) {
+      if (!local)
+        err = nf::split_gemm(ct_lo, wt, scratch, hi - lo, klen, cout, false, 1,
+                             0, st);
+      if (err != 0) return err;
+      err = walk_bwd(a, local != 0, qb_bwd, wt, ct, scratch, dq, dc, df,
+                     threads_bwd, lo, hi);
+      if (err != 0) return err;
+    }
+    if (need_w) {
+      err = walk_fwd(a, false, qb_fwd, nullptr, scratch, nullptr, threads_fwd,
+                     lo, hi);
+      if (err != 0) return err;
+      err = nf::split_gemm(scratch, ct_lo,
+                           part + n_chunks * splits_per_chunk * len, klen, cout,
+                           hi - lo, true, splits_per_chunk, rows_per_split, st);
+      if (err != 0) return err;
+    }
+  }
+  if (!need_w) return 0;
+  nf::sum_splits_kernel<<<static_cast<int>((len + 255) / 256), 256, 0, st>>>(
+      part, dw, n_chunks * splits_per_chunk, static_cast<int>(len));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The tensor-core product on its own: c (m, n) = a b with a (m, k), or
+// (k, m) when trans_a, and b (k, n), all row-major f32. With n_split > 1 the
+// k range is cut into splits of k_per_split (a multiple of 32) whose
+// products go to part (n_split, m, n) and are summed in order into c.
+extern "C" int nf_split_gemm(const float* a, const float* b, float* c,
+                             float* part, int m, int n, int k, int trans_a,
+                             int n_split, int k_per_split, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (m < 1 || n < 1 || k < 0 || n_split < 1 ||
+      (n_split > 1 && part == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_split == 1) return nf::split_gemm(a, b, c, m, n, k, trans_a != 0, 1, 0, st);
+  const int err = nf::split_gemm(a, b, part, m, n, k, trans_a != 0, n_split,
+                                 k_per_split, st);
   if (err != 0) return err;
-  const int len = klen * cout;
-  dw_sum_kernel<<<(len + 255) / 256, 256, 0, st>>>(part, dw, n_split, len);
+  const int len = m * n;
+  nf::sum_splits_kernel<<<(len + 255) / 256, 256, 0, st>>>(part, c, n_split,
+                                                          len);
   return static_cast<int>(cudaGetLastError());
 }

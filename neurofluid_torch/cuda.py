@@ -1,13 +1,15 @@
 """Devices, the nvcc build of `csrc/*.cu`, and the kernel launch handle.
 
 Each `csrc/<name>.cu` compiles on its own into a shared library with a plain
-C interface (no PyTorch headers, so a build takes seconds):
+C interface (no PyTorch headers, so a build takes seconds); the `csrc/*.cuh`
+headers are shared building blocks that a source includes:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o build/neurofluid_torch/<name>-<hash>.so <name>.cu
 
-The build runs at first use and is keyed on a hash of the source and the
-flags, so an edited source rebuilds and an unchanged one loads. Libraries
+The build runs at first use and is keyed on a hash of the source, the
+headers and the flags, so an edited source rebuilds and an unchanged one
+loads. Libraries
 load through ctypes; every C entry point takes device pointers and the
 stream as `c_void_p` and returns `cudaGetLastError()`, which `Kernel`
 turns into an exception.
@@ -57,9 +59,11 @@ def _nvcc() -> str:
 
 
 def library_path(source: str) -> Path:
-    """Build output for `csrc/<source>`, named by a hash of its text and
-    the flags."""
+    """Build output for `csrc/<source>`, named by a hash of its text, the
+    headers' and the flags."""
     digest = hashlib.sha256((CSRC / source).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{Path(source).stem}-{digest.hexdigest()[:16]}.so"
 

@@ -1,6 +1,11 @@
 """Fused continuous convolution: K1 (`csrc/fused_cconv.cu`
 `nf_fused_cconv_fwd`), its backward K2 (`nf_fused_cconv_bwd`, same source)
 and the plain version of each (port of neurofluid_tpu/ops/fused_cconv.py).
+Both kernels are a candidate walk plus tensor-core matrix products with the
+filter (`csrc/split_gemm.cuh`, also callable alone as `split_gemm_cuda`);
+the wrappers here choose, from the shapes alone, whether the filter fits a
+block's shared memory (`w_fits_shared`), the walk's block shape
+(`walk_config`) and the chunking of the scratch rows (`scratch_chunk_rows`).
 
 Particles are sorted by grid cell (cell size >= radius), so a cell's
 particles are a contiguous row range and the 27-cell neighbourhood of a
@@ -26,6 +31,7 @@ rows get exactly zero gradient.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -42,9 +48,21 @@ _MIN_PAD = 64  # sorted arrays carry at least this many sentinel/zero rows
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNEL = Kernel("fused_cconv.cu", "nf_fused_cconv_fwd",
-                [_P] * 11 + [_I] * 11 + [_F, _I])
+                [_P] * 12 + [_I] * 14 + [_F, _I])
 BWD_KERNEL = Kernel("fused_cconv.cu", "nf_fused_cconv_bwd",
-                    [_P] * 16 + [_I] * 13 + [_F, _I])
+                    [_P] * 16 + [_I] * 19 + [_F, _I])
+GEMM_KERNEL = Kernel("fused_cconv.cu", "nf_split_gemm", [_P] * 4 + [_I] * 6)
+
+# dynamic shared memory one block may take on the H100 and what an SM
+# holds, the largest filter that is staged into a block, the scratch rows
+# one call may hold, and the row tile of the tensor-core product
+# (csrc/split_gemm.cuh)
+SMEM_LIMIT = 232448
+SMEM_PER_SM = 233472
+W_SHARED_LIMIT = 64 * 1024
+SCRATCH_LIMIT = 256 * 2 ** 20
+ROW_TILE = 64
+_TILE = 32  # candidates per tile of the walk
 
 
 class CConvPlan(NamedTuple):
@@ -294,20 +312,82 @@ def fused_cconv_bwd_plain(weights, qplan, qpos_s, cplan, cpos_s, feats_s,
     return (dw.reshape(weights.shape) if need_w else None), dq, dc, df
 
 
-def _queries_per_block(n_taps: int, cin: int) -> int:
-    """Largest power of two <= 16 whose per-query (n_taps, Cin) tap
-    accumulators fit the shared-memory budget of csrc/fused_cconv.cu."""
-    qb = 16
-    while qb > 1 and qb * n_taps * cin * 4 > 132 * 1024:
-        qb //= 2
-    return qb
+def w_fits_shared(n_taps: int, cin: int, cout: int) -> bool:
+    """The (n_taps * Cin, Cout) filter is small enough to be staged into a
+    walk block's shared memory: the walk then folds it (K1) or contracts
+    d_acc (K2) itself. Otherwise those contractions are tensor-core products
+    over scratch rows."""
+    return n_taps * cin * cout * 4 <= W_SHARED_LIMIT
+
+
+def fwd_smem_bytes(qb: int, threads: int, n_taps: int, cin: int, cout: int,
+                   fold: bool) -> int:
+    """Dynamic shared memory of a forward-walk block (the layout at the top
+    of `walk_fwd_kernel`)."""
+    tap_len, pairs = n_taps * cin, qb * _TILE
+    words = (qb * tap_len + 2 * _TILE * cin + 2 * _TILE * 3 + 8 * pairs
+             + pairs + qb * 3 + 2 * qb)
+    if fold:
+        words += tap_len * cout + threads * qb
+    return 4 * words
+
+
+def bwd_smem_bytes(qb: int, n_taps: int, cin: int, cout: int,
+                   local: bool) -> int:
+    """Dynamic shared memory of a backward-walk block (the layout at the
+    top of `walk_bwd_kernel`)."""
+    tap_len, pairs = n_taps * cin, qb * _TILE
+    words = (qb * tap_len + 2 * _TILE * cin + 2 * _TILE * 3 + 16 * pairs
+             + pairs + 7 * qb)
+    if local:
+        words += tap_len * cout + qb * cout
+    return 4 * words
+
+
+@functools.lru_cache(maxsize=None)
+def walk_config(n_taps: int, cin: int, cout: int, staged: bool,
+                backward: bool = False) -> tuple:
+    """(queries per block, threads per block) of a walk kernel. On the card
+    the walks ran fastest, within a few percent at every layer of the bench
+    point, with as many queries resident on an SM as its shared memory
+    holds: the power of two <= 16 (a whole group) that maximises queries
+    per block times blocks per SM (a block takes its shared memory, with
+    the filter when it is `staged`, plus 1 KB the card reserves); among
+    equals, one that leaves two blocks per SM, then the larger. 256
+    threads: one per (query, candidate) pair of an 8-query tile."""
+    threads, best = 256, None
+    for qb in (16, 8, 4, 2, 1):
+        need = bwd_smem_bytes(qb, n_taps, cin, cout, staged) if backward \
+            else fwd_smem_bytes(qb, threads, n_taps, cin, cout, staged)
+        if need > SMEM_LIMIT:
+            continue
+        blocks = SMEM_PER_SM // (need + 1024)
+        key = (qb * blocks, blocks >= 2, qb)
+        if best is None or key > best[0]:
+            best = (key, qb)
+    if best is None:
+        raise ValueError(f"no walk block fits shared memory at n_taps "
+                         f"{n_taps}, Cin {cin}, Cout {cout}")
+    return best[1], threads
+
+
+def scratch_chunk_rows(n: int, klen: int) -> int:
+    """Query rows per chunk of the (rows, klen) f32 scratch: the fewest
+    equal chunks that keep it within SCRATCH_LIMIT, a multiple of the
+    product's row tile."""
+    n_chunks = max(1, -(-n * klen * 4 // SCRATCH_LIMIT))
+    rows = -(-n // n_chunks)
+    rows = -(-rows // ROW_TILE) * ROW_TILE
+    if rows * klen * 4 > SCRATCH_LIMIT and rows > ROW_TILE:
+        rows -= ROW_TILE
+    return rows
 
 
 def dw_split(n: int, klen: int, cout: int) -> tuple:
-    """(splits over the query rows, rows per split) of K2's dW reduction:
-    enough (64 x 32)-tile blocks to fill the card, each split a multiple of
-    32 rows."""
-    tiles = -(-klen // 64) * -(-cout // 32)
+    """(splits over the rows of one chunk, rows per split) of K2's dW
+    product: enough (64, 64)-tile blocks ((128, 8) for Cout <= 8) to fill
+    the card, each split a multiple of 32 rows."""
+    tiles = -(-klen // 128) if cout <= 8 else -(-klen // 64) * -(-cout // 64)
     n_split = max(1, min(-(-n // 256), -(-528 // tiles)))
     rows = -(-n // n_split)
     rows = -(-rows // 32) * 32
@@ -335,36 +415,52 @@ def _check_cuda_args(weights, qplan, qpos_s, cplan, cpos_s, feats_s):
                          f"{cin})")
 
 
+def _ptr(t):
+    return 0 if t is None else t.data_ptr()
+
+
 def fused_cconv_cuda(weights, qplan, qpos_s, cplan, cpos_s, feats_s,
                      radius: float, exclude_self: bool):
-    """K1. Returns (out (Nq, Cout), counts (Nq,)) in sorted query order."""
+    """K1. Returns (out (Nq, Cout), counts (Nq,)) in sorted query order. A
+    filter that fits shared memory is folded by the walk; otherwise the walk
+    writes its tap-feature rows to a scratch chunk and the tensor-core
+    product folds them."""
     check_plans(qplan, cplan, radius)
     _check_cuda_args(weights, qplan, qpos_s, cplan, cpos_s, feats_s)
     dev = qpos_s.device
     kz, ky, kx, cin, cout = weights.shape
-    out = torch.empty((qplan.n, cout), dtype=torch.float32, device=dev)
-    cnt = torch.empty((qplan.n,), dtype=torch.float32, device=dev)
+    n_taps, n = kz * ky * kx, qplan.n
+    out = torch.empty((n, cout), dtype=torch.float32, device=dev)
+    cnt = torch.empty((n,), dtype=torch.float32, device=dev)
     d0, d1, d2 = qplan.dims
-    if qplan.n:
+    if n:
+        fold = w_fits_shared(n_taps, cin, cout)
+        qb, threads = walk_config(n_taps, cin, cout, fold)
+        chunk = 0 if fold else scratch_chunk_rows(n, n_taps * cin)
+        rows = None if fold else torch.empty(
+            (min(chunk, n), n_taps * cin), dtype=torch.float32, device=dev)
         KERNEL(qplan.gcol.data_ptr(), qplan.gzlo.data_ptr(),
                qplan.gzhi.data_ptr(), qplan.gstart.data_ptr(),
                cplan.pstarts.data_ptr(), qpos_s.data_ptr(),
                cpos_s.data_ptr(), feats_s.data_ptr(), weights.data_ptr(),
-               out.data_ptr(), cnt.data_ptr(),
-               qplan.n_groups, qplan.group_size,
-               _queries_per_block(kz * ky * kx, cin), d0, d1, d2, kz, ky,
-               kx, cin, cout, float(np.float32(1.0 / radius)),
-               int(exclude_self))
+               out.data_ptr(), cnt.data_ptr(), _ptr(rows),
+               qplan.n_groups, qplan.group_size, n, chunk, qb, threads,
+               d0, d1, d2, kz, ky, kx, cin, cout,
+               float(np.float32(1.0 / radius)), int(exclude_self))
     return out, cnt
 
 
 def fused_cconv_bwd_cuda(weights, qplan, qpos_s, cplan, cpos_s, feats_s, ct,
                          radius: float, exclude_self: bool, needs):
-    """K2: one launch computes what `needs` asks of (dW, dq, dc, dfeats).
-    The candidate walk is K1's; dq rows are stored by the block that owns
-    the query, dc and dfeats are added with f32 atomics (their summation
-    order varies from run to run), and dW is the tap-feature rows (written
-    by the walk) reduced against ct in fixed-order splits."""
+    """K2: one call computes what `needs` asks of (dW, dq, dc, dfeats).
+    d_acc = ct W^T is a tensor-core product into scratch rows (or contracted
+    by the walk from a filter that fits shared memory); the backward walk
+    stores dq rows from the block that owns the query and adds dc and
+    dfeats with f32 atomics (their summation order varies from run to run);
+    dW is the forward walk's tap-feature rows against ct, a tensor-core
+    product over fixed splits of the rows summed in order. One scratch
+    buffer serves d_acc and the rows in turn, a chunk of query rows at a
+    time."""
     check_plans(qplan, cplan, radius)
     _check_cuda_args(weights, qplan, qpos_s, cplan, cpos_s, feats_s)
     check_tensor("ct", ct, qpos_s.device)
@@ -381,30 +477,68 @@ def fused_cconv_bwd_cuda(weights, qplan, qpos_s, cplan, cpos_s, feats_s, ct,
     df = torch.zeros_like(feats_s) if need_f else None
     dw = torch.empty((klen, cout), dtype=torch.float32, device=dev) \
         if need_w else None
-    acc = torch.empty((n, klen), dtype=torch.float32, device=dev) \
-        if need_w else None
-    n_split, rows = dw_split(n, klen, cout)
-    part = torch.empty((n_split, klen, cout), dtype=torch.float32,
-                       device=dev) if need_w else None
-    wt = weights.reshape(klen, cout).t().contiguous()
-    d0, d1, d2 = qplan.dims
-
-    def ptr(t):
-        return 0 if t is None else t.data_ptr()
-
     if n and (need_w or need_pos or need_f):
+        local = w_fits_shared(n_taps, cin, cout)
+        qb_f, threads_f = walk_config(n_taps, cin, cout, False)
+        qb_b, threads_b = walk_config(n_taps, cin, cout, local, backward=True)
+        chunk = scratch_chunk_rows(n, klen)
+        n_split, rows = dw_split(min(chunk, n), klen, cout)
+        scratch = torch.empty((min(chunk, n), klen), dtype=torch.float32,
+                              device=dev) \
+            if need_w or not local else None
+        part = torch.empty((-(-n // chunk) * n_split, klen, cout),
+                           dtype=torch.float32, device=dev) \
+            if need_w else None
+        wt = weights.reshape(klen, cout).t().contiguous()
+        d0, d1, d2 = qplan.dims
         BWD_KERNEL(qplan.gcol.data_ptr(), qplan.gzlo.data_ptr(),
                    qplan.gzhi.data_ptr(), qplan.gstart.data_ptr(),
                    cplan.pstarts.data_ptr(), qpos_s.data_ptr(),
                    cpos_s.data_ptr(), feats_s.data_ptr(), wt.data_ptr(),
-                   ct.data_ptr(), ptr(acc), ptr(part), ptr(dw), ptr(dq),
-                   ptr(dc), ptr(df),
-                   qplan.n_groups, qplan.group_size, n, n_split, rows, d0, d1, d2, kz, ky, kx, cin, cout,
+                   ct.data_ptr(), _ptr(scratch), _ptr(part), _ptr(dw),
+                   _ptr(dq), _ptr(dc), _ptr(df),
+                   qplan.n_groups, qplan.group_size, n, chunk, n_split, rows,
+                   int(local), qb_f, threads_f, qb_b, threads_b,
+                   d0, d1, d2, kz, ky, kx, cin, cout,
                    float(np.float32(1.0 / radius)), int(exclude_self))
     elif need_w:
         dw.zero_()
     return ((dw.reshape(weights.shape) if need_w else None),
             dq if need_q else None, dc if need_c else None, df)
+
+
+def split_gemm_plain(a, b, trans_a: bool = False):
+    """Plain version of the tensor-core product: a b, or a^T b (the plain
+    K1 and K2 contract with `@` themselves; the tests and `chip_smoke.py`
+    hold `split_gemm_cuda` against a float64 product)."""
+    return (a.t() if trans_a else a) @ b
+
+
+def split_gemm_cuda(a, b, trans_a: bool = False, n_split: int = 1,
+                    k_per_split: int = 0):
+    """The tensor-core product of `csrc/split_gemm.cuh` on its own: a (M, K)
+    (or (K, M) with trans_a) times b (K, N), f32, each operand split into
+    two TF32 parts and three products summed in f32. With n_split > 1 the K
+    range is cut into splits of k_per_split (a multiple of 32) whose
+    products are summed in order, as K2's dW does."""
+    dev = a.device
+    check_tensor("a", a, dev)
+    check_tensor("b", b, dev)
+    k, m = a.shape if trans_a else a.shape[::-1]
+    if b.shape[0] != k:
+        raise ValueError(f"a {tuple(a.shape)} (trans_a {trans_a}) vs b "
+                         f"{tuple(b.shape)}")
+    n = b.shape[1]
+    if n_split > 1 and (k_per_split % 32 or n_split * k_per_split < k):
+        raise ValueError(f"{n_split} splits of {k_per_split} do not cover "
+                         f"k = {k} in multiples of 32")
+    c = torch.empty((m, n), dtype=torch.float32, device=dev)
+    part = torch.empty((n_split, m, n), dtype=torch.float32, device=dev) \
+        if n_split > 1 else None
+    if m and n:
+        GEMM_KERNEL(a.data_ptr(), b.data_ptr(), c.data_ptr(), _ptr(part),
+                    m, n, k, int(trans_a), n_split, k_per_split)
+    return c
 
 
 class FusedCConv(torch.autograd.Function):

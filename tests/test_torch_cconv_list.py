@@ -8,7 +8,16 @@ Tolerances, relative to the largest entry: 1e-5 forward (f32 sums over <= 24
 neighbours x 8 taps and 64 * Cin filter terms in another order; the port's
 disc -> square step uses the atan polynomial of the fused kernel, |error|
 <= 1.4e-7), 1e-4 for the gradients (the same through the geometry's
-adjoint)."""
+adjoint).
+
+The first threaded vector-math call of a process (here `torch.sqrt` in
+`map_sphere_to_cylinder`, 2,880 elements in two chunks) can come back with
+about half the mantissa in the worker thread's chunk when the CPU is
+contended: a first-use race of the CPU library under torch's unary kernels
+(seen with torch 2.13, MKL 2024.2; 4 of ~400 loaded processes, 3e-4
+relative, 0 of ~900 after any one threaded call). It made the first test of
+this file fail once in 30 to 150 loaded runs, 1.3e-4 off in the forward.
+`_first_vector_call` takes that call on throwaway data."""
 
 import jax
 import jax.numpy as jnp
@@ -25,6 +34,11 @@ from neurofluid_torch.ops import segment_ops as tso
 
 EXTENT, K, CIN, COUT = 0.45, 24, 5, 7
 KS = (4, 4, 4)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _first_vector_call():
+    torch.sqrt(torch.rand(2048 * 64))
 
 
 def _case(same_points):

@@ -51,14 +51,18 @@ def test_composite_kernel_matches_plain(dev):
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=2e-6)
 
 
-@pytest.mark.parametrize("exclude_self,cin,cout", [(True, 4, 32),
-                                                   (True, 96, 64),
-                                                   (False, 3, 32)])
-def test_fused_cconv_kernel_matches_plain(dev, exclude_self, cin, cout):
+# (96, 64), (64, 64) and (96, 20) take the tensor-core route (the filter
+# does not fit shared memory; Cout 20 is no multiple of 8), the others fold
+# in the walk; 300 queries are no multiple of the product's 64-row tile and
+# 173 with 130 candidates leave ragged tiles on both sides
+@pytest.mark.parametrize("exclude_self,cin,cout,n_q", [
+    (True, 4, 32, 300), (True, 96, 64, 300), (False, 3, 32, 300),
+    (True, 64, 64, 300), (True, 64, 3, 300), (False, 96, 20, 173)])
+def test_fused_cconv_kernel_matches_plain(dev, exclude_self, cin, cout, n_q):
     outs = []
     for d in ("cpu", dev):
         w, qplan, qpos_s, cplan, cpos_s, fs, _ = _cconv_inputs(
-            d, 1, exclude_self, cin, cout, twin=False)
+            d, 1, exclude_self, cin, cout, twin=False, n_q=n_q)
         outs.append(fc.fused_cconv(w, qplan, qpos_s, cplan, cpos_s, fs, 0.25,
                                    exclude_self))
     (ow, cw), (og, cg) = outs
@@ -112,15 +116,16 @@ def _directional_check(fn, inputs, dirs, g_out, tol):
     assert abs(numeric - analytic) <= tol * scale, (numeric, analytic, scale)
 
 
-def _cconv_inputs(d, rng_seed, exclude_self, cin, cout, twin=True):
+def _cconv_inputs(d, rng_seed, exclude_self, cin, cout, twin=True, n_q=300):
     """(weights, qplan, qpos_s, cplan, cpos_s, feats_s, ct) on device d,
     from one numpy seed; `twin`: query 7 sits on query 3."""
     rng = np.random.default_rng(rng_seed)
     lo, hi, r = (-0.6,) * 3, (0.6,) * 3, 0.25
-    q = torch.tensor(rng.uniform(-0.5, 0.5, (300, 3)), dtype=torch.float32)
+    q = torch.tensor(rng.uniform(-0.5, 0.5, (n_q, 3)), dtype=torch.float32)
     if twin:
         q[7] = q[3]
-    c = q if exclude_self else torch.tensor(rng.uniform(-0.5, 0.5, (200, 3)),
+    n_c = 200 if n_q == 300 else 130
+    c = q if exclude_self else torch.tensor(rng.uniform(-0.5, 0.5, (n_c, 3)),
                                             dtype=torch.float32)
     w = torch.tensor(rng.normal(size=(4, 4, 4, cin, cout)) * 0.05,
                      dtype=torch.float32)
@@ -159,13 +164,13 @@ def test_composite_bwd_kernel_matches_plain(dev):
     assert float(got[0].abs().max()) == 0.0  # relu'(0) = 0
 
 
-@pytest.mark.parametrize("exclude_self,cin,cout", [(True, 4, 32),
-                                                   (True, 96, 64),
-                                                   (False, 3, 32),
-                                                   (True, 64, 3)])
-def test_fused_cconv_bwd_kernel_matches_plain(dev, exclude_self, cin, cout):
-    cpu = _cconv_inputs("cpu", 1, exclude_self, cin, cout)
-    cud = _cconv_inputs(dev, 1, exclude_self, cin, cout)
+@pytest.mark.parametrize("exclude_self,cin,cout,n_q", [
+    (True, 4, 32, 300), (True, 96, 64, 300), (False, 3, 32, 300),
+    (True, 64, 3, 300), (True, 64, 64, 300), (False, 96, 20, 173)])
+def test_fused_cconv_bwd_kernel_matches_plain(dev, exclude_self, cin, cout,
+                                              n_q):
+    cpu = _cconv_inputs("cpu", 1, exclude_self, cin, cout, n_q=n_q)
+    cud = _cconv_inputs(dev, 1, exclude_self, cin, cout, n_q=n_q)
     r = 0.25
     n, nc = cpu[1].n, cpu[3].n
     # every output, then the e2e step's form (filter and features only)
@@ -191,6 +196,71 @@ def test_fused_cconv_bwd_kernel_matches_plain(dev, exclude_self, cin, cout):
                               ("dfeats", got[3], nc)):
             if t is not None:  # sentinel and zero pad rows: exactly zero
                 assert float(t[rows:].abs().max()) == 0.0, name
+
+
+def test_fused_cconv_bwd_dw_is_bitwise_repeatable(dev):
+    """dW is a tensor-core product over fixed splits of the rows, summed in
+    order, and dq is summed in pair order by the block that owns the query:
+    two runs agree bit for bit (dc and dfeats add with atomics and need
+    not)."""
+    w, qp, qs, cp, cs, fs, ct = _cconv_inputs(dev, 1, True, 96, 64)
+    runs = [fc.fused_cconv_bwd_cuda(w, qp, qs, cp, cs, fs, ct, 0.25, True,
+                                    (True,) * 4) for _ in range(3)]
+    for other in runs[1:]:
+        assert torch.equal(other[0], runs[0][0])
+        assert torch.equal(other[1], runs[0][1])
+
+
+def test_fused_cconv_scratch_chunks_match_plain(dev, monkeypatch):
+    """The tensor-core route with the scratch limit cut to 128 rows: 300
+    queries go through K1 and K2 in chunks of 128, 128 and 44 rows (the
+    bench point's conv1 takes two chunks), and K2's dW sums the splits of
+    all three."""
+    cin, cout, r = 96, 64, 0.25
+    monkeypatch.setattr(fc, "SCRATCH_LIMIT", 128 * 64 * cin * 4)
+    assert fc.scratch_chunk_rows(300, 64 * cin) == 128
+    cpu = _cconv_inputs("cpu", 1, True, cin, cout)
+    w, qp, qs, cp, cs, fs, ct = _cconv_inputs(dev, 1, True, cin, cout)
+    out, cnt = fc.fused_cconv_cuda(w, qp, qs, cp, cs, fs, r, True)
+    want, want_cnt = fc.fused_cconv_plain(*cpu[:6], r, True)
+    np.testing.assert_array_equal(cnt.cpu().numpy(), want_cnt.numpy())
+    np.testing.assert_allclose(out.cpu().numpy(), want.numpy(), rtol=1e-4,
+                               atol=1e-5)
+    got = fc.fused_cconv_bwd_cuda(w, qp, qs, cp, cs, fs, ct, r, True,
+                                  (True,) * 4)
+    ref = fc.fused_cconv_bwd_plain(*cpu, r, True, (True,) * 4)
+    for name, a, b in zip(("dW", "dq", "dc", "dfeats"), got, ref):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=0,
+                                   atol=1e-4 * float(b.abs().max()),
+                                   err_msg=name)
+
+
+# m, n, k, trans_a, splits, k per split: ragged in every dimension, the
+# narrow (n <= 8) and the wide tiles, odd leading dimensions, and K2's dW
+# form (a stored transposed, the k range in splits summed in order)
+@pytest.mark.parametrize("m,n,k,trans_a,n_split,k_per_split", [
+    (100, 7, 50, False, 1, 0), (130, 70, 333, False, 1, 0),
+    (64, 64, 6144, False, 1, 0), (300, 6144, 64, False, 1, 0),
+    (70, 3, 200, True, 3, 96), (200, 64, 1000, True, 4, 256),
+    (257, 20, 129, True, 1, 0)])
+def test_split_gemm_matches_float64(dev, m, n, k, trans_a, n_split,
+                                    k_per_split):
+    """The 3xTF32 tensor-core product against a float64 product of the same
+    inputs: within 4e-7 of sum |a||b| (tests/test_torch_split_gemm.py holds
+    the scheme's emulation to the same limit; one TF32 pass is ~1e-4)."""
+    rng = np.random.default_rng(11)
+    a = torch.tensor(rng.normal(size=(k, m) if trans_a else (m, k)),
+                     dtype=torch.float32, device=dev)
+    b = torch.tensor(rng.normal(size=(k, n)), dtype=torch.float32, device=dev)
+    before = fc.GEMM_KERNEL.launches
+    got = fc.split_gemm_cuda(a, b, trans_a, n_split, k_per_split)
+    assert fc.GEMM_KERNEL.launches == before + 1
+    a64 = (a.t() if trans_a else a).double()
+    want = a64 @ b.double()
+    scale = a64.abs() @ b.double().abs()
+    assert float(((got.double() - want).abs() / scale).max()) <= 4e-7
+    again = fc.split_gemm_cuda(a, b, trans_a, n_split, k_per_split)
+    assert torch.equal(got, again)
 
 
 def test_ball_sums_bwd_kernel_matches_plain(dev):

@@ -40,7 +40,7 @@ def test_every_module_declares_its_kernels():
         "nf_ball_query_compact", "nf_ball_sums", "nf_ball_sums_bwd",
         "nf_composite_weights", "nf_composite_weights_bwd",
         "nf_fused_cconv_bwd", "nf_fused_cconv_fwd",
-        "nf_segment_sum_accumulate"])
+        "nf_segment_sum_accumulate", "nf_split_gemm"])
 
 
 @pytest.mark.parametrize("kernel", _kernels(), ids=lambda k: k.symbol)

@@ -1,0 +1,155 @@
+"""The split-precision scheme of the port's tensor-core product
+(`neurofluid_torch/csrc/split_gemm.cuh`) emulated on the CPU, and the plain
+functions that route a fused-conv call: whether the filter fits a block's
+shared memory, the walk's block shape and the chunking of the scratch rows.
+
+The kernel rounds each f32 operand to TF32 (10-bit mantissa, round to
+nearest, ties away) as hi, the remainder to TF32 as lo, multiplies the three
+pairs lo*hi, hi*lo, hi*hi per 8 terms of k on the tensor core and adds each
+8-term sum into an f32 accumulator. The emulation does the same with the
+8-term sums in float64 (the tensor core keeps them wider than f32). Limit:
+8 units of f32's rounding, 2^-21, relative to sum |a||b|: the same limit
+`chip_smoke.py` (GEMM_TOL) and `tests/test_torch_cuda.py` hold the kernel
+to on the card. One TF32 pass (hi*hi alone) misses it 40-fold and more;
+the three passes in the kernel's order (k in steps of 8) come out as good as
+numpy's own f32 product."""
+
+import numpy as np
+import pytest
+import torch
+
+from neurofluid_torch.ops import fused_cconv as fc
+
+LIMIT = 2.0 ** -21
+
+
+def tf32_round(x):
+    """f32 -> nearest TF32 (ties away from zero, as cvt.rna.tf32.f32)."""
+    bits = np.asarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def split(x):
+    hi = tf32_round(x)
+    return hi, tf32_round(x - hi)
+
+
+def emulated_product(a, b, passes):
+    """The kernel's sum: per 8 terms of k the chosen passes summed exactly,
+    then an f32 add into the accumulator."""
+    (ah, al), (bh, bl) = split(a), split(b)
+    terms = {"lo_hi": (al, bh), "hi_lo": (ah, bl), "hi_hi": (ah, bh)}
+    acc = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    for k0 in range(0, a.shape[1], 8):
+        part = np.zeros(acc.shape, np.float64)
+        for name in passes:
+            x, y = terms[name]
+            part += x[:, k0:k0 + 8].astype(np.float64) @ \
+                y[k0:k0 + 8].astype(np.float64)
+        acc = (acc + part.astype(np.float32)).astype(np.float32)
+    return acc
+
+
+def rel_err(got, a, b):
+    want = a.astype(np.float64) @ b.astype(np.float64)
+    scale = np.abs(a).astype(np.float64) @ np.abs(b).astype(np.float64)
+    return float((np.abs(got - want) / scale).max())
+
+
+def test_tf32_round_keeps_ten_mantissa_bits():
+    x = np.float32(1.0) + np.float32(2.0 ** -11) * np.arange(8, dtype=np.float32)
+    r = tf32_round(x)
+    assert np.all((r.view(np.uint32) & np.uint32(0x1FFF)) == 0)
+    assert np.all(np.abs(r - x) <= 2.0 ** -11)
+    hi, lo = split(x)
+    assert np.all(np.abs(x - (hi + lo)) <= 2.0 ** -22)
+
+
+# the three uses at the bench point: the fold over 64 * Cin = 6,144 and
+# 4,096 terms, d_acc over Cout = 64; operands of the bench's scale (tap
+# sums and cotangents of order one, filters of order 0.05)
+@pytest.mark.parametrize("k", [6144, 4096, 64])
+def test_three_pass_split_is_f32_class_and_one_pass_is_not(k):
+    rng = np.random.default_rng(k)
+    a = rng.normal(size=(48, k)).astype(np.float32)
+    b = (rng.normal(size=(k, 40)) * 0.05).astype(np.float32)
+    three = rel_err(emulated_product(a, b, ("lo_hi", "hi_lo", "hi_hi")), a, b)
+    one = rel_err(emulated_product(a, b, ("hi_hi",)), a, b)
+    f32 = rel_err(a @ b, a, b)
+    assert three <= LIMIT, three
+    assert three <= 4.0 * max(f32, 2.0 ** -24), (three, f32)
+    assert one > 20.0 * LIMIT, one
+
+
+@pytest.mark.parametrize("n_taps,cin,cout,fits", [
+    (64, 4, 32, True), (64, 3, 32, True), (64, 64, 3, True),
+    (64, 96, 64, False), (64, 64, 64, False), (8, 32, 64, True),
+    (8, 33, 64, False)])
+def test_filter_routing_follows_its_size(n_taps, cin, cout, fits):
+    assert fc.w_fits_shared(n_taps, cin, cout) is fits
+    assert fits == (n_taps * cin * cout * 4 <= fc.W_SHARED_LIMIT)
+
+
+@pytest.mark.parametrize("cin,cout", [(4, 32), (3, 32), (96, 64), (64, 64),
+                                      (64, 3), (200, 256), (1, 1)])
+@pytest.mark.parametrize("backward", [False, True])
+def test_walk_blocks_fit_shared_memory(cin, cout, backward):
+    staged = fc.w_fits_shared(64, cin, cout)
+    qb, threads = fc.walk_config(64, cin, cout, staged, backward)
+    assert qb in (1, 2, 4, 8, 16) and threads % 32 == 0
+    assert 160 <= threads <= 512 and (not staged or threads >= cout)
+    need = fc.bwd_smem_bytes(qb, 64, cin, cout, staged) if backward \
+        else fc.fwd_smem_bytes(qb, threads, 64, cin, cout, staged)
+    assert need <= fc.SMEM_LIMIT
+    if qb < 16:  # no larger block would hold more queries per SM
+        big = fc.bwd_smem_bytes(2 * qb, 64, cin, cout, staged) if backward \
+            else fc.fwd_smem_bytes(2 * qb, threads, 64, cin, cout, staged)
+        held = qb * (fc.SMEM_PER_SM // (need + 1024))
+        assert big > fc.SMEM_LIMIT or \
+            2 * qb * (fc.SMEM_PER_SM // (big + 1024)) <= held
+
+
+def test_walk_config_at_the_bench_layers():
+    # conv0 holds a whole group per block; conv1's 24 KB accumulators leave
+    # 8 queries forward and, beside d_acc's ring, 2 backward
+    assert fc.walk_config(64, 4, 32, True) == (16, 256)
+    assert fc.walk_config(64, 96, 64, False) == (8, 256)
+    assert fc.walk_config(64, 96, 64, False, backward=True) == (2, 256)
+    assert fc.walk_config(64, 64, 64, False) == (4, 256)
+    with pytest.raises(ValueError):
+        fc.walk_config(64, 2000, 8, False)
+
+
+@pytest.mark.parametrize("n,klen", [(14336, 6144), (14336, 4096), (300, 6144),
+                                    (1, 256), (100_000, 6144), (65, 64)])
+def test_scratch_chunks_are_bounded_row_tiles(n, klen):
+    rows = fc.scratch_chunk_rows(n, klen)
+    assert rows % fc.ROW_TILE == 0 and rows >= fc.ROW_TILE
+    assert rows * klen * 4 <= fc.SCRATCH_LIMIT or rows == fc.ROW_TILE
+    n_chunks = -(-n // rows)
+    assert (n_chunks - 1) * rows < n <= n_chunks * rows
+    # no chunking beyond what the limit asks for
+    assert n_chunks == max(1, -(-n * klen * 4 // fc.SCRATCH_LIMIT)) or \
+        n_chunks == -(-n * klen * 4 // fc.SCRATCH_LIMIT) + 1
+
+
+@pytest.mark.parametrize("n,klen,cout", [(7168, 6144, 64), (14336, 4096, 3),
+                                         (14336, 256, 32), (300, 6144, 64),
+                                         (33, 512, 20)])
+def test_dw_splits_cover_a_chunk_in_multiples_of_32(n, klen, cout):
+    n_split, rows = fc.dw_split(n, klen, cout)
+    assert rows % 32 == 0 and n_split >= 1
+    assert (n_split - 1) * rows < n <= n_split * rows
+
+
+def test_split_gemm_plain_and_its_argument_checks():
+    rng = np.random.default_rng(0)
+    a = torch.tensor(rng.normal(size=(5, 7)), dtype=torch.float32)
+    b = torch.tensor(rng.normal(size=(7, 3)), dtype=torch.float32)
+    np.testing.assert_allclose(fc.split_gemm_plain(a, b).numpy(),
+                               a.numpy() @ b.numpy(), rtol=1e-6)
+    np.testing.assert_allclose(
+        fc.split_gemm_plain(a.t().contiguous(), b, trans_a=True).numpy(),
+        a.numpy() @ b.numpy(), rtol=1e-6)
+    with pytest.raises(ValueError):  # a CPU tensor never reaches the kernel
+        fc.split_gemm_cuda(a, b)

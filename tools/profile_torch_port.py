@@ -2,6 +2,7 @@
 on one GPU.
 
 Usage: python tools/profile_torch_port.py [--steps 10] [--rows 20]
+       python tools/profile_torch_port.py --walk-phases
 
 Builds the bench-point scene and the seeded models exactly as chip_smoke.py
 does, runs one warm-up pass, then traces a rollout of `--steps` steps, one
@@ -15,13 +16,21 @@ of its kernels, the device idle share (1 - device time / wall time), that
 device time split by kind (the port's kernels K1-K8, matrix products, sorts,
 the rest) and the kernels with the most device time. Needs a CUDA device;
 the kernels build at first use.
+
+With --walk-phases it instead times K1 (CUDA events, median of 10) at the
+five calls of one ParticleNet step with parts of the forward walk taken out,
+in patched temporary copies of csrc/fused_cconv.cu: what a part costs is the
+time that goes with it. The patched kernels compute wrong results; only
+their time is read, and the package's own build is not touched.
 """
 
 import argparse
 import copy
 import os
 import re
+import shutil
 import sys
+import tempfile
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -44,11 +53,16 @@ def traced(torch, fn):
     return wall, prof
 
 
-# device kernels by kind, first match wins (K2's entry point also runs the
-# two dW reduction kernels)
+# device kernels by kind, first match wins. K1 is the forward walk plus, for
+# the wide layers, the tensor-core fold; K2 is the backward walk, the
+# forward walk again (the rows of dW) and the tensor-core products d_acc and
+# dW with the sum of its splits. The two share kernels, so a train step's
+# device time is split by kernel, not by entry point: in a rollout all of it
+# is K1's.
 KINDS = (
-    ("K1", r"fused_cconv_fwd_kernel"),
-    ("K2", r"fused_cconv_bwd_kernel|dw_partial_kernel|dw_sum_kernel"),
+    ("K1/K2 walk_fwd", r"walk_fwd_kernel"),
+    ("K2 walk_bwd", r"walk_bwd_kernel"),
+    ("K1/K2 split_gemm", r"split_gemm_kernel|sum_splits_kernel"),
     ("K3", r"ball_sums_kernel"),
     ("K4", r"ball_sums_bwd_kernel"),
     ("K5", r"composite_weights_kernel"),
@@ -88,12 +102,80 @@ def report(name, wall_ms, prof, rows):
               f"{e.key[:110]}")
 
 
+# parts of the forward walk and the source edit that takes each out
+WALK_PATCHES = {
+    "the ball -> cube map of phase 1 (its square roots, divisions and "
+    "arctangent)": [
+        ("    ball_to_cube(ox, oy, oz, d2n, ux, uy, uz);",
+         "    ux = ox, uy = oy, uz = oz;")],
+    "phase 2 (the tap accumulation)": [
+        ("for (unsigned m = qmask[q]; m != 0; m &= m - 1) {",
+         "for (unsigned m = 0; m != 0; m &= m - 1) {")],
+    "phases 1 and 2 (no pair is in radius: the tile loads, the barriers, "
+    "the rows or the fold, and the products remain)": [
+        ("  if (!live) return false;\n  float ox, oy, oz, d2n;",
+         "  if (true) return false;\n  float ox, oy, oz, d2n;")],
+}
+
+
+def walk_phases(torch, chip_smoke, calls):
+    from neurofluid_torch import cuda as nf_cuda
+    from neurofluid_torch.ops import fused_cconv as fc
+
+    def times():
+        out = []
+        with torch.no_grad():
+            for a in calls:
+                out.append(chip_smoke.event_ms(
+                    torch, lambda: fc.fused_cconv_cuda(*a)))
+        return out
+
+    def show(name, ms, base=None):
+        gone = "" if base is None else (
+            "; goes with it: " + ", ".join(
+                f"{b - m:.4f}" for b, m in zip(base, ms))
+            + f" (sum {sum(base) - sum(ms):.4f})")
+        print(f"K1 without {name}: " if base else f"K1 {name}: ", end="")
+        print(", ".join(f"{m:.4f}" for m in ms) + f" ms (sum {sum(ms):.4f})"
+              + gone, flush=True)
+
+    shapes = ", ".join(f"Cin {a[0].shape[-2]} Cout {a[0].shape[-1]}"
+                       for a in calls)
+    print(f"K1 at the calls of one ParticleNet step: {shapes}")
+    base = times()
+    show("as built", base)
+    real_csrc = nf_cuda.CSRC
+    try:
+        for name, edits in WALK_PATCHES.items():
+            tmp = tempfile.mkdtemp(prefix="nf_walk_probe_")
+            for f in real_csrc.iterdir():
+                shutil.copy(f, tmp)
+            path = os.path.join(tmp, "fused_cconv.cu")
+            text = open(path).read()
+            for old, new in edits:
+                if old not in text:
+                    raise RuntimeError(f"the source no longer holds {old!r}")
+                text = text.replace(old, new)
+            open(path, "w").write(text)
+            nf_cuda.CSRC = type(real_csrc)(tmp)
+            nf_cuda._libs.pop("fused_cconv.cu", None)
+            fc.KERNEL._fn = None
+            show(name, times(), base)
+            shutil.rmtree(tmp)
+    finally:
+        nf_cuda.CSRC = real_csrc
+        nf_cuda._libs.pop("fused_cconv.cu", None)
+        fc.KERNEL._fn = None
+
+
 def main():
     import torch
 
     parser = argparse.ArgumentParser()
     parser.add_argument("--steps", type=int, default=10)
     parser.add_argument("--rows", type=int, default=20)
+    parser.add_argument("--walk-phases", action="store_true",
+                        help="time K1 with parts of its walk taken out")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_port: no CUDA device", file=sys.stderr)
@@ -123,6 +205,17 @@ def main():
     init_state = (copy.deepcopy(net.state_dict()),
                   copy.deepcopy(ren.state_dict()))
     rollout = make_rollout_fn(net)
+
+    if args.walk_phases:
+        from neurofluid_torch.ops import fused_cconv as fc
+        calls, wrapper = [], fc.fused_cconv_cuda
+        fc.fused_cconv_cuda = lambda *a: calls.append(a) or wrapper(*a)
+        with torch.no_grad():
+            rollout(pos, vel, box, nrm, 1)
+        fc.fused_cconv_cuda = wrapper
+        walk_phases(torch, chip_smoke, calls)
+        print(f"card: {torch.cuda.get_device_name(0)}")
+        return 0
 
     with torch.no_grad():
         traj, _ = rollout(pos, vel, box, nrm, args.steps)  # warm-up
