@@ -21,7 +21,9 @@ Phases (each prints its own line; any failure raises and exits non-zero):
    card, with CUDA-event times (median of 10 after a warm-up) and the least
    time the card could take for the same work; where a K1 or K2 call is a
    walk plus tensor-core products, the products' time at that call's
-   shapes and the walk's share beside it;
+   shapes and the walk's share beside it; for each K3 (and, in 7, K7) call
+   its staged-walk plan and the work of its groups: live slots, padded
+   slots in live groups, dead groups, candidate tests;
 4. serving path: a 10-step ParticleNet rollout of the 14,336-particle
    scene, then the coarse (64) + fine (128) render of 1,024 rays, with
    seeded random weights; launch counts from that run; the same path on the
@@ -178,6 +180,33 @@ def ball_bytes(bf, q_rep, tables, gcell, dims, t, walked, *whole):
             + int(walked.sum()) * 3 * q_rep.element_size() + nbytes(*whole))
 
 
+def walk_work(bf, q_rep, tx, gcell, dims, t, n_arrays, state_words,
+              threads):
+    """One line on a staged-walk call (K3, K7): its plan (`walk_plan`) and
+    its groups' work. A group of the sentinel cell is dead (it only writes
+    its outputs); a live group stages its 27 rows once, its padded slots
+    write their outputs and its live slots walk; a candidate test is one
+    live slot against one occupied slot of its group's rows."""
+    cap = tx.shape[1]
+    stage, n_stages = bf.walk_plan(cap, n_arrays, t, state_words)
+    smem = bf.walk_smem_bytes(stage, n_stages, n_arrays, t, state_words)
+    live = (q_rep[:, 0] < 0.5 * bf.SENTINEL).reshape(-1, t)
+    in_cell = gcell.long() < dims[0] * dims[1] * dims[2]
+    occupied = (tx < 0.5 * bf.SENTINEL).sum(1)
+    extent = occupied[bf.neighbor_rows(gcell, dims)].sum(1)
+    n_live = live.sum(1) * in_cell
+    tests = int((extent * n_live).sum())
+    batches = (-(-extent // stage))[in_cell]
+    return (f"plan: {threads} threads, stage {stage} candidates x {n_stages}, "
+            f"{smem} B dynamic shared memory; groups {gcell.shape[0]}: live "
+            f"{int(in_cell.sum())}, dead {int((~in_cell).sum())}; slots: live "
+            f"{int(n_live.sum())}, padded in live groups "
+            f"{int((t - live.sum(1))[in_cell].sum())}; candidates per live "
+            f"group mean {float(extent[in_cell].float().mean()):.1f} max "
+            f"{int(extent[in_cell].max())}, batches max {int(batches.max())}; "
+            f"candidate tests {tests}"), tests
+
+
 def event_ms(torch, fn, reps=10):
     """Median CUDA-event time of fn() after one warm-up call. A spin kernel
     runs ahead of each timed call so the launch is queued before the start
@@ -254,8 +283,8 @@ def main():
     nf_cuda.build(["fused_cconv.cu", "ball_features.cu", "composite.cu",
                    "fused_query.cu", "segment_sum.cu"])
     build_s = time.perf_counter() - t0
-    print(f"build: 5 sources (K1-K8; fused_cconv.cu includes "
-          f"split_gemm.cuh) with nvcc -gencode "
+    print(f"build: 5 sources (K1-K8; headers split_gemm.cuh, "
+          f"ball_walk.cuh, async_copy.cuh) with nvcc -gencode "
           f"arch=compute_90a,code=sm_90a in {build_s:.1f} s", flush=True)
 
     def product_operands(m_, k_, n_, trans, gen=None):
@@ -467,9 +496,9 @@ def main():
             q_rep, tx, ty, tz, gcell, dims, radius, k, t = args
             got, want = bf.ball_sums_cuda(*args), bf.ball_sums_plain(*args)
             live = q_rep[:, 0] < 0.5 * bf.SENTINEL
-            occupied = (tx < 0.5 * bf.SENTINEL).sum(1)
-            tests = float((occupied[bf.neighbor_rows(gcell, dims)].sum(1)
-                           * live.reshape(-1, t).sum(1)).sum())
+            work, tests = walk_work(bf, q_rep, tx, gcell, dims, t, 3,
+                                    bf.N_SUMS, bf.THREADS)
+            print(f"kernel K3 call {i} {work}", flush=True)
             ops = tests * K3_TEST_OPS + float(want[:, 1].sum()) * K3_SELECTED_OPS
             n_b = ball_bytes(bf, q_rep, (tx, ty, tz), gcell, dims, t, live,
                              gcell, got)
@@ -836,9 +865,9 @@ def main():
             live = ((q_rep[:, 0] < 0.5 * bf.SENTINEL)
                     & (gcell.long() < dims[0] * dims[1] * dims[2])
                     .repeat_interleave(t))
-            occupied = (tx < 0.5 * bf.SENTINEL).sum(1)
-            tests = float((occupied[bf.neighbor_rows(gcell, dims)].sum(1)
-                           * live.reshape(-1, t).sum(1)).sum())
+            work, tests = walk_work(bf, q_rep, tx, gcell, dims, t, 4, 0,
+                                    fq.THREADS)
+            print(f"kernel K7 call {i} {work}", flush=True)
             n_b = ball_bytes(bf, q_rep, (tx, ty, tz, ti), gcell, dims, t,
                              live, gcell, *got)
             mask = [torch.arange(k, device=dev)[None, :]
@@ -1012,6 +1041,9 @@ def main():
                "neurofluid_tpu/ops/fused_query.py:194"),
         "K8": ("segment_sum_accumulate", "segment_sum.cu",
                "neurofluid_tpu/ops/segment_ops.py:157")}
+    includes = {"fused_cconv.cu": ("split_gemm.cuh", "async_copy.cuh"),
+                "ball_features.cu": ("ball_walk.cuh", "async_copy.cuh"),
+                "fused_query.cu": ("ball_walk.cuh", "async_copy.cuh")}
     line = {"kernels": [
         {"name": f"{kid} {name}", "route": "cuda",
          "source": f"neurofluid_torch/csrc/{src}", "replaces": replaces,
@@ -1022,8 +1054,8 @@ def main():
          "bound_by": bound_ms(kernels[kid]["bytes"], kernels[kid]["ops"],
                               kernels[kid]["tc_ops"])[1],
          "library_ms": kernels[kid]["library_ms"],
-         "includes": (["neurofluid_torch/csrc/split_gemm.cuh"]
-                      if src == "fused_cconv.cu" else [])}
+         "includes": [f"neurofluid_torch/csrc/{h}"
+                      for h in includes.get(src, ())]}
         for kid, (name, src, replaces) in sources.items()]}
     print(json.dumps(line))
     print(smi)

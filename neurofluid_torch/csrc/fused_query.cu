@@ -14,17 +14,17 @@
 // The TPU kernel ranks a row's in-radius slots with a bf16 triangular
 // matmul on the MXU and scatters each payload with a (T, K, cap) one-hot
 // product and a lane reduction, ids carried as f32. None of that is needed
-// here: one warp owns one query and takes a row 32 slots at a time (at the
-// transition grid's cap of 32 a row is exactly one warp); a ballot of the
-// in-radius lanes plus __popc of the lanes below gives each lane its exact
-// integer output slot, and the lane stores its int32 id there itself. The
-// running count `off` is one integer, uniform across the warp. The walk is
-// the one of K3 (`walk` in ball_features.cu) with the inclusive test and
-// the exclude_self test added; slots of a row are filled as a prefix, so a
-// row ends at the first chunk with no occupied slot (empty slots and the
-// sentinel row hold 1e9 coordinates). A padded query slot (its coordinates
-// at the sentinel) and a group of the sentinel cell write an empty list
-// without walking.
+// here. One block owns one group of up to 8 queries of one cell and runs
+// the staged walk of ball_walk.cuh: the 27 rows' occupied prefixes (x, y,
+// z and the particle id) are read from L2 once per group into one
+// flattened candidate list in shared memory, and the block's warps take
+// the live slots in turn. A warp walks the list 32 candidates at a time; a
+// ballot of the in-radius lanes plus __popc of the lanes below gives each
+// lane its exact integer output slot, and the lane stores its int32 id
+// there itself. The running count is one integer, uniform across the warp.
+// A padded query slot (its coordinates at the sentinel) and a group of the
+// sentinel cell do not stage or walk: they write an empty list (ids -1,
+// coordinates 0) and count 0 with 16-byte stores, as do the unfilled tails.
 //
 // The squared distance is computed without contraction (__fmul_rn /
 // __fadd_rn) in the order of the plain version, dx*dx + dy*dy + dz*dz, so
@@ -32,16 +32,33 @@
 //
 // Bound on the card: bytes at the transition grid (the occupied table
 // entries, the queries, and the (slots, k) id lists written once); every
-// query also tests each occupied slot of its 27 rows, about ten operations
-// each, while the tables (under 6 MB) stay in L2.
+// live query also tests each occupied slot of its 27 rows, about ten
+// operations each.
 
 #include <cuda_runtime.h>
 
+#include "ball_walk.cuh"
+
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kWarpsPerBlock = 8;
-constexpr float kEmpty = 5e8f;  // slots at or above hold the 1e9 sentinel
+namespace b = nf::ball;
+
+// The empty list of `n` consecutive slots from `slot`: ids -1, coordinates
+// 0, count 0, by threads `tid` of `nt`.
+template <bool kEmitXyz>
+__device__ __forceinline__ void empty_lists(int* out_idx, int* out_count,
+                                            float* out_x, float* out_y,
+                                            float* out_z, long slot, int n,
+                                            int k, int tid, int nt) {
+  const long at = slot * k, len = static_cast<long>(n) * k;
+  b::fill(out_idx + at, len, -1, tid, nt);
+  if (kEmitXyz) {
+    float* const xyz[3] = {out_x, out_y, out_z};
+    for (int a = 0; a < 3; ++a)
+      b::fill(reinterpret_cast<int*>(xyz[a]) + at, len, 0, tid, nt);
+  }
+  b::fill(out_count + slot, n, 0, tid, nt);
+}
 
 template <bool kEmitXyz>
 __global__ void ball_query_compact_kernel(
@@ -50,46 +67,56 @@ __global__ void ball_query_compact_kernel(
     const int* __restrict__ tidx, const int* __restrict__ gcell,
     int* __restrict__ out_idx, int* __restrict__ out_count,
     float* __restrict__ out_x, float* __restrict__ out_y,
-    float* __restrict__ out_z, int n_slots, int group_size, int d0, int d1,
-    int d2, int cap, float r2, int k, int exclude_self) {
-  const int slot = blockIdx.x * kWarpsPerBlock + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (slot >= n_slots) return;  // whole warp leaves together
-  const int c = gcell[slot / group_size];
-  const float qx = q[3 * slot], qy = q[3 * slot + 1], qz = q[3 * slot + 2];
-  const long out_row = static_cast<long>(slot) * k;
-  const unsigned below = kFull >> (31 - lane) >> 1;  // lanes before mine
-  int off = 0;  // in-radius particles met so far (uniform in the warp)
+    float* __restrict__ out_z, int t, int d0, int d1, int d2, int cap,
+    float r2, int k, int exclude_self, int stage, int n_stages) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ b::Group g;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int warps = blockDim.x / 32;
+  const long slot0 = static_cast<long>(blockIdx.x) * t;
+  const int c = gcell[blockIdx.x];
+  if (c >= d0 * d1 * d2) {  // a group of the sentinel cell
+    empty_lists<kEmitXyz>(out_idx, out_count, out_x, out_y, out_z, slot0, t,
+                          k, threadIdx.x, blockDim.x);
+    return;
+  }
+  float* sq = smem + n_stages * stage * 4;
+  int* order = reinterpret_cast<int*>(sq + 3 * t);
+  int* budget = order + t;  // in-radius particles met so far, per live slot
+  b::plan_group(g, q + 3 * slot0, t, c, d0, d1, d2, cap, tx, order, sq);
+  const int n_live = g.n_live;
+  for (int i = n_live + warp; i < t; i += warps)  // padded slots
+    empty_lists<kEmitXyz>(out_idx, out_count, out_x, out_y, out_z,
+                          slot0 + order[i], 1, k, lane, 32);
+  for (int i = threadIdx.x; i < n_live; i += blockDim.x) budget[i] = 0;
 
-  if (c < d0 * d1 * d2 && qx < kEmpty) {
-    const int cz = c % d2, cy = (c / d2) % d1, cx = c / (d1 * d2);
-    for (int o = 0; o < 27; ++o) {
-      const int ox = o / 9 - 1, oy = (o / 3) % 3 - 1, oz = o % 3 - 1;
-      if (cx + ox < 0 || cx + ox >= d0 || cy + oy < 0 || cy + oy >= d1 ||
-          cz + oz < 0 || cz + oz >= d2)
-        continue;
-      const long row =
-          static_cast<long>(c + ox * d1 * d2 + oy * d2 + oz) * cap;
-      for (int base = 0; base < cap; base += 32) {
+  const unsigned below = b::kFull >> (31 - lane) >> 1;  // lanes before mine
+  const float* const tab[4] = {tx, ty, tz,
+                               reinterpret_cast<const float*>(tidx)};
+  b::for_each_batch(g, tab, smem, stage, [&](const float* buf, int n) {
+    const float* bx = buf;
+    const float* by = buf + stage;
+    const float* bz = buf + 2 * stage;
+    const int* bi = reinterpret_cast<const int*>(buf + 3 * stage);
+    for (int i = warp; i < n_live; i += warps) {
+      const float qx = sq[3 * i], qy = sq[3 * i + 1], qz = sq[3 * i + 2];
+      const long out_row = (slot0 + order[i]) * k;
+      int off = budget[i];
+      for (int base = 0; base < n; base += 32) {
         const int j = base + lane;
-        const float rx = j < cap ? tx[row + j] : 1e9f;
-        const bool occupied = rx < kEmpty;
-        if (!__any_sync(kFull, occupied)) break;
-        const float ry = occupied ? ty[row + j] : 0.0f;
-        const float rz = occupied ? tz[row + j] : 0.0f;
-        const float dx = __fsub_rn(rx, qx);
-        const float dy = __fsub_rn(ry, qy);
-        const float dz = __fsub_rn(rz, qz);
-        const float d2s = __fadd_rn(
-            __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-            __fmul_rn(dz, dz));
+        const bool in = j < n;
+        const float rx = in ? bx[j] : 1e9f;
+        const float ry = in ? by[j] : 0.0f;
+        const float rz = in ? bz[j] : 0.0f;
+        const float d2s = b::dist2(__fsub_rn(rx, qx), __fsub_rn(ry, qy),
+                                   __fsub_rn(rz, qz));
         const bool within =
-            occupied && d2s <= r2 && !(exclude_self && d2s <= 0.0f);
-        const unsigned mask = __ballot_sync(kFull, within);
+            in && d2s <= r2 && !(exclude_self && d2s <= 0.0f);
+        const unsigned mask = __ballot_sync(b::kFull, within);
         const int at = off + __popc(mask & below);
         off += __popc(mask);
         if (within && at < k) {
-          out_idx[out_row + at] = tidx[row + j];
+          out_idx[out_row + at] = bi[j];
           if (kEmitXyz) {
             out_x[out_row + at] = rx;
             out_y[out_row + at] = ry;
@@ -97,18 +124,23 @@ __global__ void ball_query_compact_kernel(
           }
         }
       }
+      __syncwarp();
+      if (lane == 0) budget[i] = off;
     }
-  }
-  // the unfilled tail: id -1, coordinates 0
-  for (int s = min(off, k) + lane; s < k; s += 32) {
-    out_idx[out_row + s] = -1;
+  });
+  for (int i = warp; i < n_live; i += warps) {  // the unfilled tails
+    const long slot = slot0 + order[i];
+    const int off = budget[i];
+    const int filled = min(off, k);
+    b::fill(out_idx + slot * k + filled, k - filled, -1, lane, 32);
     if (kEmitXyz) {
-      out_x[out_row + s] = 0.0f;
-      out_y[out_row + s] = 0.0f;
-      out_z[out_row + s] = 0.0f;
+      float* const xyz[3] = {out_x, out_y, out_z};
+      for (int a = 0; a < 3; ++a)
+        b::fill(reinterpret_cast<int*>(xyz[a] + slot * k + filled),
+                k - filled, 0, lane, 32);
     }
+    if (lane == 0) out_count[slot] = off;
   }
-  if (lane == 0) out_count[slot] = off;
 }
 
 }  // namespace
@@ -118,25 +150,33 @@ __global__ void ball_query_compact_kernel(
 // same shape, the original particle index of each slot; gcell: (n_groups,)
 // cell of each group (cells for the sentinel groups). out_idx: (slots, k)
 // int32, out_count: (slots,) int32, out_x/y/z: (slots, k) f32 or null (then
-// only ids are written). Every output entry is written.
+// only ids are written). Every output entry is written. threads, stage,
+// n_stages: the block and staging plan (ops/ball_features.walk_plan); a
+// plan that cannot launch is refused with cudaErrorInvalidValue.
 extern "C" int nf_ball_query_compact(
     const float* q, const float* tx, const float* ty, const float* tz,
     const int* tidx, const int* gcell, int* out_idx, int* out_count,
     float* out_x, float* out_y, float* out_z, int n_groups, int group_size,
     int d0, int d1, int d2, int cap, float r2, int k, int exclude_self,
-    void* stream) {
-  const int n_slots = n_groups * group_size;
-  const int blocks = (n_slots + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  const dim3 threads(kWarpsPerBlock * 32);
+    int threads, int stage, int n_stages, void* stream) {
+  const size_t smem = b::smem_bytes(stage, n_stages, 4, group_size, 0);
+  if (!b::plan_ok(threads, stage, n_stages, cap, smem))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (out_x != nullptr) {
-    ball_query_compact_kernel<true><<<blocks, threads, 0, s>>>(
+    cudaFuncSetAttribute(ball_query_compact_kernel<true>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(smem));
+    ball_query_compact_kernel<true><<<n_groups, threads, smem, s>>>(
         q, tx, ty, tz, tidx, gcell, out_idx, out_count, out_x, out_y, out_z,
-        n_slots, group_size, d0, d1, d2, cap, r2, k, exclude_self);
+        group_size, d0, d1, d2, cap, r2, k, exclude_self, stage, n_stages);
   } else {
-    ball_query_compact_kernel<false><<<blocks, threads, 0, s>>>(
+    cudaFuncSetAttribute(ball_query_compact_kernel<false>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(smem));
+    ball_query_compact_kernel<false><<<n_groups, threads, smem, s>>>(
         q, tx, ty, tz, tidx, gcell, out_idx, out_count, out_x, out_y, out_z,
-        n_slots, group_size, d0, d1, d2, cap, r2, k, exclude_self);
+        group_size, d0, d1, d2, cap, r2, k, exclude_self, stage, n_stages);
   }
   return static_cast<int>(cudaGetLastError());
 }

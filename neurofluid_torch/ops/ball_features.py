@@ -44,9 +44,50 @@ SENTINEL = 1e9
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNEL = Kernel("ball_features.cu", "nf_ball_sums",
-                [_P] * 6 + [_I] * 6 + [_F, _F, _I])
+                [_P] * 6 + [_I] * 6 + [_F, _F, _I] + [_I] * 3)
 BWD_KERNEL = Kernel("ball_features.cu", "nf_ball_sums_bwd",
                     [_P] * 8 + [_I] * 6 + [_F, _F, _I])
+
+
+# The staged walk of K3 and K7 (`csrc/ball_walk.cuh`): one block per group
+# copies the occupied prefixes of the group's 27 table rows into shared
+# memory as one flattened candidate list, `stage` candidates per batch.
+# Up to WHOLE_STAGE_BYTES the 27 rows fit one stage at their full width (one
+# batch, whatever the data); a larger cap takes a ring of two stages of
+# RING_STAGE_BYTES each, batch b + 1 arriving while batch b is walked.
+SMEM_LIMIT = 232_448  # a block's shared memory on the H100
+GROUP_STATIC_BYTES = 1024  # above the static `Group` of ball_walk.cuh
+WHOLE_STAGE_BYTES = 64 * 1024
+RING_STAGE_BYTES = 32 * 1024
+THREADS = 256  # K3's block: 8 warps take a group's live slots in turn
+
+
+def walk_plan(cap: int, n_arrays: int, group_size: int,
+              state_words: int) -> tuple:
+    """(candidates per stage, stages) of the staged walk over tables of
+    width `cap`, staged as `n_arrays` 4-byte arrays (3 for K3, 4 for K7),
+    for groups of `group_size` slots with `state_words` words of per-slot
+    state. Any cap has a plan; only a group too large for one block's
+    shared memory raises (the C side refuses it too)."""
+    per = 4 * n_arrays
+    if 27 * cap * per <= WHOLE_STAGE_BYTES:
+        stage, n_stages = 27 * cap, 1
+    else:
+        stage, n_stages = RING_STAGE_BYTES // per, 2
+    need = walk_smem_bytes(stage, n_stages, n_arrays, group_size,
+                           state_words)
+    if need + GROUP_STATIC_BYTES > SMEM_LIMIT:
+        raise ValueError(f"a group of {group_size} slots needs {need} bytes "
+                         f"of shared memory, more than a block has")
+    return stage, n_stages
+
+
+def walk_smem_bytes(stage: int, n_stages: int, n_arrays: int,
+                    group_size: int, state_words: int) -> int:
+    """Dynamic shared memory of a staged-walk block (`smem_bytes` in
+    ball_walk.cuh): the stages, then per slot its query, its place in the
+    slot order, its running count and the kernel's own state words."""
+    return 4 * (n_stages * stage * n_arrays + group_size * (5 + state_words))
 
 
 class BallGrouping(NamedTuple):
@@ -231,17 +272,19 @@ def _check_cuda_args(q_rep, tx, ty, tz, gcell, dims, group_size):
 
 def ball_sums_cuda(q_rep, tx, ty, tz, gcell, dims, radius: float, k: int,
                    group_size: int) -> torch.Tensor:
-    """K3: one warp per packed query slot; ranks from a warp ballot."""
+    """K3: one block per group, the 27 rows staged once in shared memory,
+    the live slots walked in turn; ranks from a warp ballot."""
     _check_cuda_args(q_rep, tx, ty, tz, gcell, dims, group_size)
     ng, t = gcell.shape[0], group_size
     d0, d1, d2 = dims
     out = torch.empty((ng * t, N_SUMS), dtype=torch.float32,
                       device=q_rep.device)
     if ng:
+        plan = walk_plan(tx.shape[1], 3, t, N_SUMS)
         KERNEL(q_rep.data_ptr(), tx.data_ptr(), ty.data_ptr(), tz.data_ptr(),
                gcell.data_ptr(), out.data_ptr(), ng, t, d0, d1, d2,
                tx.shape[1], float(np.float32(radius * radius)), float(radius),
-               int(k))
+               int(k), THREADS, *plan)
     return out
 
 

@@ -31,10 +31,11 @@ from neurofluid_torch.ops.neighbor_search import (
 )
 
 GROUP_SIZE = 8  # queries per group: a rest-density cell holds ~11 queries
+THREADS = 128  # K7's block: 4 warps take a group's live slots in turn
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNEL = Kernel("fused_query.cu", "nf_ball_query_compact",
-                [_P] * 11 + [_I] * 6 + [_F, _I, _I])
+                [_P] * 11 + [_I] * 6 + [_F, _I, _I] + [_I] * 3)
 
 
 def ball_query_compact_plain(q_rep, tx, ty, tz, ti, gcell, dims,
@@ -91,9 +92,10 @@ def ball_query_compact_plain(q_rep, tx, ty, tz, ti, gcell, dims,
 def ball_query_compact_cuda(q_rep, tx, ty, tz, ti, gcell, dims,
                             radius: float, k: int, group_size: int,
                             exclude_self: bool, emit_xyz: bool):
-    """K7: one warp per packed query slot; each in-radius lane stores its
-    own id at the slot its ballot rank gives it. Same results as the plain
-    version."""
+    """K7: one block per group, the 27 rows' occupied prefixes and ids
+    staged once in shared memory, the live slots walked in turn; each
+    in-radius lane stores its own id at the slot its ballot rank gives it.
+    Same results as the plain version."""
     dev = q_rep.device
     ng, t = gcell.shape[0], group_size
     d0, d1, d2 = dims
@@ -112,11 +114,13 @@ def ball_query_compact_cuda(q_rep, tx, ty, tz, ti, gcell, dims,
     xyz = [torch.empty((ng * t, k), dtype=torch.float32, device=dev)
            for _ in range(3 if emit_xyz else 0)]
     if ng and k:
+        plan = bf.walk_plan(tx.shape[1], 4, t, 0)
         KERNEL(q_rep.data_ptr(), tx.data_ptr(), ty.data_ptr(), tz.data_ptr(),
                ti.data_ptr(), gcell.data_ptr(), idx.data_ptr(),
                count.data_ptr(), *(a.data_ptr() for a in xyz),
                *([0] * (3 - len(xyz))), ng, t, d0, d1, d2, tx.shape[1],
-               float(np.float32(radius * radius)), int(k), int(exclude_self))
+               float(np.float32(radius * radius)), int(k), int(exclude_self),
+               THREADS, *plan)
     return (idx, count, *xyz)
 
 

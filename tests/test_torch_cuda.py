@@ -90,6 +90,83 @@ def test_ball_sums_kernel_matches_plain(dev):
                                atol=2e-6)
 
 
+def _packed_walk_inputs(dev, pts, qs, radius, cap, t, max_groups=None):
+    """The packed layout a staged walk (K3, K7) takes, built as the
+    wrappers' callers build it: (q_rep, tx, ty, tz, ti, gcell, dims) on
+    `dev`, every query kept."""
+    lo, hi = (-1.05,) * 3, (1.05,) * 3
+    pts, qs = pts.to(dev), qs.to(dev)
+    grouping = bf.group_queries(qs, pts, radius, lo, hi, qs.shape[0], t,
+                                max_groups)
+    grid, tx, ty, tz = bf.build_tables(pts, lo, hi, radius, cap)
+    q_pad = torch.cat([qs[grouping.order[:grouping.capacity]],
+                       torch.full_like(qs[:1], bf.SENTINEL)])
+    return (q_pad[grouping.rep_idx].contiguous(), tx, ty, tz,
+            grid.table_idx.to(torch.int32), grouping.gcell, grid.dims)
+
+
+def _walk_shape(q_rep, tx, gcell, dims, t):
+    """(live slots, padded slots in live groups, dead groups, largest
+    flattened candidate list of a live group, live groups whose 27 rows
+    are all empty) of a packed layout."""
+    live = (q_rep[:, 0] < 0.5 * bf.SENTINEL).reshape(-1, t).sum(1)
+    in_cell = gcell.long() < dims[0] * dims[1] * dims[2]
+    extent = (tx < 0.5 * bf.SENTINEL).sum(1)[bf.neighbor_rows(gcell, dims)]
+    total = extent.sum(1)[in_cell]
+    return (int(live.sum()), int((t - live)[in_cell].sum()),
+            int((~in_cell).sum()), int(total.max()), int((total == 0).sum()))
+
+
+# n points in a cube of half-width `spread` (cells of r = 0.225 filled
+# near `cap`; spread None: eight clusters, so some live groups find no
+# particle in their 27 rows), queries in a wider cube; `ring`: a stage of
+# that many bytes per array set, so the two-stage ring runs with ragged
+# batches
+@pytest.mark.parametrize("cap,n_pts,spread,ring", [
+    (128, 1000, 0.225, None),   # rows of 100-128: four 32-slot chunks
+    (72, 700, 0.3, None),       # a cap that is no multiple of 32
+    (256, 9000, 0.3375, None),  # 27 prefixes past the one-stage plan
+    (40, 700, None, 12 * 61)])  # batches of 61 candidates
+def test_ball_sums_staged_walk_matches_plain(dev, monkeypatch, cap, n_pts,
+                                             spread, ring):
+    """K3's staged walk against its plain version on the same packed
+    inputs: the three count columns equal, the sums within 1e-5. The
+    groups are partly padded and some are of the sentinel cell."""
+    if ring is not None:
+        monkeypatch.setattr(bf, "WHOLE_STAGE_BYTES", 0)
+        monkeypatch.setattr(bf, "RING_STAGE_BYTES", ring)
+    rng = np.random.default_rng(12)
+    r, k, t = 0.225, 20, 32
+    if spread is None:
+        pts, spread = _cloud(rng, n_pts, 0.7), 0.8
+    else:
+        pts = torch.tensor(rng.uniform(-spread, spread, (n_pts, 3)),
+                           dtype=torch.float32)
+    qs = torch.tensor(rng.uniform(-spread - 0.2, spread + 0.2, (700, 3)),
+                      dtype=torch.float32)
+    q_rep, tx, ty, tz, _, gcell, dims = _packed_walk_inputs(dev, pts, qs, r,
+                                                            cap, t)
+    live, padded, dead, longest, empty = _walk_shape(q_rep, tx, gcell, dims,
+                                                     t)
+    assert live == 700 and padded > 0 and dead > 0
+    assert empty > 0 or ring is None
+    stage, n_stages = bf.walk_plan(cap, 3, t, bf.N_SUMS)
+    if cap == 128:
+        assert n_stages == 1 and int((tx < 5e8).sum(1).max()) > 96
+    if cap == 256 or ring is not None:
+        assert n_stages == 2 and longest > 2 * stage  # three batches or more
+    args = (q_rep, tx, ty, tz, gcell, dims, r, k, t)
+    before = bf.KERNEL.launches
+    got = bf.ball_sums_cuda(*args)
+    assert bf.KERNEL.launches == before + 1
+    want = bf.ball_sums_plain(*args)
+    assert float(want[:, 0].max()) > k  # truncation
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    np.testing.assert_array_equal(got[:, :3], want[:, :3])
+    np.testing.assert_allclose(got[:, 3:], want[:, 3:], rtol=1e-5, atol=2e-6)
+    assert not got[(q_rep[:, 0] > 5e8).cpu().numpy()].any()  # padded: zeros
+
+
 def _directional_check(fn, inputs, dirs, g_out, tol):
     """gradcheck-style, in f32 on the card: the derivative of <fn(x), g_out>
     along `dirs` (one step per input, None where the input is held) by
@@ -407,6 +484,51 @@ def test_ball_query_kernel_matches_plain(dev, exclude_self, k, cap, emit_xyz,
     if emit_xyz:
         for a, b in zip(got.xyz, want.xyz):
             np.testing.assert_array_equal(a.cpu().numpy(), b.numpy())
+
+
+# `max_groups`: groups allotted (most of them dead, of the sentinel cell),
+# and queries apart from the particles, so that some live groups find no
+# particle in their 27 rows; cap 160 takes the two-stage ring; `ring`
+# shrinks its stage to ragged batches of 61 candidates; k 13 and 5 leave
+# tails that start and end off 16-byte boundaries; every k truncates the
+# fuller lists
+@pytest.mark.parametrize("cap,k,emit_xyz,max_groups,ring", [
+    (32, 16, False, 20_000, None), (160, 13, True, None, None),
+    (40, 5, True, None, 16 * 61)])
+def test_ball_query_staged_walk_matches_plain(dev, monkeypatch, cap, k,
+                                              emit_xyz, max_groups, ring):
+    """K7's staged walk against its plain version on the same packed
+    inputs: ids, counts and coordinates equal."""
+    if ring is not None:
+        monkeypatch.setattr(bf, "WHOLE_STAGE_BYTES", 0)
+        monkeypatch.setattr(bf, "RING_STAGE_BYTES", ring)
+    rng = np.random.default_rng(13)
+    r, t = 0.1125, fq.GROUP_SIZE
+    n_pts, spread = (600, 0.5) if cap == 32 else (2700, 0.16875)
+    pts = _cloud(rng, n_pts, spread) if cap == 32 else torch.tensor(
+        rng.uniform(-spread, spread, (n_pts, 3)), dtype=torch.float32)
+    apart = max_groups is not None
+    qs = _cloud(rng, 256, spread) if apart else pts
+    q_rep, tx, ty, tz, ti, gcell, dims = _packed_walk_inputs(
+        dev, pts, qs, r, cap, t, max_groups)
+    live, padded, dead, longest, empty = _walk_shape(q_rep, tx, gcell, dims,
+                                                     t)
+    assert live == qs.shape[0] and padded > 0 and dead > 0
+    stage, n_stages = bf.walk_plan(cap, 4, t, 0)
+    if apart:
+        assert dead > 10 * (gcell.shape[0] - dead) and empty > 0
+    else:
+        assert n_stages == 2 and longest > stage
+    args = (q_rep, tx, ty, tz, ti, gcell, dims, r, k, t, not apart,
+            emit_xyz)
+    before = fq.KERNEL.launches
+    got = fq.ball_query_compact_cuda(*args)
+    assert fq.KERNEL.launches == before + 1
+    want = fq.ball_query_compact_plain(*args)
+    assert int(want[1].max()) > k  # truncation
+    assert len(got) == len(want)
+    for name, a, b in zip(("idx", "count", "x", "y", "z"), got, want):
+        np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy(), name)
 
 
 @pytest.mark.parametrize("c", [1, 3, 4, 24, 32, 64, 96, 200])

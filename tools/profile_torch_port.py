@@ -3,6 +3,7 @@ on one GPU.
 
 Usage: python tools/profile_torch_port.py [--steps 10] [--rows 20]
        python tools/profile_torch_port.py --walk-phases
+       python tools/profile_torch_port.py --ball-walk-sweep
 
 Builds the bench-point scene and the seeded models exactly as chip_smoke.py
 does, runs one warm-up pass, then traces a rollout of `--steps` steps, one
@@ -22,6 +23,15 @@ five calls of one ParticleNet step with parts of the forward walk taken out,
 in patched temporary copies of csrc/fused_cconv.cu: what a part costs is the
 time that goes with it. The patched kernels compute wrong results; only
 their time is read, and the package's own build is not touched.
+
+With --ball-walk-sweep it instead times K3 at the two calls of one render
+and K7 at the two calls of one ParticleNet step on `search_backend='fused'`
+(CUDA events, median of 10): as built; on the leading live groups alone (a
+probe of what the dead groups' blocks cost); with a register budget
+(__launch_bounds__) or the walk's step unrolled, in patched temporary
+copies of the source as --walk-phases builds them; for each block size;
+and with the two-stage ring forced at several stage sizes (the launch plan
+is chosen in Python, `ball_features.walk_plan` and `THREADS`: no rebuild).
 """
 
 import argparse
@@ -118,8 +128,44 @@ WALK_PATCHES = {
 }
 
 
+class patched_source:
+    """Within the block, `source` of csrc/ builds from a temporary copy of
+    csrc/ with `edits` (old, new) applied; its cached library and its
+    kernels' handles are dropped on the way in and out."""
+
+    def __init__(self, source, edits, kernels):
+        self.source, self.edits, self.kernels = source, edits, kernels
+
+    def _reset(self):
+        from neurofluid_torch import cuda as nf_cuda
+        nf_cuda._libs.pop(self.source, None)
+        for k in self.kernels:
+            k._fn = None
+
+    def __enter__(self):
+        from neurofluid_torch import cuda as nf_cuda
+        self.real = nf_cuda.CSRC
+        self.tmp = tempfile.mkdtemp(prefix="nf_probe_")
+        for f in self.real.iterdir():
+            shutil.copy(f, self.tmp)
+        path = os.path.join(self.tmp, self.source)
+        text = open(path).read()
+        for old, new in self.edits:
+            if old not in text:
+                raise RuntimeError(f"{self.source} no longer holds {old!r}")
+            text = text.replace(old, new)
+        open(path, "w").write(text)
+        nf_cuda.CSRC = type(self.real)(self.tmp)
+        self._reset()
+
+    def __exit__(self, *exc):
+        from neurofluid_torch import cuda as nf_cuda
+        nf_cuda.CSRC = self.real
+        self._reset()
+        shutil.rmtree(self.tmp)
+
+
 def walk_phases(torch, chip_smoke, calls):
-    from neurofluid_torch import cuda as nf_cuda
     from neurofluid_torch.ops import fused_cconv as fc
 
     def times():
@@ -144,28 +190,97 @@ def walk_phases(torch, chip_smoke, calls):
     print(f"K1 at the calls of one ParticleNet step: {shapes}")
     base = times()
     show("as built", base)
-    real_csrc = nf_cuda.CSRC
-    try:
-        for name, edits in WALK_PATCHES.items():
-            tmp = tempfile.mkdtemp(prefix="nf_walk_probe_")
-            for f in real_csrc.iterdir():
-                shutil.copy(f, tmp)
-            path = os.path.join(tmp, "fused_cconv.cu")
-            text = open(path).read()
-            for old, new in edits:
-                if old not in text:
-                    raise RuntimeError(f"the source no longer holds {old!r}")
-                text = text.replace(old, new)
-            open(path, "w").write(text)
-            nf_cuda.CSRC = type(real_csrc)(tmp)
-            nf_cuda._libs.pop("fused_cconv.cu", None)
-            fc.KERNEL._fn = None
+    for name, edits in WALK_PATCHES.items():
+        with patched_source("fused_cconv.cu", edits, [fc.KERNEL]):
             show(name, times(), base)
-            shutil.rmtree(tmp)
+
+
+# block sizes of the staged walk (a plan may ask for at most 256 threads),
+# two-stage ring stages (bytes) forced in place of the one-stage plan, and
+# register budgets (__launch_bounds__ added: blocks of 256 threads per SM)
+SWEEP_THREADS = (64, 128, 256)
+SWEEP_RING_BYTES = (8 * 1024, 16 * 1024, 32 * 1024)
+SWEEP_MIN_BLOCKS = (3, 4, 6, 8)
+# the line that opens each kernel, and the walk's 32-candidate step
+KERNEL_HEAD = {"ball_features.cu": "__global__ void ball_sums_kernel(",
+               "fused_query.cu": "__global__ void ball_query_compact_kernel("}
+WALK_STEP = "      for (int base = 0; base < n; base += 32) {"
+
+
+def source_variants(source):
+    """(what, edits) of the patched builds the sweep times."""
+    head = KERNEL_HEAD[source]
+    out = {f"__launch_bounds__(256, {b})":
+           [(head, head.replace("void ", f"void __launch_bounds__(256, {b}) "))]
+           for b in SWEEP_MIN_BLOCKS}
+    out["the walk's step unrolled x2"] = [
+        (WALK_STEP, "#pragma unroll 2\n" + WALK_STEP)]
+    return out
+
+
+def live_groups_only(args, gi):
+    """The same call on its leading live groups alone (`group_queries` puts
+    every group of the sentinel cell after them), `gi` the place of gcell
+    in the arguments: a timing probe of what the dead groups' blocks cost.
+    The dead groups' outputs are then not written."""
+    gcell, dims, t = args[gi], args[gi + 1], args[gi + 4]
+    live = gcell.long() < dims[0] * dims[1] * dims[2]
+    n = int(live.sum())
+    if not bool(live[:n].all()):
+        raise RuntimeError("the live groups do not lead the packed layout")
+    return (args[0][: n * t], *args[1:gi], gcell[:n], *args[gi + 1:])
+
+
+def ball_walk_sweep(torch, chip_smoke, k3_calls, k7_calls):
+    from neurofluid_torch.ops import ball_features as bf
+    from neurofluid_torch.ops import fused_query as fq
+
+    def show(name, fn, calls, what):
+        with torch.no_grad():
+            ms = [chip_smoke.event_ms(torch, lambda: fn(*a)) for a in calls]
+        print(f"{name} {what}: " + ", ".join(f"{m:.4f}" for m in ms)
+              + f" ms (sum {sum(ms):.4f})", flush=True)
+
+    saved = {(m, a): getattr(m, a) for m, a in (
+        (bf, "THREADS"), (fq, "THREADS"), (bf, "WHOLE_STAGE_BYTES"),
+        (bf, "RING_STAGE_BYTES"))}
+    try:
+        for name, mod, fn, calls, source, kernels, gi in (
+                ("K3", bf, bf.ball_sums_cuda, k3_calls, "ball_features.cu",
+                 [bf.KERNEL, bf.BWD_KERNEL], 4),
+                ("K7", fq, fq.ball_query_compact_cuda, k7_calls,
+                 "fused_query.cu", [fq.KERNEL], 5)):
+            show(name, fn, calls, f"{mod.THREADS} threads, as built")
+            show(name, fn, [live_groups_only(a, gi) for a in calls],
+                 f"{mod.THREADS} threads, the live groups alone (probe)")
+            for what, edits in source_variants(source).items():
+                with patched_source(source, edits, kernels):
+                    show(name, fn, calls, f"{mod.THREADS} threads, {what}")
+            for threads in SWEEP_THREADS:
+                mod.THREADS = threads
+                show(name, fn, calls, f"{threads} threads, plan as built")
+            mod.THREADS = saved[(mod, "THREADS")]
+            for ring in SWEEP_RING_BYTES:
+                bf.WHOLE_STAGE_BYTES, bf.RING_STAGE_BYTES = 0, ring
+                show(name, fn, calls, f"{mod.THREADS} threads, two stages of "
+                     f"{ring} B")
+            bf.WHOLE_STAGE_BYTES = saved[(bf, "WHOLE_STAGE_BYTES")]
+            bf.RING_STAGE_BYTES = saved[(bf, "RING_STAGE_BYTES")]
     finally:
-        nf_cuda.CSRC = real_csrc
-        nf_cuda._libs.pop("fused_cconv.cu", None)
-        fc.KERNEL._fn = None
+        for (m, a), v in saved.items():
+            setattr(m, a, v)
+
+
+def record(torch, mod, attr, fn):
+    """The argument tuples of every call of mod.attr while fn() runs."""
+    calls, wrapper = [], getattr(mod, attr)
+    setattr(mod, attr, lambda *a: calls.append(a) or wrapper(*a))
+    try:
+        with torch.no_grad():
+            fn()
+    finally:
+        setattr(mod, attr, wrapper)
+    return calls
 
 
 def main():
@@ -176,6 +291,8 @@ def main():
     parser.add_argument("--rows", type=int, default=20)
     parser.add_argument("--walk-phases", action="store_true",
                         help="time K1 with parts of its walk taken out")
+    parser.add_argument("--ball-walk-sweep", action="store_true",
+                        help="time K3 and K7 across staged-walk plans")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_port: no CUDA device", file=sys.stderr)
@@ -208,12 +325,25 @@ def main():
 
     if args.walk_phases:
         from neurofluid_torch.ops import fused_cconv as fc
-        calls, wrapper = [], fc.fused_cconv_cuda
-        fc.fused_cconv_cuda = lambda *a: calls.append(a) or wrapper(*a)
-        with torch.no_grad():
-            rollout(pos, vel, box, nrm, 1)
-        fc.fused_cconv_cuda = wrapper
+        calls = record(torch, fc, "fused_cconv_cuda",
+                       lambda: rollout(pos, vel, box, nrm, 1))
         walk_phases(torch, chip_smoke, calls)
+        print(f"card: {torch.cuda.get_device_name(0)}")
+        return 0
+    if args.ball_walk_sweep:
+        from neurofluid_torch.ops import ball_features as bf
+        from neurofluid_torch.ops import fused_query as fq
+        with torch.no_grad():
+            traj, _ = rollout(pos, vel, box, nrm, 1)
+        k3_calls = record(torch, bf, "ball_sums_cuda",
+                          lambda: ren(traj[-1], ro, rays))
+        l_net = ParticleNet(**scene.particle_net_kwargs(),
+                            search_backend="fused", device=dev,
+                            generator=torch.Generator().manual_seed(1))
+        l_plan = l_net.make_box_plan(box)
+        k7_calls = record(torch, fq, "ball_query_compact_cuda",
+                          lambda: l_net(pos, vel, box, nrm, box_plan=l_plan))
+        ball_walk_sweep(torch, chip_smoke, k3_calls, k7_calls)
         print(f"card: {torch.cuda.get_device_name(0)}")
         return 0
 
