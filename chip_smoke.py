@@ -19,11 +19,13 @@ Phases (each prints its own line; any failure raises and exits non-zero):
    weights), each called at the shapes the serving path gives it (recorded
    from one warm-up pass) and held against its plain PyTorch version on the
    card, with CUDA-event times (median of 10 after a warm-up) and the least
-   time the card could take for the same work; where a K1 or K2 call is a
-   walk plus tensor-core products, the products' time at that call's
-   shapes and the walk's share beside it; for each K3 (and, in 7, K7) call
-   its staged-walk plan and the work of its groups: live slots, padded
-   slots in live groups, dead groups, candidate tests;
+   time the card could take for the same work (for K5, and K6 in 5, also
+   an empty kernel's time at the same grid: the launch floor under them);
+   where a K1 or K2 call is a walk plus tensor-core products, the
+   products' time at that call's shapes and the walk's share beside it;
+   for each K3 (and, in 7, K7) call its staged-walk plan and the work of
+   its groups: live slots, padded slots in live groups, dead groups,
+   candidate tests;
 4. serving path: a 10-step ParticleNet rollout of the 14,336-particle
    scene, then the coarse (64) + fine (128) render of 1,024 rays, with
    seeded random weights; launch counts from that run; the same path on the
@@ -31,7 +33,11 @@ Phases (each prints its own line; any failure raises and exits non-zero):
 5. backward kernels: K2 (fused conv), K4 (ball sums), K6 (compositing
    weights) at the shapes of one recorded warm-up train step, against their
    plain backward versions, timed and bounded as in 3; K2 also once per
-   layer with every gradient asked for (its dq/dc path);
+   layer with every gradient asked for (its dq/dc path); for each K4 call
+   its staged-walk plan and its work beside that of a warp-per-slot design
+   (a warp per packed slot, every occupied slot of its rows tested, a
+   global atomic triple per selected pair): groups, slots walked and
+   skipped, candidate tests, selected pairs, global atomics;
 6. train path: TRAIN_STEPS timed e2e train steps (Adam 3e-4 / 1e-5, one
    view of 1,024 rays, state carried from step to step), launch counts per
    step, finite loss and gradient norms, no overflow, an image gradient that
@@ -98,9 +104,11 @@ TF32_PASSES = 3
 GEMM_TOL = 2.0 ** -21
 # operations per in-radius pair of K1's geometry (offsets, distance,
 # window, ball -> cube map, trilinear corners) and of K2's hand-derived
-# adjoint of it; K3's per candidate test and per selected neighbour, and
-# K4's per selected neighbour (the derivative and three atomics); K5's and
-# K6's per sample
+# adjoint of it; K3's per candidate test and per selected neighbour
+# (K4 tests candidates as K3 does, up to each slot's k-th neighbour), and
+# K4's per selected neighbour (the derivative and three shared-memory
+# adds; its global atomics come once per group and selected particle);
+# K5's and K6's per sample
 K1_GEOMETRY_OPS = 70
 K2_ADJOINT_OPS = 200
 K3_TEST_OPS = 9
@@ -115,8 +123,9 @@ K7_TEST_OPS = 10
 # output, at least 1); K3 sums <= 20 selected terms (the same); K5 weights
 # are <= 1 products of <= 192 factors (absolute). The backward kernels,
 # relative to the largest entry of each output: K2 sums the same pairs in
-# another order and dc, dfeats with atomics; K4 adds <= 20 terms per query
-# into each particle with atomics; K6 is a shuffle scan against cumulative
+# another order and dc, dfeats with atomics; K4 sums <= 20 terms per query
+# per group in shared memory, then the groups' sums into each particle,
+# both with atomics; K6 is runs per lane and warp scans against cumulative
 # products and sums.
 # K7 emits integers and copies of table entries: equal, no tolerance. K8
 # sums <= 64 rows per segment in another order than the plain version.
@@ -205,6 +214,60 @@ def walk_work(bf, q_rep, tx, gcell, dims, t, n_arrays, state_words,
             f"group mean {float(extent[in_cell].float().mean()):.1f} max "
             f"{int(extent[in_cell].max())}, batches max {int(batches.max())}; "
             f"candidate tests {tests}"), tests
+
+
+def bwd_work(bf, args, threads):
+    """One line on a K4 call: its plan (`bwd_walk_plan`) and its work, each
+    count beside that of a warp-per-slot design (a warp per packed slot,
+    every occupied slot of its 27 rows tested, a global atomic triple per
+    selected pair), on this call's data. A slot walks if it is live (in a
+    cell, below the sentinel) and carries a cotangent in columns 3-12; a
+    group with such a slot stages its rows; a walked slot tests candidates
+    in selection order up to its k-th in-radius particle; the accumulator
+    sends one global triple per group and selected candidate. Returns
+    (line, candidate tests, selected pairs)."""
+    (q_rep, cot_rep, tx, ty, tz, _, gcell, dims, radius, k, t, _) = args
+    import numpy as np
+    stage, n_stages = bf.bwd_walk_plan(tx.shape[1], t)
+    smem = bf.walk_smem_bytes(stage, n_stages, bf.BWD_ARRAYS, t,
+                              bf.BWD_STATE_WORDS, bf.BWD_ACC_ARRAYS)
+    ng = gcell.shape[0]
+    in_cell = gcell.long() < dims[0] * dims[1] * dims[2]
+    live = (q_rep[:, 0] < 0.5 * bf.SENTINEL).reshape(ng, t) & in_cell[:, None]
+    walked = live & (cot_rep[:, 3:] != 0).any(1).reshape(ng, t)
+    staging = walked.any(1)
+    rows = bf.neighbor_rows(gcell, dims)
+    occupied = (tx < 0.5 * bf.SENTINEL).sum(1)
+    tests_per_slot = int((occupied[rows].sum(1) * walked.sum(1)).sum())
+    r2 = float(np.float32(radius * radius))
+    qg = q_rep.reshape(ng, t, 3)
+    tests = pairs = distinct = 0
+    for chunk in staging.nonzero()[:, 0].split(64):
+        rc = rows[chunk]
+        cx, cy, cz = (a[rc][:, None] for a in (tx, ty, tz))
+        *_, within, sel = bf._select(qg[chunk], cx, cy, cz, r2, k)
+        w = walked[chunk]
+        sel = sel & w[:, :, None, None]
+        pairs += int(sel.sum())
+        distinct += int(sel.any(1).sum())
+        # occupied slots up to the k-th in-radius one, in selection order
+        occ = ((cx < 0.5 * bf.SENTINEL).reshape(len(chunk), 1, -1).int()
+               .cumsum(-1).expand(-1, t, -1))
+        reached = within.reshape(len(chunk), t, -1).int().cumsum(-1) >= k
+        first = reached.int().argmax(-1, keepdim=True)
+        need = occ.gather(-1, first)[..., 0].where(reached.any(-1),
+                                                   occ[..., -1])
+        tests += int((need * w).sum())
+    line = (f"plan: {threads} threads, stage {stage} candidates x {n_stages}, "
+            f"{smem} B dynamic shared memory; groups {ng}: dead "
+            f"{int((~in_cell).sum())}, live {int(in_cell.sum())}, staging "
+            f"{int(staging.sum())} (a warp per slot: {ng * t} warps); slots "
+            f"walked {int(walked.sum())}, live slots skipped for a zero "
+            f"cotangent {int((live & ~walked).sum())}; candidate tests "
+            f"{tests} (a warp per slot, whole rows: {tests_per_slot}); "
+            f"selected pairs {pairs}; global atomics {3 * distinct} (a "
+            f"triple per pair: {3 * pairs})")
+    return line, tests, pairs
 
 
 def event_ms(torch, fn, reps=10):
@@ -411,12 +474,14 @@ def main():
         return [min(rows, n - lo) for lo in range(0, n, rows)]
 
     def check(name, i, args, outputs, n_bytes, n_ops, exact=None,
-              timed=True, library=None, n_tc_ops=0.0, products=()):
+              timed=True, library=None, n_tc_ops=0.0, products=(),
+              floor=None):
         """outputs: (label, got, want) float outputs, each held to TOL
         scaled as RELATIVE says; exact: integer-valued outputs that must
         agree exactly (in-radius counts, selection counts, ids); library:
         one PyTorch call that computes the same function, timed beside the
-        kernel and used nowhere else."""
+        kernel and used nowhere else; floor: an empty kernel at the
+        kernel's grid, timed beside it."""
         err = 0.0
         for label, got, want in outputs:
             if got is None and want is None:
@@ -454,6 +519,8 @@ def main():
             lib_ms = event_ms(torch, library)
             k["library_ms"] = (k["library_ms"] or 0.0) + lib_ms
             lib += f" library_ms {lib_ms:.4f}"
+        if floor is not None:
+            lib += f" launch_floor_ms {event_ms(torch, floor):.4f}"
         print(f"kernel {name} call {i}: max_abs_err {err:.3e} (tol "
               f"{TOL[name]:.0e}, {RELATIVE[name]}) ms {ms:.4f} plain_ms "
               f"{plain_ms:.3f} bound_ms {b_ms:.4f} ({b_by}){lib}", flush=True)
@@ -508,7 +575,8 @@ def main():
             got = comp.composite_weights_cuda(*args)
             want = comp.composite_weights_plain(*args)
             check("K5", i, args, [("w", got, want)], nbytes(*args, got),
-                  K5_SAMPLE_OPS * got.numel())
+                  K5_SAMPLE_OPS * got.numel(),
+                  floor=lambda: comp.launch_floor_cuda(got.shape[0], False))
     del calls
 
     # ---- 4. serving path, counted
@@ -559,8 +627,10 @@ def main():
     psteps = ROLLOUT_STEPS * scene.N_PARTICLES / roll_med
     rays_s = scene.N_RAYS / render_med
     print(f"serving path: rollout {ROLLOUT_STEPS} steps {roll_med * 1e3:.2f} ms "
-          f"({psteps:.0f} particle-steps/s), render {render_med * 1e3:.2f} ms "
-          f"({rays_s:.1f} rays/s), opacity1 mean "
+          f"(min {min(roll_s) * 1e3:.2f}, max {max(roll_s) * 1e3:.2f}; "
+          f"{psteps:.0f} particle-steps/s), render {render_med * 1e3:.2f} ms "
+          f"(min {min(render_s) * 1e3:.2f}, max {max(render_s) * 1e3:.2f}; "
+          f"{rays_s:.1f} rays/s), opacity1 mean "
           f"{float(out['opacity1'].mean()):.4f}, mask_0 {int(out['mask_0'].sum())}",
           flush=True)
 
@@ -677,14 +747,12 @@ def main():
             (q_rep, cot_rep, tx, ty, tz, table_idx, gcell, dims, radius, k,
              t, n_points) = args
             got, want = bf.ball_sums_bwd_cuda(*args), bf.ball_sums_bwd_plain(*args)
-            # the slots the kernel walks: packed, in a cell, with a cotangent
-            sums = bf.ball_sums_cuda(q_rep, tx, ty, tz, gcell, dims, radius,
-                                     k, t)
-            walked = (cot_rep[:, 3:] != 0).any(1)
-            occupied = (tx < 0.5 * bf.SENTINEL).sum(1)
-            tests = occupied[bf.neighbor_rows(gcell, dims)].sum(1)
-            tests = float((tests.repeat_interleave(t) * walked).sum())
-            selected = float((sums[:, 1] * walked).sum())
+            work, tests, selected = bwd_work(bf, args, bf.BWD_THREADS)
+            print(f"kernel K4 call {i} {work}", flush=True)
+            # the slots the kernel walks: live, with a cotangent (the slots
+            # of a group of the sentinel cell carry none)
+            walked = ((cot_rep[:, 3:] != 0).any(1)
+                      & (q_rep[:, 0] < 0.5 * bf.SENTINEL))
             ops = tests * K3_TEST_OPS + selected * K4_SELECTED_OPS
             # the cotangent's gradient-carrying columns 3-12, of the slots
             # of groups in a cell (the rest are zero by construction)
@@ -697,7 +765,8 @@ def main():
             got = comp.composite_weights_bwd_cuda(*args)
             want = comp.composite_weights_bwd_plain(*args)
             check("K6", i, args, [("d_sigma", got, want)],
-                  nbytes(*args, got), K6_SAMPLE_OPS * got.numel())
+                  nbytes(*args, got), K6_SAMPLE_OPS * got.numel(),
+                  floor=lambda: comp.launch_floor_cuda(got.shape[0], True))
     del calls
 
     # ---- 6. train path, counted: the state carried from step to step

@@ -1,23 +1,26 @@
-// The staged ball walk shared by K3 (ball_features.cu `ball_sums_kernel`)
-// and K7 (fused_query.cu `ball_query_compact_kernel`).
+// The staged ball walk shared by K3 (ball_features.cu `ball_sums_kernel`),
+// K4 (ball_features.cu `ball_sums_bwd_kernel`) and K7 (fused_query.cu
+// `ball_query_compact_kernel`).
 //
-// Both kernels take the queries of one packed group (one cell, `t` slots),
+// The kernels take the queries of one packed group (one cell, `t` slots),
 // walk the 27 cell-table rows around that cell in selection order
 // o -> (o/9 - 1, (o/3)%3 - 1, o%3 - 1), slots in order, keep the first k
-// in-radius particles by a warp ballot and write per-slot results. One
-// block owns one group:
+// in-radius particles by a warp ballot and write per-slot results (K3, K7)
+// or per-candidate gradients (K4). One block owns one group:
 //
-// 1. `plan_group`: warp 0 lists the live slots (query below the sentinel)
+// 1. `plan_group`: warp 0 lists the live slots (query below the sentinel
+//    and, for K4, a cotangent that is not zero: the kernel's `Admit`)
 //    first and the padded ones after them, with the live queries'
-//    coordinates; every warp meanwhile finds the occupied extent of its
-//    rows (one ballot per 32 slots); warp 0 then scans the 27 extents into
-//    the start of each row in one flattened candidate list. The group's
-//    rows leave L2 once, not once per query.
+//    coordinates and the kernel's own per-slot state; every warp
+//    meanwhile finds the occupied extent of its rows (one ballot per 32
+//    slots); warp 0 then scans the 27 extents into the start of each row
+//    in one flattened candidate list. The group's rows leave L2 once, not
+//    once per query.
 // 2. `for_each_batch`: the flattened list is copied into shared memory by
-//    `cp.async` as structure-of-arrays (x, y, z and, for K7, the particle
-//    id), in batches of at most `stage` candidates. A plan with one stage
-//    holds all 27 rows at their full width (stage >= 27 cap), so there is
-//    one batch; a larger cap takes two stages as a ring, batch b + 1
+//    `cp.async` as structure-of-arrays (x, y, z and, for K4 and K7, the
+//    particle id), in batches of at most `stage` candidates. A plan with
+//    one stage holds all 27 rows at their full width (stage >= 27 cap), so
+//    there is one batch; a larger cap takes two stages as a ring, batch b + 1
 //    arriving while the warps walk batch b. The selection order carries
 //    across batches because each live slot's running count is kept in
 //    shared memory. Plain 4-byte `cp.async`, not TMA: a row's occupied
@@ -57,12 +60,15 @@ struct Group {
 };
 
 // Dynamic shared memory of a staged walk: `n_stages` stages of `stage`
-// candidates in `arrays` arrays, then per slot its query (3 words), its
-// place in `order`, its running count and `state` words of the kernel's
-// own. Mirrored by ops/ball_features.walk_smem_bytes.
-inline size_t smem_bytes(int stage, int n_stages, int arrays, int t,
+// candidates in `arrays` arrays, then `acc` arrays of `stage` words that
+// the kernel keeps per staged candidate (K4's gradient, one copy whatever
+// the stages), then per slot its query (3 words), its place in `order`,
+// its running count and `state` words of the kernel's own. Mirrored by
+// ops/ball_features.walk_smem_bytes.
+inline size_t smem_bytes(int stage, int n_stages, int arrays, int acc, int t,
                          int state) {
   return 4 * (static_cast<size_t>(n_stages) * stage * arrays +
+              static_cast<size_t>(stage) * acc +
               static_cast<size_t>(t) * (5 + state));
 }
 
@@ -90,13 +96,24 @@ __device__ __forceinline__ void fill(int* p, long n, int v, int tid, int nt) {
   for (long i = head + 4 * n4 + tid; i < n; i += nt) p[i] = v;
 }
 
+// Which slots with a query below the sentinel are live, and the state a
+// kernel keeps per live slot: keep(s) is asked by lane s % 32 of warp 0
+// for every slot s < t, place(at) then by the lane of each live slot, `at`
+// its place in `order`. The default: every such slot, nothing kept.
+struct EveryQuery {
+  __device__ __forceinline__ bool keep(int) { return true; }
+  __device__ __forceinline__ void place(int) {}
+};
+
 // Step 1, by every thread of the block; ends in a barrier. q: the packed
 // queries of this group (t x 3); order: live slots first, then padded ones
 // (from the back); sq: the live slots' queries, by place in `order`.
+template <class Admit = EveryQuery>
 __device__ __forceinline__ void plan_group(Group& g, const float* q, int t,
                                            int c, int d0, int d1, int d2,
                                            int cap, const float* tx,
-                                           int* order, float* sq) {
+                                           int* order, float* sq,
+                                           Admit admit = Admit()) {
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int warps = blockDim.x / 32;
   const unsigned below = kFull >> (31 - lane) >> 1;  // lanes before mine
@@ -105,7 +122,8 @@ __device__ __forceinline__ void plan_group(Group& g, const float* q, int t,
     for (int b = 0; b < t; b += 32) {
       const int s = b + lane;
       const float x = s < t ? q[3 * s] : 1e9f;
-      const bool live = x < kEmpty;
+      const bool admitted = s < t && admit.keep(s);  // loads beside q's
+      const bool live = x < kEmpty && admitted;
       const unsigned m = __ballot_sync(kFull, live);
       if (live) {
         const int at = n + __popc(m & below);
@@ -113,6 +131,7 @@ __device__ __forceinline__ void plan_group(Group& g, const float* q, int t,
         sq[3 * at] = x;
         sq[3 * at + 1] = q[3 * s + 1];
         sq[3 * at + 2] = q[3 * s + 2];
+        admit.place(at);
       } else if (s < t) {
         order[t - 1 - (b - n) - __popc(~m & below)] = s;
       }

@@ -20,15 +20,25 @@
 // cotangent of w and T_i the exclusive product:
 //   d sigma_i = delta_i ||d|| s_i 1[sigma_i > 0]
 //               (g_i T_i - sum_{k>i} g_k w_k / (s_i + 1e-10))
-// The TPU kernel takes the suffix sum as a second triangular matmul. Here
-// a ray is again one warp: a forward pass of shuffle product scans keeps
-// the transmittance at the start of each 32-sample chunk in shared memory,
-// then the chunks are walked from the last to the first, each with a
-// reverse (shfl_down) sum scan and a running suffix carry. Bound: bytes, as
-// K5 (z, sigma, g read, d sigma written: 16 B per sample for ~30
-// operations).
+// The TPU kernel takes the suffix sum as a second triangular matmul. Here a
+// ray is one warp and is held in registers (`composite_weights_bwd_kernel`):
+// each lane owns a contiguous run of P samples (P = 1, 2, 4, 6 or 8, the
+// fewest that cover the ray), read with 16- or 8-byte loads where the run
+// is aligned; every load (z, sigma, g, and the z after the tile for the
+// last lane) is issued before any arithmetic, so a ray costs one round
+// trip to memory. Each lane forms its run's product and, after one warp
+// product scan for the transmittance at its start, its run's weighted sum;
+// one reverse warp sum scan gives the suffix after the run; d sigma leaves
+// with vector stores. Rays of up to 256 samples are one such pass; longer
+// ones (up to 2,048) take tiles of 256, a first pass over the tiles for the
+// transmittance at each tile's start (kept in registers), then the tiles
+// from the last, as above. Bound: bytes, as K5 (z, sigma, g read, d sigma
+// written: 16 B per sample for ~30 operations); what remains above it is
+// the launch and one memory round trip per ray.
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -71,61 +81,165 @@ __global__ void composite_weights_kernel(const float* __restrict__ sigma,
   }
 }
 
-// carries per ray kept in shared memory: samples per ray <= 32 * kMaxChunks
-constexpr int kMaxChunks = 64;
+// K6's block (one warp per ray), its longest ray, and its tile: 32 lanes
+// of the most samples a lane holds
+constexpr int kBwdWarps = 4;
+constexpr int kMaxSamples = 2048;
+constexpr int kMaxPerLane = 8;
+constexpr int kTile = 32 * kMaxPerLane;
 
+// Samples each lane of K6 holds for rays of n samples: the fewest of 1, 2,
+// 4, 6 and 8 whose warp covers the ray, else 8 (tiles of 256). Mirrored by
+// ops/composite.bwd_samples_per_lane.
+int bwd_per_lane(int n) {
+  if (n <= 32) return 1;
+  if (n <= 64) return 2;
+  if (n <= 128) return 4;
+  if (n <= 192) return 6;
+  return kMaxPerLane;
+}
+
+// v = src[i0, i0 + P), zero past n: 16- or 8-byte loads where the run lies
+// whole in the row and is aligned for them, else one word at a time.
+template <int P>
+__device__ __forceinline__ void load_run(const float* __restrict__ src,
+                                         int i0, int n, float (&v)[P]) {
+  constexpr int kVec = P % 4 == 0 ? 4 : (P % 2 == 0 ? 2 : 1);
+  const float* p = src + i0;
+  const bool whole = i0 + P <= n &&
+      (reinterpret_cast<uintptr_t>(p) & (4 * kVec - 1)) == 0;
+  if constexpr (kVec == 4) {
+    if (whole) {
+#pragma unroll
+      for (int j = 0; j < P; j += 4) {
+        const float4 f = *reinterpret_cast<const float4*>(p + j);
+        v[j] = f.x, v[j + 1] = f.y, v[j + 2] = f.z, v[j + 3] = f.w;
+      }
+      return;
+    }
+  } else if constexpr (kVec == 2) {
+    if (whole) {
+#pragma unroll
+      for (int j = 0; j < P; j += 2) {
+        const float2 f = *reinterpret_cast<const float2*>(p + j);
+        v[j] = f.x, v[j + 1] = f.y;
+      }
+      return;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < P; ++j) v[j] = i0 + j < n ? p[j] : 0.0f;
+}
+
+// dst[i0, i0 + P) = v, as load_run reads (nothing past n).
+template <int P>
+__device__ __forceinline__ void store_run(float* __restrict__ dst, int i0,
+                                          int n, const float (&v)[P]) {
+  constexpr int kVec = P % 4 == 0 ? 4 : (P % 2 == 0 ? 2 : 1);
+  float* p = dst + i0;
+  const bool whole = i0 + P <= n &&
+      (reinterpret_cast<uintptr_t>(p) & (4 * kVec - 1)) == 0;
+  if constexpr (kVec == 4) {
+    if (whole) {
+#pragma unroll
+      for (int j = 0; j < P; j += 4)
+        *reinterpret_cast<float4*>(p + j) =
+            make_float4(v[j], v[j + 1], v[j + 2], v[j + 3]);
+      return;
+    }
+  } else if constexpr (kVec == 2) {
+    if (whole) {
+#pragma unroll
+      for (int j = 0; j < P; j += 2)
+        *reinterpret_cast<float2*>(p + j) = make_float2(v[j], v[j + 1]);
+      return;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < P; ++j)
+    if (i0 + j < n) p[j] = v[j];
+}
+
+// The run of P samples from i0 = base + lane * P of a ray of n samples (a
+// tile of 32 P from `base`): loads z and sigma, takes the z after the run
+// from the next lane (the last lane loads the first z after the tile),
+// and gives per sample sigma, delta ||d|| and the survival s; returns the
+// product of (s + 1e-10) over the run's samples in the ray.
+template <int P>
+__device__ __forceinline__ float survival_run(const float* __restrict__ zr,
+                                              const float* __restrict__ sr,
+                                              int base, int n, float dn,
+                                              int lane, float (&sig)[P],
+                                              float (&d)[P], float (&s)[P]) {
+  const int i0 = base + lane * P;
+  const int after_tile = base + 32 * P;
+  float zv[P];
+  load_run<P>(zr, i0, n, zv);
+  load_run<P>(sr, i0, n, sig);
+  const float z_tile = lane == 31 && after_tile < n ? zr[after_tile] : 0.0f;
+  float z_after = __shfl_down_sync(kFull, zv[0], 1);
+  if (lane == 31) z_after = z_tile;
+  float prod = 1.0f;
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    const int i = i0 + j;
+    const float zn = j + 1 < P ? zv[j + 1] : z_after;
+    d[j] = (i + 1 < n ? zn - zv[j] : 1e10f) * dn;
+    s[j] = expf(-(d[j] * fmaxf(sig[j], 0.0f)));
+    if (i < n) prod *= s[j] + 1e-10f;
+  }
+  return prod;
+}
+
+// K6: one warp per ray, P samples per lane; kTiles 1 for rays of up to
+// 32 P samples, else tiles of kTile (P = kMaxPerLane).
+template <int P, int kTiles>
 __global__ void composite_weights_bwd_kernel(const float* __restrict__ sigma,
                                              const float* __restrict__ z,
                                              const float* __restrict__ dnorm,
                                              const float* __restrict__ g,
                                              float* __restrict__ d_sigma,
-                                             int n_rays, int n_samples) {
-  __shared__ float carries[kWarpsPerBlock][kMaxChunks];
-  const int warp = threadIdx.x / 32;
-  const int ray = blockIdx.x * kWarpsPerBlock + warp;
+                                             int n_rays, int n) {
+  const int ray = blockIdx.x * kBwdWarps + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (ray >= n_rays) return;  // whole warp leaves together
-  const long row = static_cast<long>(ray) * n_samples;
+  const long row = static_cast<long>(ray) * n;
+  const float* zr = z + row;
+  const float* sr = sigma + row;
   const float dn = dnorm[ray];
-  const int n_chunks = (n_samples + 31) / 32;
-  float* carry_of = carries[warp];
+  const int n_tiles = kTiles == 1 ? 1 : (n + 32 * P - 1) / (32 * P);
 
-  // forward: the transmittance at the start of every chunk
-  float carry = 1.0f;
-  for (int c = 0; c < n_chunks; ++c) {
-    const int i = c * 32 + lane;
-    float factor = 1.0f;
-    if (i < n_samples) {
-      const float zi = z[row + i];
-      const float delta = (i + 1 < n_samples) ? (z[row + i + 1] - zi) : 1e10f;
-      factor = expf(-(delta * dn * fmaxf(sigma[row + i], 0.0f))) + 1e-10f;
-    }
-    float incl = factor;
+  // the transmittance at the start of each tile (registers: the loop is
+  // unrolled, so every index is known)
+  float carry[kTiles];
+  carry[0] = 1.0f;
 #pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const float y = __shfl_up_sync(kFull, incl, o);
-      if (lane >= o) incl *= y;
+  for (int c = 1; c < kTiles; ++c) {
+    carry[c] = carry[c - 1];
+    if (c < n_tiles) {
+      float sig[P], d[P], s[P];
+      float prod = survival_run<P>(zr, sr, (c - 1) * 32 * P, n, dn, lane,
+                                   sig, d, s);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        prod *= __shfl_xor_sync(kFull, prod, o);
+      carry[c] *= prod;
     }
-    if (lane == 0) carry_of[c] = carry;
-    carry *= __shfl_sync(kFull, incl, 31);
   }
-  __syncwarp();
 
-  // backward, last chunk first: suffix_i = sum_{k>i} g_k w_k
-  float suffix_carry = 0.0f;  // sum over the chunks after this one
-  for (int c = n_chunks - 1; c >= 0; --c) {
-    const int i = c * 32 + lane;
-    float surv = 1.0f, factor = 1.0f, d = 0.0f, gi = 0.0f, si = 0.0f;
-    if (i < n_samples) {
-      const float zi = z[row + i];
-      const float delta = (i + 1 < n_samples) ? (z[row + i + 1] - zi) : 1e10f;
-      d = delta * dn;
-      si = sigma[row + i];
-      surv = expf(-(d * fmaxf(si, 0.0f)));
-      factor = surv + 1e-10f;
-      gi = g[row + i];
-    }
-    float incl = factor;
+  float later = 0.0f;  // sum of g_k w_k over the tiles after this one
+  for (int c = n_tiles - 1; c >= 0; --c) {
+    float t_tile = carry[0];
+#pragma unroll
+    for (int j = 1; j < kTiles; ++j)
+      if (j == c) t_tile = carry[j];
+    const int i0 = c * 32 * P + lane * P;
+    float gv[P], sig[P], d[P], s[P];
+    load_run<P>(g + row, i0, n, gv);
+    const float prod = survival_run<P>(zr, sr, c * 32 * P, n, dn, lane, sig,
+                                       d, s);
+    // exclusive product scan over the lanes: T at the start of the run
+    float incl = prod;
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) {
       const float y = __shfl_up_sync(kFull, incl, o);
@@ -133,24 +247,48 @@ __global__ void composite_weights_bwd_kernel(const float* __restrict__ sigma,
     }
     float excl = __shfl_up_sync(kFull, incl, 1);
     if (lane == 0) excl = 1.0f;
-    const float t = carry_of[c] * excl;
-    const float gw = gi * ((1.0f - surv) * t);
-    // inclusive reverse scan: rs = sum_{l >= lane} gw_l within the chunk
-    float rs = gw;
+    float t = t_tile * excl;
+    float tr[P], gw[P];
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const bool in = i0 + j < n;
+      tr[j] = t;
+      gw[j] = in ? gv[j] * ((1.0f - s[j]) * t) : 0.0f;
+      if (in) t *= s[j] + 1e-10f;
+    }
+    // sum of g w after each sample within the run, and over the run
+    float within[P];
+    float run_sum = 0.0f;
+#pragma unroll
+    for (int j = P - 1; j >= 0; --j) {
+      within[j] = run_sum;
+      run_sum += gw[j];
+    }
+    // inclusive reverse sum scan over the lanes: rs = sum over lanes >= mine
+    float rs = run_sum;
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) {
       const float y = __shfl_down_sync(kFull, rs, o);
       if (lane + o < 32) rs += y;
     }
-    float suffix = __shfl_down_sync(kFull, rs, 1);  // exclusive
-    if (lane == 31) suffix = 0.0f;
-    suffix += suffix_carry;
-    if (i < n_samples)
-      d_sigma[row + i] =
-          si > 0.0f ? d * surv * (gi * t - suffix / (surv + 1e-10f)) : 0.0f;
-    suffix_carry += __shfl_sync(kFull, rs, 0);
+    float after = __shfl_down_sync(kFull, rs, 1);  // the lanes after mine
+    if (lane == 31) after = 0.0f;
+    after += later;
+    float out[P];
+#pragma unroll
+    for (int j = 0; j < P; ++j)
+      out[j] = sig[j] > 0.0f
+                   ? d[j] * s[j] *
+                         (gv[j] * tr[j] - (after + within[j]) /
+                                              (s[j] + 1e-10f))
+                   : 0.0f;
+    store_run<P>(d_sigma + row, i0, n, out);
+    later += __shfl_sync(kFull, rs, 0);
   }
 }
+
+// An empty kernel, timed at K5's or K6's grid: the launch floor under them.
+__global__ void empty_kernel() {}
 
 }  // namespace
 
@@ -164,15 +302,40 @@ extern "C" int nf_composite_weights(const float* sigma, const float* z,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K6. per_lane: samples each lane holds, as ops/composite.
+// bwd_samples_per_lane chooses them; rays of more than kMaxSamples samples,
+// or another per_lane, are refused with cudaErrorInvalidValue.
 extern "C" int nf_composite_weights_bwd(const float* sigma, const float* z,
                                         const float* dnorm, const float* g,
                                         float* d_sigma, int n_rays,
-                                        int n_samples, void* stream) {
-  if (n_samples > 32 * kMaxChunks)
+                                        int n_samples, int per_lane,
+                                        void* stream) {
+  if (n_samples > kMaxSamples || per_lane != bwd_per_lane(n_samples))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = (n_rays + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  composite_weights_bwd_kernel<<<blocks, kWarpsPerBlock * 32, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(
+  using Launch = void (*)(const float*, const float*, const float*,
+                         const float*, float*, int, int);
+  Launch kernel = composite_weights_bwd_kernel<kMaxPerLane, 1>;
+  switch (per_lane) {
+    case 1: kernel = composite_weights_bwd_kernel<1, 1>; break;
+    case 2: kernel = composite_weights_bwd_kernel<2, 1>; break;
+    case 4: kernel = composite_weights_bwd_kernel<4, 1>; break;
+    case 6: kernel = composite_weights_bwd_kernel<6, 1>; break;
+    default:
+      if (n_samples > kTile)
+        kernel = composite_weights_bwd_kernel<kMaxPerLane,
+                                              kMaxSamples / kTile>;
+  }
+  const int blocks = (n_rays + kBwdWarps - 1) / kBwdWarps;
+  kernel<<<blocks, kBwdWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
       sigma, z, dnorm, g, d_sigma, n_rays, n_samples);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The empty kernel at the grid K6 (backward != 0) or K5 takes for n_rays.
+extern "C" int nf_composite_launch_floor(int n_rays, int backward,
+                                         void* stream) {
+  const int warps = backward ? kBwdWarps : kWarpsPerBlock;
+  empty_kernel<<<(n_rays + warps - 1) / warps, warps * 32, 0,
+                 static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }

@@ -159,7 +159,7 @@ extern "C" int nf_ball_query_compact(
     float* out_x, float* out_y, float* out_z, int n_groups, int group_size,
     int d0, int d1, int d2, int cap, float r2, int k, int exclude_self,
     int threads, int stage, int n_stages, void* stream) {
-  const size_t smem = b::smem_bytes(stage, n_stages, 4, group_size, 0);
+  const size_t smem = b::smem_bytes(stage, n_stages, 4, 0, group_size, 0);
   if (!b::plan_ok(threads, stage, n_stages, cap, smem))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -46,48 +46,67 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNEL = Kernel("ball_features.cu", "nf_ball_sums",
                 [_P] * 6 + [_I] * 6 + [_F, _F, _I] + [_I] * 3)
 BWD_KERNEL = Kernel("ball_features.cu", "nf_ball_sums_bwd",
-                    [_P] * 8 + [_I] * 6 + [_F, _F, _I])
+                    [_P] * 8 + [_I] * 6 + [_F, _F, _I] + [_I] * 3)
 
 
-# The staged walk of K3 and K7 (`csrc/ball_walk.cuh`): one block per group
-# copies the occupied prefixes of the group's 27 table rows into shared
-# memory as one flattened candidate list, `stage` candidates per batch.
-# Up to WHOLE_STAGE_BYTES the 27 rows fit one stage at their full width (one
-# batch, whatever the data); a larger cap takes a ring of two stages of
-# RING_STAGE_BYTES each, batch b + 1 arriving while batch b is walked.
+# The staged walk of K3, K4 and K7 (`csrc/ball_walk.cuh`): one block per
+# group copies the occupied prefixes of the group's 27 table rows into
+# shared memory as one flattened candidate list, `stage` candidates per
+# batch. Up to WHOLE_STAGE_BYTES the 27 rows, with any per-candidate
+# accumulator, fit one stage at their full width (one batch, whatever the
+# data); a larger cap takes a ring of two stages of RING_STAGE_BYTES each
+# (K4: BWD_RING_STAGE_BYTES), batch b + 1 arriving while batch b is walked.
 SMEM_LIMIT = 232_448  # a block's shared memory on the H100
 GROUP_STATIC_BYTES = 1024  # above the static `Group` of ball_walk.cuh
 WHOLE_STAGE_BYTES = 64 * 1024
 RING_STAGE_BYTES = 32 * 1024
 THREADS = 256  # K3's block: 8 warps take a group's live slots in turn
+# K4: x, y, z and the particle id staged; per candidate a (gx, gy, gz)
+# accumulator; per live slot its cotangent columns 3-12
+BWD_ARRAYS, BWD_ACC_ARRAYS, BWD_STATE_WORDS = 4, 3, N_SUMS - 3
+BWD_RING_STAGE_BYTES = 16 * 1024
+BWD_THREADS = 256
 
 
-def walk_plan(cap: int, n_arrays: int, group_size: int,
-              state_words: int) -> tuple:
+def walk_plan(cap: int, n_arrays: int, group_size: int, state_words: int,
+              acc_arrays: int = 0, ring_bytes: int | None = None) -> tuple:
     """(candidates per stage, stages) of the staged walk over tables of
-    width `cap`, staged as `n_arrays` 4-byte arrays (3 for K3, 4 for K7),
-    for groups of `group_size` slots with `state_words` words of per-slot
-    state. Any cap has a plan; only a group too large for one block's
-    shared memory raises (the C side refuses it too)."""
+    width `cap`, staged as `n_arrays` 4-byte arrays (3 for K3, 4 for K4
+    and K7) with `acc_arrays` 4-byte accumulators per staged candidate (3
+    for K4), for groups of `group_size` slots with `state_words` words of
+    per-slot state; a ring's stage holds `ring_bytes` of staged arrays
+    (RING_STAGE_BYTES by default). Any cap has a plan; only a group too
+    large for one block's shared memory raises (the C side refuses it
+    too)."""
     per = 4 * n_arrays
-    if 27 * cap * per <= WHOLE_STAGE_BYTES:
+    if 27 * cap * (per + 4 * acc_arrays) <= WHOLE_STAGE_BYTES:
         stage, n_stages = 27 * cap, 1
     else:
-        stage, n_stages = RING_STAGE_BYTES // per, 2
+        ring = RING_STAGE_BYTES if ring_bytes is None else ring_bytes
+        stage, n_stages = ring // per, 2
     need = walk_smem_bytes(stage, n_stages, n_arrays, group_size,
-                           state_words)
+                           state_words, acc_arrays)
     if need + GROUP_STATIC_BYTES > SMEM_LIMIT:
         raise ValueError(f"a group of {group_size} slots needs {need} bytes "
                          f"of shared memory, more than a block has")
     return stage, n_stages
 
 
+def bwd_walk_plan(cap: int, group_size: int) -> tuple:
+    """K4's (candidates per stage, stages) over tables of width `cap`."""
+    return walk_plan(cap, BWD_ARRAYS, group_size, BWD_STATE_WORDS,
+                     BWD_ACC_ARRAYS, BWD_RING_STAGE_BYTES)
+
+
 def walk_smem_bytes(stage: int, n_stages: int, n_arrays: int,
-                    group_size: int, state_words: int) -> int:
+                    group_size: int, state_words: int,
+                    acc_arrays: int = 0) -> int:
     """Dynamic shared memory of a staged-walk block (`smem_bytes` in
-    ball_walk.cuh): the stages, then per slot its query, its place in the
-    slot order, its running count and the kernel's own state words."""
-    return 4 * (n_stages * stage * n_arrays + group_size * (5 + state_words))
+    ball_walk.cuh): the stages, the per-candidate accumulators (one copy),
+    then per slot its query, its place in the slot order, its running count
+    and the kernel's own state words."""
+    return 4 * (n_stages * stage * n_arrays + stage * acc_arrays
+                + group_size * (5 + state_words))
 
 
 class BallGrouping(NamedTuple):
@@ -291,8 +310,10 @@ def ball_sums_cuda(q_rep, tx, ty, tz, gcell, dims, radius: float, k: int,
 def ball_sums_bwd_cuda(q_rep, cot_rep, tx, ty, tz, table_idx, gcell, dims,
                        radius: float, k: int, group_size: int,
                        n_points: int) -> torch.Tensor:
-    """K4: one warp per packed query slot, K3's selection walk, one f32
-    atomic per selected neighbour and axis into d_points."""
+    """K4: one block per group on K3's staged walk; the slots with a
+    cotangent walk to their k-th selected neighbour, the group's gradient
+    is summed per candidate in shared memory, then added into d_points by
+    one f32 atomic per candidate and axis."""
     _check_cuda_args(q_rep, tx, ty, tz, gcell, dims, group_size)
     dev = q_rep.device
     check_tensor("cot_rep", cot_rep, dev)
@@ -308,7 +329,8 @@ def ball_sums_bwd_cuda(q_rep, cot_rep, tx, ty, tz, table_idx, gcell, dims,
                    ty.data_ptr(), tz.data_ptr(), table_idx.data_ptr(),
                    gcell.data_ptr(), d_points.data_ptr(), ng, t, d0, d1, d2,
                    tx.shape[1], float(np.float32(radius * radius)),
-                   float(radius), int(k))
+                   float(radius), int(k), BWD_THREADS,
+                   *bwd_walk_plan(tx.shape[1], t))
     return d_points
 
 

@@ -27,7 +27,23 @@ from neurofluid_torch.cuda import Kernel, check_tensor
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = Kernel("composite.cu", "nf_composite_weights", [_P] * 4 + [_I] * 2)
 BWD_KERNEL = Kernel("composite.cu", "nf_composite_weights_bwd",
-                    [_P] * 5 + [_I] * 2)
+                    [_P] * 5 + [_I] * 3)
+FLOOR_KERNEL = Kernel("composite.cu", "nf_composite_launch_floor", [_I] * 2)
+
+# K6 holds a ray in registers, a run of samples per lane of one warp: the
+# fewest of BWD_PER_LANE that cover the ray, else tiles of 32 * 8 samples
+# up to MAX_BWD_SAMPLES (`bwd_per_lane` in csrc/composite.cu)
+BWD_PER_LANE = (1, 2, 4, 6, 8)
+MAX_BWD_SAMPLES = 2048
+
+
+def bwd_samples_per_lane(n_samples: int) -> int:
+    """Samples each lane of K6's warp holds for rays of `n_samples`."""
+    if n_samples > MAX_BWD_SAMPLES:
+        raise ValueError(f"K6 takes rays of at most {MAX_BWD_SAMPLES} "
+                         f"samples, not {n_samples}")
+    return next((p for p in BWD_PER_LANE if n_samples <= 32 * p),
+                BWD_PER_LANE[-1])
 
 
 def _survival(sigmas, z_vals, dnorm):
@@ -92,8 +108,9 @@ def composite_weights_cuda(sigmas: torch.Tensor, z_vals: torch.Tensor,
 
 
 def composite_weights_bwd_cuda(sigmas, z_vals, dnorm, g) -> torch.Tensor:
-    """K6: one warp per ray; the transmittance by a forward shuffle product
-    scan, the suffix sum by a reverse shuffle scan."""
+    """K6: one warp per ray held in registers, a run of samples per lane;
+    the transmittance by a warp product scan of the runs' products, the
+    suffix sum by a reverse warp sum scan of their sums."""
     _check_cuda_args(sigmas, z_vals, dnorm)
     check_tensor("g", g, sigmas.device)
     if g.shape != sigmas.shape:
@@ -102,8 +119,16 @@ def composite_weights_bwd_cuda(sigmas, z_vals, dnorm, g) -> torch.Tensor:
     d_sigma = torch.empty_like(sigmas)
     if n_rays and n_s:
         BWD_KERNEL(sigmas.data_ptr(), z_vals.data_ptr(), dnorm.data_ptr(),
-                   g.data_ptr(), d_sigma.data_ptr(), n_rays, n_s)
+                   g.data_ptr(), d_sigma.data_ptr(), n_rays, n_s,
+                   bwd_samples_per_lane(n_s))
     return d_sigma
+
+
+def launch_floor_cuda(n_rays: int, backward: bool) -> None:
+    """An empty kernel at the grid K6 (`backward`) or K5 takes for
+    `n_rays` rays, on the current CUDA device: the launch floor under their
+    times. Computes nothing."""
+    FLOOR_KERNEL(int(n_rays), int(backward))
 
 
 class CompositeWeights(torch.autograd.Function):

@@ -364,6 +364,157 @@ def test_ball_sums_bwd_kernel_matches_plain(dev):
     assert np.abs(want).max() > 1.0
 
 
+def _bwd_walk_inputs(dev, rng, cap, n_pts, spread, n_q=700):
+    """K4's arguments on a packed layout (see _packed_walk_inputs): points
+    in a cube of half-width `spread` or, spread None, in clusters (so some
+    live groups find no particle in their 27 rows and some queries lie
+    apart from every particle); queries in a wider cube; a normal
+    cotangent, zero on padded slots and, on a third of the slots, zero in
+    the columns 3-12 that carry gradient."""
+    r, k, t = 0.225, 20, 32
+    if spread is None:
+        pts, spread = _cloud(rng, n_pts, 0.7), 0.8
+    else:
+        pts = torch.tensor(rng.uniform(-spread, spread, (n_pts, 3)),
+                           dtype=torch.float32)
+    qs = torch.tensor(rng.uniform(-spread - 0.2, spread + 0.2, (n_q, 3)),
+                      dtype=torch.float32)
+    q_rep, tx, ty, tz, ti, gcell, dims = _packed_walk_inputs(dev, pts, qs, r,
+                                                             cap, t)
+    cot = rng.normal(size=(q_rep.shape[0], bf.N_SUMS)).astype(np.float32)
+    cot[(q_rep[:, 0] > 5e8).cpu().numpy()] = 0.0
+    cot[rng.uniform(size=len(cot)) < 0.33, 3:] = 0.0
+    cot = torch.from_numpy(cot).to(dev)
+    return (q_rep, cot, tx, ty, tz, ti, gcell, dims, r, k, t, n_pts)
+
+
+# ring: K4's ring stage in bytes of staged arrays (16 per candidate), so
+# that the two-stage ring runs with ragged batches of 61 candidates
+@pytest.mark.parametrize("cap,n_pts,spread,ring", [
+    (128, 1000, 0.225, None),   # the bench cap, on K4's own ring
+    (64, 700, 0.3, None),       # one stage: 27 rows and the accumulator
+    (40, 700, None, 16 * 61)])  # batches of 61, empty live groups
+def test_ball_sums_bwd_staged_walk_matches_plain(dev, monkeypatch, cap,
+                                                 n_pts, spread, ring):
+    """K4's staged walk against its plain version on the same packed
+    inputs, d_points within 1e-5 of its largest entry (atomics in another
+    order). The groups hold groups of the sentinel cell, padded slots, live
+    slots whose cotangent is zero, and lists past k; with clusters, live
+    groups whose 27 rows are empty and queries apart from every
+    particle."""
+    if ring is not None:
+        monkeypatch.setattr(bf, "WHOLE_STAGE_BYTES", 0)
+        monkeypatch.setattr(bf, "BWD_RING_STAGE_BYTES", ring)
+    args = _bwd_walk_inputs(dev, np.random.default_rng(13), cap, n_pts,
+                            spread)
+    q_rep, cot, tx, ty, tz, ti, gcell, dims, r, k, t, n_pts = args
+    live, padded, dead, longest, empty = _walk_shape(q_rep, tx, gcell, dims,
+                                                     t)
+    assert live == 700 and padded > 0 and dead > 0
+    walked = (cot[:, 3:] != 0).any(1)
+    live_slots = q_rep[:, 0] < 5e8
+    assert int((live_slots & ~walked).sum()) > 0  # zero cotangents
+    sums = bf.ball_sums_plain(q_rep, tx, ty, tz, gcell, dims, r, k, t)
+    assert float(sums[:, 0].max()) > k
+    if spread is None:
+        assert empty > 0 and int(((sums[:, 0] == 0) & walked).sum()) > 0
+    stage, n_stages = bf.bwd_walk_plan(cap, t)
+    if ring is not None:
+        assert n_stages == 2 and longest > 2 * stage
+    before = bf.BWD_KERNEL.launches
+    got = bf.ball_sums_bwd_cuda(*args)
+    assert bf.BWD_KERNEL.launches == before + 1
+    want = bf.ball_sums_bwd_plain(*args)
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+    assert np.abs(want).max() > 1.0
+
+
+def test_ball_sums_bwd_rerun_agrees(dev):
+    """K4 twice on the same inputs, near the bench cap's fullness: the
+    order of its atomics varies, the sums agree within 1e-5 of the largest
+    entry."""
+    args = _bwd_walk_inputs(dev, np.random.default_rng(14), 128, 1000,
+                            0.225)
+    first = bf.ball_sums_bwd_cuda(*args)
+    second = bf.ball_sums_bwd_cuda(*args)
+    scale = float(first.abs().max())
+    assert scale > 1.0
+    assert float((first - second).abs().max()) <= 1e-5 * scale
+
+
+def _composite_bwd_inputs(rng, n, s):
+    """Sigmas with negatives and zeros, a huge value (alpha == 1), a
+    saturated ray, a repeated sample; one-sample rays take sigmas near
+    1e-10 (their only delta is 1e10)."""
+    sig = rng.normal(size=(n, s)).astype(np.float32) * (5 if s > 1 else 2e-10)
+    sig[4:, s // 3] = 1e6
+    sig[0] = 0.0
+    sig[2, s // 4:] = 1e6
+    z = np.sort(rng.uniform(9, 13, (n, s)).astype(np.float32), axis=-1)
+    if s > 4:
+        z[1, 4] = z[1, 3]
+    dn = rng.uniform(0.5, 1.5, n).astype(np.float32)
+    g = rng.normal(size=(n, s)).astype(np.float32)
+    return [torch.from_numpy(a) for a in (sig, z, dn, g)]
+
+
+@pytest.mark.parametrize("s", [1, 31, 32, 33, 64, 192, 256, 257, 2048])
+def test_composite_bwd_kernel_every_ray_length(dev, s):
+    """K6 against its plain version at every run length a lane can hold
+    (1, 2, 6 and 8 samples, ragged lanes) and in tiles (257 and 2,048
+    samples), within 1e-5 of the largest entry."""
+    sig, z, dn, g = _composite_bwd_inputs(np.random.default_rng(s), 37, s)
+    want = comp.composite_weights_bwd_plain(sig, z, dn, g)
+    before = comp.BWD_KERNEL.launches
+    got = comp.composite_weights_bwd_cuda(*(t.to(dev) for t in (sig, z, dn,
+                                                                 g)))
+    assert comp.BWD_KERNEL.launches == before + 1
+    scale = float(want.abs().max())
+    assert scale > 0.01
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
+                               atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("s", [64, 192, 256])
+def test_composite_bwd_kernel_unaligned_rows(dev, s):
+    """Rows that start 4 bytes past a 16-byte boundary take K6's word
+    loads and stores: the same result as the plain version."""
+    sig, z, dn, g = _composite_bwd_inputs(np.random.default_rng(8), 21, s)
+    shifted = []
+    for t in (sig, z, g):
+        buf = torch.empty(t.numel() + 1, device=dev)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        shifted.append(view)
+    assert shifted[0].data_ptr() % 16 == 4
+    got = comp.composite_weights_bwd_cuda(shifted[0], shifted[1], dn.to(dev),
+                                          shifted[2])
+    want = comp.composite_weights_bwd_plain(sig, z, dn, g)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
+
+
+def test_composite_bwd_kernel_refuses_longer_rays(dev):
+    """2,049 samples are refused, by the wrapper and by the C side; the
+    launch-floor kernel launches at K5's and K6's grids."""
+    sig, z, dn, g = (t.to(dev) for t in _composite_bwd_inputs(
+        np.random.default_rng(9), 5, 2049))
+    with pytest.raises(ValueError):
+        comp.composite_weights_bwd_cuda(sig, z, dn, g)
+    out = torch.empty_like(sig)
+    with pytest.raises(RuntimeError):
+        comp.BWD_KERNEL(sig.data_ptr(), z.data_ptr(), dn.data_ptr(),
+                        g.data_ptr(), out.data_ptr(), 5, 2049, 8)
+    with pytest.raises(RuntimeError):  # a plan that is not the ray's
+        comp.BWD_KERNEL(sig.data_ptr(), z.data_ptr(), dn.data_ptr(),
+                        g.data_ptr(), out.data_ptr(), 5, 64, 4)
+    comp.launch_floor_cuda(1024, False)
+    comp.launch_floor_cuda(1024, True)
+    torch.cuda.synchronize()
+
+
 def test_composite_weights_gradcheck(dev):
     """K5 forward, K6 backward. Sigmas keep 0.1 away from relu's kink."""
     rng = np.random.default_rng(5)

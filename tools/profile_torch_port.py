@@ -24,14 +24,17 @@ in patched temporary copies of csrc/fused_cconv.cu: what a part costs is the
 time that goes with it. The patched kernels compute wrong results; only
 their time is read, and the package's own build is not touched.
 
-With --ball-walk-sweep it instead times K3 at the two calls of one render
-and K7 at the two calls of one ParticleNet step on `search_backend='fused'`
-(CUDA events, median of 10): as built; on the leading live groups alone (a
-probe of what the dead groups' blocks cost); with a register budget
-(__launch_bounds__) or the walk's step unrolled, in patched temporary
-copies of the source as --walk-phases builds them; for each block size;
-and with the two-stage ring forced at several stage sizes (the launch plan
-is chosen in Python, `ball_features.walk_plan` and `THREADS`: no rebuild).
+With --ball-walk-sweep it instead times K3 at the two calls of one render,
+K7 at the two calls of one ParticleNet step on `search_backend='fused'` and
+K4 at the two calls of one e2e train step's backward (CUDA events, median
+of 10): as built; on the leading live groups alone (a probe of what the
+dead groups' blocks cost); with a register budget (__launch_bounds__) or
+the walk's step unrolled, in patched temporary copies of the source as
+--walk-phases builds them; for each block size; with one stage forced (the
+27 rows at their full width); and with the two-stage ring forced at
+several stage sizes (the launch plan is chosen in Python,
+`ball_features.walk_plan`, `bwd_walk_plan` and the THREADS constants: no
+rebuild).
 """
 
 import argparse
@@ -196,42 +199,43 @@ def walk_phases(torch, chip_smoke, calls):
 
 
 # block sizes of the staged walk (a plan may ask for at most 256 threads),
-# two-stage ring stages (bytes) forced in place of the one-stage plan, and
-# register budgets (__launch_bounds__ added: blocks of 256 threads per SM)
+# two-stage ring stages (bytes of staged arrays) forced in place of the
+# one-stage plan, and register budgets (__launch_bounds__ added: blocks of
+# 256 threads per SM)
 SWEEP_THREADS = (64, 128, 256)
-SWEEP_RING_BYTES = (8 * 1024, 16 * 1024, 32 * 1024)
+SWEEP_RING_BYTES = (4 * 1024, 8 * 1024, 16 * 1024, 32 * 1024)
 SWEEP_MIN_BLOCKS = (3, 4, 6, 8)
-# the line that opens each kernel, and the walk's 32-candidate step
-KERNEL_HEAD = {"ball_features.cu": "__global__ void ball_sums_kernel(",
-               "fused_query.cu": "__global__ void ball_query_compact_kernel("}
+# the walk's 32-candidate step of K3 and K7, and of K4 (which stops at k)
 WALK_STEP = "      for (int base = 0; base < n; base += 32) {"
+K4_WALK_STEP = "      for (int base = 0; base < n && off < k; base += 32) {"
 
 
-def source_variants(source):
-    """(what, edits) of the patched builds the sweep times."""
-    head = KERNEL_HEAD[source]
+def source_variants(head, step):
+    """(what, edits) of the patched builds the sweep times: `head` opens
+    the kernel, `step` is its walk's step."""
     out = {f"__launch_bounds__(256, {b})":
            [(head, head.replace("void ", f"void __launch_bounds__(256, {b}) "))]
            for b in SWEEP_MIN_BLOCKS}
-    out["the walk's step unrolled x2"] = [
-        (WALK_STEP, "#pragma unroll 2\n" + WALK_STEP)]
+    out["the walk's step unrolled x2"] = [(step, "#pragma unroll 2\n" + step)]
     return out
 
 
-def live_groups_only(args, gi):
+def live_groups_only(args, gi, n_slot_args=1):
     """The same call on its leading live groups alone (`group_queries` puts
     every group of the sentinel cell after them), `gi` the place of gcell
-    in the arguments: a timing probe of what the dead groups' blocks cost.
-    The dead groups' outputs are then not written."""
+    in the arguments, the first `n_slot_args` of them per packed slot: a
+    timing probe of what the dead groups' blocks cost. The dead groups'
+    outputs are then not written."""
     gcell, dims, t = args[gi], args[gi + 1], args[gi + 4]
     live = gcell.long() < dims[0] * dims[1] * dims[2]
     n = int(live.sum())
     if not bool(live[:n].all()):
         raise RuntimeError("the live groups do not lead the packed layout")
-    return (args[0][: n * t], *args[1:gi], gcell[:n], *args[gi + 1:])
+    return (*(a[: n * t] for a in args[:n_slot_args]),
+            *args[n_slot_args:gi], gcell[:n], *args[gi + 1:])
 
 
-def ball_walk_sweep(torch, chip_smoke, k3_calls, k7_calls):
+def ball_walk_sweep(torch, chip_smoke, k3_calls, k7_calls, k4_calls):
     from neurofluid_torch.ops import ball_features as bf
     from neurofluid_torch.ops import fused_query as fq
 
@@ -242,41 +246,59 @@ def ball_walk_sweep(torch, chip_smoke, k3_calls, k7_calls):
               + f" ms (sum {sum(ms):.4f})", flush=True)
 
     saved = {(m, a): getattr(m, a) for m, a in (
-        (bf, "THREADS"), (fq, "THREADS"), (bf, "WHOLE_STAGE_BYTES"),
-        (bf, "RING_STAGE_BYTES"))}
+        (bf, "THREADS"), (fq, "THREADS"), (bf, "BWD_THREADS"),
+        (bf, "WHOLE_STAGE_BYTES"), (bf, "RING_STAGE_BYTES"),
+        (bf, "BWD_RING_STAGE_BYTES"))}
+    # name, wrapper, calls, source, kernel head, walk step, handles to
+    # drop on a rebuild, place of gcell, per-slot arguments, and the module
+    # attributes of its block size and its ring's stage bytes
+    sweeps = (
+        ("K3", bf.ball_sums_cuda, k3_calls, "ball_features.cu",
+         "__global__ void ball_sums_kernel(", WALK_STEP,
+         [bf.KERNEL, bf.BWD_KERNEL], 4, 1, (bf, "THREADS"),
+         "RING_STAGE_BYTES"),
+        ("K7", fq.ball_query_compact_cuda, k7_calls, "fused_query.cu",
+         "__global__ void ball_query_compact_kernel(", WALK_STEP, [fq.KERNEL],
+         5, 1, (fq, "THREADS"), "RING_STAGE_BYTES"),
+        ("K4", bf.ball_sums_bwd_cuda, k4_calls, "ball_features.cu",
+         "__global__ void ball_sums_bwd_kernel(", K4_WALK_STEP,
+         [bf.KERNEL, bf.BWD_KERNEL], 6, 2, (bf, "BWD_THREADS"),
+         "BWD_RING_STAGE_BYTES"))
     try:
-        for name, mod, fn, calls, source, kernels, gi in (
-                ("K3", bf, bf.ball_sums_cuda, k3_calls, "ball_features.cu",
-                 [bf.KERNEL, bf.BWD_KERNEL], 4),
-                ("K7", fq, fq.ball_query_compact_cuda, k7_calls,
-                 "fused_query.cu", [fq.KERNEL], 5)):
-            show(name, fn, calls, f"{mod.THREADS} threads, as built")
-            show(name, fn, [live_groups_only(a, gi) for a in calls],
-                 f"{mod.THREADS} threads, the live groups alone (probe)")
-            for what, edits in source_variants(source).items():
+        for (name, fn, calls, source, head, step, kernels, gi, n_slot,
+             (mod, threads_attr), ring_attr) in sweeps:
+            built = getattr(mod, threads_attr)
+            show(name, fn, calls, f"{built} threads, as built")
+            show(name, fn, [live_groups_only(a, gi, n_slot) for a in calls],
+                 f"{built} threads, the live groups alone (probe)")
+            for what, edits in source_variants(head, step).items():
                 with patched_source(source, edits, kernels):
-                    show(name, fn, calls, f"{mod.THREADS} threads, {what}")
+                    show(name, fn, calls, f"{built} threads, {what}")
             for threads in SWEEP_THREADS:
-                mod.THREADS = threads
+                setattr(mod, threads_attr, threads)
                 show(name, fn, calls, f"{threads} threads, plan as built")
-            mod.THREADS = saved[(mod, "THREADS")]
+            setattr(mod, threads_attr, built)
+            bf.WHOLE_STAGE_BYTES = bf.SMEM_LIMIT
+            show(name, fn, calls, f"{built} threads, one stage forced")
             for ring in SWEEP_RING_BYTES:
-                bf.WHOLE_STAGE_BYTES, bf.RING_STAGE_BYTES = 0, ring
-                show(name, fn, calls, f"{mod.THREADS} threads, two stages of "
+                bf.WHOLE_STAGE_BYTES = 0
+                setattr(bf, ring_attr, ring)
+                show(name, fn, calls, f"{built} threads, two stages of "
                      f"{ring} B")
-            bf.WHOLE_STAGE_BYTES = saved[(bf, "WHOLE_STAGE_BYTES")]
-            bf.RING_STAGE_BYTES = saved[(bf, "RING_STAGE_BYTES")]
+            for (m, a), v in saved.items():
+                setattr(m, a, v)
     finally:
         for (m, a), v in saved.items():
             setattr(m, a, v)
 
 
-def record(torch, mod, attr, fn):
-    """The argument tuples of every call of mod.attr while fn() runs."""
+def record(torch, mod, attr, fn, grad=False):
+    """The argument tuples of every call of mod.attr while fn() runs (with
+    autograd off unless `grad`)."""
     calls, wrapper = [], getattr(mod, attr)
     setattr(mod, attr, lambda *a: calls.append(a) or wrapper(*a))
     try:
-        with torch.no_grad():
+        with torch.set_grad_enabled(grad):
             fn()
     finally:
         setattr(mod, attr, wrapper)
@@ -292,7 +314,7 @@ def main():
     parser.add_argument("--walk-phases", action="store_true",
                         help="time K1 with parts of its walk taken out")
     parser.add_argument("--ball-walk-sweep", action="store_true",
-                        help="time K3 and K7 across staged-walk plans")
+                        help="time K3, K7 and K4 across staged-walk plans")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_port: no CUDA device", file=sys.stderr)
@@ -343,7 +365,17 @@ def main():
         l_plan = l_net.make_box_plan(box)
         k7_calls = record(torch, fq, "ball_query_compact_cuda",
                           lambda: l_net(pos, vel, box, nrm, box_plan=l_plan))
-        ball_walk_sweep(torch, chip_smoke, k3_calls, k7_calls)
+        step = make_e2e_train_step(
+            net, ren, torch.optim.Adam(ren.parameters(),
+                                       lr=chip_smoke.LR_RENDERER),
+            torch.optim.Adam(net.parameters(), lr=chip_smoke.LR_TRANSITION),
+            losses.default_box_bounds(device=dev), chip_smoke.BD_WEIGHT)
+        box_plan = net.make_box_plan(box)
+        k4_calls = record(
+            torch, bf, "ball_sums_bwd_cuda",
+            lambda: step(pos, vel, box, nrm, ro_v, rays_v, rgbs_v,
+                         box_plan=box_plan), grad=True)
+        ball_walk_sweep(torch, chip_smoke, k3_calls, k7_calls, k4_calls)
         print(f"card: {torch.cuda.get_device_name(0)}")
         return 0
 
