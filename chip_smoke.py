@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Build the PyTorch port's CUDA kernels and drive its three paths on one
-NVIDIA GPU at the bench working point: the serving path (rollout + render),
-the end-to-end train step, and the transition-only train step on both
-search backends.
+"""Build the PyTorch port's CUDA kernels and drive its paths on one NVIDIA
+GPU at the bench working point: the serving path (rollout + render), the
+end-to-end train step, the transition-only train step on three search
+backends, and a scene written, loaded and rendered.
 
     python3 chip_smoke.py
 
@@ -20,7 +20,9 @@ Phases (each prints its own line; any failure raises and exits non-zero):
    from one warm-up pass) and held against its plain PyTorch version on the
    card, with CUDA-event times (median of 10 after a warm-up) and the least
    time the card could take for the same work (for K5, and K6 in 5, also
-   an empty kernel's time at the same grid: the launch floor under them);
+   an empty kernel's time at the same grid: the launch floor under them;
+   K5 also once at K5_LONG_SAMPLES samples a ray, its tile path, outside
+   its per-render totals);
    where a K1 or K2 call is a walk plus tensor-core products, the
    products' time at that call's shapes and the walk's share beside it;
    for each K3 (and, in 7, K7) call its staged-walk plan and the work of
@@ -60,7 +62,24 @@ Phases (each prints its own line; any failure raises and exits non-zero):
    other; the warm-up step again with the path's kernels on their plain
    versions, and on `fused` with K8 alone on its plain version (loss
    bitwise equal, each leaf's gradient within 1e-4 of its largest entry);
-9. the kernels line, the card line, and the result line last.
+9. transition train path on `auto`, the JAX trainers' own backend: the
+   search it resolves to for the fluid and the box (both the plain grid
+   search at the bench point), its first step against `fused`'s from the
+   same weights (equal neighbour counts; loss, grad_norm and each
+   gradient leaf within AUTO_STEP_TOL), TRANSITION_STEPS counted and timed
+   steps as in 8 (K8 8 per step, K7 none), and the warm-up step again with
+   K8 on its plain version;
+10. search check: the fluid's lists at the bench point by
+   `radius_search_grid`, `radius_search_brute` and K7 (equal counts and
+   neighbour sets, grid and brute force in nearest order, no grid
+   overflow), each search's CUDA-event time as a caller sees it;
+11. scene-to-render: a Blender-layout scene written by the port's
+   `data.synthetic` into a temporary directory under build/, loaded by its
+   `BlenderDataset`, RENDER_RAYS of frame 0's rays of one view (seeded
+   choice) rendered by a seeded `RenderNet()` at its full defaults over
+   that frame's particles (K3 and K5 twice each); the RGB MSE against the
+   image's pixels and the render's host-clock time;
+12. the kernels line, the card line, and the result line last.
 
 Without a CUDA device, or without the package beside it, the script exits
 non-zero before printing any result.
@@ -68,9 +87,12 @@ non-zero before printing any result.
 
 import copy
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROLLOUT_STEPS = 10
@@ -87,7 +109,14 @@ LR_RENDERER, LR_TRANSITION, BD_WEIGHT = 3e-4, 1e-5, 1.0
 # second, whose state depends on the weights.
 TRANSITION_STEPS = 10
 TRANSITION_LAUNCHES = {"fused_cconv": {"K1": 10, "K2": 10},
-                       "fused": {"K7": 4, "K8": 8}}
+                       "fused": {"K7": 4, "K8": 8},
+                       "auto": {"K8": 8}}
+# the JAX trainers' default backend: at the bench point 'auto' searches the
+# fluid (14,336 points, at least AUTO_GRID_POINTS) by the plain grid search,
+# and the box (2,520 points, fewer) by the grid too because its grid is
+# passed; K7 never launches; K8 is the adjoint of the same gathers as on
+# `fused`
+AUTO_ROUTES = {"fluid": "grid", "box": "grid"}
 LR_TRANSITION_ONLY, TRANSITION_CLIP = 1e-4, 1.0
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth, the float32
 # rate outside the tensor cores, and the dense TF32 tensor-core rate. The
@@ -157,6 +186,19 @@ STEP_TOL = {"loss": 1e-4, "grad_norm_renderer": 1e-3,
 # renderer amplifies them here).
 LIST_STEP_TOL = {"loss": 0.0, "grad_norm": 1e-4, "leaf": 1e-4}
 CCONV_STEP_TOL = {"loss": 1e-5, "grad_norm": 1e-3, "grads": 1e-3}
+# the first transition step on 'auto' against `fused` from the same weights:
+# no count exceeds its cap, so both sum the same pairs, the lists in another
+# order (nearest first against cell order): f32 summation order. Loss and
+# grad_norm relative; each gradient leaf relative to its own largest entry.
+AUTO_STEP_TOL = {"loss": 1e-5, "grad_norm": 1e-4, "leaf": 1e-4}
+# K5 once more on rays longer than a warp's 256 samples (its tile path)
+K5_LONG_SAMPLES = 300
+# the scene-to-render pass: a synthetic Blender-layout scene written by the
+# port's generator, loaded by its BlenderDataset, and RENDER_RAYS of frame
+# 0's rays of one view rendered at RenderNet()'s full defaults
+SCENE_KW = dict(n_frames=4, img_wh=(64, 64), train_views=("view_1", "view_2"),
+                test_views=(), seed=10)
+RENDER_RAYS = 1024
 # the two backends sum the same pairs wherever no count exceeds its cap
 BACKEND_TOL = {"loss": 1e-5, "pred_pos": 1e-5}
 # sigma-head bias of the seeded renderer, so that samples with K neighbours
@@ -318,11 +360,13 @@ def main():
 
     from neurofluid_torch import cuda as nf_cuda
     from neurofluid_torch import scene
+    from neurofluid_torch.data import BlenderDataset, synthetic
     from neurofluid_torch.models import ParticleNet, RenderNet
     from neurofluid_torch.ops import ball_features as bf
     from neurofluid_torch.ops import composite as comp
     from neurofluid_torch.ops import fused_cconv as fc
     from neurofluid_torch.ops import fused_query as fq
+    from neurofluid_torch.ops import neighbor_search as ns
     from neurofluid_torch.ops import segment_ops as so
     from neurofluid_torch.train import losses
     from neurofluid_torch.train.e2e import make_e2e_train_step
@@ -475,13 +519,15 @@ def main():
 
     def check(name, i, args, outputs, n_bytes, n_ops, exact=None,
               timed=True, library=None, n_tc_ops=0.0, products=(),
-              floor=None):
+              floor=None, in_totals=True):
         """outputs: (label, got, want) float outputs, each held to TOL
         scaled as RELATIVE says; exact: integer-valued outputs that must
         agree exactly (in-radius counts, selection counts, ids); library:
         one PyTorch call that computes the same function, timed beside the
         kernel and used nowhere else; floor: an empty kernel at the
-        kernel's grid, timed beside it."""
+        kernel's grid, timed beside it; in_totals: add the call's times to
+        the kernel's per-step totals (False for a call the main path does
+        not make)."""
         err = 0.0
         for label, got, want in outputs:
             if got is None and want is None:
@@ -524,6 +570,8 @@ def main():
         print(f"kernel {name} call {i}: max_abs_err {err:.3e} (tol "
               f"{TOL[name]:.0e}, {RELATIVE[name]}) ms {ms:.4f} plain_ms "
               f"{plain_ms:.3f} bound_ms {b_ms:.4f} ({b_by}){lib}", flush=True)
+        if not in_totals:
+            return
         for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b_ms),
                        ("ops", n_ops), ("bytes", n_bytes),
                        ("tc_ops", n_tc_ops)):
@@ -577,6 +625,20 @@ def main():
             check("K5", i, args, [("w", got, want)], nbytes(*args, got),
                   K5_SAMPLE_OPS * got.numel(),
                   floor=lambda: comp.launch_floor_cuda(got.shape[0], False))
+        # K5 on longer rays (tiles of 256, the carry in a register): the
+        # fine call's sigmas, depths and ray norms, sorted depths extended
+        sig, z, dn = calls["K5"][-1]
+        reps = -(-K5_LONG_SAMPLES // sig.shape[1])
+        z_long = torch.sort(torch.cat([z + 0.001 * j for j in range(reps)],
+                                      1)[:, :K5_LONG_SAMPLES], 1).values
+        args = (torch.cat([sig] * reps, 1)[:, :K5_LONG_SAMPLES].contiguous(),
+                z_long.contiguous(), dn)
+        got = comp.composite_weights_cuda(*args)
+        want = comp.composite_weights_plain(*args)
+        check("K5", f"S {K5_LONG_SAMPLES} (tiles of 256; not on the main "
+              "path)", args, [("w", got, want)], nbytes(*args, got),
+              K5_SAMPLE_OPS * got.numel(), in_totals=False,
+              floor=lambda: comp.launch_floor_cuda(got.shape[0], False))
     del calls
 
     # ---- 4. serving path, counted
@@ -907,7 +969,7 @@ def main():
             pred, _, nn, _ = t_net(pos, vel, box, nrm, box_plan=plan)
         return pred, nn
 
-    trainers = {b: transition_trainer(b) for b in TRANSITION_LAUNCHES}
+    trainers = {b: transition_trainer(b) for b in ("fused_cconv", "fused")}
     first = {b: first_prediction(t_net, plan)
              for b, (t_net, _, plan) in trainers.items()}
     warm_t = {}
@@ -994,7 +1056,10 @@ def main():
         raise AssertionError(f"the two backends disagree beyond tolerance: "
                              f"{bad}")
 
-    for backend, (t_net, t_step, plan) in trainers.items():
+    def timed_transition(backend, t_step, plan):
+        """TRANSITION_STEPS counted, timed steps of `backend` from its
+        warm-up state: launches per step as TRANSITION_LAUNCHES says, finite
+        losses that fall, gradients, no flag set. Returns the launches."""
         per_step = {k: TRANSITION_LAUNCHES[backend].get(k, 0)
                     for k in counters}
         reset_counts()
@@ -1010,8 +1075,6 @@ def main():
             auxes.append(aux)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         launched = counts()
-        total_launches = {k: v + launched[k]
-                          for k, v in total_launches.items()}
         want = {k: n * TRANSITION_STEPS for k, n in per_step.items()}
         print(f"transition train path ({backend}): launches "
               f"{ {k: v for k, v in launched.items() if v} } in "
@@ -1038,7 +1101,12 @@ def main():
               f"memory {peak_gb:.2f} GB; losses {warm_t[backend]['loss']:.6f} "
               "(warm-up), " + ", ".join(f"{x:.6f}" for x in step_losses)
               + f"; grad_norm {float(auxes[-1]['grad_norm']):.4e}", flush=True)
-        del auxes
+        return launched
+
+    for backend, (t_net, t_step, plan) in trainers.items():
+        launched = timed_transition(backend, t_step, plan)
+        total_launches = {k: v + launched[k]
+                          for k, v in total_launches.items()}
 
     def compare_transition(backend, what, swapped, tol):
         """The warm-up transition step of `backend` from the same weights
@@ -1088,11 +1156,161 @@ def main():
                        "fused_cconv transition step with plain K1, K2",
                        ("K1", "K2"), CCONV_STEP_TOL)
 
-    # ---- 9. summary lines. launches: each kernel's count over the counted
+    # ---- 9. the transition train path on 'auto' (the JAX trainers' own
+    # search backend): which search it runs, its first step against
+    # `fused`'s from the same weights, then counted and timed as in 8
+    a_net, a_step, a_plan = transition_trainer("auto")
+    routes = {"fluid": a_net.search_route(scene.N_PARTICLES),
+              "box": a_net.search_route(box.shape[0], a_plan)}
+    print(f"transition train path (auto): resolves to {routes} (fluid "
+          f"{scene.N_PARTICLES} points; box {box.shape[0]} points, its grid "
+          f"passed)", flush=True)
+    if routes != AUTO_ROUTES:
+        raise AssertionError(f"'auto' resolves to {routes}, not "
+                             f"{AUTO_ROUTES}")
+    first["auto"] = first_prediction(a_net, a_plan)
+    before = counts()
+    loss_a, aux_a = run_transition(a_step, a_plan)  # the warm-up step
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in counts().items()}
+    want = {k: TRANSITION_LAUNCHES["auto"].get(k, 0) for k in counters}
+    if launched != want:
+        raise AssertionError(f"auto warm-up step: launches {launched} != "
+                             f"{want}")
+    warm_t["auto"] = dict(loss=float(loss_a), aux=aux_a,
+                          grads=grads_of(a_net))
+    ref = warm_t["fused"]
+    rel = {n: float((prm.grad - ref["grads"][n]).abs().max())
+           / max(float(ref["grads"][n].abs().max()), 1e-30)
+           for n, prm in a_net.named_parameters()}
+    worst = max(rel, key=rel.get)
+    gn = float(ref["aux"]["grad_norm"])
+    d = {"loss": abs(float(loss_a) - ref["loss"]) / abs(ref["loss"]),
+         "grad_norm": abs(float(aux_a["grad_norm"]) - gn) / gn,
+         "leaf": rel[worst]}
+    d_pos = float((first["auto"][0] - first["fused"][0]).abs().max())
+    mism = int((first["auto"][1] != first["fused"][1]).sum())
+    print("auto transition step against fused, first step from the same "
+          "weights: diffs " + ", ".join(f"{k} {v:.3e}" for k, v in d.items())
+          + f" (loss, grad_norm relative; leaf to the leaf's own largest "
+          f"entry, worst {worst}); pred_pos {d_pos:.3e}; neighbour counts "
+          f"that differ {mism}; losses {float(loss_a):.6f} / "
+          f"{ref['loss']:.6f}", flush=True)
+    bad = {k: v for k, v in d.items() if not v <= AUTO_STEP_TOL[k]}
+    if mism or bad or not d_pos <= BACKEND_TOL["pred_pos"]:
+        raise AssertionError(f"auto disagrees with fused: {bad}, pred_pos "
+                             f"{d_pos:.3e}, {mism} counts")
+    launched = timed_transition("auto", a_step, a_plan)
+    total_launches = {k: v + launched[k] for k, v in total_launches.items()}
+    compare_transition("auto", "auto transition step rerun", (), {})
+    compare_transition("auto", "auto transition step with plain K8",
+                       ("K8",), LIST_STEP_TOL)
+
+    # ---- 10. the fluid's neighbour lists at the bench point three ways:
+    # the plain grid and brute-force searches ('auto' and 'brute') and K7
+    r_s, k_s = a_net.radius, a_net.fluid_neighbor_k
+    grid_s = a_net.make_grid(pos)
+    searches = {
+        "grid": lambda: ns.radius_search_grid(pos, grid_s, r_s, k_s,
+                                              exclude_self=True)[0],
+        "brute": lambda: ns.radius_search_brute(pos, pos, r_s, k_s,
+                                                exclude_self=True),
+        "K7": lambda: fq.ball_query_compact(
+            pos, grid_s, a_net.grid_lower, a_net.grid_upper, r_s, k_s,
+            exclude_self=True)[0]}
+    before = counts()
+    with torch.no_grad():
+        lists = {name: fn() for name, fn in searches.items()}
+    torch.cuda.synchronize()
+    if counts()["K7"] != before["K7"] + 1:
+        raise AssertionError("the search check's K7 call did not launch")
+    if bool(grid_s.overflow):
+        raise AssertionError("the bench point's fluid grid overflows")
+    sets = {n: torch.sort(nl.idx, dim=-1).values for n, nl in lists.items()}
+    for name in ("brute", "K7"):
+        if not torch.equal(lists[name].count, lists["grid"].count):
+            raise AssertionError(f"search check: {name} counts differ")
+        if not torch.equal(sets[name], sets["grid"]):
+            raise AssertionError(f"search check: {name} neighbour sets "
+                                 f"differ")
+    g_sq, b_sq = lists["grid"].sq_dists, lists["brute"].sq_dists
+    nearest = all(bool(((sq[:, 1:] >= sq[:, :-1]) | ~m[:, 1:]).all())
+                  for sq, m in ((g_sq, lists["grid"].mask),
+                                (b_sq, lists["brute"].mask)))
+    if not (torch.equal(g_sq, b_sq) and nearest):
+        raise AssertionError("search check: grid and brute force are not "
+                             "both in nearest order")
+    with torch.no_grad():
+        search_ms = {n: event_ms(torch, fn) for n, fn in searches.items()}
+    print(f"search check, the fluid at the bench point (k {k_s}, exclude "
+          f"self): counts and neighbour sets equal across grid, brute and "
+          f"K7; grid and brute in nearest order (slots whose ids differ, "
+          f"ties: {int((lists['grid'].idx != lists['brute'].idx).sum())}); "
+          f"grid overflow False; largest count "
+          f"{int(lists['grid'].count.max())}; ms "
+          + ", ".join(f"{n} {v:.3f}" for n, v in search_ms.items())
+          + " (radius_search_grid, radius_search_brute, ball_query_compact "
+          "as called; plain torch, plain torch, K7)", flush=True)
+    del lists, sets, g_sq, b_sq, grid_s
+
+    # ---- 11. a scene written by the port's generator, loaded by its
+    # BlenderDataset, and 1,024 of frame 0's rays rendered
+    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "build")
+    os.makedirs(build_dir, exist_ok=True)
+    scene_dir = tempfile.mkdtemp(prefix="chip_smoke_scene_", dir=build_dir)
+    try:
+        t0 = time.perf_counter()
+        synthetic.generate_blender_scene(scene_dir, **SCENE_KW)
+        dataset = BlenderDataset(scene_dir, img_wh=SCENE_KW["img_wh"],
+                                 view_names=SCENE_KW["train_views"][:1],
+                                 end_index=SCENE_KW["n_frames"])
+        scene_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(scene_dir)
+    frame = dataset[0]
+    pick = torch.randperm(frame["rays"].shape[1],
+                          generator=torch.Generator().manual_seed(5))
+    pick = pick[:RENDER_RAYS]
+    rays_s = torch.from_numpy(frame["rays"][0])[pick].to(dev)
+    pixels = torch.from_numpy(frame["rgb"][0])[pick].to(dev)
+    particles_s = torch.from_numpy(frame["particles_pos"]).to(dev)
+    ro_s = torch.from_numpy(frame["cw"][0][:, 3].copy()).to(dev)
+    s_ren = RenderNet(device=dev, generator=torch.Generator().manual_seed(6))
+    reset_counts()
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        out_s = s_ren(particles_s, ro_s, rays_s)
+        torch.cuda.synchronize()
+        render_ms = (time.perf_counter() - t0) * 1e3
+    launched = counts()
+    total_launches = {k: v + launched[k] for k, v in total_launches.items()}
+    want = {k: {"K3": 2, "K5": 2}.get(k, 0) for k in counters}
+    if launched != want:
+        raise AssertionError(f"scene render: launches {launched} != {want}")
+    for key, v in out_s.items():
+        if not bool(torch.isfinite(v.float()).all()):
+            raise AssertionError(f"scene render: non-finite {key}")
+    mse = float(((out_s["rgb1"] - pixels) ** 2).mean())
+    if not (mse == mse and mse < float("inf")) or bool(out_s["overflow"]):
+        raise AssertionError(f"scene render: MSE {mse}, overflow "
+                             f"{bool(out_s['overflow'])}")
+    print(f"scene-to-render: {SCENE_KW['n_frames']} frames of "
+          f"{particles_s.shape[0]} particles, {len(SCENE_KW['train_views'])}"
+          f" views at {SCENE_KW['img_wh']} written and loaded in "
+          f"{scene_s:.2f} s; {RENDER_RAYS} rays of frame 0, view 1, rendered "
+          f"in {render_ms:.2f} ms (launches "
+          f"{ {k: v for k, v in launched.items() if v} }); RGB MSE against "
+          f"the pixels {mse:.6f} (random weights); samples with K neighbours "
+          f"{int(out_s['mask_1'].sum())}", flush=True)
+
+    # ---- 12. summary lines. launches: each kernel's count over the counted
     # runs (the serving path once, the e2e train path TRAIN_STEPS times, the
-    # transition train path TRANSITION_STEPS times on each backend); the
-    # times are per serving pass (K1: per rollout step), per e2e train step
-    # (K2, K4, K6) or per transition train step on `fused` (K7, K8)
+    # transition train path TRANSITION_STEPS times on each backend, the
+    # scene render once); the times are per serving pass (K1: per rollout
+    # step), per e2e train step (K2, K4, K6) or per transition train step
+    # on `fused` (K7, K8)
     sources = {
         "K1": ("fused_cconv", "fused_cconv.cu",
                "neurofluid_tpu/ops/fused_cconv.py:622"),

@@ -11,30 +11,38 @@
 //
 // Bound on the card: bytes. Each sample reads z and sigma and writes w
 // (12 B) for about ten operations, far below the H100's ratio of operations
-// to bytes. The design keeps the accesses coalesced (lane i of a warp owns
-// sample base + i of its ray) and touches each byte once; the carry between
-// 32-sample chunks lives in a register.
+// to bytes. At the render's sizes (1,024 rays of 64 or 192 samples) the
+// bytes take a fraction of a microsecond, so what is left to win is latency:
+// the launch, and the memory round trips of each ray.
+//
+// K5 (`composite_weights_kernel`) holds a ray in one warp's registers: each
+// lane owns a contiguous run of P samples (P = 1, 2, 4, 6 or 8, the fewest
+// that cover the ray, `samples_per_lane`), read with 16- or 8-byte loads
+// where the run is whole and aligned (`load_run`); every load of the run (z,
+// sigma, and the z after the tile for the last lane) is issued before any
+// arithmetic, so a ray of up to 256 samples costs one round trip to memory.
+// Each lane forms its run's product of (s + 1e-10); one warp product scan
+// gives the transmittance at the run's start; the lane writes w for its run
+// with vector stores (`store_run`). Longer rays take tiles of 256 with the
+// transmittance carried in a register, so K5 takes rays of any length.
 //
 // K6 (nf_composite_weights_bwd) replaces pallas_kernels.py
 // `_composite_bwd_kernel` (the custom VJP of `composite_weights`). With g the
 // cotangent of w and T_i the exclusive product:
 //   d sigma_i = delta_i ||d|| s_i 1[sigma_i > 0]
 //               (g_i T_i - sum_{k>i} g_k w_k / (s_i + 1e-10))
-// The TPU kernel takes the suffix sum as a second triangular matmul. Here a
-// ray is one warp and is held in registers (`composite_weights_bwd_kernel`):
-// each lane owns a contiguous run of P samples (P = 1, 2, 4, 6 or 8, the
-// fewest that cover the ray), read with 16- or 8-byte loads where the run
-// is aligned; every load (z, sigma, g, and the z after the tile for the
-// last lane) is issued before any arithmetic, so a ray costs one round
-// trip to memory. Each lane forms its run's product and, after one warp
-// product scan for the transmittance at its start, its run's weighted sum;
-// one reverse warp sum scan gives the suffix after the run; d sigma leaves
-// with vector stores. Rays of up to 256 samples are one such pass; longer
-// ones (up to 2,048) take tiles of 256, a first pass over the tiles for the
-// transmittance at each tile's start (kept in registers), then the tiles
-// from the last, as above. Bound: bytes, as K5 (z, sigma, g read, d sigma
-// written: 16 B per sample for ~30 operations); what remains above it is
-// the launch and one memory round trip per ray.
+// The TPU kernel takes the suffix sum as a second triangular matmul. Here
+// `composite_weights_bwd_kernel` holds a ray as K5 does, with the same runs,
+// loads and stores, and g beside z and sigma. Each lane forms its run's
+// product and, after one warp product scan for the transmittance at its
+// start, its run's weighted sum; one reverse warp sum scan gives the suffix
+// after the run; d sigma leaves with vector stores. Rays of up to 256
+// samples are one such pass; longer ones (up to 2,048) take tiles of 256, a
+// first pass over the tiles for the transmittance at each tile's start
+// (kept in registers), then the tiles from the last, as above. Bound:
+// bytes, as K5 (z, sigma, g read, d sigma written: 16 B per sample for ~30
+// operations); what remains above it is the launch and one memory round
+// trip per ray.
 
 #include <cuda_runtime.h>
 
@@ -43,55 +51,19 @@
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
+
+// K5's and K6's blocks (one warp per ray), K6's longest ray, and the tile
+// of both kernels: 32 lanes of the most samples a lane holds
 constexpr int kWarpsPerBlock = 8;
-
-__global__ void composite_weights_kernel(const float* __restrict__ sigma,
-                                         const float* __restrict__ z,
-                                         const float* __restrict__ dnorm,
-                                         float* __restrict__ w,
-                                         int n_rays, int n_samples) {
-  const int ray = blockIdx.x * kWarpsPerBlock + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (ray >= n_rays) return;  // whole warp leaves together
-  const long row = static_cast<long>(ray) * n_samples;
-  const float dn = dnorm[ray];
-  float carry = 1.0f;  // transmittance before this chunk
-  for (int base = 0; base < n_samples; base += 32) {
-    const int i = base + lane;
-    float surv = 1.0f;
-    float factor = 1.0f;
-    if (i < n_samples) {
-      const float zi = z[row + i];
-      const float delta =
-          (i + 1 < n_samples) ? (z[row + i + 1] - zi) : 1e10f;
-      surv = expf(-(delta * dn * fmaxf(sigma[row + i], 0.0f)));
-      factor = surv + 1e-10f;
-    }
-    // inclusive product scan over the 32 lanes
-    float incl = factor;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const float y = __shfl_up_sync(kFull, incl, o);
-      if (lane >= o) incl *= y;
-    }
-    float excl = __shfl_up_sync(kFull, incl, 1);
-    if (lane == 0) excl = 1.0f;
-    if (i < n_samples) w[row + i] = (1.0f - surv) * (carry * excl);
-    carry *= __shfl_sync(kFull, incl, 31);
-  }
-}
-
-// K6's block (one warp per ray), its longest ray, and its tile: 32 lanes
-// of the most samples a lane holds
 constexpr int kBwdWarps = 4;
-constexpr int kMaxSamples = 2048;
+constexpr int kMaxBwdSamples = 2048;
 constexpr int kMaxPerLane = 8;
 constexpr int kTile = 32 * kMaxPerLane;
 
-// Samples each lane of K6 holds for rays of n samples: the fewest of 1, 2,
-// 4, 6 and 8 whose warp covers the ray, else 8 (tiles of 256). Mirrored by
-// ops/composite.bwd_samples_per_lane.
-int bwd_per_lane(int n) {
+// Samples each lane of K5 and K6 holds for rays of n samples: the fewest of
+// 1, 2, 4, 6 and 8 whose warp covers the ray, else 8 (tiles of 256).
+// Mirrored by ops/composite.samples_per_lane.
+int samples_per_lane(int n) {
   if (n <= 32) return 1;
   if (n <= 64) return 2;
   if (n <= 128) return 4;
@@ -189,6 +161,47 @@ __device__ __forceinline__ float survival_run(const float* __restrict__ zr,
     if (i < n) prod *= s[j] + 1e-10f;
   }
   return prod;
+}
+
+// K5: one warp per ray, P samples per lane, tiles of 32 P from the ray's
+// start with the transmittance before the tile carried in a register.
+template <int P>
+__global__ void composite_weights_kernel(const float* __restrict__ sigma,
+                                         const float* __restrict__ z,
+                                         const float* __restrict__ dnorm,
+                                         float* __restrict__ w,
+                                         int n_rays, int n) {
+  const int ray = blockIdx.x * kWarpsPerBlock + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (ray >= n_rays) return;  // whole warp leaves together
+  const long row = static_cast<long>(ray) * n;
+  const float* zr = z + row;
+  const float* sr = sigma + row;
+  const float dn = dnorm[ray];
+  float carry = 1.0f;  // transmittance before this tile
+  for (int base = 0; base < n; base += 32 * P) {
+    float sig[P], d[P], s[P];
+    const float prod = survival_run<P>(zr, sr, base, n, dn, lane, sig, d, s);
+    // exclusive product scan over the lanes: T at the start of the run
+    float incl = prod;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float y = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl *= y;
+    }
+    float excl = __shfl_up_sync(kFull, incl, 1);
+    if (lane == 0) excl = 1.0f;
+    const int i0 = base + lane * P;
+    float t = carry * excl;
+    float out[P];
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      out[j] = (1.0f - s[j]) * t;
+      if (i0 + j < n) t *= s[j] + 1e-10f;
+    }
+    store_run<P>(w + row, i0, n, out);
+    carry *= __shfl_sync(kFull, incl, 31);
+  }
 }
 
 // K6: one warp per ray, P samples per lane; kTiles 1 for rays of up to
@@ -292,25 +305,39 @@ __global__ void empty_kernel() {}
 
 }  // namespace
 
+// K5. per_lane: samples each lane holds, as ops/composite.samples_per_lane
+// chooses them; another per_lane is refused with cudaErrorInvalidValue.
 extern "C" int nf_composite_weights(const float* sigma, const float* z,
                                     const float* dnorm, float* w, int n_rays,
-                                    int n_samples, void* stream) {
+                                    int n_samples, int per_lane,
+                                    void* stream) {
+  if (per_lane != samples_per_lane(n_samples))
+    return static_cast<int>(cudaErrorInvalidValue);
+  using Launch = void (*)(const float*, const float*, const float*, float*,
+                         int, int);
+  Launch kernel = composite_weights_kernel<kMaxPerLane>;
+  switch (per_lane) {
+    case 1: kernel = composite_weights_kernel<1>; break;
+    case 2: kernel = composite_weights_kernel<2>; break;
+    case 4: kernel = composite_weights_kernel<4>; break;
+    case 6: kernel = composite_weights_kernel<6>; break;
+  }
   const int blocks = (n_rays + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  composite_weights_kernel<<<blocks, kWarpsPerBlock * 32, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      sigma, z, dnorm, w, n_rays, n_samples);
+  kernel<<<blocks, kWarpsPerBlock * 32, 0,
+           static_cast<cudaStream_t>(stream)>>>(sigma, z, dnorm, w, n_rays,
+                                                n_samples);
   return static_cast<int>(cudaGetLastError());
 }
 
-// K6. per_lane: samples each lane holds, as ops/composite.
-// bwd_samples_per_lane chooses them; rays of more than kMaxSamples samples,
-// or another per_lane, are refused with cudaErrorInvalidValue.
+// K6. per_lane: as for K5; rays of more than kMaxBwdSamples samples, or
+// another per_lane, are refused with cudaErrorInvalidValue.
 extern "C" int nf_composite_weights_bwd(const float* sigma, const float* z,
                                         const float* dnorm, const float* g,
                                         float* d_sigma, int n_rays,
                                         int n_samples, int per_lane,
                                         void* stream) {
-  if (n_samples > kMaxSamples || per_lane != bwd_per_lane(n_samples))
+  if (n_samples > kMaxBwdSamples ||
+      per_lane != samples_per_lane(n_samples))
     return static_cast<int>(cudaErrorInvalidValue);
   using Launch = void (*)(const float*, const float*, const float*,
                          const float*, float*, int, int);
@@ -323,7 +350,7 @@ extern "C" int nf_composite_weights_bwd(const float* sigma, const float* z,
     default:
       if (n_samples > kTile)
         kernel = composite_weights_bwd_kernel<kMaxPerLane,
-                                              kMaxSamples / kTile>;
+                                              kMaxBwdSamples / kTile>;
   }
   const int blocks = (n_rays + kBwdWarps - 1) / kBwdWarps;
   kernel<<<blocks, kBwdWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(

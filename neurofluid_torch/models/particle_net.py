@@ -1,6 +1,5 @@
 """ParticleNet: the learned Lagrangian fluid transition model (port of
-neurofluid_tpu/models/particle_net.py, the `fused_cconv` and `fused` search
-backends, unsharded).
+neurofluid_tpu/models/particle_net.py, every search backend, unsharded).
 
 One step (reference models/transmodel.py:100-148):
 1. semi-implicit Euler with gravity: v' = v + g dt; x' = x + (v + v')/2 dt;
@@ -20,9 +19,12 @@ compact fixed-K neighbour list of the fluid and one of the box per step
 (`ops.fused_query`, K7 on the card), shared by all layers; the conv
 geometry and the fluid tap matrix are computed once per list and each layer
 is a gather and two matrix products (`ops.cconv`), the gathers' adjoint
-being the segment sum (K8 on the card). The two backends compute the same
-sums wherever no neighbourhood exceeds its cap; `cap_exceeded` says when
-one does.
+being the segment sum (K8 on the card). `search_backend='grid'`,
+`'brute'` and `'auto'` build the same lists by the plain searches of
+`ops.neighbor_search` (the k nearest by the 27-cell grid, or by brute
+force; `'auto'` takes the grid from AUTO_GRID_POINTS searched points on)
+and run the same list conv. All backends compute the same sums wherever no
+neighbourhood exceeds its cap; `cap_exceeded` says when one does.
 """
 
 from __future__ import annotations
@@ -39,9 +41,13 @@ from neurofluid_torch.models.init import (
 from neurofluid_torch.ops import cconv
 from neurofluid_torch.ops import fused_cconv as fc
 from neurofluid_torch.ops import fused_query, segment_ops
+from neurofluid_torch.ops import neighbor_search as ns
 from neurofluid_torch.ops.neighbor_search import CellGrid, build_cell_grid
 
-SEARCH_BACKENDS = ("fused_cconv", "fused")
+SEARCH_BACKENDS = ("fused_cconv", "fused", "grid", "brute", "auto")
+# 'auto' searches by grid from this many searched points on, else by brute
+# force (the JAX package's threshold)
+AUTO_GRID_POINTS = 4096
 
 
 class ContinuousConvLayer(nn.Module):
@@ -93,17 +99,28 @@ class ParticleNet(nn.Module):
                  grid_max_per_cell: int = 32,
                  device="cuda", generator: torch.Generator | None = None):
         """`fluid_neighbor_k`, `obstacle_neighbor_k` and `grid_max_per_cell`
-        are the static caps of the `fused` backend's lists and cell tables
+        are the static caps of the list backends' lists and cell tables
         (about 47 fluid neighbours and 11 particles per cell at rest
         density); `fused_*` size the `fused_cconv` backend's plan.
         `other_feats_channels`: width of the optional per-particle `feats`
-        of `forward`."""
+        of `forward`.
+
+        The default backend is `'fused_cconv'`, where the JAX package's is
+        `'auto'`: `'fused_cconv'` sums every in-radius neighbour, exact and
+        uncapped as the reference's Open3D search, while `'auto'`/`'grid'`
+        keep the `fluid_neighbor_k` nearest and flag `cap_exceeded` past
+        them (the two agree while no neighbourhood passes its cap). The
+        rollout, the e2e step and `scene.particle_net_kwargs()` rely on
+        this default. Trainers that mirror the JAX package's must pass
+        `search_backend=cfg.TRAIN.get("search_backend", "auto")`, the JAX
+        trainers' own default."""
         super().__init__()
         if search_backend not in SEARCH_BACKENDS:
-            raise NotImplementedError(
-                f"search_backend {search_backend!r} is not ported; this "
-                f"package has {SEARCH_BACKENDS} ('auto', 'grid' and 'brute' "
-                f"are listed in ROADMAP.md, Queue 1 item 13)")
+            raise ValueError(
+                f"unknown search_backend {search_backend!r}: this package "
+                f"has every backend of the JAX package, {SEARCH_BACKENDS}; "
+                f"what remains unported is the sharded step (shard_axis, "
+                f"halo_size: ROADMAP.md Queue 1, parallel/)")
         self.search_backend = search_backend
         self.fluid_neighbor_k = fluid_neighbor_k
         self.obstacle_neighbor_k = obstacle_neighbor_k
@@ -145,15 +162,24 @@ class ParticleNet(nn.Module):
         vel_new = vel + g * dt
         return pos + (vel + vel_new) / 2.0 * dt, vel_new
 
+    def make_grid(self, points: torch.Tensor) -> CellGrid:
+        """The `CellGrid` of `points` at this model's geometry (cell =
+        radius)."""
+        return build_cell_grid(points, self.grid_lower, self.grid_upper,
+                               max(self.radius, 1e-6), self.grid_max_per_cell)
+
     def make_box_plan(self, box: torch.Tensor):
         """Search structure of the static boundary particles: build it once
         per scene and pass it to every step. A candidate-only `CConvPlan`
-        on the `fused_cconv` backend, a `CellGrid` (cell = radius) on the
-        `fused` backend."""
-        if self.search_backend == "fused":
-            return build_cell_grid(box, self.grid_lower, self.grid_upper,
-                                   max(self.radius, 1e-6),
-                                   self.grid_max_per_cell)
+        on the `fused_cconv` backend; None on `brute`, which searches the
+        box by brute force; else a `CellGrid` (cell = radius), which sends
+        the box search through the grid on `grid` and `auto` whatever the
+        box's size (`search_route`), as the JAX trainers' `make_grid`
+        does."""
+        if self.search_backend == "brute":
+            return None
+        if self.search_backend != "fused_cconv":
+            return self.make_grid(box)
         return fc.build_plan(box, self.grid_lower, self.grid_upper,
                              self.cell_size, with_groups=False,
                              slab_cap=self.fused_slab_cap)
@@ -161,14 +187,16 @@ class ParticleNet(nn.Module):
     def forward(self, pos, vel, box, box_feats, feats=None, box_plan=None):
         """One transition step. pos, vel (N, 3); box, box_feats (M, 3);
         feats: optional (N, other_feats_channels) extra fluid features;
-        box_plan: `make_box_plan(box)`, built here when absent.
+        box_plan: `make_box_plan(box)`; when absent, the step builds what
+        its search needs.
 
         Returns (pos, vel, num_fluid_neighbors (N,), diag) where diag holds
         the search-health flags {"grid_overflow", "cap_exceeded"}: a cell
-        table or grouping bound was hit, or (the `fused` backend only; the
+        table or grouping bound was hit, or (the list backends only; the
         `fused_cconv` backend has no cap) a neighbourhood held more than
         `fluid_neighbor_k` / `obstacle_neighbor_k` particles and the conv
-        saw only the first k."""
+        saw only k of them (the first k on `fused`, the k nearest on the
+        others)."""
         box, box_feats = box.detach(), box_feats.detach()
         pos_new, vel_new = self.integrate_pos_vel(pos, vel)
         fluid = [torch.ones_like(pos_new[:, :1]), vel_new]
@@ -219,22 +247,46 @@ class ParticleNet(nn.Module):
         return (fc.unsort_values(self.correction_scale * h, qplan),
                 fc.unsort_values(counts, qplan), diag)
 
-    def _search(self, queries, grid: CellGrid, k: int, exclude_self: bool):
-        return fused_query.ball_query_compact(
-            queries, grid, self.grid_lower, self.grid_upper, self.radius, k,
-            exclude_self=exclude_self)
+    def search_route(self, n_points: int, grid: CellGrid | None = None):
+        """The search a list backend runs over `n_points` points, as the
+        JAX package's `_search` routes it: 'fused' (K7's compact lists),
+        'grid' or 'brute'. 'auto' means 'grid' from AUTO_GRID_POINTS
+        points on, else 'brute'; and a passed grid sends 'brute' (and so
+        'auto' below the threshold) to the grid all the same."""
+        backend = self.search_backend
+        if backend == "auto":
+            backend = "grid" if n_points >= AUTO_GRID_POINTS else "brute"
+        if backend == "fused":
+            return "fused"
+        return "grid" if backend == "grid" or grid is not None else "brute"
+
+    def _search(self, queries, points, k: int, exclude_self: bool,
+                grid: CellGrid | None = None):
+        """(NeighborList, grid_overflow) of `points` around `queries` by
+        `search_route`; the grid is built here when none is passed."""
+        route = self.search_route(points.shape[0], grid)
+        if route != "brute" and grid is None:
+            grid = self.make_grid(points)
+        if route == "fused":
+            return fused_query.ball_query_compact(
+                queries, grid, self.grid_lower, self.grid_upper, self.radius,
+                k, exclude_self=exclude_self)
+        if route == "grid":
+            return ns.radius_search_grid(
+                queries, grid, self.radius, k, order="nearest",
+                inclusive=True, exclude_self=exclude_self)
+        return (ns.radius_search_brute(
+            queries, points, self.radius, k, order="nearest", inclusive=True,
+            exclude_self=exclude_self),
+            torch.zeros((), dtype=torch.bool, device=queries.device))
 
     def _list_layers(self, pos_new, fluid, box, box_feats, box_grid):
         extent = 2.0 * self.radius
-        fluid_grid = build_cell_grid(pos_new, self.grid_lower,
-                                     self.grid_upper, max(self.radius, 1e-6),
-                                     self.grid_max_per_cell)
-        if not isinstance(box_grid, CellGrid):
-            box_grid = self.make_box_plan(box)
-        fluid_nbrs, ov_fluid = self._search(pos_new, fluid_grid,
+        fluid_nbrs, ov_fluid = self._search(pos_new, pos_new,
                                             self.fluid_neighbor_k, True)
-        box_nbrs, ov_box = self._search(pos_new, box_grid,
-                                        self.obstacle_neighbor_k, False)
+        box_nbrs, ov_box = self._search(
+            pos_new, box, self.obstacle_neighbor_k, False,
+            grid=box_grid if isinstance(box_grid, CellGrid) else None)
 
         # the geometry and the backward plans, once per list for all layers
         fluid_plan = segment_ops.AdjointPlan(fluid_nbrs.idx, pos_new.shape[0])

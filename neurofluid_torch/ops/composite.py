@@ -25,25 +25,32 @@ import torch
 from neurofluid_torch.cuda import Kernel, check_tensor
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-KERNEL = Kernel("composite.cu", "nf_composite_weights", [_P] * 4 + [_I] * 2)
+KERNEL = Kernel("composite.cu", "nf_composite_weights", [_P] * 4 + [_I] * 3)
 BWD_KERNEL = Kernel("composite.cu", "nf_composite_weights_bwd",
                     [_P] * 5 + [_I] * 3)
 FLOOR_KERNEL = Kernel("composite.cu", "nf_composite_launch_floor", [_I] * 2)
 
-# K6 holds a ray in registers, a run of samples per lane of one warp: the
-# fewest of BWD_PER_LANE that cover the ray, else tiles of 32 * 8 samples
-# up to MAX_BWD_SAMPLES (`bwd_per_lane` in csrc/composite.cu)
-BWD_PER_LANE = (1, 2, 4, 6, 8)
+# K5 and K6 hold a ray in registers, a run of samples per lane of one warp:
+# the fewest of PER_LANE that cover the ray, else tiles of 32 * 8 samples
+# (`samples_per_lane` in csrc/composite.cu); K6 takes rays of up to
+# MAX_BWD_SAMPLES, K5 of any length
+PER_LANE = (1, 2, 4, 6, 8)
 MAX_BWD_SAMPLES = 2048
 
 
+def samples_per_lane(n_samples: int) -> int:
+    """Samples each lane of K5's and K6's warp holds for rays of
+    `n_samples`."""
+    return next((p for p in PER_LANE if n_samples <= 32 * p), PER_LANE[-1])
+
+
 def bwd_samples_per_lane(n_samples: int) -> int:
-    """Samples each lane of K6's warp holds for rays of `n_samples`."""
+    """`samples_per_lane` for K6, which refuses rays of more than
+    MAX_BWD_SAMPLES samples."""
     if n_samples > MAX_BWD_SAMPLES:
         raise ValueError(f"K6 takes rays of at most {MAX_BWD_SAMPLES} "
                          f"samples, not {n_samples}")
-    return next((p for p in BWD_PER_LANE if n_samples <= 32 * p),
-                BWD_PER_LANE[-1])
+    return samples_per_lane(n_samples)
 
 
 def _survival(sigmas, z_vals, dnorm):
@@ -97,13 +104,16 @@ def _check_cuda_args(sigmas, z_vals, dnorm):
 
 def composite_weights_cuda(sigmas: torch.Tensor, z_vals: torch.Tensor,
                            dnorm: torch.Tensor) -> torch.Tensor:
-    """K5: one warp per ray, a shuffle scan for the running product."""
+    """K5: one warp per ray held in registers, a run of samples per lane;
+    the transmittance at each run's start by a warp product scan of the
+    runs' products (tiles of 256 samples past 256, the transmittance
+    carried)."""
     _check_cuda_args(sigmas, z_vals, dnorm)
     n_rays, n_s = sigmas.shape
     w = torch.empty_like(sigmas)
     if n_rays and n_s:
         KERNEL(sigmas.data_ptr(), z_vals.data_ptr(), dnorm.data_ptr(),
-               w.data_ptr(), n_rays, n_s)
+               w.data_ptr(), n_rays, n_s, samples_per_lane(n_s))
     return w
 
 
@@ -116,11 +126,11 @@ def composite_weights_bwd_cuda(sigmas, z_vals, dnorm, g) -> torch.Tensor:
     if g.shape != sigmas.shape:
         raise ValueError(f"g {tuple(g.shape)} != {tuple(sigmas.shape)}")
     n_rays, n_s = sigmas.shape
+    per_lane = bwd_samples_per_lane(n_s)
     d_sigma = torch.empty_like(sigmas)
     if n_rays and n_s:
         BWD_KERNEL(sigmas.data_ptr(), z_vals.data_ptr(), dnorm.data_ptr(),
-                   g.data_ptr(), d_sigma.data_ptr(), n_rays, n_s,
-                   bwd_samples_per_lane(n_s))
+                   g.data_ptr(), d_sigma.data_ptr(), n_rays, n_s, per_lane)
     return d_sigma
 
 

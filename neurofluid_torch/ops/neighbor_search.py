@@ -1,6 +1,21 @@
-"""Dense per-cell particle tables and the fixed-K neighbour list (port of
-neurofluid_tpu/ops/neighbor_search.py `build_cell_grid`, `NeighborList` and
-`_recompute_sq_dists`)."""
+"""Fixed-radius neighbour search with fixed-K lists (port of
+neurofluid_tpu/ops/neighbor_search.py): the dense per-cell particle tables,
+the neighbour list, and the two plain searches over them, tiled brute force
+(`radius_search_brute`) and the 27-cell grid (`radius_search_grid`).
+
+Both searches return, per query, up to k in-radius points and the TRUE
+(uncapped) count. With `order="nearest"` the k nearest are kept, with
+`order="index"` the k of lowest point index. The selection reproduces
+`lax.top_k`'s order, ties included: a stable descending sort of the score,
+so that of two equal scores the candidate at the lower position comes
+first (`torch.topk` promises no order among ties on the card). The search
+is discrete and runs detached; only the squared distances carry a
+gradient, recomputed from the selected ids (`recompute_sq_dists`).
+
+Queries run in chunks of `query_chunk`. The rows of a chunk are
+independent, so the last chunk is simply shorter (the JAX package pads it
+to the chunk's static shape and drops the padded rows).
+"""
 
 from __future__ import annotations
 
@@ -52,7 +67,8 @@ class CellGrid(NamedTuple):
     table_idx: (num_cells + 1, cap) original point index, -1 at empty;
     row num_cells is the all-empty sentinel row. overflow: () bool, some
     cell held more than `cap` points (the tail was dropped). points: the
-    (N, 3) points the tables were built from, not detached."""
+    (N, 3) points the tables were built from, not detached. origin: the
+    box's lower corner; cell_size: the cells' edge."""
 
     table_x: torch.Tensor
     table_y: torch.Tensor
@@ -62,6 +78,8 @@ class CellGrid(NamedTuple):
     cap: int
     overflow: torch.Tensor
     points: torch.Tensor
+    origin: tuple
+    cell_size: float
 
 
 def build_cell_grid(points: torch.Tensor, lower, upper, cell_size: float,
@@ -95,6 +113,7 @@ def build_cell_grid(points: torch.Tensor, lower, upper, cell_size: float,
         table_z=densify(rows[..., 2]),
         table_idx=torch.cat([ids, torch.full_like(ids[:1], -1)], dim=0),
         dims=dims, cap=cap, overflow=overflow, points=points,
+        origin=tuple(float(x) for x in lower), cell_size=float(cell_size),
     )
 
 
@@ -110,3 +129,189 @@ def recompute_sq_dists(queries, points, idx, mask, xyz=None):
         nb = segment_ops.take_rows(points, idx).unbind(-1)
     sq = sum((nb[ax] - queries[:, ax, None]) ** 2 for ax in range(3))
     return torch.where(mask, sq, 0.0)
+
+
+def gather_neighbor_positions(points: torch.Tensor,
+                              neighbors: NeighborList) -> torch.Tensor:
+    """(Q, K, 3) neighbour coordinates, exactly 0 at padded slots (the
+    renderer's smoothing feature inherits pytorch3d's `masked_gather`
+    zeros)."""
+    nb = segment_ops.take_rows(points, neighbors.idx)
+    return torch.where(neighbors.mask[..., None], nb, 0.0)
+
+
+def _sq_radius(radius: float) -> float:
+    """radius^2 rounded as f32 arithmetic rounds it."""
+    r = torch.tensor(radius, dtype=torch.float32)
+    return float(r * r)
+
+
+def _select_from_candidates(d2, cand_idx, within, k: int, order: str,
+                            selection: str = "sort", cand_xyz=None):
+    """Up to k in-radius candidates per query row, as `lax.top_k` orders
+    them. d2, within, cand_idx (C, M) (cand_idx the candidates' point ids).
+    Returns idx (C, k) int32 (-1 pad), mask (C, k) and, with `cand_xyz`
+    (three (C, M) tensors), the selected coordinates (three (C, k),
+    arbitrary finite values at invalid slots), else None. The squared
+    distances are recomputed from idx (`recompute_sq_dists`)."""
+    if selection == "approx":
+        raise NotImplementedError(
+            "selection='approx' is the TPU's PartialReduce top-k; this "
+            "package selects exactly (ROADMAP.md Queue 1, the renderer's "
+            "list path, makes both modes exact)")
+    if selection != "sort":
+        raise ValueError(f"unknown selection: {selection}")
+    m = d2.shape[-1]
+    if m < k:  # fewer candidates than slots: pad the candidate axis
+        pad = k - m
+
+        def grow(a, fill):
+            return torch.cat([a, a.new_full((a.shape[0], pad), fill)], -1)
+
+        d2, within = grow(d2, 0.0), grow(within, False)
+        cand_idx = grow(cand_idx, torch.iinfo(torch.int32).max - 1)
+        if cand_xyz is not None:
+            cand_xyz = tuple(grow(c, 0.0) for c in cand_xyz)
+    if order == "index":
+        # f32 scores as in the JAX package; point ids < 2^24 are exact
+        score = torch.where(within, -cand_idx.to(torch.float32), -math.inf)
+    elif order == "nearest":
+        score = torch.where(within, -d2.to(torch.float32), -math.inf)
+    else:
+        raise ValueError(f"unknown order: {order}")
+    # lax.top_k: descending, equal scores by ascending position
+    top, pos = torch.sort(score, dim=-1, descending=True, stable=True)
+    top, pos = top[:, :k], pos[:, :k]
+    valid = torch.isfinite(top)
+    if order == "index":
+        idx = torch.where(valid, (-top).to(torch.int32), -1)
+    else:
+        idx = torch.where(valid, torch.gather(cand_idx, -1, pos), -1)
+    sel_xyz = None
+    if cand_xyz is not None:
+        sel_xyz = tuple(torch.gather(c, -1, pos) for c in cand_xyz)
+    return idx.to(torch.int32), valid, sel_xyz
+
+
+def _within(d2, r2: float, inclusive: bool, exclude_self: bool):
+    within = (d2 <= r2) if inclusive else (d2 < r2)
+    if exclude_self:  # coincident points: d^2 is exactly 0 for them
+        within = within & (d2 > 0.0)
+    return within
+
+
+def _brute_chunk(q, points, r2, k, order, inclusive, exclude_self,
+                 selection, emit_xyz):
+    # coordinate-wise (q - p)^2: exactly 0 for coincident points, which
+    # exclude_self depends on (the |q|^2 + |p|^2 - 2 q.p form is not)
+    d2 = torch.zeros((q.shape[0], points.shape[0]), dtype=q.dtype,
+                     device=q.device)
+    for ax in range(3):
+        diff = q[:, ax, None] - points[None, :, ax]
+        d2 = d2 + diff * diff
+    within = _within(d2, r2, inclusive, exclude_self)
+    count = within.sum(-1, dtype=torch.int32)
+    cand_idx = torch.arange(points.shape[0], dtype=torch.int32,
+                            device=q.device).expand(d2.shape)
+    cand_xyz = (tuple(points[None, :, ax].expand(d2.shape) for ax in range(3))
+                if emit_xyz else None)
+    idx, mask, xyz = _select_from_candidates(
+        d2, cand_idx, within, k, order, selection, cand_xyz)
+    return idx, mask, count, xyz
+
+
+def _grid_chunk(q, grid: CellGrid, radius, r2, k, order, inclusive,
+                exclude_self, selection, emit_xyz):
+    dims, cap, dev = grid.dims, grid.cap, q.device
+    reach = max(1, int(math.ceil(radius / grid.cell_size)))
+    num_cells = dims[0] * dims[1] * dims[2]
+    origin = torch.tensor(grid.origin, dtype=q.dtype, device=dev)
+    cell = torch.floor((q - origin) / grid.cell_size).long()
+    span = torch.arange(-reach, reach + 1, device=dev)
+    offsets = torch.stack(torch.meshgrid(span, span, span, indexing="ij"),
+                          dim=-1).reshape(-1, 3)  # (O, 3), x slowest
+    ncell = cell[:, None, :] + offsets[None]  # (C, O, 3)
+    in_grid = ((ncell >= 0)
+               & (ncell < torch.tensor(dims, device=dev))).all(-1)
+    ncell_id = (ncell[..., 0] * dims[1] + ncell[..., 1]) * dims[2] \
+        + ncell[..., 2]
+    # out-of-grid lookups read the all-empty sentinel row
+    ncell_id = torch.where(in_grid, ncell_id, num_cells)
+    c, m = q.shape[0], offsets.shape[0] * cap
+    cand_idx = grid.table_idx[ncell_id].reshape(c, m)
+    d2 = torch.zeros((c, m), dtype=q.dtype, device=dev)
+    cand_xyz = []
+    for ax, table in enumerate((grid.table_x, grid.table_y, grid.table_z)):
+        coord = table[ncell_id].reshape(c, m)
+        diff = coord - q[:, ax, None]
+        d2 = d2 + diff * diff
+        cand_xyz.append(coord)
+    within = _within(d2, r2, inclusive, exclude_self) & (cand_idx >= 0)
+    count = within.sum(-1, dtype=torch.int32)
+    idx, mask, xyz = _select_from_candidates(
+        d2, cand_idx, within, k, order, selection,
+        tuple(cand_xyz) if emit_xyz else None)
+    return idx, mask, count, xyz
+
+
+def _chunked(chunk_fn, queries: torch.Tensor, query_chunk: int):
+    """chunk_fn over row chunks of the detached queries, concatenated:
+    (idx, mask, count, xyz or None)."""
+    q = queries.detach()
+    chunk = max(1, min(int(query_chunk), q.shape[0]))
+    parts = [chunk_fn(q[i:i + chunk])
+             for i in range(0, max(q.shape[0], 1), chunk)]
+    idx, mask, count = (torch.cat([p[j] for p in parts]) for j in range(3))
+    xyz = None
+    if parts[0][3] is not None:
+        xyz = tuple(torch.cat([p[3][ax] for p in parts]) for ax in range(3))
+    return idx, mask, count, xyz
+
+
+def radius_search_brute(queries: torch.Tensor, points: torch.Tensor,
+                        radius: float, k: int, order: str = "nearest",
+                        inclusive: bool = True, exclude_self: bool = False,
+                        query_chunk: int = 4096, selection: str = "sort",
+                        emit_xyz: bool = False) -> NeighborList:
+    """Exact fixed-radius search by tiled brute force: queries (Q, 3)
+    against every one of points (N, 3), each chunk of queries one (C, N)
+    distance matrix and one selection. `inclusive`: d^2 <= r^2, else
+    d^2 < r^2; `exclude_self`: points at distance 0 are no neighbours."""
+    p_det = points.detach()
+    r2 = _sq_radius(radius)
+    idx, mask, count, xyz = _chunked(
+        lambda q: _brute_chunk(q, p_det, r2, k, order, inclusive,
+                               exclude_self, selection, emit_xyz),
+        queries, query_chunk)
+    sq = recompute_sq_dists(queries, points, idx, mask, xyz=xyz)
+    return NeighborList(idx, sq, mask, count, xyz)
+
+
+def radius_search_grid(queries: torch.Tensor, grid: CellGrid, radius: float,
+                       k: int, order: str = "nearest", inclusive: bool = True,
+                       exclude_self: bool = False, query_chunk: int = 4096,
+                       selection: str = "sort", emit_xyz: bool = False):
+    """Fixed-radius search against a prebuilt `CellGrid`: each query's
+    candidates are the table rows of the (2 reach + 1)^3 cells around its
+    own (reach = ceil(radius / cell_size); 27 cells when the cell is the
+    radius), in cell order, then slot order. Returns (NeighborList,
+    grid.overflow): when a cell held more than its cap the tail was dropped
+    from the tables, and a neighbourhood may miss points."""
+    r2 = _sq_radius(radius)
+    idx, mask, count, xyz = _chunked(
+        lambda q: _grid_chunk(q, grid, radius, r2, k, order, inclusive,
+                              exclude_self, selection, emit_xyz),
+        queries, query_chunk)
+    # the tables hold original point ids
+    sq = recompute_sq_dists(queries, grid.points, idx, mask, xyz=xyz)
+    return NeighborList(idx, sq, mask, count, xyz), grid.overflow
+
+
+def radius_search(queries: torch.Tensor, points: torch.Tensor, radius: float,
+                  k: int, order: str = "nearest", inclusive: bool = True,
+                  exclude_self: bool = False,
+                  query_chunk: int = 4096) -> NeighborList:
+    """The default search: `radius_search_brute`."""
+    return radius_search_brute(queries, points, radius, k, order=order,
+                               inclusive=inclusive, exclude_self=exclude_self,
+                               query_chunk=query_chunk)

@@ -1,14 +1,66 @@
-"""Coarse sampling, hierarchical sampling and volume compositing
+"""Ray generation, coarse and hierarchical sampling and volume compositing
 (port of neurofluid_tpu/ops/ray_ops.py, deterministic forms).
 
-Rays are (R, 6): origin in [:, :3], normalized direction in [:, 3:].
+Rays are (R, 6): origin in [:, :3], normalized direction in [:, 3:]. Pixel
+rays use the Blender camera convention (x right, y up, the camera looking
+along -z) without a half-pixel offset, as the reference does
+(utils/ray_utils.py:85-130).
 """
 
 from __future__ import annotations
 
 import torch
 
+from neurofluid_torch.cuda import resolve_device
 from neurofluid_torch.ops.composite import composite_weights
+
+
+def get_ray_directions(height: int, width: int, focal,
+                       device="cuda") -> torch.Tensor:
+    """Per-pixel ray directions in camera coordinates, (H, W, 3) float32:
+    ((i - W/2) / focal, -(j - H/2) / focal, -1) at column i, row j. Built on
+    the card unless `device` says otherwise."""
+    device = resolve_device(device)
+    j, i = torch.meshgrid(
+        torch.arange(height, dtype=torch.float32, device=device),
+        torch.arange(width, dtype=torch.float32, device=device),
+        indexing="ij")
+    return torch.stack([(i - width / 2) / focal, -(j - height / 2) / focal,
+                        -torch.ones_like(i)], dim=-1)
+
+
+def get_rays(directions: torch.Tensor, c2w: torch.Tensor):
+    """World-space rays of one camera: the directions rotated by c2w[:, :3]
+    and normalized, and the origin c2w[:, 3] broadcast. Returns (rays_o,
+    rays_d), each of the directions' shape."""
+    rays_d = directions @ c2w[:, :3].T
+    rays_d = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+    return c2w[:, 3].expand(rays_d.shape), rays_d
+
+
+def make_ray_bundle(directions: torch.Tensor, c2w: torch.Tensor):
+    """(..., 6) rays: [rays_o, rays_d] of `get_rays`."""
+    return torch.cat(get_rays(directions, c2w), dim=-1)
+
+
+def get_ndc_rays(height, width, focal, near, rays_o: torch.Tensor,
+                 rays_d: torch.Tensor):
+    """Rays in normalized device coordinates (reference
+    utils/ray_utils.py:133-174): origins moved to the near plane, then
+    projected. Returns (rays_o, rays_d)."""
+    t = -(near + rays_o[..., 2]) / rays_d[..., 2]
+    rays_o = rays_o + t[..., None] * rays_d
+    ox_oz = rays_o[..., 0] / rays_o[..., 2]
+    oy_oz = rays_o[..., 1] / rays_o[..., 2]
+    o0 = -1.0 / (width / (2.0 * focal)) * ox_oz
+    o1 = -1.0 / (height / (2.0 * focal)) * oy_oz
+    o2 = 1.0 + 2.0 * near / rays_o[..., 2]
+    d0 = -1.0 / (width / (2.0 * focal)) * (
+        rays_d[..., 0] / rays_d[..., 2] - ox_oz)
+    d1 = -1.0 / (height / (2.0 * focal)) * (
+        rays_d[..., 1] / rays_d[..., 2] - oy_oz)
+    d2 = 1.0 - o2
+    return torch.stack([o0, o1, o2], dim=-1), torch.stack([d0, d1, d2], dim=-1)
 
 
 def coarse_sample_rays(near: float, far: float, rays: torch.Tensor,
@@ -46,6 +98,26 @@ def sample_pdf(bins: torch.Tensor, weights: torch.Tensor,
     denom = torch.where(denom < 1e-5, torch.ones_like(denom), denom)
     t = (u - cdf_below) / denom
     return bins_below + t * (bins_above - bins_below)
+
+
+def importance_sampling(z_vals: torch.Tensor, weights: torch.Tensor,
+                        n_importance: int, rays_o: torch.Tensor,
+                        rays_d: torch.Tensor, det: bool = True):
+    """Fine samples from the coarse weights (reference
+    utils/ray_utils.py:222-229): `sample_pdf` over the coarse midpoints
+    with weights[:, 1:-1], the new samples detached, merged with the coarse
+    z values and sorted. Returns (xyz (R, S0 + Si, 3), z_vals (R, S0 +
+    Si))."""
+    if not det:
+        raise NotImplementedError(
+            "det=False samples at random; the random paths are ROADMAP.md "
+            "Queue 1, RenderNet's remaining options (no JAX trainer uses "
+            "them)")
+    z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+    z_samples = sample_pdf(z_mid, weights[:, 1:-1], n_importance).detach()
+    z_all = torch.sort(torch.cat([z_vals, z_samples], dim=-1), dim=-1).values
+    xyz = rays_o[..., None, :] + rays_d[..., None, :] * z_all[..., :, None]
+    return xyz, z_all
 
 
 def composite(rgbsigma: torch.Tensor, z_vals: torch.Tensor, rays: torch.Tensor,

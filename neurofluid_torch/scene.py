@@ -3,7 +3,9 @@
 the JAX package).
 
 - fluid: 14,336 particles of a jittered lattice at the rest spacing 0.05;
-- box: 4,096 container wall and floor particles with inward normals;
+- box: 2,520 container floor and wall particles with inward normals (at
+  most N_BOX; the two y-walls keep 84 particles each, since their axis swap
+  indexes the wrong axis of the (28, 28, 3) face as `bench.py` does);
 - rays: 1,024 random pixels of a 400 x 400 pinhole camera at the
   reference's viewing distance (near 9, far 13).
 """

@@ -21,6 +21,7 @@ from neurofluid_torch.ops import composite as comp
 from neurofluid_torch.ops import fused_cconv as fc
 from neurofluid_torch.ops import fused_query as fq
 from neurofluid_torch.ops import neighbor_search as ns
+from neurofluid_torch.ops import ray_ops as tray
 from neurofluid_torch.ops import segment_ops as so
 
 pytestmark = pytest.mark.cuda
@@ -496,6 +497,53 @@ def test_composite_bwd_kernel_unaligned_rows(dev, s):
                                atol=1e-5 * float(want.abs().max()))
 
 
+def _shifted(dev, tensors):
+    """Copies of `tensors` on the card whose rows start 4 bytes past a
+    16-byte boundary."""
+    out = []
+    for t in tensors:
+        buf = torch.empty(t.numel() + 1, device=dev)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        out.append(view)
+    assert out[0].data_ptr() % 16 == 4
+    return out
+
+
+@pytest.mark.parametrize("s", [1, 31, 32, 33, 64, 192, 257, 300])
+def test_composite_kernel_every_ray_length(dev, s):
+    """K5 against its plain version at every run length a lane can hold
+    (1, 2, 6 and 8 samples, ragged lanes) and in tiles of 256 (257 and 300
+    samples), with one ray of sigma <= 0 everywhere (no weight); then on
+    rows 4 bytes off alignment (word loads and stores). Absolute, as
+    chip_smoke.py holds K5: weights <= 1."""
+    sig, z, dn, _ = _composite_bwd_inputs(np.random.default_rng(50 + s), 37,
+                                          s)
+    sig[3] = -sig[3].abs()
+    want = comp.composite_weights_plain(sig, z, dn)
+    assert float(want.max()) > 0.01 and float(want[3].abs().max()) == 0.0
+    before = comp.KERNEL.launches
+    got = comp.composite_weights_cuda(sig.to(dev), z.to(dev), dn.to(dev))
+    assert comp.KERNEL.launches == before + 1
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
+                               atol=1e-5)
+    assert float(got[3].abs().max()) == 0.0
+    sig_u, z_u = _shifted(dev, (sig, z))
+    got_u = comp.composite_weights_cuda(sig_u, z_u, dn.to(dev))
+    np.testing.assert_allclose(got_u.cpu().numpy(), want.numpy(), rtol=0,
+                               atol=1e-5)
+
+
+def test_composite_kernel_refuses_another_plan(dev):
+    """The C side refuses samples per lane that are not the ray's."""
+    sig, z, dn, _ = (t.to(dev) for t in _composite_bwd_inputs(
+        np.random.default_rng(10), 5, 64))
+    out = torch.empty_like(sig)
+    with pytest.raises(RuntimeError):
+        comp.KERNEL(sig.data_ptr(), z.data_ptr(), dn.data_ptr(),
+                    out.data_ptr(), 5, 64, 4)
+
+
 def test_composite_bwd_kernel_refuses_longer_rays(dev):
     """2,049 samples are refused, by the wrapper and by the C side; the
     launch-floor kernel launches at K5's and K6's grids."""
@@ -724,3 +772,58 @@ def test_take_rows_planned_gradcheck(dev):
     _directional_check(lambda t: so.take_rows_planned(t, idx, plan),
                        [table.to(dev)], [u.to(dev)], g.to(dev), tol=1e-2)
     assert so.KERNEL.launches == before + 1
+
+
+def _tied_cloud(seed):
+    """Points on a lattice of 1/16 (exact in f32), so that many candidate
+    distances tie exactly, with queries on lattice points and between."""
+    rng = np.random.default_rng(seed)
+    pts = rng.integers(-8, 8, (600, 3)).astype(np.float32) / 16
+    pts = np.unique(pts, axis=0)
+    q = np.concatenate([pts[:100], pts[100:200] + 1 / 32]).astype(np.float32)
+    return torch.from_numpy(pts), torch.from_numpy(q)
+
+
+@pytest.mark.parametrize("search", ["grid", "brute"])
+@pytest.mark.parametrize("order", ["nearest", "index"])
+def test_plain_searches_on_the_card_match_the_cpu(dev, search, order):
+    """radius_search_grid / radius_search_brute on the card against the
+    same call on the CPU, on a lattice where distances tie exactly at the
+    k-th slot: the stable selection keeps `lax.top_k`'s order on CUDA too,
+    so ids, masks, counts and distances are equal."""
+    pts, q = _tied_cloud(3)
+    r, k = 0.2, 12
+
+    def run(p, qq):
+        if search == "brute":
+            return ns.radius_search_brute(qq, p, r, k, order=order,
+                                          exclude_self=True, query_chunk=64)
+        grid = ns.build_cell_grid(p, (-0.6,) * 3, (0.6,) * 3, r, 64)
+        return ns.radius_search_grid(qq, grid, r, k, order=order,
+                                     exclude_self=True, query_chunk=64)[0]
+
+    want, got = run(pts, q), run(pts.to(dev), q.to(dev))
+    assert int(want.count.max()) > k  # the k-th slot cuts a tie
+    for name in ("idx", "mask", "count", "sq_dists"):
+        np.testing.assert_array_equal(getattr(got, name).cpu().numpy(),
+                                      getattr(want, name).numpy(),
+                                      err_msg=name)
+
+
+def test_ray_directions_default_to_the_card(dev):
+    """get_ray_directions with no device builds on the card, the rays made
+    from them stay there, and both agree with the CPU's within 1e-7 (CUDA
+    divides by a scalar through its reciprocal: one ulp at these values)."""
+    h, w, focal = 6, 10, 33.3
+    c2w = torch.tensor([[0.0, 0.0, 1.0, 4.0], [1.0, 0.0, 0.0, -1.0],
+                        [0.0, 1.0, 0.0, 2.0]])
+    got = tray.get_ray_directions(h, w, focal)
+    assert got.device.type == "cuda"
+    bundle = tray.make_ray_bundle(got, c2w.to(dev))
+    assert bundle.device.type == "cuda"
+    want = tray.get_ray_directions(h, w, focal, device="cpu")
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
+                               atol=1e-7)
+    np.testing.assert_allclose(bundle.cpu().numpy(),
+                               tray.make_ray_bundle(want, c2w).numpy(),
+                               rtol=0, atol=1e-6)

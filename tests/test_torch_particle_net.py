@@ -233,7 +233,6 @@ def test_other_feats_match_jax(backend):
     assert float((pt - p0).abs().max()) > 1e-5  # the features are used
 
 
-@pytest.mark.parametrize("backend", ["auto", "grid", "brute"])
-def test_unported_backends_are_refused(backend):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ParticleNet(device="cpu", search_backend=backend)
+def test_unknown_backend_is_refused():
+    with pytest.raises(ValueError, match="unknown search_backend 'octree'"):
+        ParticleNet(device="cpu", search_backend="octree")

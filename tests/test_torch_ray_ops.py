@@ -85,3 +85,89 @@ def test_composite_matches_jax_xla(rng):
         for a, b, tol in zip(out_t, out_j, (2e-6, 3e-5, 2e-6)):
             np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0,
                                        atol=tol)
+
+
+def _c2w(rng):
+    """A camera-to-world (3, 4): a random rotation and an origin ~11 away."""
+    rot, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+    origin = rng.normal(size=3) * 6.0
+    return np.concatenate([rot, origin[:, None]], 1).astype(np.float32)
+
+
+@pytest.mark.parametrize("hw,focal", [((8, 8), 120.0), ((6, 10), 33.3)])
+def test_pixel_rays_match_jax(rng, hw, focal):
+    """get_ray_directions, get_rays and make_ray_bundle: the directions
+    exactly (the same f32 operations), the rotated and normalized rays
+    within 1e-6 (a 3-term product in another order)."""
+    h, w = hw
+    dt = tray.get_ray_directions(h, w, focal, device="cpu")
+    dj = jray.get_ray_directions(h, w, focal)
+    np.testing.assert_array_equal(dt.numpy(), np.asarray(dj))
+    assert dt.shape == (h, w, 3) and dt.dtype == torch.float32
+    c2w = _c2w(rng)
+    ot, rt = tray.get_rays(dt, torch.from_numpy(c2w))
+    oj, rj = jray.get_rays(dj, jnp.asarray(c2w))
+    np.testing.assert_array_equal(ot.numpy(), np.asarray(oj))
+    np.testing.assert_allclose(rt.numpy(), np.asarray(rj), rtol=0, atol=1e-6)
+    bt = tray.make_ray_bundle(dt, torch.from_numpy(c2w))
+    bj = jray.make_ray_bundle(dj, jnp.asarray(c2w))
+    assert bt.shape == (h, w, 6)
+    np.testing.assert_allclose(bt.numpy(), np.asarray(bj), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(np.linalg.norm(bt[..., 3:].numpy(), axis=-1),
+                               1.0, atol=1e-6)
+
+
+def test_ndc_rays_match_jax(rng):
+    h, w, focal, near = 10, 12, 25.0, 1.0
+    c2w = _c2w(rng)
+    c2w[:, 3] = (0.1, -0.2, 3.0)  # in front of the near plane
+    o, d = jray.get_rays(jray.get_ray_directions(h, w, focal),
+                         jnp.asarray(c2w))
+    o, d = np.array(o), np.array(d)
+    ot, dt = tray.get_ndc_rays(h, w, focal, near, torch.from_numpy(o),
+                               torch.from_numpy(d))
+    oj, dj = jray.get_ndc_rays(h, w, focal, near, jnp.asarray(o),
+                               jnp.asarray(d))
+    # elementwise in the same order; relative to the largest entry
+    for a, b in ((ot, oj), (dt, dj)):
+        b = np.asarray(b)
+        np.testing.assert_allclose(a.numpy(), b, rtol=0,
+                                   atol=1e-6 * np.abs(b).max())
+
+
+def test_importance_sampling_det_matches_jax(rng):
+    """The fine samples of the deterministic path: merged, sorted z values
+    (z ~ 13, so within 2e-5 as sample_pdf) and their points; the new
+    samples carry no gradient; det=False is refused."""
+    n, s0, si = 9, 64, 128
+    rays = _rays(rng, n)
+    z0 = np.sort(rng.uniform(9.0, 13.0, (n, s0)).astype(np.float32), -1)
+    w = rng.uniform(size=(n, s0)).astype(np.float32)
+    w[0] = 0.0
+    wt = torch.from_numpy(w).requires_grad_(True)
+    xt, zt = tray.importance_sampling(torch.from_numpy(z0), wt, si,
+                                      torch.from_numpy(rays[:, :3]),
+                                      torch.from_numpy(rays[:, 3:]), True)
+    xj, zj = jray.importance_sampling(jnp.asarray(z0), jnp.asarray(w), si,
+                                      jnp.asarray(rays[:, :3]),
+                                      jnp.asarray(rays[:, 3:]), True)
+    assert zt.shape == (n, s0 + si) and xt.shape == (n, s0 + si, 3)
+    np.testing.assert_allclose(zt.numpy(), np.asarray(zj), rtol=0, atol=2e-5)
+    np.testing.assert_allclose(xt.detach().numpy(), np.asarray(xj), rtol=0,
+                               atol=3e-5)
+    assert bool((zt[:, 1:] >= zt[:, :-1]).all())
+    assert not zt.requires_grad
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tray.importance_sampling(torch.from_numpy(z0), wt, si,
+                                 torch.from_numpy(rays[:, :3]),
+                                 torch.from_numpy(rays[:, 3:]), False)
+
+
+def test_ray_directions_default_to_the_card():
+    """With no device named, get_ray_directions builds on the card, and
+    without one it refuses rather than building on the CPU."""
+    if torch.cuda.is_available():
+        assert tray.get_ray_directions(4, 4, 10.0).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            tray.get_ray_directions(4, 4, 10.0)

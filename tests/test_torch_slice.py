@@ -115,7 +115,8 @@ def test_package_imports_no_jax():
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'neurofluid_tpu')]\n"
         "assert not bad, bad\n"
-        "for name in ('models.render_net', 'ops.fused_query', "
+        "for name in ('models.render_net', 'ops.fused_query', 'data.blender', "
+        "'ops.neighbor_search', "
         "'ops.segment_ops', 'train.transition'):\n"
         "    assert 'neurofluid_torch.' + name in sys.modules, name\n"
     )

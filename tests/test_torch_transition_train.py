@@ -3,10 +3,13 @@
 neurofluid_tpu.train.transition (`TransitionTrainer.build_steps`, written
 out here as bench.py writes it: two chained ParticleNet steps, 0.5 wmse +
 0.5 wmse + boundary + boundary, optax `clip_by_global_norm(1.0)` then
-`adam(1e-4)`), on both search backends, with the same weights through
-`transition_state_from_flax`.
+`adam(1e-4)`), on four search backends, with the same weights through
+`transition_state_from_flax`. On the 200-particle scene `'auto'` searches
+the fluid by brute force and the box (32 particles) by grid, since both
+trainers pass the box's grid (JAX's `make_grid`, the port's
+`make_box_plan`); `'grid'` searches both by grid.
 
-On the `fused` backend JAX runs its segment-sum Pallas kernel in interpret
+On the list backends JAX runs its segment-sum Pallas kernel in interpret
 mode (NF_SEGSUM_PALLAS=1) and its compact query through the XLA composition
 (what backend="auto" picks on the CPU; the Pallas query kernel is held
 against the port in tests/test_torch_fused_query.py). On `fused_cconv` the
@@ -110,7 +113,8 @@ def _jax_steps(backend):
     return weights, steps, _np(params)
 
 
-@pytest.fixture(scope="module", params=["fused_cconv", "fused"])
+@pytest.fixture(scope="module", params=["fused_cconv", "fused", "grid",
+                                        "auto"])
 def runs(request):
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("NF_SEGSUM_PALLAS", "1")
@@ -188,7 +192,8 @@ def test_clipped_step_matches_optax(runs):
 
 def test_backends_agree_on_the_first_step(runs):
     """Same weights, no count above its cap: the step's loss and gradients
-    on the port's two backends agree to f32 rounding."""
+    on this backend and on another (`fused_cconv`; `fused` for
+    `fused_cconv`) agree to f32 rounding."""
     backend, (weights, _, _) = runs
     other = "fused" if backend == "fused_cconv" else "fused_cconv"
     res = []

@@ -11,8 +11,9 @@ does, runs one warm-up pass, then traces a rollout of `--steps` steps, one
 train steps (Adam 3e-4 / 1e-5), each traced on its own, with torch.profiler
 (CPU + CUDA activities); the train step reported is the one with the median
 wall time; then, in the same way, the transition-only train step of
-chip_smoke.py (clip 1.0, Adam 1e-4) on the `fused_cconv` and the `fused`
-search backend. Prints, for each pass, the wall time, the summed device time
+chip_smoke.py (clip 1.0, Adam 1e-4) on each search backend it counts
+(`chip_smoke.TRANSITION_LAUNCHES`: `fused_cconv`, `fused` and `auto`, which
+searches by the plain grid at the bench point). Prints, for each pass, the wall time, the summed device time
 of its kernels, the device idle share (1 - device time / wall time), that
 device time split by kind (the port's kernels K1-K8, matrix products, sorts,
 the rest) and the kernels with the most device time. Needs a CUDA device;
