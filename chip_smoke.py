@@ -2,7 +2,8 @@
 """Build the PyTorch port's CUDA kernels and drive its paths on one NVIDIA
 GPU at the bench working point: the serving path (rollout + render), the
 end-to-end train step, the transition-only train step on three search
-backends, and a scene written, loaded and rendered.
+backends, a scene written, loaded and rendered, and the stage trainers and
+evaluators at full width.
 
     python3 chip_smoke.py
 
@@ -79,7 +80,17 @@ Phases (each prints its own line; any failure raises and exits non-zero):
    choice) rendered by a seeded `RenderNet()` at its full defaults over
    that frame's particles (K3 and K5 twice each); the RGB MSE against the
    image's pixels and the render's host-clock time;
-12. the kernels line, the card line, and the result line last.
+12. trainers (`trainers_phase`): the warm-up, transition and e2e trainers
+   and the three evaluators of `neurofluid_torch.train`, as the `cli`
+   entry points build them from the shipped configs/*.yaml (counts and
+   intervals set, widths as shipped), on a TRAINER_SCENE synthetic scene
+   (13,824 particles, 400 x 400 views) written under build/; per stage the
+   loop's and the step's host-clock medians beside the bare steps of 6 and
+   9, losses, full-frame s, rollout ms, peak memory, launches (K3-K6 and K8
+   on `'auto'`), PSNR and Pred2GT (finite), checkpoints written and read
+   back; the first e2e trainer step against the same step with every
+   kernel on its plain version (STEP_TOL);
+13. the kernels line, the card line, and the result line last.
 
 Without a CUDA device, or without the package beside it, the script exits
 non-zero before printing any result.
@@ -87,6 +98,7 @@ non-zero before printing any result.
 
 import copy
 import json
+import math
 import os
 import shutil
 import statistics
@@ -204,6 +216,24 @@ BACKEND_TOL = {"loss": 1e-5, "pred_pos": 1e-5}
 # sigma-head bias of the seeded renderer, so that samples with K neighbours
 # are opaque (sigma ~ 10 per unit length: alpha ~ 0.5 per coarse step)
 SIGMA_BIAS = 10.0
+
+# the trainers phase: a synthetic Blender-layout scene at the shipped
+# configs' widths (13,824 fluid particles, 400 x 400 views: four training
+# views and the test view view_5, six frames), and the counts and intervals
+# the phase sets in configs/*.yaml; every width stays as shipped (ray_chunk
+# 1,024, 64 + 128 samples, NeRF 8 x 256, ParticleNet (32, 64, 64, 3) on
+# 'auto', eval chunks of 2,048 rays)
+TRAINER_SCENE = dict(n_frames=6, n_side=24, img_wh=(400, 400))
+TRAINER_TEST_END = 3  # test frames 0-2: two test samples
+WARMUP_STEPS, RENDERER_EVAL_FRAMES = 5, 2
+E2E_STEPS = TRAINER_SCENE["n_frames"] - 1  # one epoch
+# the kernels each stage must launch (every other kernel: none); the e2e
+# stage's plain comparison launches none. The warm-up renders the constant
+# GT particles, so no gradient reaches them and K4 does not run
+TRAINER_KERNELS = {"warm-up": ("K3", "K5", "K6"),
+                   "transition": ("K8",),
+                   "e2e": ("K3", "K4", "K5", "K6", "K8"),
+                   "evaluators": ("K3", "K5")}
 
 
 def bound_ms(n_bytes, n_ops, n_tc_ops=0.0):
@@ -347,6 +377,403 @@ class Recorder:
     def __exit__(self, *exc):
         for mod, attr, orig in self.saved:
             setattr(mod, attr, orig)
+
+
+class Timed:
+    """Wraps a trainer's callable (its train step, full-image render or
+    rollout): each call synchronised with the card on entry and exit, its
+    start and end on the host clock kept, and the kernel launches of its
+    first call. `first(args, out)`, when given, sees the first call."""
+
+    def __init__(self, torch, fn, counts, first=None):
+        self.torch, self.fn, self.counts, self.first = torch, fn, counts, first
+        self.spans, self.launches, self.losses = [], None, []
+
+    def __call__(self, *args):
+        self.torch.cuda.synchronize()
+        before = self.counts()
+        t0 = time.perf_counter()
+        out = self.fn(*args)
+        self.torch.cuda.synchronize()
+        self.spans.append((t0, time.perf_counter()))
+        if self.launches is None:
+            self.launches = {k: v - before[k] for k, v in self.counts().items()
+                             if v - before[k]}
+            if self.first is not None:
+                self.first(args, out)
+        return out
+
+    def call_ms(self):
+        """Median ms of a call, entry to exit."""
+        return statistics.median((b - a) * 1e3 for a, b in self.spans)
+
+    def loop_ms(self):
+        """Median ms between consecutive calls' ends: one iteration of the
+        caller's loop, its host work included (None with one call)."""
+        ends = [b for _, b in self.spans]
+        if len(ends) < 2:
+            return None
+        return statistics.median((b - a) * 1e3 for a, b in zip(ends, ends[1:]))
+
+
+def write_trainer_scene(tmp, scene_kw=TRAINER_SCENE):
+    """A synthetic Blender-layout scene under <tmp>/scene (the training
+    views view_1-4, the test view view_5) and <tmp>/dataset.yaml, a dataset
+    block `smoke` over it for --dataset_config. Returns (scene, yaml)."""
+    import yaml
+
+    from neurofluid_torch.data import synthetic
+
+    root = os.path.join(tmp, "scene")
+    synthetic.generate_blender_scene(root, **scene_kw)
+    views = [f"view_{i}" for i in range(1, 5)]
+    block = dict(data_type="splishsplash", near=9.0, far=13.0,
+                 gravity=[0.0, 0.0, -9.81],
+                 train=dict(start_index=0, end_index=scene_kw["n_frames"],
+                            path=root, views=dict(warmup=views,
+                                                  dynamic=views[:1])),
+                 test=dict(start_index=0, end_index=TRAINER_TEST_END,
+                           path=root, views=["view_5"]))
+    ds_yaml = os.path.join(tmp, "dataset.yaml")
+    with open(ds_yaml, "w") as f:
+        yaml.safe_dump({"smoke": block}, f)
+    return root, ds_yaml
+
+
+def trainer_config(tmp, ds_yaml, stage, name, over, resume=""):
+    """The config the port's `cli` entry points build for `stage` over the
+    `smoke` dataset block (experiments under <tmp>/exps), with `over`
+    merged in and every key validated again."""
+    from neurofluid_torch.utils.config import (
+        ConfigNode, stage_config, validate_keys,
+    )
+
+    argv = ["--expdir", os.path.join(tmp, "exps"), "--expname", name,
+            "--dataset", "smoke", "--dataset_config", ds_yaml]
+    if resume:
+        argv += ["--resume_from", resume]
+    cfg = ConfigNode(stage_config(stage, argv).to_dict()).merge(over)
+    validate_keys(cfg, stage)
+    return cfg
+
+
+def trainers_phase(torch, build_dir, counts, on_plain, bare_ms,
+                   scene_kw=TRAINER_SCENE):
+    """The port's stage trainers and evaluators through the classes the
+    `neurofluid_torch.cli` entry points build, on the card, with configs
+    from the shipped configs/*.yaml (counts and intervals set, widths as
+    shipped) over a synthetic scene written into a temporary directory:
+    the warm-up (WARMUP_STEPS steps over the four views, a full-image eval,
+    a checkpoint), the transition trainer (one epoch, its eval rollout, a
+    checkpoint), the e2e trainer warm-started from both (one epoch, an eval,
+    a checkpoint; its first step held against the same step with every
+    kernel on its plain version, to STEP_TOL), a second e2e trainer resumed
+    from that checkpoint taking one step, then E2EEvaluator,
+    TransitionEvaluator and RendererEvaluator. Prints per stage the step's
+    host-clock median (the loop's iteration and the step alone, beside the
+    bare step of the earlier phases), the first and last loss, the s per
+    full frame, the eval rollout's ms, the peak memory, the launches per
+    step and per stage, PSNR and Pred2GT, and the checkpoints written and
+    read back. Returns the phase's launches."""
+    from neurofluid_torch.train import checkpoint as ckpt
+    from neurofluid_torch.train.e2e import E2ETrainer
+    from neurofluid_torch.train.evaluation import (
+        E2EEvaluator, RendererEvaluator, TransitionEvaluator,
+    )
+    from neurofluid_torch.train.transition import TransitionTrainer
+    from neurofluid_torch.train.warmup import WarmupTrainer
+
+    phase_t0 = time.perf_counter()
+    phase_before = counts()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_trainers_", dir=build_dir)
+    try:
+        t0 = time.perf_counter()
+        root, ds_yaml = write_trainer_scene(tmp, scene_kw)
+        print(f"trainers phase: scene of {scene_kw['n_side'] ** 3} fluid "
+              f"particles, {scene_kw['n_frames']} frames, 5 views at "
+              f"{scene_kw['img_wh']} written in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+        def config(stage, name, over, resume=""):
+            return trainer_config(tmp, ds_yaml, stage, name, over, resume)
+
+        def check_launches(stage, launched):
+            want = TRAINER_KERNELS[stage]
+            bad = {k: v for k, v in launched.items()
+                   if (v > 0) != (k in want)}
+            if bad:
+                raise AssertionError(f"trainers phase, {stage}: launches "
+                                     f"{launched}; expected only {want}")
+
+        def finite(what, *values):
+            for v in values:
+                if v is None or not math.isfinite(float(v)):
+                    raise AssertionError(f"trainers phase: {what} is {v}")
+
+        def read_back(tr, module_keys):
+            """The trainer's checkpoints on disk; the latest read back, its
+            state_dicts holding the models' keys."""
+            files = sorted(os.listdir(tr.modelpath))
+            if not files:
+                raise AssertionError(f"no checkpoint in {tr.modelpath}")
+            state, step = ckpt.restore_checkpoint(tr.modelpath)
+            for key, module in module_keys.items():
+                if set(state[key]) != set(module.state_dict()):
+                    raise AssertionError(f"checkpoint {step}: {key} keys "
+                                         f"differ from the model's")
+            return f"{files} (read back step {step}: {sorted(state)})"
+
+        def run_stage(stage, fn):
+            torch.cuda.reset_peak_memory_stats()
+            before = counts()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            launched = {k: v - before[k] for k, v in counts().items()}
+            check_launches(stage, launched)
+            return out, (f"launches {({k: v for k, v in launched.items() if v})}"
+                         f", peak {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+                         f" GB, {time.perf_counter() - t0:.1f} s")
+
+        def step_line(what, timed, bare=None):
+            loop = timed.loop_ms()
+            line = (f"{what}: {len(timed.spans)} steps, loop iteration "
+                    f"median {loop:.2f} ms, step alone median "
+                    f"{timed.call_ms():.2f} ms")
+            if bare is not None:
+                line += f" (bare step {bare[0]} {bare[1]:.2f} ms)"
+            return (line + f"; launches per step {timed.launches}; loss "
+                    f"first {timed.losses[0]:.6f} last {timed.losses[-1]:.6f}")
+
+        def frame_s(timed):
+            return statistics.median(b - a for a, b in timed.spans)
+
+        def instrument(tr, step_first=None):
+            """Timed train step (its loss kept), render and rollout."""
+            step = Timed(torch, tr.train_step, counts, step_first)
+
+            def step_with_loss(*args):
+                out = step(*args)
+                step.losses.append(float(out[0]))
+                return out
+
+            tr.train_step = step_with_loss
+            timed = {"step": step}
+            for name in ("render_full", "rollout"):
+                if hasattr(tr, name):
+                    timed[name] = Timed(torch, getattr(tr, name), counts)
+                    setattr(tr, name, timed[name])
+            return timed
+
+        # -- warm-up
+        w_cfg = config("warmup", "warmup", {"TRAIN": dict(
+            N_iters=WARMUP_STEPS, save_interval=WARMUP_STEPS, log_interval=1)})
+        evals = []
+
+        def warmup():
+            tr = WarmupTrainer(w_cfg)
+            timed = instrument(tr)
+            eval_ = tr.eval
+            tr.eval = lambda step: evals.append(eval_(step))
+            tr.train()
+            return tr, timed
+
+        (w_tr, w_t), line = run_stage("warm-up", warmup)
+        psnr = evals[0]["view_5"]
+        finite("warm-up loss", *w_t["step"].losses)
+        finite("warm-up PSNR", psnr["psnr_0"], psnr["psnr_1"])
+        print("trainers phase, warm-up: " + step_line(
+            f"{len(w_tr.train_views)} views x {w_cfg.RENDERER.ray.ray_chunk} "
+            "rays", w_t["step"]) + f"; full-frame eval "
+            f"{frame_s(w_t['render_full']):.2f} s per {w_cfg.TEST.imgW} x "
+            f"{w_cfg.TEST.imgH} frame "
+            f"(chunks of {w_tr.eval_chunk_size()}), PSNR coarse "
+            f"{psnr['psnr_0']:.3f} fine {psnr['psnr_1']:.3f}; {line}; "
+            f"checkpoints {read_back(w_tr, {'renderer': w_tr.model})}",
+            flush=True)
+
+        # -- transition
+        t_cfg = config("transmodel", "trans", {
+            "TRAIN": dict(N_iters=1, save_interval=1, log_interval=1,
+                          datapath=dict(train=root, eval=root)),
+            "TEST": dict(datapath=root, end_index=TRAINER_TEST_END)})
+        t_evals = []
+
+        def transition():
+            tr = TransitionTrainer(t_cfg)
+            timed = instrument(tr)
+            eval_ = tr.eval
+            tr.eval = lambda step: t_evals.append(eval_(step))
+            tr.train()
+            return tr, timed
+
+        (t_tr, t_t), line = run_stage("transition", transition)
+        finite("transition loss", *t_t["step"].losses)
+        finite("transition Pred2GT", *t_evals)
+        print("trainers phase, transition (search "
+              f"{t_tr.net.search_backend}): " + step_line(
+                  "one epoch", t_t["step"],
+                  ("auto", bare_ms["transition auto"]))
+              + f"; eval rollout {len(t_t['rollout'].spans)} x "
+              f"{t_tr.test_dataset.sequence_lengths[0]} steps "
+              f"{t_t['rollout'].call_ms():.2f} ms, avg Pred2GT "
+              f"{t_evals[0]:.4f} mm; {line}; checkpoints "
+              f"{read_back(t_tr, {'transition': t_tr.net})}", flush=True)
+
+        # -- e2e, warm-started from both; its first step again with every
+        # kernel on its plain version, from the same weights and inputs
+        e_over = {"TRAIN": dict(
+            epochs=1, save_interval=E2E_STEPS, log_interval=1,
+            pretrained_renderer=w_tr.modelpath,
+            pretrained_transition_model=t_tr.modelpath)}
+        e_cfg = config("end2end", "e2e", e_over)
+        first = {}
+
+        def keep_first(args, out):
+            first.update(args=args, loss=float(out[0]), next_pos=out[1],
+                         aux=out[3], grads={
+                             name: {n: p.grad.detach().clone()
+                                    for n, p in model.named_parameters()}
+                             for name, model in (("renderer", e_tr.renderer),
+                                                 ("transition",
+                                                  e_tr.transition))})
+
+        e_evals = []
+        e_tr = E2ETrainer(e_cfg)
+        e_t = instrument(e_tr, keep_first)
+        eval_ = e_tr.eval
+        e_tr.eval = lambda step: e_evals.append(eval_(step))
+        plain_tr = E2ETrainer(config("end2end", "e2e_plain", e_over))
+        _, line = run_stage("e2e", e_tr.train)
+        avg, psnrs = e_evals[0]
+        finite("e2e loss", *e_t["step"].losses)
+        finite("e2e Pred2GT, PSNR", avg, *[p for pair in psnrs.values()
+                                           for p in pair])
+        print("trainers phase, e2e (search "
+              f"{e_tr.transition.search_backend}, warm-started): "
+              + step_line(f"one epoch, {len(e_tr.train_views)} view x "
+                          f"{e_cfg.RENDERER.ray.ray_chunk} rays", e_t["step"],
+                          ("e2e fused_cconv", bare_ms["e2e fused_cconv"]))
+              + f"; eval rollout {e_t['rollout'].call_ms():.2f} ms, avg "
+              f"Pred2GT {avg:.4f} mm, full frame "
+              f"{frame_s(e_t['render_full']):.2f} s, PSNR "
+              + ", ".join(f"{k} {p0:.3f} / {p1:.3f}"
+                          for k, (p0, p1) in psnrs.items())
+              + f"; {line}; checkpoints "
+              + read_back(e_tr, {"renderer": e_tr.renderer,
+                                 "transition": e_tr.transition}), flush=True)
+
+        before = counts()
+        with on_plain(tuple(TOL)):
+            loss_p, pos_p, _, aux_p = plain_tr.train_step(*first["args"])
+            torch.cuda.synchronize()
+        if counts() != before:
+            raise AssertionError("the plain e2e trainer step launched a "
+                                 "kernel")
+        def rel(a, ref):
+            return abs(float(a) - float(ref)) / max(abs(float(ref)), 1e-30)
+
+        d = {"loss": rel(loss_p, first["loss"]),
+             "next_pos": float((pos_p - first["next_pos"]).abs().max())}
+        for key in ("grad_norm_renderer", "grad_norm_transition"):
+            d[key] = rel(aux_p[key], first["aux"][key])
+        worst = {}
+        for name, model in (("renderer", plain_tr.renderer),
+                            ("transition", plain_tr.transition)):
+            ref = first["grads"][name]
+            top = max(max(float(g.abs().max()) for g in ref.values()), 1e-30)
+            errs = {n: float((p.grad - ref[n]).abs().max())
+                    for n, p in model.named_parameters()}
+            d["grads_" + name] = max(errs.values()) / top
+            rel = {n: e / max(float(ref[n].abs().max()), 1e-30)
+                   for n, e in errs.items()}
+            worst[name] = max(rel, key=rel.get)
+            d["leaf_" + name] = rel[worst[name]]
+        print("trainers phase, e2e first step with every kernel on its plain "
+              "version, from the same weights and inputs: diffs "
+              + ", ".join(f"{k} {v:.3e}" for k, v in d.items())
+              + f" (loss, grad norms relative; grads_* relative to the "
+              f"model's largest entry, leaf_* to the leaf's own; next_pos "
+              f"absolute); worst leaves {worst}; STEP_TOL {STEP_TOL}",
+              flush=True)
+        bad = {k: v for k, v in d.items() if k in STEP_TOL
+               and not v <= STEP_TOL[k]}
+        if bad:
+            raise AssertionError(f"e2e trainer step with plain kernels "
+                                 f"disagrees beyond STEP_TOL: {bad}")
+        del plain_tr, first
+
+        # a second e2e trainer resumed from that checkpoint: one step (a
+        # one-frame epoch), weights restored, optimizers fresh
+        r_cfg = config("end2end", "e2e_resumed", {
+            "TRAIN": dict(epochs=1, save_interval=1000, log_interval=1),
+            "train": dict(end_index=2)}, resume=e_tr.modelpath)
+
+        def resumed():
+            tr = E2ETrainer(r_cfg)
+            timed = instrument(tr)
+            tr.train()
+            return tr, timed
+
+        (r_tr, r_t), line = run_stage("e2e", resumed)
+        saved = ckpt.latest_step(e_tr.modelpath)
+        if r_tr.start_step != saved + 1 or len(r_t["step"].spans) != 1:
+            raise AssertionError(f"resumed e2e trainer: start step "
+                                 f"{r_tr.start_step} from checkpoint {saved}, "
+                                 f"{len(r_t['step'].spans)} steps")
+        finite("resumed e2e loss", *r_t["step"].losses)
+        print(f"trainers phase, e2e resumed from checkpoint {saved}: start "
+              f"step {r_tr.start_step}, one step {r_t['step'].call_ms():.2f} "
+              f"ms, loss {r_t['step'].losses[0]:.6f}; {line}", flush=True)
+        e_models = e_tr.modelpath
+        del e_tr, r_tr
+
+        # -- the evaluators on those checkpoints
+        def evaluators():
+            out = {}
+            ev = E2EEvaluator(config("end2end", "eval_e2e", {},
+                                     resume=e_models))
+            ev.rollout = Timed(torch, ev.rollout, counts)
+            ev.render_full = Timed(torch, ev.render_full, counts)
+            out["e2e"] = ev.eval(), ev.rollout, ev.render_full
+            tev = TransitionEvaluator(config(
+                "transmodel", "eval_transmodel",
+                {"TEST": dict(datapath=root, end_index=TRAINER_TEST_END)},
+                resume=e_models))
+            tev.rollout = Timed(torch, tev.rollout, counts)
+            out["transition"] = tev.eval(), tev.rollout, len(tev.dataset)
+            rev = RendererEvaluator(config("warmup", "eval_renderer", {},
+                                           resume=w_tr.modelpath))
+            rev.render_full = Timed(torch, rev.render_full, counts)
+            outdir = rev.eval(max_frames=RENDERER_EVAL_FRAMES)
+            out["renderer"] = sorted(os.listdir(outdir)), rev.render_full
+            return out
+
+        out, line = run_stage("evaluators", evaluators)
+        (dists, psnrs), roll, render = out["e2e"]
+        finite("E2EEvaluator Pred2GT, PSNR", *dists, *psnrs)
+        (t_dists, t_clipped), t_roll, n_windows = out["transition"]
+        finite("TransitionEvaluator Pred2GT", *t_dists, *t_clipped)
+        files, r_render = out["renderer"]
+        if len(files) != 2 * RENDERER_EVAL_FRAMES:
+            raise AssertionError(f"RendererEvaluator wrote {files}")
+        print(f"trainers phase, evaluators: E2EEvaluator rollout "
+              f"{len(dists)} steps {roll.call_ms():.2f} ms, "
+              f"{len(render.spans)} frames at {frame_s(render):.2f} s each, "
+              f"Pred2GT " + ", ".join(f"{x:.4f}" for x in dists)
+              + " mm, fine PSNR " + ", ".join(f"{x:.3f}" for x in psnrs)
+              + f"; TransitionEvaluator rollout {n_windows} steps "
+              f"{t_roll.call_ms():.2f} ms, Pred2GT mean "
+              f"{statistics.mean(t_dists):.4f} mm (clipped "
+              f"{statistics.mean(t_clipped):.4f}); RendererEvaluator "
+              f"{len(r_render.spans)} frames at {frame_s(r_render):.2f} s "
+              f"each, {files}; {line}", flush=True)
+    finally:
+        shutil.rmtree(tmp)
+    launched = {k: v - phase_before[k] for k, v in counts().items()}
+    print(f"trainers phase: launches {launched} in "
+          f"{time.perf_counter() - phase_t0:.1f} s", flush=True)
+    return launched
 
 
 def main():
@@ -866,6 +1293,7 @@ def main():
     if p.shape != (scene.N_PARTICLES, 3) or not bool(torch.isfinite(p).all()):
         raise AssertionError("non-finite or misshapen carried state")
     step_med = statistics.median(step_s)
+    bare_ms = {"e2e fused_cconv": step_med * 1e3}
     print(f"train path: {TRAIN_STEPS} steps, median {step_med * 1e3:.2f} ms "
           f"(min {min(step_s) * 1e3:.2f}, max {max(step_s) * 1e3:.2f}); "
           f"{scene.N_RAYS / step_med:.1f} rays/s, "
@@ -891,7 +1319,7 @@ def main():
         worst = {}
         for key, model in (("renderer", ren_x), ("transition", net_x)):
             ref = warm["grads_" + key]
-            top = max(float(g.abs().max()) for g in ref.values())
+            top = max(max(float(g.abs().max()) for g in ref.values()), 1e-30)
             errs = {n: float((prm.grad - ref[n]).abs().max())
                     for n, prm in model.named_parameters()}
             rel = {n: e / max(float(ref[n].abs().max()), 1e-30)
@@ -1059,7 +1487,8 @@ def main():
     def timed_transition(backend, t_step, plan):
         """TRANSITION_STEPS counted, timed steps of `backend` from its
         warm-up state: launches per step as TRANSITION_LAUNCHES says, finite
-        losses that fall, gradients, no flag set. Returns the launches."""
+        losses that fall, gradients, no flag set. Returns the launches; the
+        median step time goes to `bare_ms`."""
         per_step = {k: TRANSITION_LAUNCHES[backend].get(k, 0)
                     for k in counters}
         reset_counts()
@@ -1094,6 +1523,7 @@ def main():
             raise AssertionError(f"{backend}: the loss does not fall: "
                                  f"{warm_t[backend]['loss']} -> {step_losses}")
         med = statistics.median(step_s)
+        bare_ms[f"transition {backend}"] = med * 1e3
         print(f"transition train path ({backend}): {TRANSITION_STEPS} steps, "
               f"median {med * 1e3:.2f} ms (min {min(step_s) * 1e3:.2f}, max "
               f"{max(step_s) * 1e3:.2f}); "
@@ -1305,12 +1735,17 @@ def main():
           f"the pixels {mse:.6f} (random weights); samples with K neighbours "
           f"{int(out_s['mask_1'].sum())}", flush=True)
 
-    # ---- 12. summary lines. launches: each kernel's count over the counted
+    # ---- 12. the trainers and evaluators behind their entry points, at
+    # full width, on a synthetic scene written under build/
+    launched = trainers_phase(torch, build_dir, counts, on_plain, bare_ms)
+    total_launches = {k: v + launched[k] for k, v in total_launches.items()}
+
+    # ---- 13. summary lines. launches: each kernel's count over the counted
     # runs (the serving path once, the e2e train path TRAIN_STEPS times, the
     # transition train path TRANSITION_STEPS times on each backend, the
-    # scene render once); the times are per serving pass (K1: per rollout
-    # step), per e2e train step (K2, K4, K6) or per transition train step
-    # on `fused` (K7, K8)
+    # scene render once, the trainers phase); the times are per serving pass
+    # (K1: per rollout step), per e2e train step (K2, K4, K6) or per
+    # transition train step on `fused` (K7, K8)
     sources = {
         "K1": ("fused_cconv", "fused_cconv.cu",
                "neurofluid_tpu/ops/fused_cconv.py:622"),

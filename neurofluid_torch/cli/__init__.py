@@ -1,0 +1,5 @@
+"""Command-line entry points of the port, run as
+`python -m neurofluid_torch.cli.<name>` with the root scripts' flags
+(`--expdir`, `--expname`, `--dataset`, `--config`, `--dataset_config`,
+`--resume_from`): train_renderer, train_transmodel, train_e2e, eval_e2e,
+eval_transmodel and eval_renderer. They run on the card."""

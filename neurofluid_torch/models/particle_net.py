@@ -48,6 +48,8 @@ SEARCH_BACKENDS = ("fused_cconv", "fused", "grid", "brute", "auto")
 # 'auto' searches by grid from this many searched points on, else by brute
 # force (the JAX package's threshold)
 AUTO_GRID_POINTS = 4096
+# the JAX package's `conv_precision` values (jax.lax.Precision names)
+CONV_PRECISIONS = ("default", "high", "highest")
 
 
 class ContinuousConvLayer(nn.Module):
@@ -96,12 +98,19 @@ class ParticleNet(nn.Module):
                  fused_cell_scale: float = 1.0,
                  grid_lower: tuple = (-1.05, -1.05, -1.05),
                  grid_upper: tuple = (1.05, 1.05, 2.55),
-                 grid_max_per_cell: int = 32,
+                 grid_max_per_cell: int = 32, query_chunk: int = 4096,
+                 conv_precision: str = "highest",
                  device="cuda", generator: torch.Generator | None = None):
         """`fluid_neighbor_k`, `obstacle_neighbor_k` and `grid_max_per_cell`
         are the static caps of the list backends' lists and cell tables
         (about 47 fluid neighbours and 11 particles per cell at rest
-        density); `fused_*` size the `fused_cconv` backend's plan.
+        density); `query_chunk` is how many queries the plain grid and
+        brute-force searches take at a time (their memory, not their
+        result); `fused_*` size the `fused_cconv` backend's plan.
+        `conv_precision` takes the JAX package's values (its MXU precision
+        of the conv contractions); this package computes every one in f32
+        class (f32 SIMT, or 3xTF32 tensor-core products in K1 and K2), so
+        the value changes nothing.
         `other_feats_channels`: width of the optional per-particle `feats`
         of `forward`.
 
@@ -121,7 +130,11 @@ class ParticleNet(nn.Module):
                 f"has every backend of the JAX package, {SEARCH_BACKENDS}; "
                 f"what remains unported is the sharded step (shard_axis, "
                 f"halo_size: ROADMAP.md Queue 1, parallel/)")
+        if str(conv_precision).lower() not in CONV_PRECISIONS:
+            raise ValueError(f"unknown conv_precision {conv_precision!r}: "
+                             f"expected one of {CONV_PRECISIONS}")
         self.search_backend = search_backend
+        self.query_chunk = query_chunk
         self.fluid_neighbor_k = fluid_neighbor_k
         self.obstacle_neighbor_k = obstacle_neighbor_k
         self.grid_max_per_cell = grid_max_per_cell
@@ -274,10 +287,11 @@ class ParticleNet(nn.Module):
         if route == "grid":
             return ns.radius_search_grid(
                 queries, grid, self.radius, k, order="nearest",
-                inclusive=True, exclude_self=exclude_self)
+                inclusive=True, exclude_self=exclude_self,
+                query_chunk=self.query_chunk)
         return (ns.radius_search_brute(
             queries, points, self.radius, k, order="nearest", inclusive=True,
-            exclude_self=exclude_self),
+            exclude_self=exclude_self, query_chunk=self.query_chunk),
             torch.zeros((), dtype=torch.bool, device=queries.device))
 
     def _list_layers(self, pos_new, fluid, box, box_feats, box_grid):

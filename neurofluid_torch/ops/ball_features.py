@@ -212,6 +212,13 @@ def _select(qc, cx, cy, cz, r2: float, k: int):
     return dx, dy, dz, d2, within, within & (off[..., None] + rank <= k)
 
 
+def _cell_groups(gcell: torch.Tensor, dims: tuple) -> torch.Tensor:
+    """Ids of the groups of a grid cell. The others (the sentinel cell) see
+    only the empty row: their sums and gradients are zero, so the plain
+    versions skip them."""
+    return torch.nonzero(gcell.long() < dims[0] * dims[1] * dims[2])[:, 0]
+
+
 def ball_sums_plain(q_rep, tx, ty, tz, gcell, dims, radius: float, k: int,
                     group_size: int, chunk_groups: int = 64) -> torch.Tensor:
     """(NG * T, 3) packed queries -> (NG * T, N_SUMS), the math of the TPU
@@ -223,9 +230,9 @@ def ball_sums_plain(q_rep, tx, ty, tz, gcell, dims, radius: float, k: int,
     rows = neighbor_rows(gcell, dims)
     qg = q_rep.reshape(ng, t, 3)
     r2 = float(np.float32(radius * radius))
-    out = []
-    for g0 in range(0, ng, chunk_groups):
-        qc, rc = qg[g0:g0 + chunk_groups], rows[g0:g0 + chunk_groups]
+    out = q_rep.new_zeros((ng, t, N_SUMS))
+    for chunk in _cell_groups(gcell, dims).split(chunk_groups):
+        qc, rc = qg[chunk], rows[chunk]
         cx, cy, cz = tx[rc][:, None], ty[rc][:, None], tz[rc][:, None]
         dx, dy, dz, d2, within, sel = _select(qc, cx, cy, cz, r2, k)
         wf, sf = within.float(), sel.float()
@@ -234,8 +241,8 @@ def ball_sums_plain(q_rep, tx, ty, tz, gcell, dims, radius: float, k: int,
         w = torch.clamp(1.0 - u * u * u, min=0.0) * sf
         terms = (wf, sf, nn, w, w * cx, w * cy, w * cz, nn * dx, nn * dy,
                  nn * dz, nn * dx * dx, nn * dy * dy, nn * dz * dz)
-        out.append(torch.stack([v.sum(dim=(2, 3)) for v in terms], dim=-1))
-    return torch.cat(out, dim=0).reshape(ng * t, N_SUMS)
+        out[chunk] = torch.stack([v.sum(dim=(2, 3)) for v in terms], dim=-1)
+    return out.reshape(ng * t, N_SUMS)
 
 
 def ball_sums_bwd_plain(q_rep, cot_rep, tx, ty, tz, table_idx, gcell, dims,
@@ -253,11 +260,11 @@ def ball_sums_bwd_plain(q_rep, cot_rep, tx, ty, tz, table_idx, gcell, dims,
     r2 = float(np.float32(radius * radius))
     d_points = q_rep.new_zeros((n_points + 1, 3))  # the last row: empty slots
     idx = torch.where(table_idx < 0, n_points, table_idx)
-    for g0 in range(0, ng, chunk_groups):
-        qc, rc = qg[g0:g0 + chunk_groups], rows[g0:g0 + chunk_groups]
+    for chunk in _cell_groups(gcell, dims).split(chunk_groups):
+        qc, rc = qg[chunk], rows[chunk]
         cx, cy, cz = tx[rc][:, None], ty[rc][:, None], tz[rc][:, None]
         dx, dy, dz, d2, _, sel = _select(qc, cx, cy, cz, r2, k)
-        c = [v[..., None, None] for v in cg[g0:g0 + chunk_groups].unbind(-1)]
+        c = [v[..., None, None] for v in cg[chunk].unbind(-1)]
         d = torch.sqrt(torch.clamp(d2, min=1e-24))
         u = d / radius
         base = 1.0 - u * u * u

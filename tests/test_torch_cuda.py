@@ -827,3 +827,70 @@ def test_ray_directions_default_to_the_card(dev):
     np.testing.assert_allclose(bundle.cpu().numpy(),
                                tray.make_ray_bundle(want, c2w).numpy(),
                                rtol=0, atol=1e-6)
+
+
+def _tiny_warmup_cfg(root, expdir):
+    from neurofluid_torch.data import synthetic
+    from neurofluid_torch.utils.config import ConfigNode
+
+    synthetic.generate_blender_scene(root, n_frames=3, n_side=4,
+                                     img_wh=(24, 24), train_views=("view_1",),
+                                     test_views=("view_5",))
+    return ConfigNode(dict(
+        expdir=expdir, expname="warmup", resume_from="", data_type="splishsplash",
+        near=9.0, far=13.0,
+        train=dict(start_index=0, end_index=3, path=root,
+                   views=dict(warmup=["view_1"], dynamic=["view_1"])),
+        test=dict(start_index=0, end_index=3, path=root, views=["view_5"]),
+        TRAIN=dict(seed=10, N_iters=1, precrop_iters=0, save_interval=100,
+                   log_interval=1, imgW=24, imgH=24, scale=1.0,
+                   LR=dict(lr=5e-4, use_scheduler=True, decay_epochs=100)),
+        TEST=dict(imgW=24, imgH=24, scale=1.0, start_index=0, end_index=3),
+        RENDERER=dict(
+            use_mask=True,
+            ray=dict(ray_chunk=64, N_samples=16, N_importance=8,
+                     eval_ray_chunk=100),
+            NN_search=dict(particle_radius=0.025, search_radius_scale=9.0,
+                           N_neighbor=6, mode="dense"),
+            encoding=dict(density=True, var=True, smoothed_pos=True,
+                          smoothed_dir=True, exclude_ray=True,
+                          same_smooth_factor=False))))
+
+
+def test_trainer_defaults_to_the_card_and_chunk_render_matches_plain(
+        dev, tmp_path):
+    """A trainer built with no device argument lives on the card and its
+    step launches K3, K5 and K6 (not K4: the particles are constant, so no
+    gradient reaches them); its chunked full-image render (576 rays in blocks
+    of 100, the last padded) matches one render of the same weights on the
+    CPU's plain versions: equal neighbour counts, colours within 1e-4."""
+    from neurofluid_torch.models.render_net import RenderNet
+    from neurofluid_torch.train.warmup import WarmupTrainer
+
+    cfg = _tiny_warmup_cfg(str(tmp_path / "scene"), str(tmp_path / "exps"))
+    tr = WarmupTrainer(cfg)
+    assert tr.device.type == "cuda"
+    assert all(p.device.type == "cuda" for p in tr.model.parameters())
+    kernels = (bf.KERNEL, comp.KERNEL, comp.BWD_KERNEL, bf.BWD_KERNEL)
+    before = [k.launches for k in kernels]
+    loss = tr.train()
+    assert np.isfinite(loss)
+    assert [k.launches - b for k, b in zip(kernels, before)] == [2, 2, 2, 0]
+
+    data = tr.test_dataset[0]
+    ro = data["cw"][0][:, 3]
+    out = tr.render_full(tr.to_device(data["particles_pos"]),
+                         tr.to_device(ro), data["rays"][0])
+    cpu = RenderNet(near=9.0, far=13.0, n_samples=16, n_importance=8,
+                    num_neighbors=6, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in tr.model.state_dict().items()})
+    with torch.no_grad():
+        want = cpu(torch.from_numpy(data["particles_pos"]),
+                   torch.from_numpy(ro), torch.from_numpy(data["rays"][0]))
+    assert out["overflow"].shape == (6,) and not bool(out["overflow"].any())
+    for key in ("num_nn_0", "mask_0"):
+        np.testing.assert_array_equal(out[key].cpu().numpy(),
+                                      want[key].numpy(), err_msg=key)
+    for key in ("rgb0", "opacity0", "rgb1", "opacity1"):
+        np.testing.assert_allclose(out[key].cpu().numpy(), want[key].numpy(),
+                                   rtol=0, atol=1e-4, err_msg=key)

@@ -236,3 +236,50 @@ def test_other_feats_match_jax(backend):
 def test_unknown_backend_is_refused():
     with pytest.raises(ValueError, match="unknown search_backend 'octree'"):
         ParticleNet(device="cpu", search_backend="octree")
+
+
+def _grid_run(query_chunk, conv_precision="highest", steps=3):
+    """`steps` transition train steps on 'grid' from one seeded init: the
+    losses and the final weights."""
+    from neurofluid_torch.train import losses
+    from neurofluid_torch.train.transition import make_transition_train_step
+
+    pos, vel, box, nrm = map(torch.from_numpy,
+                             _scene(np.random.default_rng(3), n=300, m=40))
+    net = ParticleNet(search_backend="grid", query_chunk=query_chunk,
+                      conv_precision=conv_precision, device="cpu",
+                      generator=torch.Generator().manual_seed(1), **TIGHT)
+    step = make_transition_train_step(
+        net, torch.optim.Adam(net.parameters(), lr=1e-3),
+        losses.default_box_bounds(), 1.0)
+    out = [float(step(pos, vel, pos + 0.001, pos + 0.002, box, nrm)[0])
+           for _ in range(steps)]
+    return out, net.state_dict()
+
+
+def test_query_chunk_smaller_than_n_changes_nothing():
+    """3 grid-search train steps with the searches in chunks of 64 queries
+    (of 300) equal the unchunked steps: the chunking is memory only."""
+    losses_c, state_c = _grid_run(64)
+    losses_u, state_u = _grid_run(4096)
+    assert losses_c == losses_u
+    for name, w in state_c.items():
+        torch.testing.assert_close(w, state_u[name], rtol=0, atol=0,
+                                   msg=name)
+
+
+def test_conv_precision_values_give_the_same_output():
+    """JAX's conv_precision values are accepted and change nothing: every
+    product here is f32 class; an unknown value raises."""
+    pos, vel, box, nrm = map(torch.from_numpy,
+                             _scene(np.random.default_rng(4)))
+    outs = []
+    for precision in ("highest", "high", "default", "HIGH"):
+        net = ParticleNet(conv_precision=precision, device="cpu",
+                          generator=torch.Generator().manual_seed(2), **TIGHT)
+        with torch.no_grad():
+            outs.append(net(pos, vel, box, nrm)[0])
+    for o in outs[1:]:
+        torch.testing.assert_close(o, outs[0], rtol=0, atol=0)
+    with pytest.raises(ValueError, match="conv_precision"):
+        ParticleNet(conv_precision="bf16", device="cpu", **TIGHT)

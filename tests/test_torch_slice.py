@@ -113,11 +113,13 @@ def test_package_imports_no_jax():
         "'neurofluid_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'neurofluid_tpu')]\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'neurofluid_tpu', 'tensorboard', "
+        "'tensorflow')]\n"
         "assert not bad, bad\n"
         "for name in ('models.render_net', 'ops.fused_query', 'data.blender', "
-        "'ops.neighbor_search', "
-        "'ops.segment_ops', 'train.transition'):\n"
+        "'ops.neighbor_search', 'ops.segment_ops', 'train.transition', "
+        "'utils.config', 'train.trainer_base', 'train.warmup', "
+        "'train.evaluation', 'cli.train_e2e'):\n"
         "    assert 'neurofluid_torch.' + name in sys.modules, name\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,

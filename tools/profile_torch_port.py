@@ -4,6 +4,7 @@ on one GPU.
 Usage: python tools/profile_torch_port.py [--steps 10] [--rows 20]
        python tools/profile_torch_port.py --walk-phases
        python tools/profile_torch_port.py --ball-walk-sweep
+       python tools/profile_torch_port.py --trainers
 
 Builds the bench-point scene and the seeded models exactly as chip_smoke.py
 does, runs one warm-up pass, then traces a rollout of `--steps` steps, one
@@ -18,6 +19,16 @@ of its kernels, the device idle share (1 - device time / wall time), that
 device time split by kind (the port's kernels K1-K8, matrix products, sorts,
 the rest) and the kernels with the most device time. Needs a CUDA device;
 the kernels build at first use.
+
+With --trainers it instead traces the port's stage trainers at the shipped
+configs' widths on chip_smoke.py's trainers scene (13,824 particles,
+400 x 400 views; `chip_smoke.write_trainer_scene`, `trainer_config`, logging
+every step, no eval, no checkpoint but the transition trainer's one per
+epoch): TRAIN_TRACES single iterations of the warm-up trainer's loop (4
+views), one full-frame eval render, then one epoch each of the transition
+trainer (20 iterations) and of the e2e trainer (5 frames), each after a
+warm-up epoch; the same report per pass, so the idle share is that of the
+trainers' loops, host work included.
 
 With --walk-phases it instead times K1 (CUDA events, median of 10) at the
 five calls of one ParticleNet step with parts of the forward walk taken out,
@@ -306,6 +317,65 @@ def record(torch, mod, attr, fn, grad=False):
     return calls
 
 
+def trainers_profile(torch, chip_smoke, rows):
+    """The --trainers passes (see the module docstring)."""
+    from neurofluid_torch.train.e2e import E2ETrainer
+    from neurofluid_torch.train.transition import TransitionTrainer
+    from neurofluid_torch.train.warmup import WarmupTrainer
+
+    build = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "build")
+    os.makedirs(build, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="profile_trainers_", dir=build)
+    try:
+        root, ds_yaml = chip_smoke.write_trainer_scene(tmp)
+        quiet = dict(save_interval=10 ** 9, log_interval=1)
+
+        def config(stage, over):
+            return chip_smoke.trainer_config(tmp, ds_yaml, stage, stage, over)
+
+        w_tr = WarmupTrainer(config("warmup", {"TRAIN": quiet}))
+        w_tr.train(n_iters=1)  # warm-up
+
+        def warmup_iteration(i):
+            w_tr.start_step = i
+            w_tr.train(n_iters=i + 1)
+
+        runs = [traced(torch, lambda: warmup_iteration(i))
+                for i in range(1, 1 + TRAIN_TRACES)]
+        walls = sorted(w for w, _ in runs)
+        print("warm-up trainer iteration traced walls (ms): "
+              + ", ".join(f"{w:.2f}" for w in walls))
+        wall, prof = next(r for r in runs if r[0] == walls[len(walls) // 2])
+        report(f"warm-up trainer iteration ({len(w_tr.train_views)} views x "
+               f"{w_tr.cfg.RENDERER.ray.ray_chunk} rays), the median traced "
+               "one", wall, prof, rows)
+        data = w_tr.test_dataset[0]
+        args = (w_tr.to_device(data["particles_pos"]),
+                w_tr.to_device(data["cw"][0][:, 3]), data["rays"][0])
+        wall, prof = traced(torch, lambda: w_tr.render_full(*args))
+        report(f"full-frame eval render ({len(data['rays'][0])} rays in "
+               f"chunks of {w_tr.eval_chunk_size()})", wall, prof, rows)
+        del w_tr
+
+        t_tr = TransitionTrainer(config("transmodel", {"TRAIN": dict(
+            quiet, datapath=dict(train=root, eval=root))}))
+        t_tr.train(n_epochs=1)  # warm-up
+        wall, prof = traced(torch, lambda: t_tr.train(n_epochs=1))
+        report(f"transition trainer epoch ({len(t_tr.dataset)} iterations, "
+               f"search {t_tr.net.search_backend})", wall, prof, rows)
+        del t_tr
+
+        e_tr = E2ETrainer(config("end2end", {"TRAIN": quiet}))
+        e_tr.train(n_epochs=1, eval_during_training=False)  # warm-up
+        wall, prof = traced(torch, lambda: e_tr.train(
+            n_epochs=1, eval_during_training=False))
+        report(f"e2e trainer epoch ({len(e_tr.dataset)} iterations, search "
+               f"{e_tr.transition.search_backend})", wall, prof, rows)
+    finally:
+        shutil.rmtree(tmp)
+
+
 def main():
     import torch
 
@@ -316,6 +386,8 @@ def main():
                         help="time K1 with parts of its walk taken out")
     parser.add_argument("--ball-walk-sweep", action="store_true",
                         help="time K3, K7 and K4 across staged-walk plans")
+    parser.add_argument("--trainers", action="store_true",
+                        help="trace the stage trainers' loops")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_port: no CUDA device", file=sys.stderr)
@@ -324,6 +396,10 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     import chip_smoke
+    if args.trainers:
+        trainers_profile(torch, chip_smoke, args.rows)
+        print(f"card: {torch.cuda.get_device_name(0)}")
+        return 0
     from neurofluid_torch import scene
     from neurofluid_torch.models import ParticleNet, RenderNet
     from neurofluid_torch.train import losses
