@@ -2,8 +2,8 @@
 """Build the PyTorch port's CUDA kernels and drive its paths on one NVIDIA
 GPU at the bench working point: the serving path (rollout + render), the
 end-to-end train step, the transition-only train step on three search
-backends, a scene written, loaded and rendered, and the stage trainers and
-evaluators at full width.
+backends, a scene written, loaded and rendered, the stage trainers and
+evaluators at full width, and the renderer's options and list path.
 
     python3 chip_smoke.py
 
@@ -90,7 +90,20 @@ Phases (each prints its own line; any failure raises and exits non-zero):
    on `'auto'`), PSNR and Pred2GT (finite), checkpoints written and read
    back; the first e2e trainer step against the same step with every
    kernel on its plain version (STEP_TOL);
-13. the kernels line, the card line, and the result line last.
+13. renderer options and list path (`options_phase`), at the bench point:
+   the list render on 'auto' (grid) with 'approx' (K5 2, no K3; its
+   counts and masks equal to 4's dense render, its fine counts equal to
+   K3's on the same samples; against itself with K5 plain;
+   host-clock medians beside the dense render's), its particle gradient
+   (K8 2) and an e2e train step with it (K1 5, K2 5, K5 2, K6 2, K8 2;
+   the first again with K8 plain, each gradient leaf within 1e-4), the
+   warm-up step of `build_renderer` with RENDERER.bf16 true and false
+   (times, peak memory, renders within BF16_TOL), `coarse_rendering`,
+   `fine_rendering`, a seeded perturb=1 noise_std=1 render twice (bitwise
+   equal), exclude_ray=False, the chamfer distance of 4's end state
+   against its start beside scipy's cKDTree, and LPIPS of two 400 x 400
+   images on random weights written under build/;
+14. the kernels line, the card line, and the result line last.
 
 Without a CUDA device, or without the package beside it, the script exits
 non-zero before printing any result.
@@ -234,6 +247,40 @@ TRAINER_KERNELS = {"warm-up": ("K3", "K5", "K6"),
                    "transition": ("K8",),
                    "e2e": ("K3", "K4", "K5", "K6", "K8"),
                    "evaluators": ("K3", "K5")}
+
+
+# phase 13, the renderer's options and its list path at the bench point:
+# the launches of each counted run. The list render searches on 'auto'
+# (the grid: 14,336 particles) and runs no K3; its row gathers' adjoint
+# into the particles is K8, once per pass wherever a gradient is asked
+# for. The dense runs launch K3 and K5 once per pass; a warm-up step with
+# bf16 or f32 products K3 2, K5 2, K6 2 on the bench point's one view.
+OPTION_LAUNCHES = {
+    "list render": {"K5": 2},
+    "list render, K5 plain": {},
+    "list render gradient": {"K5": 2, "K6": 2, "K8": 2},
+    "list e2e step": {"K1": 5, "K2": 5, "K5": 2, "K6": 2, "K8": 2},
+    "list e2e step, K8 plain": {"K1": 5, "K2": 5, "K5": 2, "K6": 2},
+    "dense render": {"K3": 2, "K5": 2},
+    "warm-up step": {"K3": 2, "K5": 2, "K6": 2},
+    "coarse_rendering": {"K3": 1, "K5": 1},
+    "fine_rendering": {"K3": 2, "K5": 2},
+    "random render": {"K3": 2, "K5": 2},
+    "exclude_ray=False render": {"K3": 2, "K5": 2}}
+OPTION_STEPS = 3  # timed list e2e steps and warm-up steps of each dtype
+# the list render against itself with K5 on its plain version: as the
+# serving path's plain comparison (phase 4)
+LIST_PLAIN_LIMITS = {"rgb0": 1e-4, "opacity0": 1e-4, "depth0": 1e-3,
+                     "rgb1_mean": 1e-4, "opacity1_mean": 1e-4,
+                     "depth1_mean": 1e-3}
+# bf16 products against f32 ones from the same weights: rgb and opacity
+# within one bf16 ulp at 1 (2^-8), depth (~11) within 2^-6; this phase
+# read rgb 5.2e-4, opacity 9.4e-4, depth 9.5e-3 on an H100
+BF16_TOL = {"rgb": 2.0 ** -8, "opacity": 2.0 ** -8, "depth": 2.0 ** -6}
+# the chamfer distance (an f32 |x|^2 + |y|^2 - 2 x.y expansion, TF32 off)
+# against scipy's cKDTree in float64; this phase read 6.4e-10 on an H100
+CHAMFER_TOL = 1e-6
+LPIPS_WH = (400, 400)
 
 
 def bound_ms(n_bytes, n_ops, n_tc_ops=0.0):
@@ -776,6 +823,410 @@ def trainers_phase(torch, build_dir, counts, on_plain, bare_ms,
     return launched
 
 
+def write_lpips_weights(path, seed=0):
+    """Random VGG16 and LPIPS head weights in the documented `.npz` format
+    (He-scaled convs, so activations keep their scale through 13 layers;
+    non-negative heads, as trained ones are)."""
+    import numpy as np
+
+    from neurofluid_torch.utils import lpips
+
+    rng = np.random.default_rng(seed)
+    arrays, cin, i = {}, 3, 0
+    for item in lpips._VGG16_CFG:
+        if item == "M":
+            continue
+        arrays[f"vgg_conv{i}_weight"] = (rng.normal(size=(item, cin, 3, 3))
+                                         * math.sqrt(2.0 / (9 * cin))
+                                         ).astype(np.float32)
+        arrays[f"vgg_conv{i}_bias"] = (rng.normal(size=(item,)) * 0.01
+                                       ).astype(np.float32)
+        cin, i = item, i + 1
+    for k, c in enumerate(lpips._TAP_CHANNELS):
+        arrays[f"lin{k}_weight"] = rng.uniform(0, 0.1, c).astype(np.float32)
+    np.savez(path, **arrays)
+    return path
+
+
+def options_phase(torch, dev, problem, init_state, reset_counts, counts,
+                  on_plain, build_dir, dense_ref):
+    """Phase 13: the renderer's options and its list path at the bench
+    point (14,336 particles, 1,024 rays, 64 + 128 samples, NeRF 8 x 256),
+    each counted run's launches held to OPTION_LAUNCHES.
+
+    problem: the bench point's (pos, vel, box, nrm, ro_v, rays_v, rgbs_v)
+    and `end`, the kernel rollout's last frame; init_state: the seeded
+    (ParticleNet, RenderNet) weights; dense_ref: phase 4's dense render of
+    `end` (its num_nn_0, mask_0, num_nn_1, mask_1, rgb0, rgb1, host-clock
+    ms) and phase 6's dense e2e step ms.
+    (a) the list render on 'auto' (the grid) with 'approx': finite, no
+        overflow, num_nn_* and mask_* equal to the dense render's, the
+        exact counts of its fine searches equal to K3's on the same
+        samples, against itself with K5 plain; host-clock medians beside
+        the dense render's, both in this phase;
+    (b) the particle gradient of that render (finite, non-zero) and an e2e
+        train step with it: launches, losses, grad norms, timed steps, and
+        the first step again with K8 plain (loss bitwise, each gradient
+        leaf within 1e-4 of its largest entry);
+    (c) the warm-up step of `build_renderer` with RENDERER.bf16 true and
+        false, from the same weights: the renders within BF16_TOL, the
+        steps' host-clock medians and peak memory;
+    (d) coarse_rendering, fine_rendering, a seeded perturb=1, noise_std=1
+        render twice from one seed (bitwise equal), exclude_ray=False;
+    (e) the chamfer distance of `end` against the start within CHAMFER_TOL
+        of scipy's cKDTree, and LPIPS of two 400 x 400 images on random
+        weights written under build/ (finite, repeatable), with times.
+    Returns the phase's launches and the arguments of the K8 calls of the
+    list render's gradient pass."""
+    import numpy as np
+    from scipy.spatial import cKDTree
+
+    from neurofluid_torch import scene
+    from neurofluid_torch.models import ParticleNet, RenderNet
+    from neurofluid_torch.ops import ball_features as bf
+    from neurofluid_torch.ops import chamfer
+    from neurofluid_torch.ops import neighbor_search as ns
+    from neurofluid_torch.ops import segment_ops as so
+    from neurofluid_torch.train import losses
+    from neurofluid_torch.train.e2e import make_e2e_train_step
+    from neurofluid_torch.train.warmup import (
+        build_renderer, make_warmup_train_step,
+    )
+    from neurofluid_torch.utils import lpips
+    from neurofluid_torch.utils.config import ConfigNode, load_config
+
+    pos, vel, box, nrm, ro_v, rays_v, rgbs_v, end = problem
+    ro, rays = ro_v[0], rays_v[0]
+    phase = {k: 0 for k in counts()}
+    phase_t0 = time.perf_counter()
+
+    def run(what, fn):
+        """fn() with every count set to 0 just before and read just after:
+        (its result, its host-clock ms)."""
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launched = counts()
+        want = {k: OPTION_LAUNCHES[what].get(k, 0) for k in launched}
+        if launched != want:
+            raise AssertionError(f"options phase, {what}: launches "
+                                 f"{launched} != {want}")
+        for k, v in launched.items():
+            phase[k] += v
+        return out, ms
+
+    def finite(what, out):
+        for key, v in out.items():
+            if not bool(torch.isfinite(v.float()).all()):
+                raise AssertionError(f"options phase, {what}: non-finite "
+                                     f"{key}")
+
+    def renderer(**kw):
+        r = RenderNet(device=dev, generator=torch.Generator().manual_seed(0),
+                      **kw)
+        r.load_state_dict(init_state[1])
+        return r
+
+    def median_ms(fn, n=OPTION_STEPS):
+        times = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    # ---- (a) the list render
+    lst = renderer(search_mode="list")
+    fine = []
+    grid_search = ns.radius_search_grid
+
+    def spy(q, *a, **kw):  # the fine pass's searches (no cull)
+        res = grid_search(q, *a, **kw)
+        fine.append((q.detach(), res[0].count))
+        return res
+
+    with torch.no_grad():
+        with Recorder([(ns, "radius_search_grid", spy)]):
+            out_l, _ = run("list render", lambda: lst(end, ro, rays))
+        finite("list render", out_l)
+        if bool(out_l["overflow"]):
+            raise AssertionError("options phase: the list render's search "
+                                 "overflows")
+        # the exact counts; the fine samples follow each render's coarse
+        # weights, which differ by design, but not here enough to move a
+        # count (and the fine counts are held to K3's at the same samples)
+        for key in ("num_nn_0", "mask_0", "num_nn_1", "mask_1"):
+            if not torch.equal(out_l[key], dense_ref[key]):
+                raise AssertionError(f"options phase: list {key} != the "
+                                     f"dense render's")
+        if len(fine) != 1:
+            raise AssertionError(f"{len(fine)} fine searches recorded")
+        q_f, count_f = fine[0]
+        sums, _ = bf.ball_feature_sums(q_f, end, lst.search_radius,
+                                       lst.num_neighbors, lst.grid_lower,
+                                       lst.grid_upper, lst.grid_max_per_cell,
+                                       capacity_frac=1.0)
+        count_mism = int((sums[:, 0].to(torch.int32) != count_f).sum())
+        if count_mism:
+            raise AssertionError(f"options phase: {count_mism} fine "
+                                 f"samples' counts differ from K3's")
+        list_ms = median_ms(lambda: lst(end, ro, rays))
+        d_ren = renderer()
+        _, _ = run("dense render", lambda: d_ren(end, ro, rays))
+        dense_ms = median_ms(lambda: d_ren(end, ro, rays))
+        with on_plain(("K5",)):
+            out_p, _ = run("list render, K5 plain", lambda: lst(end, ro, rays))
+    diffs = {}
+    for key in ("rgb0", "depth0", "opacity0", "rgb1", "depth1", "opacity1"):
+        d = (out_p[key] - out_l[key]).abs()
+        diffs[key], diffs[key + "_mean"] = float(d.max()), float(d.mean())
+    bad = {k: diffs[k] for k, lim in LIST_PLAIN_LIMITS.items()
+           if not diffs[k] <= lim}
+    print(f"options phase (a), list render on 'auto' (grid) with 'approx', "
+          f"{rays.shape[0]} rays, 64 + 128 samples: host-clock median "
+          f"{list_ms:.2f} ms beside the dense render's {dense_ms:.2f} ms "
+          f"(phase 4: {dense_ref['ms']:.2f} ms); num_nn_0, mask_0, num_nn_1 "
+          f"and mask_1 equal to phase 4's dense render; the fine pass's "
+          f"{q_f.shape[0]} exact counts equal to K3's; samples with K "
+          f"neighbours coarse {int(out_l['mask_0'].sum())} fine "
+          f"{int(out_l['mask_1'].sum())}; rgb1 against the "
+          f"dense render max {float((out_l['rgb1'] - dense_ref['rgb1']).abs().max()):.3e} "
+          f"(other neighbours by design); K5 plain: max abs diffs "
+          + ", ".join(f"{k} {v:.3e}" for k, v in diffs.items()), flush=True)
+    if bad:
+        raise AssertionError(f"list render with K5 plain disagrees: {bad}")
+
+    # ---- (b) its particle gradient, and an e2e train step with it
+    p_g = end.detach().clone().requires_grad_(True)
+
+    def grad_pass():
+        out = lst(p_g, ro, rays)
+        (out["rgb0"].sum() + out["rgb1"].sum()).backward()
+
+    k8_calls = []
+    k8_cuda = so.segment_sum_cuda
+
+    def k8_record(vals, plan):
+        k8_calls.append((vals, plan))
+        return k8_cuda(vals, plan)
+
+    with Recorder([(so, "segment_sum_cuda", k8_record)]):
+        _, grad_ms = run("list render gradient", grad_pass)
+    g = p_g.grad
+    if not (bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0):
+        raise AssertionError("options phase: the list render's particle "
+                             "gradient is not finite and non-zero")
+    bounds = losses.default_box_bounds(device=dev)
+
+    def list_trainer():
+        t_net = ParticleNet(**scene.particle_net_kwargs(), device=dev,
+                            generator=torch.Generator().manual_seed(1))
+        t_ren = renderer(search_mode="list")
+        t_net.load_state_dict(init_state[0])
+        opt_r = torch.optim.Adam(t_ren.parameters(), lr=LR_RENDERER)
+        opt_t = torch.optim.Adam(t_net.parameters(), lr=LR_TRANSITION)
+        return t_net, t_ren, make_e2e_train_step(t_net, t_ren, opt_r, opt_t,
+                                                 bounds, BD_WEIGHT)
+
+    def grads_of(*models):
+        return {f"{i}.{n}": prm.grad.detach().clone()
+                for i, m in enumerate(models)
+                for n, prm in m.named_parameters()}
+
+    l_net, l_ren, l_step = list_trainer()
+    box_plan = l_net.make_box_plan(box)
+
+    def step_from(step, p, v):
+        return step(p, v, box, nrm, ro_v, rays_v, rgbs_v, box_plan=box_plan)
+
+    (loss, p, v, aux), first_ms = run("list e2e step",
+                                      lambda: step_from(l_step, pos, vel))
+    ref = dict(loss=float(loss), grads=grads_of(l_net, l_ren))
+    step_ms, step_losses = [], [float(loss)]
+    for _ in range(OPTION_STEPS):
+        (loss, p, v, aux), ms = run("list e2e step",
+                                    lambda: step_from(l_step, p, v))
+        step_ms.append(ms)
+        step_losses.append(float(loss))
+        gn_r = float(aux["grad_norm_renderer"])
+        gn_t = float(aux["grad_norm_transition"])
+        if not (all(map(math.isfinite, (float(loss), gn_r, gn_t)))
+                and gn_t > 0.0):
+            raise AssertionError(f"options phase, list e2e step: loss "
+                                 f"{float(loss)}, grad norms {gn_r}, {gn_t}")
+        if bool(aux["search_overflow"]) or bool(aux["search_cap_exceeded"]):
+            raise AssertionError("options phase, list e2e step: a search "
+                                 "overflow flag is set")
+    c_net, c_ren, c_step = list_trainer()
+    with on_plain(("K8",)):
+        (loss_c, _, _, _), plain_ms = run("list e2e step, K8 plain",
+                                          lambda: step_from(c_step, pos, vel))
+    got = grads_of(c_net, c_ren)
+    rel = {n: float((got[n] - w).abs().max())
+           / max(float(w.abs().max()), 1e-30) for n, w in ref["grads"].items()}
+    worst = max(rel, key=rel.get)
+    print(f"options phase (b), list render particle gradient: max |g| "
+          f"{float(g.abs().max()):.4e} ({grad_ms:.2f} ms, K5 K6 K8 2 each); "
+          f"list e2e train step: first {first_ms:.2f} ms, then "
+          f"{OPTION_STEPS} steps median {statistics.median(step_ms):.2f} ms "
+          f"(min {min(step_ms):.2f}, max {max(step_ms):.2f}; phase 6's "
+          f"dense step {dense_ref['step_ms']:.2f} ms), losses "
+          + ", ".join(f"{x:.6f}" for x in step_losses)
+          + f", grad norms renderer {gn_r:.4e} transition {gn_t:.4e}; with "
+          f"K8 plain ({plain_ms:.2f} ms): loss diff "
+          f"{abs(float(loss_c) - ref['loss']):.3e}, worst leaf {worst} "
+          f"{rel[worst]:.3e} of its largest entry", flush=True)
+    if float(loss_c) != ref["loss"] or not rel[worst] <= 1e-4:
+        raise AssertionError(f"list e2e step with K8 plain disagrees: loss "
+                             f"{float(loss_c)} vs {ref['loss']}, {worst} "
+                             f"{rel[worst]:.3e}")
+    del l_net, l_ren, l_step, c_net, c_ren, c_step, got, ref, g
+
+    # ---- (c) the warm-up step of build_renderer with bf16 products
+    cfg = load_config("warmup").merge({"near": 9.0, "far": 13.0})
+    warm = {}
+    for name, bf16 in (("f32", False), ("bf16", True)):
+        c = ConfigNode(cfg.to_dict())
+        c.RENDERER.bf16 = bf16
+        r = build_renderer(c, dev, torch.Generator().manual_seed(0))
+        r.load_state_dict(init_state[1])
+        with torch.no_grad():
+            out, _ = run("dense render", lambda: r(end, ro, rays))
+        finite(f"{name} render", out)
+        opt = torch.optim.Adam(r.parameters(),
+                               lr=float(c.TRAIN.LR.lr))
+        warm[name] = dict(out=out, step=make_warmup_train_step(r, opt),
+                          ms=[], peak=0, losses=[])
+    diffs = {key: float((warm["bf16"]["out"][key]
+                         - warm["f32"]["out"][key]).abs().max())
+             for key in ("rgb0", "opacity0", "depth0", "rgb1", "opacity1",
+                         "depth1")}
+    for i in range(OPTION_STEPS + 1):  # f32, bf16, bf16, f32, ...
+        for name in (("f32", "bf16") if i % 2 == 0 else ("bf16", "f32")):
+            w = warm[name]
+            torch.cuda.reset_peak_memory_stats()
+            (loss, (_, _, overflow)), ms = run(
+                "warm-up step",
+                lambda: w["step"](end, ro_v, rays_v, rgbs_v))
+            w["peak"] = max(w["peak"], torch.cuda.max_memory_allocated())
+            if not math.isfinite(float(loss)) or bool(overflow):
+                raise AssertionError(f"options phase, {name} warm-up step: "
+                                     f"loss {float(loss)}, overflow "
+                                     f"{bool(overflow)}")
+            w["losses"].append(float(loss))
+            if i:  # the first step of each warms up
+                w["ms"].append(ms)
+    print("options phase (c), the warm-up step of build_renderer, "
+          "RENDERER.bf16 true against false, from the same weights: "
+          + "; ".join(f"{n} median {statistics.median(w['ms']):.2f} ms "
+                      f"(min {min(w['ms']):.2f}, max {max(w['ms']):.2f}), "
+                      f"peak {w['peak'] / 2 ** 30:.3f} GiB, losses "
+                      + ", ".join(f"{x:.6f}" for x in w["losses"])
+                      for n, w in warm.items())
+          + "; render bf16 vs f32 max abs diffs "
+          + ", ".join(f"{k} {v:.3e}" for k, v in diffs.items()), flush=True)
+    bad = {k: v for k, v in diffs.items()
+           if not v <= BF16_TOL[k.rstrip("01")]}
+    if bad or not max(diffs.values()) > 0.0:
+        raise AssertionError(f"bf16 render against f32: {diffs} (tolerance "
+                             f"{BF16_TOL}; bf16 must differ from f32)")
+    del warm
+
+    # ---- (d) the dense renderer's other passes and options
+    with torch.no_grad():
+        outs = {}
+        for what, fn in (
+                ("coarse_rendering",
+                 lambda: d_ren.coarse_rendering(end, ro, rays)),
+                ("fine_rendering",
+                 lambda: d_ren.fine_rendering(end, ro, rays))):
+            outs[what], ms = run(what, fn)
+            finite(what, outs[what])
+            outs[what + " ms"] = ms
+        coarse_diff = float((outs["coarse_rendering"]["rgb0"]
+                             - dense_ref["rgb0"]).abs().max())
+        if not (torch.equal(outs["coarse_rendering"]["num_nn_0"],
+                            dense_ref["num_nn_0"]) and coarse_diff <= 1e-6):
+            raise AssertionError(f"coarse_rendering differs from the full "
+                                 f"render's coarse pass: rgb0 "
+                                 f"{coarse_diff:.3e}")
+
+        def seeded():
+            gen = torch.Generator(device=dev).manual_seed(7)
+            return d_ren(end, ro, rays, generator=gen, perturb=1.0,
+                         noise_std=1.0)
+
+        a, _ = run("random render", seeded)
+        b, random_ms = run("random render", seeded)
+        finite("random render", a)
+        same = all(torch.equal(a[k], b[k]) for k in a)
+        if not same or torch.equal(a["rgb1"], dense_ref["rgb1"]):
+            raise AssertionError("the seeded random render does not repeat "
+                                 "bitwise, or equals the deterministic one")
+        x_ren = renderer(exclude_ray=False)
+        out_x, x_ms = run("exclude_ray=False render",
+                          lambda: x_ren(end, ro, rays))
+        finite("exclude_ray=False render", out_x)
+    print(f"options phase (d): coarse_rendering "
+          f"{outs['coarse_rendering ms']:.2f} ms (num_nn_0 equal to the "
+          f"full render's, rgb0 within {coarse_diff:.3e}), fine_rendering "
+          f"{outs['fine_rendering ms']:.2f} ms (opacity1 mean "
+          f"{float(outs['fine_rendering']['opacity1'].mean()):.4f}), seeded "
+          f"perturb=1 noise_std=1 render {random_ms:.2f} ms, bitwise equal "
+          f"from one seed (rgb1 against the deterministic render max "
+          f"{float((a['rgb1'] - dense_ref['rgb1']).abs().max()):.3e}), "
+          f"exclude_ray=False {x_ms:.2f} ms (rgb1 against exclude_ray=True "
+          f"max {float((out_x['rgb1'] - dense_ref['rgb1']).abs().max()):.3e}"
+          f")", flush=True)
+    del outs, a, b, out_x, d_ren, x_ren, lst
+
+    # ---- (e) chamfer and LPIPS
+    cd = float(chamfer.chamfer_distance(end, pos))
+    e64, p64 = end.double().cpu().numpy(), pos.double().cpu().numpy()
+    t0 = time.perf_counter()
+    want = float(np.mean(cKDTree(p64).query(e64)[0] ** 2)
+                 + np.mean(cKDTree(e64).query(p64)[0] ** 2))
+    tree_ms = (time.perf_counter() - t0) * 1e3
+    cd_ms = event_ms(torch, lambda: chamfer.chamfer_distance(end, pos))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_lpips_", dir=build_dir)
+    try:
+        path = write_lpips_weights(os.path.join(tmp, "lpips_vgg.npz"))
+        rng = np.random.default_rng(11)
+        img_a = rng.uniform(size=LPIPS_WH + (3,)).astype(np.float32)
+        img_b = np.clip(img_a + rng.normal(size=img_a.shape) * 0.1, 0, 1
+                        ).astype(np.float32)
+        t0 = time.perf_counter()
+        ev = lpips.LPIPSEvaluator(path, device=dev)
+        d1 = ev(img_a, img_b)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        d2 = ev(img_a, img_b)
+        a_t, b_t = (torch.from_numpy(x * 2 - 1).permute(2, 0, 1)[None].to(dev)
+                    for x in (img_a, img_b))
+        lp_ms = event_ms(torch, lambda: ev.distance(a_t, b_t))
+    finally:
+        shutil.rmtree(tmp)
+    print(f"options phase (e): chamfer of the rollout's end state against "
+          f"its start ({end.shape[0]} x {pos.shape[0]}) {cd:.9e}, cKDTree "
+          f"float64 {want:.9e}, diff {abs(cd - want):.3e} (tol "
+          f"{CHAMFER_TOL:.0e}); {cd_ms:.4f} ms on the card (CUDA events), "
+          f"cKDTree {tree_ms:.1f} ms on the host; LPIPS of two "
+          f"{LPIPS_WH[0]} x {LPIPS_WH[1]} images, random weights: {d1:.6e} "
+          f"then {d2:.6e}, first call (weights loaded) {first_ms:.1f} ms, "
+          f"then {lp_ms:.3f} ms a distance (CUDA events)", flush=True)
+    if not abs(cd - want) <= CHAMFER_TOL:
+        raise AssertionError(f"chamfer {cd} vs cKDTree {want}")
+    if not (math.isfinite(d1) and d1 > 0 and d1 == d2):
+        raise AssertionError(f"LPIPS {d1}, {d2}: not finite and repeatable")
+    print(f"options phase: launches {phase} in "
+          f"{time.perf_counter() - phase_t0:.1f} s", flush=True)
+    return phase, k8_calls
+
+
 def main():
     import torch
 
@@ -990,7 +1441,8 @@ def main():
             lib = f" products_ms {g_ms:.4f} walk_ms {ms - g_ms:.4f}"
         if library is not None:
             lib_ms = event_ms(torch, library)
-            k["library_ms"] = (k["library_ms"] or 0.0) + lib_ms
+            if in_totals:
+                k["library_ms"] = (k["library_ms"] or 0.0) + lib_ms
             lib += f" library_ms {lib_ms:.4f}"
         if floor is not None:
             lib += f" launch_floor_ms {event_ms(torch, floor):.4f}"
@@ -1003,6 +1455,25 @@ def main():
                        ("ops", n_ops), ("bytes", n_bytes),
                        ("tc_ops", n_tc_ops)):
             k[key] += v
+
+    def check_k8(i, vals, plan, in_totals=True):
+        """K8 at one recorded call against its plain version, timed,
+        bounded and beside `index_add_`."""
+        got, want = so.segment_sum_cuda(vals, plan), \
+            so.segment_sum_plain(vals, plan)
+        m, c = vals.shape
+        ids = plan.ids
+
+        def library():
+            vals.new_zeros((plan.n + 1, c)).index_add_(0, ids, vals)
+
+        # the rows of the trash segment (the lists' padding slots) need not
+        # be read: only their ids
+        kept = int((ids < plan.n).sum())
+        check("K8", f"{i} (M {m}, kept {kept}, C {c})", (vals, plan),
+              [("sums", got, want)],
+              kept * c * vals.element_size() + nbytes(ids, got),
+              float(kept * c), library=library, in_totals=in_totals)
 
     # ---- 3. forward kernels at the serving path's shapes
     calls = {"K1": [], "K3": [], "K5": []}
@@ -1152,6 +1623,12 @@ def main():
     bad = {k: diffs[k] for k, lim in limits.items() if not diffs[k] <= lim}
     if bad:
         raise AssertionError(f"plain path disagrees beyond tolerance: {bad}")
+    # phase 13 renders the rollout's last frame again and measures it
+    # against the start
+    serve_end = traj[-1].clone()
+    dense_ref = {k: out[k] for k in ("num_nn_0", "mask_0", "num_nn_1",
+                                     "mask_1", "rgb0", "rgb1")}
+    dense_ref["ms"] = render_med * 1e3
     del traj, traj_p, out, out_p
 
     # ---- 5. backward kernels at the shapes of one recorded train step
@@ -1437,21 +1914,7 @@ def main():
                                          m.reshape(-1).int()])
                               for o, m in zip((got, want), mask)))
         for i, (vals, plan) in enumerate(calls["K8"]):
-            got, want = so.segment_sum_cuda(vals, plan), \
-                so.segment_sum_plain(vals, plan)
-            m, c = vals.shape
-            ids = plan.ids
-
-            def library():
-                vals.new_zeros((plan.n + 1, c)).index_add_(0, ids, vals)
-
-            # the rows of the trash segment (the lists' padding slots) need
-            # not be read: only their ids
-            kept = int((ids < plan.n).sum())
-            check("K8", f"{i} (M {m}, kept {kept}, C {c})", (vals, plan),
-                  [("sums", got, want)],
-                  kept * c * vals.element_size() + nbytes(ids, got),
-                  float(kept * c), library=library)
+            check_k8(i, vals, plan)
         # K2 as the transition step calls it on fused_cconv: autograd runs
         # the second rollout step's backward first, and that one asks for
         # the position gradients too
@@ -1645,9 +2108,8 @@ def main():
                                               exclude_self=True)[0],
         "brute": lambda: ns.radius_search_brute(pos, pos, r_s, k_s,
                                                 exclude_self=True),
-        "K7": lambda: fq.ball_query_compact(
-            pos, grid_s, a_net.grid_lower, a_net.grid_upper, r_s, k_s,
-            exclude_self=True)[0]}
+        "K7": lambda: fq.ball_query_compact(pos, grid_s, r_s, k_s,
+                                            exclude_self=True)[0]}
     before = counts()
     with torch.no_grad():
         lists = {name: fn() for name, fn in searches.items()}
@@ -1740,12 +2202,27 @@ def main():
     launched = trainers_phase(torch, build_dir, counts, on_plain, bare_ms)
     total_launches = {k: v + launched[k] for k, v in total_launches.items()}
 
-    # ---- 13. summary lines. launches: each kernel's count over the counted
+    # ---- 13. the renderer's options and its list path at the bench point
+    dense_ref["step_ms"] = bare_ms["e2e fused_cconv"]
+    launched, k8_calls = options_phase(
+        torch, dev, (pos, vel, box, nrm, ro_v, rays_v, rgbs_v, serve_end),
+        init_state, reset_counts, counts, on_plain, build_dir, dense_ref)
+    total_launches = {k: v + launched[k] for k, v in total_launches.items()}
+    # K8 at the list render's shapes: the adjoint of its coarse and fine
+    # row gathers, (R S K, 3) into the particles (not in the per-step
+    # totals, which are the `fused` transition step's)
+    with torch.no_grad():
+        for i, (vals, plan) in enumerate(k8_calls):  # fine pass first
+            check_k8(f"list render gradient {i}", vals, plan,
+                     in_totals=False)
+    del k8_calls
+
+    # ---- 14. summary lines. launches: each kernel's count over the counted
     # runs (the serving path once, the e2e train path TRAIN_STEPS times, the
     # transition train path TRANSITION_STEPS times on each backend, the
-    # scene render once, the trainers phase); the times are per serving pass
-    # (K1: per rollout step), per e2e train step (K2, K4, K6) or per
-    # transition train step on `fused` (K7, K8)
+    # scene render once, the trainers phase, the options phase); the times
+    # are per serving pass (K1: per rollout step), per e2e train step (K2,
+    # K4, K6) or per transition train step on `fused` (K7, K8)
     sources = {
         "K1": ("fused_cconv", "fused_cconv.cu",
                "neurofluid_tpu/ops/fused_cconv.py:622"),

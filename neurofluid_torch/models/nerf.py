@@ -7,11 +7,19 @@ names follow the upstream state_dict: `xyz_encoding_{i}.0` (Linear inside
 Sequential(Linear, ReLU)), `xyz_encoding_final`, `sigma`,
 `dir_encoding.0` and `rgb.0`. The dense layers are plain matrix products
 (the JAX package leaves them to XLA), so they stay nn.Linear.
+
+`compute_dtype=torch.bfloat16` runs every product in bf16 as flax's
+`Dense(dtype=bf16, param_dtype=f32)` does: the input and the f32 weight are
+cast to bf16, the product is rounded to bf16 and the bf16 bias is added
+after it; the skip concat and the direction input are cast to bf16; the
+sigma and rgb heads are cast back to f32, and the sigmoid runs in f32. The
+parameters stay f32 and the state_dict names do not change.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from neurofluid_torch.cuda import resolve_device
@@ -21,10 +29,12 @@ from neurofluid_torch.models.init import generator_or_default, init_linear
 class NeRF(nn.Module):
     def __init__(self, depth: int = 8, width: int = 256,
                  in_channels_xyz: int = 63, in_channels_dir: int = 27,
-                 skips: tuple = (4,), device="cuda",
+                 skips: tuple = (4,),
+                 compute_dtype: torch.dtype = torch.float32, device="cuda",
                  generator: torch.Generator | None = None):
         super().__init__()
         self.depth = depth
+        self.compute_dtype = compute_dtype
         self.in_channels_xyz = in_channels_xyz
         self.skips = tuple(skips)
         meta = dict(device="meta")
@@ -49,20 +59,30 @@ class NeRF(nn.Module):
             if isinstance(m, nn.Linear):
                 init_linear(m, gen)
 
+    def _dense(self, layer: nn.Linear, h: torch.Tensor) -> torch.Tensor:
+        if self.compute_dtype == torch.float32:
+            return layer(h)
+        dt = self.compute_dtype
+        return F.linear(h, layer.weight.to(dt)) + layer.bias.to(dt)
+
     def forward(self, x: torch.Tensor, sigma_only: bool = False) -> torch.Tensor:
         """x: (B, in_xyz) if sigma_only else (B, in_xyz + in_dir).
 
-        Returns (B, 1) sigma or (B, 4) [rgb, sigma]."""
-        input_xyz = x[..., : self.in_channels_xyz]
+        Returns (B, 1) sigma or (B, 4) [rgb, sigma], f32 whatever the
+        compute dtype."""
+        input_xyz = x[..., : self.in_channels_xyz].to(self.compute_dtype)
         h = input_xyz
         for i in range(self.depth):
             if i in self.skips:
                 h = torch.cat([input_xyz, h], dim=-1)
-            h = getattr(self, f"xyz_encoding_{i + 1}")(h)
-        sigma = self.sigma(h)
+            h = torch.relu(self._dense(
+                getattr(self, f"xyz_encoding_{i + 1}")[0], h))
+        sigma = self._dense(self.sigma, h).float()
         if sigma_only:
             return sigma
-        feat = self.xyz_encoding_final(h)
-        d = self.dir_encoding(
-            torch.cat([feat, x[..., self.in_channels_xyz:]], dim=-1))
-        return torch.cat([self.rgb(d), sigma], dim=-1)
+        feat = self._dense(self.xyz_encoding_final, h)
+        d = torch.relu(self._dense(self.dir_encoding[0], torch.cat(
+            [feat, x[..., self.in_channels_xyz:].to(self.compute_dtype)],
+            dim=-1)))
+        rgb = torch.sigmoid(self._dense(self.rgb[0], d).float())
+        return torch.cat([rgb, sigma], dim=-1)

@@ -282,8 +282,7 @@ class ParticleNet(nn.Module):
             grid = self.make_grid(points)
         if route == "fused":
             return fused_query.ball_query_compact(
-                queries, grid, self.grid_lower, self.grid_upper, self.radius,
-                k, exclude_self=exclude_self)
+                queries, grid, self.radius, k, exclude_self=exclude_self)
         if route == "grid":
             return ns.radius_search_grid(
                 queries, grid, self.radius, k, order="nearest",

@@ -137,10 +137,20 @@ def group_queries(queries, points, radius: float, lower, upper,
     plus the occupied cells, far below the bound on a fine grid. A query
     whose group id passes the cap has no packed slot; that is detected and
     OR-ed into `cull_overflow`."""
+    return group_queries_on(queries, points, radius, lower,
+                            cell_dims(lower, upper, radius), capacity,
+                            group_size, max_groups)
+
+
+def group_queries_on(queries, points, radius: float, lower, dims: tuple,
+                     capacity: int, group_size: int = 32,
+                     max_groups: int | None = None) -> BallGrouping:
+    """`group_queries` on the cells of a given geometry, the lower corner
+    and `dims` (cell = radius) as a `CellGrid` holds them (`origin`,
+    `dims`)."""
     q, p = queries.detach(), points.detach()
     n_q, t, dev = q.shape[0], int(group_size), q.device
     capacity = int(min(max(capacity, t), n_q))
-    dims = cell_dims(lower, upper, radius)
     num_cells = dims[0] * dims[1] * dims[2]
 
     lo = p.min(dim=0).values - radius

@@ -27,7 +27,7 @@ import torch
 from neurofluid_torch.cuda import Kernel, check_tensor
 from neurofluid_torch.ops import ball_features as bf
 from neurofluid_torch.ops.neighbor_search import (
-    CellGrid, NeighborList, cell_dims, recompute_sq_dists,
+    CellGrid, NeighborList, recompute_sq_dists,
 )
 
 GROUP_SIZE = 8  # queries per group: a rest-density cell holds ~11 queries
@@ -124,35 +124,35 @@ def ball_query_compact_cuda(q_rep, tx, ty, tz, ti, gcell, dims,
     return (idx, count, *xyz)
 
 
-def ball_query_compact(queries: torch.Tensor, grid: CellGrid, lower, upper,
-                       radius: float, k: int, exclude_self: bool = False,
+def ball_query_compact(queries: torch.Tensor, grid: CellGrid, radius: float,
+                       k: int, exclude_self: bool = False,
                        group_size: int = GROUP_SIZE,
                        max_occupied_cells: int = 4096,
                        emit_xyz: bool = False):
     """Compact fixed-K neighbour lists of `grid.points` around `queries`.
 
-    The grid must have been built with cell_size == radius over (lower,
-    upper). Returns (NeighborList, overflow) in the original query order;
-    overflow is True when a grid cell held more points than its cap or the
-    grouping ran out of groups, in both cases some neighbourhood was not
-    computed in full. With `emit_xyz` the list carries the selected
-    coordinates (detached). `max_occupied_cells` bounds the groups the
-    packed layout allots to partly filled cells
-    (`group_queries(max_groups=...)`): the fluid occupies about a tenth of
-    the transition grid's cells. K7 for CUDA tensors, the plain version for
-    CPU tensors."""
+    The grid's cells must have the radius for their edge; their geometry
+    (`grid.origin`, `grid.dims`) is the grid's own. Returns (NeighborList,
+    overflow) in the original query order; overflow is True when a grid
+    cell held more points than its cap or the grouping ran out of groups,
+    in both cases some neighbourhood was not computed in full. With
+    `emit_xyz` the list carries the selected coordinates (detached).
+    `max_occupied_cells` bounds the groups the packed layout allots to
+    partly filled cells (`group_queries(max_groups=...)`): the fluid
+    occupies about a tenth of the transition grid's cells. K7 for CUDA
+    tensors, the plain version for CPU tensors."""
     q_det = queries.detach()
     n_q, dev = q_det.shape[0], q_det.device
-    dims = cell_dims(lower, upper, radius)
-    if dims != grid.dims:
-        raise ValueError(f"grid dims {grid.dims} != {dims}: the grid's cell "
-                         f"size must equal the radius")
+    if grid.cell_size != float(radius):
+        raise ValueError(f"grid cell size {grid.cell_size} != radius "
+                         f"{radius}: the walk covers 27 cells of the radius")
+    dims = grid.dims
     num_cells = dims[0] * dims[1] * dims[2]
     max_groups = (n_q // int(group_size)
                   + min(num_cells, int(max_occupied_cells)) + 2)
-    grouping = bf.group_queries(q_det, grid.points, radius, lower, upper,
-                                capacity=n_q, group_size=group_size,
-                                max_groups=max_groups)
+    grouping = bf.group_queries_on(q_det, grid.points, radius, grid.origin,
+                                   dims, capacity=n_q, group_size=group_size,
+                                   max_groups=max_groups)
     capacity, t = grouping.capacity, grouping.group_size
 
     empty = grid.table_idx < 0

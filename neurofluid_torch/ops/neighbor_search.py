@@ -1,7 +1,9 @@
 """Fixed-radius neighbour search with fixed-K lists (port of
 neurofluid_tpu/ops/neighbor_search.py): the dense per-cell particle tables,
-the neighbour list, and the two plain searches over them, tiled brute force
-(`radius_search_brute`) and the 27-cell grid (`radius_search_grid`).
+the neighbour list, and the plain searches over them, tiled brute force
+(`radius_search_brute`), the 27-cell grid (`radius_search_grid`), the grid
+behind an AABB cull (`radius_search_grid_culled`) and pytorch3d's ball
+query (`ball_query`).
 
 Both searches return, per query, up to k in-radius points and the TRUE
 (uncapped) count. With `order="nearest"` the k nearest are kept, with
@@ -11,6 +13,11 @@ so that of two equal scores the candidate at the lower position comes
 first (`torch.topk` promises no order among ties on the card). The search
 is discrete and runs detached; only the squared distances carry a
 gradient, recomputed from the selected ids (`recompute_sq_dists`).
+
+`selection` takes 'sort' and 'approx', and both are the exact selection:
+the JAX package's 'approx' is the TPU's PartialReduce top-k
+(`lax.approx_max_k`, recall ~0.95 there), which is exact on every other
+backend; a GPU has no such op, so the name is an alias here.
 
 Queries run in chunks of `query_chunk`. The rows of a chunk are
 independent, so the last chunk is simply shorter (the JAX package pads it
@@ -154,12 +161,7 @@ def _select_from_candidates(d2, cand_idx, within, k: int, order: str,
     (three (C, M) tensors), the selected coordinates (three (C, k),
     arbitrary finite values at invalid slots), else None. The squared
     distances are recomputed from idx (`recompute_sq_dists`)."""
-    if selection == "approx":
-        raise NotImplementedError(
-            "selection='approx' is the TPU's PartialReduce top-k; this "
-            "package selects exactly (ROADMAP.md Queue 1, the renderer's "
-            "list path, makes both modes exact)")
-    if selection != "sort":
+    if selection not in ("sort", "approx"):  # both exact (module doc)
         raise ValueError(f"unknown selection: {selection}")
     m = d2.shape[-1]
     if m < k:  # fewer candidates than slots: pad the candidate axis
@@ -307,6 +309,53 @@ def radius_search_grid(queries: torch.Tensor, grid: CellGrid, radius: float,
     return NeighborList(idx, sq, mask, count, xyz), grid.overflow
 
 
+def radius_search_grid_culled(queries: torch.Tensor, grid: CellGrid,
+                              radius: float, k: int, capacity: int,
+                              order: str = "nearest", inclusive: bool = True,
+                              exclude_self: bool = False,
+                              query_chunk: int = 4096,
+                              selection: str = "sort",
+                              emit_xyz: bool = False):
+    """`radius_search_grid` over the queries inside the points' AABB
+    inflated by `radius` only: the others provably have no neighbour.
+
+    The queries are partitioned stably, inside first; the first `capacity`
+    of them are searched and the results go back by the inverse
+    permutation; a query outside, or inside beyond `capacity`, gets the
+    empty result (count 0, ids -1). Identical to the uncapped search
+    whenever at most `capacity` queries are inside; otherwise the returned
+    flag is raised (with the grid's own overflow flag OR'ed in)."""
+    q = queries.shape[0]
+    capacity = int(min(max(capacity, 1), q))
+    q_det, p_det = queries.detach(), grid.points.detach()
+    lo = p_det.min(dim=0).values - radius
+    hi = p_det.max(dim=0).values + radius
+    inside = torch.all((q_det >= lo) & (q_det <= hi), dim=-1)  # (Q,)
+    cull_overflow = inside.sum() > capacity
+    # stable partition by f32 keys, inside first, as the JAX package's
+    # argsort; equal keys keep their order, so the slots stay in place
+    part = torch.argsort(torch.where(inside, 0.0, 1.0), stable=True)
+    r2 = _sq_radius(radius)
+    idx_c, mask_c, count_c, xyz_c = _chunked(
+        lambda qc: _grid_chunk(qc, grid, radius, r2, k, order, inclusive,
+                               exclude_self, selection, emit_xyz),
+        q_det[part[:capacity]], query_chunk)
+    rank = torch.empty_like(part)
+    rank[part] = torch.arange(q, device=part.device)
+    in_compact = (rank < capacity) & inside
+    safe_rank = torch.clamp(rank, max=capacity - 1)
+    idx = torch.where(in_compact[:, None], idx_c[safe_rank], -1)
+    mask = in_compact[:, None] & mask_c[safe_rank]
+    count = torch.where(in_compact, count_c[safe_rank], 0)
+    xyz = None
+    if xyz_c is not None:
+        xyz = tuple(torch.where(in_compact[:, None], c[safe_rank], 0.0)
+                    for c in xyz_c)
+    sq = recompute_sq_dists(queries, grid.points, idx, mask, xyz=xyz)
+    return (NeighborList(idx, sq, mask, count, xyz),
+            grid.overflow | cull_overflow)
+
+
 def radius_search(queries: torch.Tensor, points: torch.Tensor, radius: float,
                   k: int, order: str = "nearest", inclusive: bool = True,
                   exclude_self: bool = False,
@@ -314,4 +363,14 @@ def radius_search(queries: torch.Tensor, points: torch.Tensor, radius: float,
     """The default search: `radius_search_brute`."""
     return radius_search_brute(queries, points, radius, k, order=order,
                                inclusive=inclusive, exclude_self=exclude_self,
+                               query_chunk=query_chunk)
+
+
+def ball_query(queries: torch.Tensor, points: torch.Tensor, radius: float,
+               k: int, query_chunk: int = 4096) -> NeighborList:
+    """pytorch3d's ball query (reference models/renderer.py:112-122): the
+    first k points by index at d^2 < r^2 (strict), squared distances, ids
+    -1 and distances 0 at padded slots; by brute force."""
+    return radius_search_brute(queries, points, radius, k, order="index",
+                               inclusive=False, exclude_self=False,
                                query_chunk=query_chunk)

@@ -126,8 +126,10 @@ class TrainerBase:
         degenerate, and its PDF normalisation could emit NaNs and trip the
         per-block diagnostics). Per-ray and per-sample outputs are
         concatenated and trimmed to the real rays; scalar diagnostics (the
-        search overflow flag) are stacked, one entry per block. Reads
-        nothing from `self`."""
+        search overflow flag) are stacked, one entry per block. The
+        particles' search grid (`model._shared_grid`: the list path's on
+        the grid backend, else none) is built once for all blocks, as the
+        JAX package's scan does. Reads nothing from `self`."""
 
         def trim(flat, k, n, n_chunks):
             # outputs are either per-ray (dim0 = n_chunks * chunk) or
@@ -150,12 +152,13 @@ class TrainerBase:
             n_chunks = -(-n // chunk)
             outs = []
             with torch.no_grad():
+                grid = model._shared_grid(particles)
                 for i in range(n_chunks):
                     part = rays_flat[i * chunk:(i + 1) * chunk]
                     pad = chunk - part.shape[0]
                     if pad:
                         part = torch.cat([part, part[-1:].expand(pad, 6)])
-                    outs.append(model(particles, ro, part))
+                    outs.append(model(particles, ro, part, grid=grid))
             merged = {}
             for k in outs[0]:
                 if outs[0][k].ndim == 0:

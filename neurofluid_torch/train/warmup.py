@@ -13,8 +13,9 @@ Behavioral contract from the reference warm-up trainer
 - periodic eval: render the full test view for frame 0, PSNR, image dumps
   (reference :146-175), checkpoint {step, renderer, optimizer} (:68-72).
 
-On the card the render runs K3 and K5 and its backward K6; the particles
-are constants here, so K4 (the gradient into them) does not run.
+On the card the dense render runs K3 and K5 and its backward K6 (the list
+render: K5 and K6); the particles are constants here, so K4 and K8 (the
+gradients into them) do not run.
 """
 
 from __future__ import annotations
@@ -28,34 +29,14 @@ from neurofluid_torch.train import schedules
 from neurofluid_torch.train.trainer_base import TrainerBase, host
 from neurofluid_torch.utils.metrics import psnr as psnr_np
 
-# the feature set this package's RenderNet computes (the shipped configs'
-# RENDERER.encoding); other values wait for ROADMAP.md Queue 1 item 5
-ENCODING = dict(density=True, var=True, smoothed_pos=True, smoothed_dir=True,
-                exclude_ray=True, same_smooth_factor=False)
-
-
 def build_renderer(cfg, device="cuda",
                    generator: torch.Generator | None = None) -> RenderNet:
-    """The RenderNet of cfg.RENDERER. Only the dense ball-feature path
-    (`NN_search.mode: dense`) is ported; like the JAX package's dense path
-    it ignores `NN_search.backend` and `selection`. The list path
-    (ROADMAP.md Queue 1 item 6), other encodings and bf16 products (item 5)
-    raise."""
+    """The RenderNet of cfg.RENDERER, every key read as the JAX package's
+    `build_renderer` reads it, with its defaults: the encoding switches,
+    `bf16` (bf16 products in the NeRF MLPs), and `NN_search.mode` ('dense'
+    or 'list'), `backend` and `selection` (which only the list path
+    reads)."""
     r = cfg.RENDERER
-    mode = r.NN_search.get("mode", "dense")
-    if mode != "dense":
-        raise NotImplementedError(
-            f"RENDERER.NN_search.mode {mode!r}: only 'dense' is ported "
-            "(the list path is ROADMAP.md Queue 1 item 6)")
-    encoding = {k: bool(r.encoding.get(k, False)) for k in ENCODING}
-    if encoding != ENCODING:
-        raise NotImplementedError(
-            f"RENDERER.encoding {encoding}: only {ENCODING} is ported "
-            "(ROADMAP.md Queue 1 item 5)")
-    if r.get("bf16", False):
-        raise NotImplementedError(
-            "RENDERER.bf16: bf16 products are not ported (ROADMAP.md "
-            "Queue 1 item 5)")
     return RenderNet(
         near=float(cfg.near),
         far=float(cfg.far),
@@ -65,6 +46,16 @@ def build_renderer(cfg, device="cuda",
         search_radius_scale=float(r.NN_search.search_radius_scale),
         num_neighbors=int(r.NN_search.N_neighbor),
         use_mask=bool(r.use_mask),
+        encode_density=bool(r.encoding.density),
+        encode_var=bool(r.encoding.var),
+        encode_smoothed_pos=bool(r.encoding.smoothed_pos),
+        encode_smoothed_dir=bool(r.encoding.smoothed_dir),
+        exclude_ray=bool(r.encoding.exclude_ray),
+        same_smooth_factor=bool(r.encoding.get("same_smooth_factor", False)),
+        compute_dtype=torch.bfloat16 if r.get("bf16", False) else torch.float32,
+        search_backend=r.NN_search.get("backend", "auto"),
+        search_selection=r.NN_search.get("selection", "approx"),
+        search_mode=r.NN_search.get("mode", "dense"),
         device=device, generator=generator,
     )
 

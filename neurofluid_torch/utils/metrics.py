@@ -1,6 +1,5 @@
 """Evaluation metrics: particle fidelity and image quality (a copy of
-neurofluid_tpu/utils/metrics.py without `lpips`, whose evaluator is still
-to be ported: ROADMAP.md Queue 1 item 7).
+neurofluid_tpu/utils/metrics.py; `lpips` runs the port's evaluator).
 
 - `FluidErrors`: per-timestep particle error accumulator with the exact stats
   of the reference (reference utils/point_eval.py:17-58): element-wise
@@ -120,6 +119,17 @@ def ssim(pred: np.ndarray, gt: np.ndarray, data_range: float = 1.0) -> float:
         )
         vals.append(s.mean())
     return float(np.mean(vals))
+
+
+def lpips(pred: np.ndarray, gt: np.ndarray, weights_path: str | None = None,
+          device="cuda") -> float:
+    """LPIPS(VGG) perceptual metric (reference utils/evaluate_images.ipynb
+    cell 5) from a user-supplied weights file (see utils/lpips.py for the
+    format), on the card unless `device` says otherwise. Raises
+    FileNotFoundError with instructions when no weights are configured."""
+    from neurofluid_torch.utils import lpips as lpips_mod
+
+    return lpips_mod.get_evaluator(weights_path, device)(pred, gt)
 
 
 def chamfer_distance_np(x: np.ndarray, y: np.ndarray) -> float:

@@ -87,4 +87,7 @@ def test_metrics_match_jax(rng):
     assert tmetrics.ssim(img_a, img_b) == jmetrics.ssim(img_a, img_b)
     assert tmetrics.chamfer_distance_np(pred, gt) == \
         jmetrics.chamfer_distance_np(pred, gt)
-    assert not hasattr(tmetrics, "lpips")
+    # LPIPS is ported: with no weights configured both refuse alike
+    for mod in (tmetrics, jmetrics):
+        with pytest.raises(FileNotFoundError, match="NF_LPIPS_WEIGHTS"):
+            mod.lpips(img_a, img_b, weights_path="")

@@ -668,7 +668,7 @@ def test_ball_query_kernel_matches_plain(dev, exclude_self, k, cap, emit_xyz,
     for d in ("cpu", dev):
         grid = ns.build_cell_grid(pts.to(d), lo, hi, r, cap)
         before = fq.KERNEL.launches
-        res.append(fq.ball_query_compact(qs.to(d), grid, lo, hi, r, k,
+        res.append(fq.ball_query_compact(qs.to(d), grid, r, k,
                                          exclude_self=exclude_self,
                                          emit_xyz=emit_xyz))
     assert fq.KERNEL.launches == before + 1
@@ -894,3 +894,147 @@ def test_trainer_defaults_to_the_card_and_chunk_render_matches_plain(
     for key in ("rgb0", "opacity0", "rgb1", "opacity1"):
         np.testing.assert_allclose(out[key].cpu().numpy(), want[key].numpy(),
                                    rtol=0, atol=1e-4, err_msg=key)
+
+
+# the renderer's options and list path at a small size: 400 particles,
+# 8 rays, 16 + 16 samples, NeRF 4 x 32, sigma heads opaque
+_SMALL_RENDER = dict(near=1.0, far=3.0, n_samples=16, n_importance=16,
+                     nerf_depth=4, nerf_width=32,
+                     grid_lower=(-0.5, -0.5, -0.5), grid_upper=(0.5, 0.5, 0.5),
+                     grid_max_per_cell=48)
+
+
+def _small_render_case(**kw):
+    """(CPU renderer, its copy on the card, (particles, ro, rays) on the
+    CPU) from one seed."""
+    from neurofluid_torch.models.render_net import RenderNet
+
+    rng = np.random.default_rng(10)
+    particles = torch.tensor(rng.uniform(-0.3, 0.3, (400, 3)),
+                             dtype=torch.float32)
+    ro = torch.tensor([0.0, 0.05, 2.0])
+    d = torch.tensor([[0.0, 0.0, -1.0]]).repeat(8, 1)
+    d[:, 0] += torch.linspace(-0.12, 0.12, 8)
+    rays = torch.cat([ro.expand(8, 3), d / d.norm(dim=-1, keepdim=True)], 1)
+    nets = [RenderNet(device=d_, generator=torch.Generator().manual_seed(3),
+                      **_SMALL_RENDER, **kw) for d_ in ("cpu", "cuda")]
+    with torch.no_grad():
+        for net in nets:
+            for nerf in (net.nerf_coarse, net.nerf_fine):
+                nerf.sigma.bias.fill_(5.0)
+    return nets[0], nets[1], (particles, ro, rays)
+
+
+@pytest.mark.parametrize("backend", ["grid", "brute"])
+def test_list_render_on_the_card_matches_the_cpu(dev, backend):
+    """The list render launches K5 twice and no K3, and its backward into
+    the particles K8 and K6 twice each; outputs and the particle gradient
+    match the CPU's plain versions (coarse counts and masks equal, colours
+    within 1e-4, the gradient within 1e-4 of its largest entry)."""
+    cpu, card, (p, ro, rays) = _small_render_case(search_mode="list",
+                                                  search_backend=backend)
+    outs, grads = [], []
+    for net, d_ in ((cpu, "cpu"), (card, dev)):
+        pt = p.to(d_).detach().clone().requires_grad_(True)
+        before = [k.launches for k in (bf.KERNEL, comp.KERNEL,
+                                       comp.BWD_KERNEL, so.KERNEL)]
+        out = net(pt, ro.to(d_), rays.to(d_))
+        (out["rgb0"].sum() + out["rgb1"].sum()).backward()
+        launched = [k.launches - b for k, b in zip(
+            (bf.KERNEL, comp.KERNEL, comp.BWD_KERNEL, so.KERNEL), before)]
+        assert launched == ([0, 0, 0, 0] if d_ == "cpu" else [0, 2, 2, 2])
+        outs.append({k: v.detach().cpu() for k, v in out.items()})
+        grads.append(pt.grad.cpu())
+    want, got = outs
+    for key in ("num_nn_0", "mask_0", "overflow"):
+        assert torch.equal(got[key], want[key]), key
+    for key in ("rgb0", "opacity0", "rgb1", "opacity1"):
+        np.testing.assert_allclose(got[key].numpy(), want[key].numpy(),
+                                   rtol=0, atol=1e-4, err_msg=key)
+    top = float(grads[0].abs().max())
+    assert top > 0
+    np.testing.assert_allclose(grads[1].numpy(), grads[0].numpy(), rtol=0,
+                               atol=1e-4 * top)
+
+
+def test_bf16_render_on_the_card(dev):
+    """bf16 products on the card against the CPU's bf16 (another bf16
+    product): within one bf16 ulp at 1; and not the f32 render."""
+    cpu, card, (p, ro, rays) = _small_render_case(
+        compute_dtype=torch.bfloat16)
+    _, f32, _ = _small_render_case()
+    with torch.no_grad():
+        want = cpu(p, ro, rays)
+        got = card(p.to(dev), ro.to(dev), rays.to(dev))
+        ref = f32(p.to(dev), ro.to(dev), rays.to(dev))
+    assert got["rgb1"].dtype == torch.float32
+    np.testing.assert_allclose(got["rgb1"].cpu().numpy(),
+                               want["rgb1"].numpy(), rtol=0, atol=2.0 ** -8)
+    assert float((got["rgb1"] - ref["rgb1"]).abs().max()) > 0.0
+
+
+def test_random_and_partial_renders_on_the_card(dev):
+    """A seeded perturb / noise_std render repeats bitwise from one CUDA
+    generator's seed; coarse_rendering and fine_rendering launch K3 and K5
+    once and twice each, with finite outputs."""
+    _, card, (p, ro, rays) = _small_render_case()
+    args = (p.to(dev), ro.to(dev), rays.to(dev))
+    with torch.no_grad():
+        a, b = (card(*args, generator=torch.Generator(device=dev).manual_seed(5),
+                     perturb=1.0, noise_std=1.0) for _ in range(2))
+        for key in a:
+            assert torch.equal(a[key], b[key]), key
+        for method, n in (("coarse_rendering", 1), ("fine_rendering", 2)):
+            before = (bf.KERNEL.launches, comp.KERNEL.launches)
+            out = getattr(card, method)(*args)
+            assert (bf.KERNEL.launches - before[0],
+                    comp.KERNEL.launches - before[1]) == (n, n)
+            assert all(bool(torch.isfinite(v.float()).all())
+                       for v in out.values())
+
+
+def lpips_weights(path, seed=0):
+    """Random VGG16 + LPIPS head weights in the documented `.npz` format:
+    He-scaled convs, so the activations keep their scale through 13
+    layers; non-negative heads, as trained ones are, in both documented
+    shapes ((C,) and (1, C, 1, 1)). Returns the path as a string."""
+    from neurofluid_torch.utils import lpips
+
+    rng = np.random.default_rng(seed)
+    arrays, cin, i = {}, 3, 0
+    for item in lpips._VGG16_CFG:
+        if item == "M":
+            continue
+        arrays[f"vgg_conv{i}_weight"] = (rng.normal(size=(item, cin, 3, 3))
+                                         * np.sqrt(2.0 / (9 * cin))).astype(
+                                             np.float32)
+        arrays[f"vgg_conv{i}_bias"] = (rng.normal(size=(item,)) * 0.01
+                                       ).astype(np.float32)
+        cin, i = item, i + 1
+    for k, c in enumerate(lpips._TAP_CHANNELS):
+        shape = (1, c, 1, 1) if k % 2 else (c,)
+        arrays[f"lin{k}_weight"] = rng.uniform(0, 0.1, shape).astype(
+            np.float32)
+    np.savez(path, **arrays)
+    return str(path)
+
+
+def test_chamfer_and_lpips_on_the_card(dev, tmp_path):
+    """The chamfer distance and LPIPS on the card against the CPU (TF32
+    off): chamfer within 1e-6, LPIPS within 1e-4 relative."""
+    from neurofluid_torch.ops import chamfer
+    from neurofluid_torch.utils import lpips
+
+    rng = np.random.default_rng(2)
+    x = torch.tensor(rng.uniform(-1, 1, (3000, 3)), dtype=torch.float32)
+    y = x[:2000] + torch.tensor(rng.normal(size=(2000, 3)) * 0.02,
+                                dtype=torch.float32)
+    want = float(chamfer.chamfer_distance(x, y))
+    got = float(chamfer.chamfer_distance(x.to(dev), y.to(dev)))
+    assert abs(got - want) <= 1e-6
+    path = lpips_weights(tmp_path / "w.npz")
+    a = rng.uniform(size=(48, 48, 3)).astype(np.float32)
+    b = np.clip(a + rng.normal(size=a.shape) * 0.1, 0, 1).astype(np.float32)
+    want = lpips.LPIPSEvaluator(path, device="cpu")(a, b)
+    got = lpips.LPIPSEvaluator(path, device=dev)(a, b)
+    assert want > 0 and abs(got - want) <= 1e-4 * want

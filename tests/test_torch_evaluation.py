@@ -107,6 +107,35 @@ def test_chunk_renderer_ragged_matches_one_render():
     assert float(out["opacity1"].max()) > 0.1
 
 
+def test_chunk_renderer_builds_the_list_grid_once(monkeypatch):
+    """On the list path's grid backend the chunked render builds the
+    particles' grid once for all its blocks (as the JAX package's scan
+    does) and still equals one unchunked render."""
+    rng = np.random.default_rng(11)
+    net = RenderNet(near=1.0, far=3.0, n_samples=8, n_importance=4,
+                    nerf_depth=2, nerf_width=32, num_neighbors=6,
+                    grid_lower=(-0.5, -0.5, -0.5), grid_upper=(0.5, 0.5, 0.5),
+                    search_mode="list", search_backend="grid", device="cpu")
+    builds = []
+    build = net.build_grid
+    monkeypatch.setattr(net, "build_grid",
+                        lambda p: builds.append(1) or build(p))
+    pos = torch.from_numpy(rng.uniform(-0.4, 0.4, (60, 3)).astype(np.float32))
+    ro = torch.tensor([0.0, 0.0, 2.0])
+    d = np.tile([0.0, 0.0, -1.0], (13, 1)).astype(np.float32)
+    d[:, 1] += np.linspace(-0.15, 0.15, 13, dtype=np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    rays = np.concatenate([np.tile(ro.numpy(), (13, 1)), d], -1)
+    out = TrainerBase.make_chunk_renderer(None, net, chunk=4)(pos, ro, rays)
+    assert len(builds) == 1
+    with torch.no_grad():
+        want = net(pos, ro, torch.from_numpy(rays))
+    for k in ("rgb0", "rgb1", "num_nn_0", "mask_1"):
+        np.testing.assert_allclose(out[k].numpy(), want[k].numpy(),
+                                   rtol=1e-5, atol=1e-5, err_msg=k)
+    assert int(want["mask_0"].sum()) > 0
+
+
 def test_e2e_and_renderer_evaluators_run(scene, tmp_path, capsys):
     """Both evaluators from checkpoints on the tiny scene (one render chunk
     a frame, two test frames): the report, the clouds and the images."""

@@ -34,8 +34,8 @@ def _both(points, queries, k, cap=32, **kw):
     """(port NeighborList, overflow), (JAX pallas), (JAX xla) on one input."""
     tgrid = tns.build_cell_grid(torch.from_numpy(points), LOWER, UPPER,
                                 RADIUS, cap)
-    t = tfq.ball_query_compact(torch.from_numpy(queries), tgrid, LOWER,
-                               UPPER, RADIUS, k, **kw)
+    t = tfq.ball_query_compact(torch.from_numpy(queries), tgrid, RADIUS, k,
+                               **kw)
     jgrid = jns.build_cell_grid(jnp.asarray(points), LOWER, UPPER, RADIUS,
                                 max_per_cell=cap)
     js = [jfq.ball_query_compact(jnp.asarray(queries), jgrid, LOWER, UPPER,

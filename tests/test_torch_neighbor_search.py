@@ -210,9 +210,36 @@ def test_radius_search_and_gathered_positions():
 
 
 def test_approximate_selection_is_refused():
-    pts = torch.rand((20, 3), generator=torch.Generator().manual_seed(9))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tns.radius_search_brute(pts[:4], pts, 0.2, 4, selection="approx")
+    """selection='approx' is no longer refused: it is the exact selection,
+    slot for slot the port's 'sort' and JAX's 'approx' (whose
+    `lax.approx_max_k` is exact off the TPU), on both searches and in
+    both orders; an unknown selection is refused."""
+    pts, q = _cloud(np.random.default_rng(9))
+    grid_t = tns.build_cell_grid(torch.from_numpy(pts), LO, HI, 0.25, 64)
+    grid_j = jns.build_cell_grid(jnp.asarray(pts), LO, HI, 0.25,
+                                 max_per_cell=64)
+    for order in ("index", "nearest"):
+        kw = dict(order=order, query_chunk=50)
+        t, j = _both(
+            lambda a, b: tns.radius_search_brute(a, b, 0.25, 8,
+                                                 selection="approx", **kw),
+            lambda a, b: jns.radius_search_brute(a, b, 0.25, 8,
+                                                 selection="approx", **kw),
+            q, pts)
+        _assert_lists_equal(t, j)
+        exact = tns.radius_search_brute(torch.from_numpy(q),
+                                        torch.from_numpy(pts), 0.25, 8,
+                                        selection="sort", **kw)
+        assert torch.equal(exact.idx, t.idx)
+        tg, _ = tns.radius_search_grid(torch.from_numpy(q), grid_t, 0.25, 8,
+                                       selection="approx", **kw)
+        jg, _ = jns.radius_search_grid(jnp.asarray(q), grid_j, 0.25, 8,
+                                       selection="approx", **kw)
+        _assert_lists_equal(tg, jg)
+        assert int(t.count.max()) > 8
+    with pytest.raises(ValueError, match="unknown selection"):
+        tns.radius_search_brute(torch.from_numpy(q), torch.from_numpy(pts),
+                                0.25, 8, selection="topk")
 
 
 def _spy(monkeypatch, module, ran):

@@ -2,6 +2,7 @@
 against neurofluid_tpu.ops.ray_ops and the Pallas compositing kernel in
 interpret mode. Same numpy inputs through both packages, f32 on the CPU."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -135,10 +136,12 @@ def test_ndc_rays_match_jax(rng):
                                    atol=1e-6 * np.abs(b).max())
 
 
-def test_importance_sampling_det_matches_jax(rng):
+def test_importance_sampling_det_matches_jax(rng, monkeypatch):
     """The fine samples of the deterministic path: merged, sorted z values
     (z ~ 13, so within 2e-5 as sample_pdf) and their points; the new
-    samples carry no gradient; det=False is refused."""
+    samples carry no gradient. det=False on JAX's uniforms, fed through
+    `ray_ops.uniform`, places the same samples; without a generator it is
+    refused."""
     n, s0, si = 9, 64, 128
     rays = _rays(rng, n)
     z0 = np.sort(rng.uniform(9.0, 13.0, (n, s0)).astype(np.float32), -1)
@@ -157,7 +160,32 @@ def test_importance_sampling_det_matches_jax(rng):
                                atol=3e-5)
     assert bool((zt[:, 1:] >= zt[:, :-1]).all())
     assert not zt.requires_grad
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    # det=False: uniform CDF levels from the generator; fed JAX's own
+    # draws through `ray_ops.uniform` it places the same samples
+    key = jax.random.PRNGKey(2)
+    u = np.array(jax.random.uniform(key, (n, si)))
+    seen = []
+
+    def fed(shape, generator, dtype, device):
+        seen.append(tuple(shape))
+        return torch.from_numpy(u).to(dtype)
+
+    with monkeypatch.context() as m:
+        m.setattr(tray, "uniform", fed)
+        xt, zt = tray.importance_sampling(
+            torch.from_numpy(z0), wt, si, torch.from_numpy(rays[:, :3]),
+            torch.from_numpy(rays[:, 3:]), False,
+            generator=torch.Generator())
+    xj, zj = jray.importance_sampling(jnp.asarray(z0), jnp.asarray(w), si,
+                                      jnp.asarray(rays[:, :3]),
+                                      jnp.asarray(rays[:, 3:]), False,
+                                      key=key)
+    assert seen == [(n, si)]
+    np.testing.assert_allclose(zt.numpy(), np.asarray(zj), rtol=0, atol=2e-5)
+    np.testing.assert_allclose(xt.detach().numpy(), np.asarray(xj), rtol=0,
+                               atol=3e-5)
+    # without a generator the random form refuses, as JAX's without a key
+    with pytest.raises(ValueError, match="torch.Generator"):
         tray.importance_sampling(torch.from_numpy(z0), wt, si,
                                  torch.from_numpy(rays[:, :3]),
                                  torch.from_numpy(rays[:, 3:]), False)

@@ -227,19 +227,52 @@ def test_resume_continues_the_schedule(trainers, tmp_path):
 
 
 def test_build_renderer_refuses_what_is_not_ported(tmp_path):
+    """Every RENDERER key reaches the RenderNet as the JAX package's
+    `build_renderer` sets it (the list mode, each encoding switch, bf16,
+    the backend and the selection, and their defaults when a key is
+    absent), so nothing JAX accepts is refused any more; a value that
+    names nothing is."""
+    from neurofluid_tpu.train.warmup import build_renderer as jbuild
+
+    fields = ("near", "far", "n_samples", "n_importance", "search_radius",
+              "num_neighbors", "use_mask", "encode_density", "encode_var",
+              "encode_smoothed_pos", "encode_smoothed_dir", "exclude_ray",
+              "same_smooth_factor", "search_mode", "search_backend",
+              "search_selection", "in_channels_xyz", "in_channels_dir")
     base = dict(_cfg(str(tmp_path)), expdir=str(tmp_path))
     for path, value in ((("NN_search", "mode"), "list"),
+                        (("NN_search", "backend"), "grid"),
+                        (("NN_search", "selection"), "sort"),
+                        (("encoding", "density"), False),
                         (("encoding", "var"), False),
-                        (("bf16",), True)):
+                        (("encoding", "smoothed_pos"), False),
+                        (("encoding", "smoothed_dir"), False),
+                        (("encoding", "exclude_ray"), False),
+                        (("encoding", "same_smooth_factor"), True),
+                        (("bf16",), True), (None, None)):
         cfg = ConfigNode(base)
-        node = cfg.RENDERER
-        for key in path[:-1]:
-            node = node[key]
-        node[path[-1]] = value
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        if path is not None:
+            node = cfg.RENDERER
+            for key in path[:-1]:
+                node = node[key]
+            node[path[-1]] = value
+        else:  # the optional keys absent: JAX's defaults
+            del cfg.RENDERER.NN_search["backend"]
+            del cfg.RENDERER.NN_search["mode"]
+            del cfg.RENDERER.encoding["same_smooth_factor"]
+        tnet = build_renderer(cfg, device="cpu")
+        jnet = jbuild(cfg)
+        for name in fields:
+            assert getattr(tnet, name) == getattr(jnet, name), (path, name)
+        assert (tnet.compute_dtype == torch.bfloat16) == (
+            jnet.compute_dtype == jnp.bfloat16), path
+        assert tnet.nerf_coarse.xyz_encoding_1[0].in_features == \
+            jnet.in_channels_xyz
+        if path is not None and path[-1] == "bf16":
+            assert tnet.nerf_fine.compute_dtype == torch.bfloat16
+            assert tnet.nerf_fine.sigma.weight.dtype == torch.float32
+    for key, value in (("mode", "sparse"), ("backend", "fused")):
+        cfg = ConfigNode(base)
+        cfg.RENDERER.NN_search[key] = value
+        with pytest.raises(ValueError, match=f"unknown search_{key}"):
             build_renderer(cfg, device="cpu")
-    # the backend and selection keys are read by nothing, as in JAX
-    cfg = ConfigNode(base)
-    cfg.RENDERER.NN_search.backend = "grid"
-    cfg.RENDERER.NN_search.selection = "sort"
-    build_renderer(cfg, device="cpu")
