@@ -3,7 +3,8 @@
 GPU at the bench working point: the serving path (rollout + render), the
 end-to-end train step, the transition-only train step on three search
 backends, a scene written, loaded and rendered, the stage trainers and
-evaluators at full width, and the renderer's options and list path.
+evaluators at full width, the renderer's options and list path, and the
+sharded paths in a world of one over NCCL.
 
     python3 chip_smoke.py
 
@@ -103,7 +104,18 @@ Phases (each prints its own line; any failure raises and exits non-zero):
    equal), exclude_ray=False, the chamfer distance of 4's end state
    against its start beside scipy's cKDTree, and LPIPS of two 400 x 400
    images on random weights written under build/;
-14. the kernels line, the card line, and the result line last.
+14. sharded paths (`parallel_phase`) in a world of one over NCCL (a
+   FileStore under build/): SHARDED_STEPS steps of `make_sharded_e2e_step`
+   (K1 5, K2 5, K3-K6 2 per step) against phase 6's step, the all-gather
+   particle step on 'auto' and the halo step on 'grid' at the
+   13,824-particle lattice (halo 1,024) against the unsharded step, and
+   SHARDED_STEPS steps of `make_spmd_e2e_step` on a 1 x 1 mesh on 'auto'
+   (K3-K6 2, K8 at least 1 per step) against the replicated step, within
+   the JAX dry run's tolerances, with host-clock medians and peak memory;
+   then the native library's chamfer distance against ops/chamfer.py's on
+   the card, and a scene from `cli.generate_data` loaded by
+   `BlenderDataset`;
+15. the kernels line, the card line, and the result line last.
 
 Without a CUDA device, or without the package beside it, the script exits
 non-zero before printing any result.
@@ -216,6 +228,19 @@ CCONV_STEP_TOL = {"loss": 1e-5, "grad_norm": 1e-3, "grads": 1e-3}
 # order (nearest first against cell order): f32 summation order. Loss and
 # grad_norm relative; each gradient leaf relative to its own largest entry.
 AUTO_STEP_TOL = {"loss": 1e-5, "grad_norm": 1e-4, "leaf": 1e-4}
+# phase 14, the sharded paths in a world of one over NCCL: steps per path,
+# launches per step (the spmd step also K8, at least once: the adjoint of
+# the list conv's gathers of the hidden layers' features), the lattice's
+# halo, and the JAX dry run's tolerances (neurofluid_tpu/parallel/dryrun.py
+# `dryrun_multichip`: positions 1e-5, 1e-4 on the lattice, loss rtol 1e-5,
+# gradient norms rtol 2e-3)
+SHARDED_STEPS = 3
+PARALLEL_LAUNCHES = {"ray-sharded": {"K1": 5, "K2": 5, "K3": 2, "K4": 2,
+                                     "K5": 2, "K6": 2},
+                     "spmd": {"K3": 2, "K4": 2, "K5": 2, "K6": 2}}
+LATTICE_HALO = 1024
+DRYRUN_TOL = {"pos": 1e-5, "lattice_pos": 1e-4, "loss": 1e-5,
+              "grad_norm": 2e-3}
 # K5 once more on rays longer than a warp's 256 samples (its tile path)
 K5_LONG_SAMPLES = 300
 # the scene-to-render pass: a synthetic Blender-layout scene written by the
@@ -1227,6 +1252,280 @@ def options_phase(torch, dev, problem, init_state, reset_counts, counts,
     return phase, k8_calls
 
 
+def parallel_phase(torch, problem, init_state, reset_counts, counts,
+                   build_dir, step_ms):
+    """Phase 14: the sharded paths of `neurofluid_torch.parallel` in a world
+    of one over NCCL (a FileStore in a temporary directory under build/,
+    rank 0 of 1, destroyed at the end): every collective is a real NCCL
+    call that moves nothing between ranks. The multi-rank math is held on
+    the CPU over gloo (tests/test_torch_parallel*.py and
+    `python -m neurofluid_torch.parallel.dryrun 4`). At the bench point:
+    (a) SHARDED_STEPS steps of `make_sharded_e2e_step` (the ray batch over
+        a 1-D 'rays' mesh, the fused_cconv transition replicated), state
+        carried, each against phase 6's step from the same weights and
+        state (loss and next_pos within STEP_TOL), launches per step
+        PARALLEL_LAUNCHES["ray-sharded"];
+    (b) `make_sharded_particle_step` on 'auto' (the all-gather) and
+        `make_halo_particle_step` on 'grid' at the 13,824-particle lattice
+        with halo 1,024, each against the unsharded step (neighbour counts
+        equal, positions within DRYRUN_TOL), no overflow;
+    (c) SHARDED_STEPS steps of `make_spmd_e2e_step` on a 1 x 1
+        ('particles', 'rays') mesh on 'auto' with the dense renderer, state
+        carried, each against the replicated e2e step on 'auto' (loss,
+        gradient norms, next positions within DRYRUN_TOL), launches per
+        step PARALLEL_LAUNCHES["spmd"] and K8 at least once; the replicas'
+        parameters and Adam states compared bitwise;
+    host-clock medians beside phase 6's step (`step_ms`) and peak memory;
+    then the host tools: the native library built, its chamfer distance of
+    the rollout's end state against the start within CHAMFER_TOL of
+    ops/chamfer.py's on the card, and `cli.generate_data` writing a scene
+    under build/ that `BlenderDataset` loads. Returns the phase's launches
+    (the sharded steps'; the references' are comparisons)."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from neurofluid_torch import native, scene
+    from neurofluid_torch.cli import generate_data
+    from neurofluid_torch.data import BlenderDataset
+    from neurofluid_torch.models import ParticleNet, RenderNet
+    from neurofluid_torch.ops import chamfer
+    from neurofluid_torch.parallel import dryrun
+    from neurofluid_torch.parallel.mesh import init_world, make_mesh
+    from neurofluid_torch.parallel.sharding import (
+        make_halo_particle_step, make_sharded_e2e_step,
+        make_sharded_particle_step, make_spmd_e2e_step, particle_rows,
+        shard_ray_batch, spmd_ray_sharding,
+    )
+    from neurofluid_torch.train import losses
+    from neurofluid_torch.train.e2e import make_e2e_train_step
+
+    pos, vel, box, nrm, ro_v, rays_v, rgbs_v, end = problem
+    phase = {k: 0 for k in counts()}
+    phase_t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_world_", dir=build_dir)
+    dev = init_world(0, 1, f"file://{os.path.join(tmp, 'store')}", "cuda")
+    print(f"parallel phase: world of {dist.get_world_size()} over "
+          f"{dist.get_backend()} on {dev} (FileStore under build/)",
+          flush=True)
+    bounds = losses.default_box_bounds(device=dev)
+
+    def models(backend, shard_group=None):
+        """The seeded initial weights on `backend`, and their Adams."""
+        net = ParticleNet(**{**scene.particle_net_kwargs(),
+                             "search_backend": backend},
+                          shard_group=shard_group, device=dev,
+                          generator=torch.Generator().manual_seed(1))
+        ren = RenderNet(device=dev, generator=torch.Generator().manual_seed(2))
+        net.load_state_dict(init_state[0])
+        ren.load_state_dict(init_state[1])
+        return (net, ren, torch.optim.Adam(ren.parameters(), lr=LR_RENDERER),
+                torch.optim.Adam(net.parameters(), lr=LR_TRANSITION))
+
+    def steps(what, step, args, want=None, at_least=(), box_plan=None):
+        """SHARDED_STEPS steps, the state carried: per step the loss, next
+        state, grad norms and host-clock ms; with `want`, each step's
+        launches held to it (those named in `at_least` to at least one)
+        and added to the phase's."""
+        p, v = args[:2]
+        out = []
+        for i in range(SHARDED_STEPS):
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            loss, p, v, aux = step(p, v, *args[2:], box_plan=box_plan)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            launched = counts()
+            if want is not None:
+                bad = {k: n for k, n in launched.items()
+                       if (n < 1 if k in at_least else n != want.get(k, 0))}
+                if bad:
+                    raise AssertionError(f"parallel phase, {what} step {i}: "
+                                         f"launches {launched}, want {want}"
+                                         f" and {at_least} at least once")
+                for k, n in launched.items():
+                    phase[k] += n
+            if bool(aux["search_overflow"]) or not torch.isfinite(loss):
+                raise AssertionError(f"parallel phase, {what} step {i}: "
+                                     f"loss {float(loss)}, overflow "
+                                     f"{bool(aux['search_overflow'])}")
+            out.append(dict(loss=float(loss), pos=p,
+                            gn_r=float(aux["grad_norm_renderer"]),
+                            gn_t=float(aux["grad_norm_transition"]), ms=ms,
+                            launched={k: n for k, n in launched.items() if n}))
+        return out
+
+    def timed3(fn):
+        """fn() three times: (the last result, the host-clock median ms)."""
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return res, statistics.median(times)
+
+    def compare(what, got, want, tol):
+        worst = {"loss": 0.0, "next_pos": 0.0, "grad_norm": 0.0}
+        for g, w in zip(got, want):
+            worst["loss"] = max(worst["loss"],
+                                abs(g["loss"] - w["loss"]) / abs(w["loss"]))
+            worst["next_pos"] = max(worst["next_pos"],
+                                    float((g["pos"] - w["pos"]).abs().max()))
+            for key in ("gn_r", "gn_t"):
+                worst["grad_norm"] = max(worst["grad_norm"],
+                                         abs(g[key] - w[key]) / w[key])
+        bad = {k: v for k, v in worst.items() if k in tol and not v <= tol[k]}
+        ms = statistics.median(g["ms"] for g in got)
+        ref_ms = statistics.median(w["ms"] for w in want)
+        print(f"parallel phase, {what}: {SHARDED_STEPS} steps, losses "
+              + ", ".join(f"{g['loss']:.6f}" for g in got)
+              + f" (reference " + ", ".join(f"{w['loss']:.6f}" for w in want)
+              + "); worst diffs " + ", ".join(f"{k} {v:.3e}"
+                                              for k, v in worst.items())
+              + f" (tol {tol}); host-clock median {ms:.2f} ms a step "
+              f"(reference in this phase {ref_ms:.2f} ms, phase 6's step "
+              f"{step_ms:.2f} ms); launches per step {got[0]['launched']}",
+              flush=True)
+        if bad:
+            raise AssertionError(f"parallel phase, {what}: {bad}")
+
+    try:
+        # ---- (a) the ray-sharded e2e step, the transition replicated
+        mesh_r = make_mesh(axis_names=("rays",))
+        e2e_args = (pos, vel, box, nrm, ro_v, shard_ray_batch(rays_v, mesh_r),
+                    shard_ray_batch(rgbs_v, mesh_r))
+        net, ren, opt_r, opt_t = models("fused_cconv")
+        ref = steps("phase 6's step", make_e2e_train_step(
+            net, ren, opt_r, opt_t, bounds, BD_WEIGHT), e2e_args,
+            box_plan=net.make_box_plan(box))
+        net, ren, opt_r, opt_t = models("fused_cconv")
+        torch.cuda.reset_peak_memory_stats()
+        got = steps("ray-sharded", make_sharded_e2e_step(
+            net, ren, opt_r, opt_t, bounds, BD_WEIGHT, mesh_r), e2e_args,
+            PARALLEL_LAUNCHES["ray-sharded"], box_plan=net.make_box_plan(box))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        compare(f"ray-sharded e2e step (make_sharded_e2e_step, 1 x "
+                f"{rays_v.shape[1]} rays, fused_cconv; peak {peak:.2f} GiB) "
+                f"against phase 6's step", got, ref,
+                {"loss": STEP_TOL["loss"], "next_pos": STEP_TOL["next_pos"]})
+        del ref, got, net, ren, opt_r, opt_t
+
+        # ---- (b) the particle-sharded transition steps
+        mesh_p = make_mesh(axis_names=("particles",))
+        group = mesh_p.group("particles")
+        lattice = tuple(torch.from_numpy(a).to(dev)
+                        for a in dryrun.lattice_problem(1))
+        cases = (
+            ("all-gather on 'auto'", make_sharded_particle_step,
+             {**scene.particle_net_kwargs(), "search_backend": "auto"},
+             (pos, vel, box, nrm), DRYRUN_TOL["pos"]),
+            ("halo 1,024 on 'grid', 13,824-particle lattice",
+             make_halo_particle_step,
+             {**dryrun.LATTICE_NET, "halo_size": LATTICE_HALO}, lattice,
+             DRYRUN_TOL["lattice_pos"]))
+        for what, make, kw, args, tol in cases:
+            ref_kw = {k: v for k, v in kw.items() if k != "halo_size"}
+            nets = [ParticleNet(**kw_, device=dev,
+                                generator=torch.Generator().manual_seed(0))
+                    for kw_ in ({**kw, "shard_group": group}, ref_kw)]
+            nets[1].load_state_dict(nets[0].state_dict())
+            step = make(nets[0], mesh_p)
+            b_plan = nets[0].make_box_plan(args[2])
+            rows = particle_rows(mesh_p)
+            with torch.no_grad():
+                sh, sh_ms = timed3(lambda: step(
+                    rows.local(args[0]), rows.local(args[1]), *args[2:],
+                    box_plan=b_plan))
+                un, un_ms = timed3(lambda: nets[1](*args, box_plan=b_plan))
+            mism = int((sh[2] != un[2]).sum())
+            d_pos = float((sh[0] - un[0]).abs().max())
+            flags = {k: bool(v) for k, v in sh[3].items()}
+            print(f"parallel phase (b), particle-sharded step, {what} "
+                  f"({args[0].shape[0]} particles): neighbour counts that "
+                  f"differ {mism}, max |pos diff| {d_pos:.3e} (tol "
+                  f"{tol:.0e}), flags {flags}; host-clock medians sharded "
+                  f"{sh_ms:.2f} ms, unsharded {un_ms:.2f} ms",
+                  flush=True)
+            if mism or not d_pos <= tol or any(flags.values()):
+                raise AssertionError(f"parallel phase (b), {what}: counts "
+                                     f"{mism}, pos {d_pos:.3e}, {flags}")
+            del nets, step, sh, un
+        del lattice
+
+        # ---- (c) the composed step on a 1 x 1 mesh, on 'auto'
+        mesh_c = make_mesh((1, 1), ("particles", "rays"))
+        blocks = spmd_ray_sharding(mesh_c)
+        rows = particle_rows(mesh_c)
+        c_args = (rows.local(pos), rows.local(vel), box, nrm, ro_v,
+                  blocks.local(rays_v), blocks.local(rgbs_v))
+        net, ren, opt_r, opt_t = models("auto")
+        ref = steps("replicated on 'auto'", make_e2e_train_step(
+            net, ren, opt_r, opt_t, bounds, BD_WEIGHT), c_args,
+            box_plan=net.make_box_plan(box))
+        net, ren, opt_r, opt_t = models("auto", mesh_c.group("particles"))
+        torch.cuda.reset_peak_memory_stats()
+        got = steps("spmd", make_spmd_e2e_step(
+            net, ren, opt_r, opt_t, bounds, BD_WEIGHT, mesh_c), c_args,
+            PARALLEL_LAUNCHES["spmd"], at_least=("K8",),
+            box_plan=net.make_box_plan(box))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        equal = dryrun.replicas_equal(mesh_c, (ren, net), (opt_r, opt_t))
+        compare(f"composed e2e step (make_spmd_e2e_step, 1 x 1 mesh, "
+                f"'auto', dense renderer; peak {peak:.2f} GiB; replicas "
+                f"bitwise equal {equal}) against the replicated step on "
+                f"'auto'", got, ref,
+                {"loss": DRYRUN_TOL["loss"], "grad_norm":
+                 DRYRUN_TOL["grad_norm"], "next_pos": DRYRUN_TOL["pos"]})
+        if not equal:
+            raise AssertionError("parallel phase (c): replicas differ")
+        del ref, got, net, ren, opt_r, opt_t
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp)
+
+    # ---- host tools: the native library, generate_data
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError("the native library did not build")
+    build_s = time.perf_counter() - t0
+    e_np, p_np = end.cpu().numpy(), pos.cpu().numpy()
+    t0 = time.perf_counter()
+    cd_native = native.chamfer(e_np, p_np)
+    native_ms = (time.perf_counter() - t0) * 1e3
+    cd_card = float(chamfer.chamfer_distance(end, pos))
+    scene_dir = tempfile.mkdtemp(prefix="chip_smoke_generate_", dir=build_dir)
+    try:
+        t0 = time.perf_counter()
+        generate_data.main(["--out", os.path.join(scene_dir, "scene"),
+                            "--frames", "2", "--img-size", "64",
+                            "--n-side", "8"])
+        ds = BlenderDataset(os.path.join(scene_dir, "scene"), img_wh=(64, 64),
+                            view_names=["view_1"], end_index=2)
+        sample = ds[0]
+        gen_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(scene_dir)
+    print(f"parallel phase, host tools: native library "
+          f"({native.library_path().name}) built and loaded in {build_s:.2f}"
+          f" s; its chamfer of the rollout's end state against the start "
+          f"{cd_native:.9e} in {native_ms:.1f} ms on the host, ops/chamfer.py"
+          f" on the card {cd_card:.9e}, diff {abs(cd_native - cd_card):.3e} "
+          f"(tol {CHAMFER_TOL:.0e}); generate_data wrote a 2-frame 64 x 64 "
+          f"scene of {sample['particles_pos'].shape[0]} particles that "
+          f"BlenderDataset loaded ({len(ds)} samples, rays "
+          f"{tuple(sample['rays'].shape)}) in {gen_s:.2f} s", flush=True)
+    if not abs(cd_native - cd_card) <= CHAMFER_TOL:
+        raise AssertionError(f"native chamfer {cd_native} vs {cd_card}")
+    if sample["particles_pos"].shape != (512, 3) or not np.isfinite(
+            sample["rays"]).all():
+        raise AssertionError("generate_data's scene did not load")
+    print(f"parallel phase: launches {phase} in "
+          f"{time.perf_counter() - phase_t0:.1f} s", flush=True)
+    return phase
+
+
 def main():
     import torch
 
@@ -2217,10 +2516,19 @@ def main():
                      in_totals=False)
     del k8_calls
 
-    # ---- 14. summary lines. launches: each kernel's count over the counted
+    # ---- 14. the sharded paths in a world of one over NCCL, and the host
+    # tools
+    launched = parallel_phase(
+        torch, (pos, vel, box, nrm, ro_v, rays_v, rgbs_v, serve_end),
+        init_state, reset_counts, counts, build_dir,
+        bare_ms["e2e fused_cconv"])
+    total_launches = {k: v + launched[k] for k, v in total_launches.items()}
+
+    # ---- 15. summary lines. launches: each kernel's count over the counted
     # runs (the serving path once, the e2e train path TRAIN_STEPS times, the
     # transition train path TRANSITION_STEPS times on each backend, the
-    # scene render once, the trainers phase, the options phase); the times
+    # scene render once, the trainers phase, the options phase, the
+    # parallel phase's sharded steps); the times
     # are per serving pass (K1: per rollout step), per e2e train step (K2,
     # K4, K6) or per transition train step on `fused` (K7, K8)
     sources = {

@@ -1,5 +1,6 @@
 """ParticleNet: the learned Lagrangian fluid transition model (port of
-neurofluid_tpu/models/particle_net.py, every search backend, unsharded).
+neurofluid_tpu/models/particle_net.py, every search backend, and its
+sharded forward).
 
 One step (reference models/transmodel.py:100-148):
 1. semi-implicit Euler with gravity: v' = v + g dt; x' = x + (v + v')/2 dt;
@@ -25,6 +26,17 @@ being the segment sum (K8 on the card). `search_backend='grid'`,
 force; `'auto'` takes the grid from AUTO_GRID_POINTS searched points on)
 and run the same list conv. All backends compute the same sums wherever no
 neighbourhood exceeds its cap; `cap_exceeded` says when one does.
+
+Sharded (`shard_group`, a process group; JAX's `shard_axis` inside
+`shard_map`): pos and vel are this rank's rows of the particle set, and the
+outputs are too. Each layer's inputs are extended by the other ranks'
+rows: all of them (`all_gather_rows`, whose backward is the reduce-scatter
+of the gathered rows' cotangent), or with `halo_size` > 0 only the H rows
+at each face of this rank's slab, from the ranks on either side
+(`_halo_plan`). Sharded, every backend runs the list conv: 'fused_cconv'
+searches by brute force (the box by its grid when one is passed) and
+'fused' by the grid with the halo slots' valid mask, as the JAX package
+routes them.
 """
 
 from __future__ import annotations
@@ -43,6 +55,9 @@ from neurofluid_torch.ops import fused_cconv as fc
 from neurofluid_torch.ops import fused_query, segment_ops
 from neurofluid_torch.ops import neighbor_search as ns
 from neurofluid_torch.ops.neighbor_search import CellGrid, build_cell_grid
+from neurofluid_torch.parallel.collectives import (
+    all_gather_rows, any_over, shift,
+)
 
 SEARCH_BACKENDS = ("fused_cconv", "fused", "grid", "brute", "auto")
 # 'auto' searches by grid from this many searched points on, else by brute
@@ -99,7 +114,8 @@ class ParticleNet(nn.Module):
                  grid_lower: tuple = (-1.05, -1.05, -1.05),
                  grid_upper: tuple = (1.05, 1.05, 2.55),
                  grid_max_per_cell: int = 32, query_chunk: int = 4096,
-                 conv_precision: str = "highest",
+                 conv_precision: str = "highest", shard_group=None,
+                 halo_size: int = 0, halo_axis: int = 0,
                  device="cuda", generator: torch.Generator | None = None):
         """`fluid_neighbor_k`, `obstacle_neighbor_k` and `grid_max_per_cell`
         are the static caps of the list backends' lists and cell tables
@@ -113,6 +129,13 @@ class ParticleNet(nn.Module):
         the value changes nothing.
         `other_feats_channels`: width of the optional per-particle `feats`
         of `forward`.
+        `shard_group`: the process group over which the particles are
+        sharded (see the module docstring); `halo_size` > 0 switches its
+        all-gather to the slab halo exchange, with the caller's contract
+        that the particles were sorted by coordinate `halo_axis` before
+        they were split into equal contiguous blocks. A halo too small for
+        the band within the radius of a slab face, or a slab narrower than
+        the radius, sets `grid_overflow` on every rank.
 
         The default backend is `'fused_cconv'`, where the JAX package's is
         `'auto'`: `'fused_cconv'` sums every in-radius neighbour, exact and
@@ -126,14 +149,17 @@ class ParticleNet(nn.Module):
         super().__init__()
         if search_backend not in SEARCH_BACKENDS:
             raise ValueError(
-                f"unknown search_backend {search_backend!r}: this package "
-                f"has every backend of the JAX package, {SEARCH_BACKENDS}; "
-                f"what remains unported is the sharded step (shard_axis, "
-                f"halo_size: ROADMAP.md Queue 1, parallel/)")
+                f"unknown search_backend {search_backend!r}: expected one "
+                f"of {SEARCH_BACKENDS}")
+        if halo_size and shard_group is None:
+            raise ValueError("halo_size > 0 needs a shard_group")
         if str(conv_precision).lower() not in CONV_PRECISIONS:
             raise ValueError(f"unknown conv_precision {conv_precision!r}: "
                              f"expected one of {CONV_PRECISIONS}")
         self.search_backend = search_backend
+        self.shard_group = shard_group
+        self.halo_size = int(halo_size)
+        self.halo_axis = int(halo_axis)
         self.query_chunk = query_chunk
         self.fluid_neighbor_k = fluid_neighbor_k
         self.obstacle_neighbor_k = obstacle_neighbor_k
@@ -184,14 +210,14 @@ class ParticleNet(nn.Module):
     def make_box_plan(self, box: torch.Tensor):
         """Search structure of the static boundary particles: build it once
         per scene and pass it to every step. A candidate-only `CConvPlan`
-        on the `fused_cconv` backend; None on `brute`, which searches the
-        box by brute force; else a `CellGrid` (cell = radius), which sends
-        the box search through the grid on `grid` and `auto` whatever the
-        box's size (`search_route`), as the JAX trainers' `make_grid`
-        does."""
+        on the unsharded `fused_cconv` backend; None on `brute`, which
+        searches the box by brute force; else a `CellGrid` (cell = radius),
+        which sends the box search through the grid on `grid` and `auto`
+        whatever the box's size (`search_route`), as the JAX trainers'
+        `make_grid` does."""
         if self.search_backend == "brute":
             return None
-        if self.search_backend != "fused_cconv":
+        if self.search_backend != "fused_cconv" or self.shard_group is not None:
             return self.make_grid(box)
         return fc.build_plan(box, self.grid_lower, self.grid_upper,
                              self.cell_size, with_groups=False,
@@ -218,6 +244,7 @@ class ParticleNet(nn.Module):
         fluid = torch.cat(fluid, dim=-1)
         layers = (self._fused_cconv_layers
                   if self.search_backend == "fused_cconv"
+                  and self.shard_group is None
                   else self._list_layers)
         correction, counts, diag = layers(pos_new, fluid, box, box_feats,
                                           box_plan)
@@ -264,22 +291,29 @@ class ParticleNet(nn.Module):
         """The search a list backend runs over `n_points` points, as the
         JAX package's `_search` routes it: 'fused' (K7's compact lists),
         'grid' or 'brute'. 'auto' means 'grid' from AUTO_GRID_POINTS
-        points on, else 'brute'; and a passed grid sends 'brute' (and so
-        'auto' below the threshold) to the grid all the same."""
+        points on, else 'brute'; a passed grid sends 'brute' (and so
+        'auto' below the threshold) to the grid all the same. Sharded,
+        'fused' takes the grid (its halo slots need the valid mask) and
+        'fused_cconv' falls through to brute force, or to a passed grid."""
         backend = self.search_backend
         if backend == "auto":
             backend = "grid" if n_points >= AUTO_GRID_POINTS else "brute"
         if backend == "fused":
-            return "fused"
+            return "fused" if self.shard_group is None else "grid"
         return "grid" if backend == "grid" or grid is not None else "brute"
 
     def _search(self, queries, points, k: int, exclude_self: bool,
-                grid: CellGrid | None = None):
+                grid: CellGrid | None = None,
+                points_valid: torch.Tensor | None = None):
         """(NeighborList, grid_overflow) of `points` around `queries` by
-        `search_route`; the grid is built here when none is passed."""
+        `search_route`; the grid is built here when none is passed, from
+        the points that `points_valid` marks (all when None; brute force
+        excludes the others by their sentinel coordinates)."""
         route = self.search_route(points.shape[0], grid)
         if route != "brute" and grid is None:
-            grid = self.make_grid(points)
+            grid = build_cell_grid(points, self.grid_lower, self.grid_upper,
+                                   max(self.radius, 1e-6),
+                                   self.grid_max_per_cell, valid=points_valid)
         if route == "fused":
             return fused_query.ball_query_compact(
                 queries, grid, self.radius, k, exclude_self=exclude_self)
@@ -293,19 +327,77 @@ class ParticleNet(nn.Module):
             exclude_self=exclude_self, query_chunk=self.query_chunk),
             torch.zeros((), dtype=torch.bool, device=queries.device))
 
+    def _halo_plan(self, pos_new):
+        """The slab halo exchange (JAX `_halo_plan`): (extend_pos,
+        extend_feats, valid, halo_overflow). extend_* map this rank's
+        (Nl, C) rows to (Nl + 2H, C): its own, then the last H rows of
+        the rank before it, then the first H of the rank after it, where
+        they lie within the radius of the shared face; the other slots
+        read 1e9 (positions: outside every radius) or 0 (features), and
+        `valid` marks them False. halo_overflow, the same on every rank:
+        more than H particles in a face's band, a band member outside the
+        H-slot window (slots follow the pre-step order, the band the
+        integrated positions), or a slab narrower than the radius, so
+        that a rank two away could hold a neighbour."""
+        group, h = self.shard_group, self.halo_size
+        n_local = pos_new.shape[0]
+        if h > n_local:
+            raise ValueError(f"halo_size {h} > local particles {n_local}")
+        radius = self.radius
+        c = pos_new[:, self.halo_axis].detach()
+        hi, lo = c.max(), c.min()
+        suf_mask = c[-h:] > hi - radius  # candidates for the next rank
+        pre_mask = c[:h] < lo + radius  # ... and for the one before
+        over = (((c > hi - radius).sum() > h) | ((c < lo + radius).sum() > h)
+                | (c[:-h] > hi - radius).any() | (c[h:] < lo + radius).any())
+        lo_p2 = shift(lo.reshape(1), 2, group)
+        exists_p2 = shift(torch.ones_like(lo_p2), 2, group) > 0.5
+        over = over | (exists_p2 & (lo_p2 - hi < radius)).any()
+        halo_over = any_over(over, group)
+        r_msk = shift(suf_mask.float(), -1, group) > 0.5  # from rank - 1
+        l_msk = shift(pre_mask.float(), 1, group) > 0.5  # from rank + 1
+        valid = torch.cat([r_msk.new_ones(n_local), r_msk, l_msk])
+
+        def extend(x, fill):
+            r = torch.where(r_msk[:, None], shift(x[-h:], -1, group), fill)
+            left = torch.where(l_msk[:, None], shift(x[:h], 1, group), fill)
+            return torch.cat([x, r, left])
+
+        return (lambda p: extend(p, 1e9), lambda f: extend(f, 0.0), valid,
+                halo_over)
+
+    def _extension(self, pos_new):
+        """(extend_pos, extend_feats, points_valid, halo_overflow) of the
+        sharded forward: the identity unsharded, the all-gather over
+        `shard_group`, or the halo exchange."""
+        if self.shard_group is None:
+            return (lambda x: x), (lambda x: x), None, None
+        if self.halo_size > 0:
+            return self._halo_plan(pos_new)
+
+        def gather(x):
+            return all_gather_rows(x, self.shard_group)
+
+        return gather, gather, None, None
+
     def _list_layers(self, pos_new, fluid, box, box_feats, box_grid):
         extent = 2.0 * self.radius
-        fluid_nbrs, ov_fluid = self._search(pos_new, pos_new,
-                                            self.fluid_neighbor_k, True)
+        extend_pos, extend_feats, valid, halo_over = self._extension(pos_new)
+        all_pos = extend_pos(pos_new)
+        fluid_nbrs, ov_fluid = self._search(pos_new, all_pos,
+                                            self.fluid_neighbor_k, True,
+                                            points_valid=valid)
+        if halo_over is not None:
+            ov_fluid = ov_fluid | halo_over
         box_nbrs, ov_box = self._search(
             pos_new, box, self.obstacle_neighbor_k, False,
             grid=box_grid if isinstance(box_grid, CellGrid) else None)
 
         # the geometry and the backward plans, once per list for all layers
-        fluid_plan = segment_ops.AdjointPlan(fluid_nbrs.idx, pos_new.shape[0])
+        fluid_plan = segment_ops.AdjointPlan(fluid_nbrs.idx, all_pos.shape[0])
         box_plan = segment_ops.AdjointPlan(box_nbrs.idx, box.shape[0])
         fl_corner, fl_tapw = cconv.cconv_geometry(
-            pos_new, pos_new, fluid_nbrs, extent, self.kernel_size, fluid_plan)
+            all_pos, pos_new, fluid_nbrs, extent, self.kernel_size, fluid_plan)
         bx_corner, bx_tapw = cconv.cconv_geometry(
             box, pos_new, box_nbrs, extent, self.kernel_size, box_plan)
         # the fluid list feeds every fluid layer; the box list only one
@@ -313,7 +405,8 @@ class ParticleNet(nn.Module):
                                        math.prod(self.kernel_size))
 
         ans_fluid = self.conv0_fluid.forward_list(
-            fluid, fluid_nbrs, None, None, fluid_plan, tap_matrix=fl_tw)
+            extend_feats(fluid), fluid_nbrs, None, None, fluid_plan,
+            tap_matrix=fl_tw)
         ans_obstacle = self.conv0_obstacle.forward_list(
             box_feats, box_nbrs, bx_corner, bx_tapw, box_plan)
         h = torch.cat([ans_obstacle, ans_fluid, self.dense0_fluid(fluid)],
@@ -321,7 +414,8 @@ class ParticleNet(nn.Module):
         for i in range(1, len(self.layer_channels)):
             inp = torch.relu(h)
             ans_conv = getattr(self, f"conv{i}").forward_list(
-                inp, fluid_nbrs, None, None, fluid_plan, tap_matrix=fl_tw)
+                extend_feats(inp), fluid_nbrs, None, None, fluid_plan,
+                tap_matrix=fl_tw)
             out = ans_conv + getattr(self, f"dense{i}")(inp)
             h = out + h if out.shape[-1] == h.shape[-1] else out
 

@@ -325,3 +325,19 @@ def continuous_conv_apply(filters: torch.Tensor, corner, tapw,
     basis = torch.bmm(tw, nb_feats)  # (Q, T, Cin)
     return basis.reshape(-1, num_taps * cin) @ filters.reshape(
         num_taps * cin, cout)
+
+
+def continuous_conv(filters: torch.Tensor, points: torch.Tensor,
+                    feats: torch.Tensor, queries: torch.Tensor,
+                    neighbors: NeighborList, extent: float) -> torch.Tensor:
+    """One continuous convolution in one call (Open3D ContinuousConv,
+    normalize=False): the geometry of `neighbors` (a list of `points`
+    around `queries`, searched at radius extent / 2) and its contraction
+    with filters (kz, ky, kx, Cin, Cout) and feats (N, Cin); (Q, Cout).
+    Layers that share a list should call `cconv_geometry` once and
+    `continuous_conv_apply` per layer."""
+    plan = segment_ops.AdjointPlan(neighbors.idx, points.shape[0])
+    corner, tapw = cconv_geometry(points, queries, neighbors, extent,
+                                  tuple(filters.shape[:3]), plan)
+    return continuous_conv_apply(filters, corner, tapw, feats, neighbors,
+                                 plan=plan)

@@ -90,18 +90,23 @@ class CellGrid(NamedTuple):
 
 
 def build_cell_grid(points: torch.Tensor, lower, upper, cell_size: float,
-                    max_per_cell: int = 64) -> CellGrid:
+                    max_per_cell: int = 64,
+                    valid: torch.Tensor | None = None) -> CellGrid:
     """Sort points by cell and fill `max_per_cell` slots per cell.
 
     The sort is stable, so a cell's slots hold its points in ascending
     original index; the renderer's first-K selection depends on that
-    order."""
+    order. `valid` (N,) bool, optional: points marked False stay out of
+    the tables (the sharded ParticleNet's empty halo slots, whose sentinel
+    coordinates would otherwise fill a border cell)."""
     dims = cell_dims(lower, upper, cell_size)
     num_cells = dims[0] * dims[1] * dims[2]
     pts = points.detach()
     n, cap, dev = pts.shape[0], max_per_cell, pts.device
-    sorted_id, order = torch.sort(cell_ids(pts, lower, dims, cell_size),
-                                  stable=True)
+    cid = cell_ids(pts, lower, dims, cell_size)
+    if valid is not None:  # invalid points sort past every real cell
+        cid = torch.where(valid.detach(), cid, num_cells)
+    sorted_id, order = torch.sort(cid, stable=True)
     starts = torch.searchsorted(
         sorted_id, torch.arange(num_cells + 1, device=dev))
     overflow = torch.max(starts[1:] - starts[:-1]) > cap

@@ -21,6 +21,25 @@ from neurofluid_torch.cuda import resolve_device
 from neurofluid_torch.ops.composite import composite_weights
 
 
+def point_to_ray_distance(points: torch.Tensor, rays_o: torch.Tensor,
+                          rays_d: torch.Tensor) -> torch.Tensor:
+    """(P, R) perpendicular distance of each point (P, 3) to each ray
+    (origins and normalized directions (R, 3)); the vectorized form of the
+    reference's chunked helper (utils/ray_utils.py:19-34)."""
+    vec = points[:, None, :] - rays_o[None, :, :]  # (P, R, 3)
+    t = torch.einsum("prc,rc->pr", vec, rays_d)
+    closest = rays_o[None] + t[..., None] * rays_d[None]
+    return torch.linalg.norm(points[:, None, :] - closest, dim=-1)
+
+
+def assign_particles_to_rays(points: torch.Tensor,
+                             rays: torch.Tensor) -> torch.Tensor:
+    """(P,) index of each particle's nearest ray (R, 6) (reference
+    utils/ray_utils.py:36-82, a dict built over chunks there)."""
+    return torch.argmin(point_to_ray_distance(points, rays[:, :3],
+                                              rays[:, 3:]), dim=-1)
+
+
 def get_ray_directions(height: int, width: int, focal,
                        device="cuda") -> torch.Tensor:
     """Per-pixel ray directions in camera coordinates, (H, W, 3) float32:

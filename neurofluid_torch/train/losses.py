@@ -4,6 +4,7 @@ neurofluid_tpu/train/losses.py).
 - RGB MSE and PSNR;
 - the neighbour-weighted particle distance, importance exp(-n / 40) and
   dist^0.5;
+- the mean-teacher EMA of two state_dicts;
 - boundary L1 against the positions clipped to the z-up container
   x, y in +-(1 - r), z in [-1 + r, 2.4552 - r]. Inside the box the
   difference is exactly 0 and abs'(0) = 0, so those particles get no
@@ -48,6 +49,15 @@ def weighted_mse_loss(pred_pos, gt_pos, num_fluid_neighbors,
     importance = torch.exp(-neighbor_scale * num_fluid_neighbors)
     dist = torch.sqrt(torch.sum((pred_pos - gt_pos) ** 2, dim=-1) + 1e-12)
     return torch.mean(importance * dist ** gamma)
+
+
+def ema_update(teacher: dict, student: dict, global_step,
+               factor: float = 0.99) -> dict:
+    """Mean-teacher EMA of two state_dicts (reference
+    trainer/basetrainer.py:164-168): the true average until the exponential
+    one is the better estimate, f = min(1 - 1 / (step + 1), factor)."""
+    f = min(1.0 - 1.0 / (float(global_step) + 1.0), factor)
+    return {k: t * f + student[k] * (1.0 - f) for k, t in teacher.items()}
 
 
 def img_mse(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:

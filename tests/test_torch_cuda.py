@@ -1038,3 +1038,35 @@ def test_chamfer_and_lpips_on_the_card(dev, tmp_path):
     want = lpips.LPIPSEvaluator(path, device="cpu")(a, b)
     got = lpips.LPIPSEvaluator(path, device=dev)(a, b)
     assert want > 0 and abs(got - want) <= 1e-4 * want
+
+
+def test_world_of_one_nccl_composed_step(dev, tmp_path):
+    """The composed e2e step (`make_spmd_e2e_step`, the dry run's tiny
+    models with (2, 2, 2) taps) in a world of one over NCCL on the card
+    against the replicated step on the CPU from the same weights. The
+    renderer's K3-K6 sum in another order than the plain versions, so the
+    limits are chip_smoke.py's kernel-against-plain step limits (STEP_TOL):
+    loss 1e-4 and the renderer's gradient norm 1e-3 relative, the
+    transition's 1e-2 (it passes the encoded variance feature), next
+    positions 1e-5."""
+    import torch.distributed as dist
+
+    from neurofluid_torch.parallel import dryrun
+    from neurofluid_torch.parallel.mesh import init_world
+
+    arrays = dryrun._tiny_problem(1)
+    init_world(0, 1, f"file://{tmp_path / 'store'}", "cuda")
+    try:
+        assert dist.get_backend() == "nccl"
+        got = dryrun.composed_stage(arrays, (1, 1), device="cuda")
+    finally:
+        dist.destroy_process_group()
+    want = dryrun.replicated_e2e_steps(arrays, 1, kernel_size=(2, 2, 2))
+    assert got["states_equal"] and not got["overflow"][0]
+    np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-4)
+    np.testing.assert_allclose(got["grad_norm_r"], want["grad_norm_r"],
+                               rtol=1e-3)
+    np.testing.assert_allclose(got["grad_norm_t"], want["grad_norm_t"],
+                               rtol=1e-2)
+    np.testing.assert_allclose(got["next_pos"].numpy(),
+                               want["next_pos"].numpy(), rtol=0, atol=1e-5)
