@@ -3,8 +3,9 @@
 GPU at the bench working point: the serving path (rollout + render), the
 end-to-end train step, the transition-only train step on three search
 backends, a scene written, loaded and rendered, the stage trainers and
-evaluators at full width, the renderer's options and list path, and the
-sharded paths in a world of one over NCCL.
+evaluators at full width, the renderer's options and list path, the
+sharded paths in a world of one over NCCL, and the reference-protocol run
+at a cut scene.
 
     python3 chip_smoke.py
 
@@ -115,7 +116,16 @@ Phases (each prints its own line; any failure raises and exits non-zero):
    then the native library's chamfer distance against ops/chamfer.py's on
    the card, and a scene from `cli.generate_data` loaded by
    `BlenderDataset`;
-15. the kernels line, the card line, and the result line last.
+15. the reference-protocol run (`protocol_phase`): the port's
+   `cli.full_protocol_run.main` at a cut scene (PROTOCOL_SCENE: 1,728
+   fluid particles, 100 x 100 images, 61 frames, one pretraining sim of
+   50 frames; PROTOCOL_KNOBS: 20 warm-up iterations, one transition and
+   one e2e epoch, every 25th frame rendered) at full model width, under
+   build/: every key of PROTOCOL_R5.json and `device` in its record,
+   every metric finite, per stage its wall time, peak memory and
+   launches (K7 and K8 none); `cli.reval_e2e_rollout.main` on the saved
+   e2e checkpoint and a second, resumed run, each against the first;
+16. the kernels line, the card line, and the result line last.
 
 Without a CUDA device, or without the package beside it, the script exits
 non-zero before printing any result.
@@ -307,6 +317,28 @@ BF16_TOL = {"rgb": 2.0 ** -8, "opacity": 2.0 ** -8, "depth": 2.0 ** -6}
 CHAMFER_TOL = 1e-6
 LPIPS_WH = (400, 400)
 
+# phase 15, the reference-protocol run of the port's runner
+# (neurofluid_torch.cli.full_protocol_run) at a cut scene: 1,728 fluid
+# particles, 100 x 100 images, the 61 frames and 50 pretraining frames its
+# Pred2GT windows need; every model width as the runner sets it (NeRF
+# 8 x 256, ParticleNet (32, 64, 64, 3) on fused_cconv, 64 + 128 samples,
+# 1,024-ray chunks). Stride 25 renders frames 0, 25 and 50, one of them a
+# rollout frame (30 would render none, and the rollout means would be NaN)
+PROTOCOL_SCENE = dict(n_frames=61, n_side=12, img=100, pretrain_frames=50)
+PROTOCOL_KNOBS = dict(PROTO_N_SIMS="1", PROTO_WARMUP_ITERS="20",
+                      PROTO_TRANS_EPOCHS="1", PROTO_E2E_EPOCHS="1",
+                      PROTO_RENDER_STRIDE="25")
+# the kernels each stage of the run launches; every other kernel: none
+PROTOCOL_KERNELS = {"data": (), "warmup": ("K3", "K5", "K6"),
+                    "transition": ("K1", "K2"), "e2e_setup": (),
+                    "pretrained_rollout": ("K1",),
+                    "e2e": ("K1", "K2", "K3", "K4", "K5", "K6"),
+                    "rollout": ("K1",), "renders": ("K3", "K5")}
+# a resumed run's pretrained row and the re-evaluated row against the first
+# run's: relative, per window (K1's forward sums in a fixed order, so equal
+# weights are expected to give equal rows; the rows print their difference)
+PROTOCOL_RESUME_TOL = 1e-6
+
 
 def bound_ms(n_bytes, n_ops, n_tc_ops=0.0):
     """n_ops: f32 SIMT operations; n_tc_ops: operations of a contraction
@@ -412,6 +444,30 @@ def bwd_work(bf, args, threads):
             f"selected pairs {pairs}; global atomics {3 * distinct} (a "
             f"triple per pair: {3 * pairs})")
     return line, tests, pairs
+
+
+def bench_weights(gen, *modules):
+    """The bench point's seeded weights, drawn from `gen` in module order
+    as the port drew them before its dense layers took flax's init:
+    PyTorch's default U(+-1/sqrt(in)) for each Linear's weight and bias,
+    Glorot for the conv kernels. The bench point keeps them, so that every
+    phase sees the inputs it saw before: a random transition model of
+    flax's dense init moves the fluid far more in the 10 rollout steps
+    (one such draw took it below the grid's floor and overflowed the
+    render's cell table)."""
+    import torch
+
+    from neurofluid_torch.models.init import uniform_
+    from neurofluid_torch.models.particle_net import ContinuousConvLayer
+
+    for module in modules:
+        for m in module.modules():
+            if isinstance(m, torch.nn.Linear):
+                bound = 1.0 / math.sqrt(m.in_features)
+                uniform_(m.weight, bound, gen)
+                uniform_(m.bias, bound, gen)
+            elif isinstance(m, ContinuousConvLayer):
+                m.reset_parameters(gen)
 
 
 def event_ms(torch, fn, reps=10):
@@ -1526,6 +1582,182 @@ def parallel_phase(torch, problem, init_state, reset_counts, counts,
     return phase
 
 
+def protocol_phase(torch, build_dir, counts):
+    """Phase 15: `full_protocol_run.main`, the port's reference-protocol
+    run, on the card at PROTOCOL_SCENE with PROTOCOL_KNOBS (the runner's
+    roots in a temporary directory under build/, its record there too):
+    every key of PROTOCOL_R5.json and `device` in the record, every metric
+    finite; per stage its wall time, peak memory and launches, the set of
+    kernels launched as PROTOCOL_KERNELS says and the counts the stage
+    implies (transition K1 = K2 = 10 a window, each rollout K1 5 a step, an
+    e2e step K1 = K2 = 5, the warm-up K6 8 a step, a full frame K3 = K5 2
+    a chunk); then `reval_e2e_rollout.main` on the saved e2e checkpoint
+    (the first run's `pred2gt_mm` windows within PROTOCOL_RESUME_TOL), and
+    a second `main` on the same root, which trains neither the warm-up
+    (its loss None) nor the transition (no launch there, its loss None)
+    and gives the first run's pretrained row within PROTOCOL_RESUME_TOL.
+    Returns the phase's launches."""
+    from neurofluid_torch.cli import full_protocol_run as fpr
+    from neurofluid_torch.cli import reval_e2e_rollout
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "PROTOCOL_R5.json")) as f:
+        r5_keys = set(json.load(f))
+    img = PROTOCOL_SCENE["img"]
+    phase_before = counts()
+    phase_t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_protocol_", dir=build_dir)
+    record = os.path.join(tmp, "PROTOCOL_TORCH.json")
+    env = dict(PROTOCOL_KNOBS, PROTO_ROOT=os.path.join(tmp, "root"),
+               PROTO_PRETRAIN=os.path.join(tmp, "pretrain"))
+    saved_env = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+
+    def finite(where, x):
+        if isinstance(x, dict):
+            for k, v in x.items():
+                finite(f"{where}.{k}", v)
+        elif isinstance(x, list):
+            for i, v in enumerate(x):
+                finite(f"{where}[{i}]", v)
+        elif isinstance(x, float) and not math.isfinite(x):
+            raise AssertionError(f"protocol phase: {where} is {x}")
+
+    def rows_diff(a, b):
+        keys = [k for k, v in a.items() if isinstance(v, float)]
+        return max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30) for k in keys)
+
+    def check_stages(rec, what):
+        stages = rec["device"]["stages"]
+        if set(stages) != set(PROTOCOL_KERNELS):
+            raise AssertionError(f"protocol phase, {what}: stages "
+                                 f"{sorted(stages)}")
+        for name, st in stages.items():
+            want = PROTOCOL_KERNELS[name]
+            if what != "first run" and name in ("warmup", "transition"):
+                # resumed fully trained: the warm-up's eval renders alone
+                want = ("K3", "K5") if name == "warmup" else ()
+            if set(st["launches"]) != set(want):
+                raise AssertionError(f"protocol phase, {what}, {name}: "
+                                     f"launches {st['launches']}; expected "
+                                     f"only {want}")
+        lau = {n: st["launches"] for n, st in stages.items()}
+        rendered = rec["image_metrics_summary"]["frames_rendered"]
+        chunks = -(-img * img // 2048)
+        frames = len(range(0, 60, int(PROTOCOL_KNOBS["PROTO_RENDER_STRIDE"])))
+        expect = {("renders", "K3"): 2 * chunks * frames,
+                  ("renders", "K5"): 2 * chunks * frames}
+        for tag, stage in (("pred2gt_mm_pretrained", "pretrained_rollout"),
+                           ("pred2gt_mm", "rollout")):
+            attempts = 1 + round(math.log2(
+                rec[tag]["caps_used"]["fused_slab_cap"]
+                / rec["config"]["fused_slab_cap"]))
+            expect[(stage, "K1")] = 5 * 60 * attempts
+        e2e_steps = lau["e2e"]["K1"] // 5
+        expect[("e2e", "K2")] = 5 * e2e_steps
+        if what == "first run":
+            windows = rec["transition"]["train_windows"]
+            epochs = rec["config"]["trans_epochs"]
+            expect[("transition", "K1")] = 10 * windows * epochs
+            expect[("transition", "K2")] = 10 * windows * epochs
+            iters = rec["config"]["warmup_iters"]
+            expect[("warmup", "K6")] = 8 * iters
+            expect[("warmup", "K3")] = 8 * iters + 2 * chunks
+            expect[("warmup", "K5")] = 8 * iters + 2 * chunks
+        else:
+            expect[("warmup", "K3")] = expect[("warmup", "K5")] = 2 * chunks
+        bad = {k: (lau[k[0]].get(k[1], 0), v) for k, v in expect.items()
+               if lau[k[0]].get(k[1], 0) != v}
+        if bad or e2e_steps < 1 or frames != rendered:
+            raise AssertionError(f"protocol phase, {what}: launches (got, "
+                                 f"expected) {bad}, e2e steps {e2e_steps}, "
+                                 f"frames {rendered}")
+        print(f"protocol phase, {what}, per stage (wall s, peak GiB, "
+              f"launches): " + "; ".join(
+                  f"{n} {st['wall_s']:.2f} s, {st['peak_gib']:.3f} GiB, "
+                  f"{st['launches']}" for n, st in stages.items())
+              + f"; e2e steps {e2e_steps}", flush=True)
+
+    try:
+        t0 = time.perf_counter()
+        first = fpr.main(**PROTOCOL_SCENE, record=record)
+        run_s = time.perf_counter() - t0
+        with open(record) as f:
+            rec = json.load(f)
+        if set(rec) != r5_keys | {"device"}:
+            raise AssertionError(f"protocol phase: record keys {sorted(rec)}"
+                                 f" != PROTOCOL_R5.json's and device")
+        finite("record", {k: v for k, v in rec.items() if k != "config"})
+        for stage in ("warmup", "transition", "e2e"):
+            if rec[stage]["final_loss"] is None:
+                raise AssertionError(f"protocol phase: {stage} trained "
+                                     "nothing")
+        check_stages(rec, "first run")
+        summary = rec["image_metrics_summary"]
+        print(f"protocol phase, first run ({PROTOCOL_SCENE}, "
+              f"{PROTOCOL_KNOBS}) in {run_s:.1f} s on {rec['device']['name']}"
+              f" ({rec['device']['power_limit']}): warm-up PSNR fine "
+              f"{rec['warmup']['psnr_fine']:.3f}, transition loss "
+              f"{rec['transition']['final_loss']:.6f} over "
+              f"{rec['transition']['train_windows']} windows, Pred2GT "
+              f"pretrained {rec['pred2gt_mm_pretrained']['trained_pred2gt']:.3f}"
+              f" / {rec['pred2gt_mm_pretrained']['rollout_pred2gt']:.3f} mm, "
+              f"after e2e {rec['pred2gt_mm']['trained_pred2gt']:.3f} / "
+              f"{rec['pred2gt_mm']['rollout_pred2gt']:.3f} mm, images "
+              f"{summary}", flush=True)
+
+        before = counts()
+        t0 = time.perf_counter()
+        row = reval_e2e_rollout.main(n_frames=PROTOCOL_SCENE["n_frames"],
+                                     img=img, record=record)
+        reval_s = time.perf_counter() - t0
+        reval_launches = {k: v - before[k] for k, v in counts().items()
+                          if v - before[k]}
+        d_reval = rows_diff(row, first["pred2gt_mm"])
+        with open(record) as f:
+            patched = json.load(f)
+        if (patched["pred2gt_mm"] != row
+                or {k: v for k, v in patched.items() if k != "pred2gt_mm"}
+                != {k: v for k, v in rec.items() if k != "pred2gt_mm"}):
+            raise AssertionError("protocol phase: the re-evaluation changed "
+                                 "more than pred2gt_mm")
+
+        t0 = time.perf_counter()
+        second = fpr.main(**PROTOCOL_SCENE, record=record)
+        resume_s = time.perf_counter() - t0
+        if (second["warmup"]["final_loss"] is not None
+                or second["transition"]["final_loss"] is not None):
+            raise AssertionError("protocol phase: the resumed run trained "
+                                 "the warm-up or the transition again")
+        check_stages(second, "resumed run")
+        d_resume = rows_diff(second["pred2gt_mm_pretrained"],
+                             first["pred2gt_mm_pretrained"])
+        print(f"protocol phase, re-evaluation of the saved e2e checkpoint "
+              f"in {reval_s:.1f} s (launches {reval_launches}): pred2gt_mm "
+              f"within {d_reval:.3e} of the first run's "
+              f"({'bitwise' if d_reval == 0 else 'not bitwise'}); resumed "
+              f"run in {resume_s:.1f} s: warm-up and transition trained "
+              f"nothing, pretrained row within {d_resume:.3e} "
+              f"({'bitwise' if d_resume == 0 else 'not bitwise'}); "
+              f"tolerance {PROTOCOL_RESUME_TOL:.0e}", flush=True)
+        if not (d_reval <= PROTOCOL_RESUME_TOL
+                and d_resume <= PROTOCOL_RESUME_TOL):
+            raise AssertionError(f"protocol phase: re-evaluated {d_reval}, "
+                                 f"resumed {d_resume} beyond "
+                                 f"{PROTOCOL_RESUME_TOL}")
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(tmp)
+    launched = {k: v - phase_before[k] for k, v in counts().items()}
+    print(f"protocol phase: launches {launched} in "
+          f"{time.perf_counter() - phase_t0:.1f} s", flush=True)
+    return launched
+
+
 def main():
     import torch
 
@@ -1629,9 +1861,9 @@ def main():
     pos, vel, box, nrm, ro_v, rays_v, rgbs_v = (
         torch.from_numpy(a).to(dev) for a in scene.build_problem())
     ro, rays = ro_v[0], rays_v[0]
-    gen = torch.Generator().manual_seed(0)
-    net = ParticleNet(**scene.particle_net_kwargs(), device=dev, generator=gen)
-    ren = RenderNet(device=dev, generator=gen)
+    net = ParticleNet(**scene.particle_net_kwargs(), device=dev)
+    ren = RenderNet(device=dev)
+    bench_weights(torch.Generator().manual_seed(0), net, ren)
     with torch.no_grad():  # opaque fluid: random sigma heads are ~0 or < 0
         for nerf in (ren.nerf_coarse, ren.nerf_fine):
             nerf.sigma.bias.fill_(SIGMA_BIAS)
@@ -2524,11 +2756,15 @@ def main():
         bare_ms["e2e fused_cconv"])
     total_launches = {k: v + launched[k] for k, v in total_launches.items()}
 
-    # ---- 15. summary lines. launches: each kernel's count over the counted
+    # ---- 15. the reference-protocol run of the port's runner, cut
+    launched = protocol_phase(torch, build_dir, counts)
+    total_launches = {k: v + launched[k] for k, v in total_launches.items()}
+
+    # ---- 16. summary lines. launches: each kernel's count over the counted
     # runs (the serving path once, the e2e train path TRAIN_STEPS times, the
     # transition train path TRANSITION_STEPS times on each backend, the
     # scene render once, the trainers phase, the options phase, the
-    # parallel phase's sharded steps); the times
+    # parallel phase's sharded steps, the protocol phase); the times
     # are per serving pass (K1: per rollout step), per e2e train step (K2,
     # K4, K6) or per transition train step on `fused` (K7, K8)
     sources = {

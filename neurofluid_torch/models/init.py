@@ -23,10 +23,30 @@ def uniform_(param: torch.Tensor, bound: float, generator: torch.Generator):
     param.copy_(sample.uniform_(-bound, bound, generator=generator))
 
 
+# the standard deviation of N(0, 1) truncated to [-2, 2]
+TRUNCATED_STD = 0.87962566103423978
+
+
 def init_linear(layer: nn.Linear, generator: torch.Generator) -> None:
-    """PyTorch's default nn.Linear distribution, U(-1/sqrt(in), 1/sqrt(in))
-    for weight and bias, drawn from `generator`."""
-    bound = 1.0 / math.sqrt(layer.in_features)
-    uniform_(layer.weight, bound, generator)
-    uniform_(layer.bias, bound, generator)
+    """flax's `Dense` default, the JAX package's: the weight `lecun_normal`
+    (N(0, 1) truncated to [-2, 2], scaled to variance 1 / in_features) and
+    a zero bias, drawn from `generator`.
+
+    Not PyTorch's default U(+-1/sqrt(in)) for weight and bias: under it
+    the NeRF's sigma head often starts below zero at every sample of a
+    scene (the warm-up of the protocol run, seed 10, began so in its
+    coarse MLP), and the ReLU on sigma then passes that MLP no gradient,
+    ever."""
+    # N(0, 1) truncated to [-2, 2] by the inverse CDF of a uniform draw
+    # (torch.nn.init.trunc_normal_'s method, written out: its own draws
+    # change between torch versions, and one seed must give one set of
+    # weights wherever the port runs)
+    edge = math.erf(2.0 / math.sqrt(2.0))
+    sample = torch.empty(layer.weight.shape, dtype=torch.float32)
+    sample.uniform_(-edge, edge, generator=generator)
+    sample = (torch.erfinv(sample) * math.sqrt(2.0)).clamp_(-2.0, 2.0)
+    scale = 1.0 / (math.sqrt(layer.in_features) * TRUNCATED_STD)
+    with torch.no_grad():
+        layer.weight.copy_(sample * scale)
+        layer.bias.zero_()
 

@@ -147,6 +147,21 @@ class ParticleNet(nn.Module):
         `search_backend=cfg.TRAIN.get("search_backend", "auto")`, the JAX
         trainers' own default."""
         super().__init__()
+        # what `clone` builds a copy from (flax's `Module.clone`)
+        self.init_kwargs = dict(
+            layer_channels=layer_channels, kernel_size=kernel_size,
+            radius_scale=radius_scale, particle_radius=particle_radius,
+            timestep=timestep, gravity=gravity,
+            other_feats_channels=other_feats_channels,
+            correction_scale=correction_scale,
+            fluid_neighbor_k=fluid_neighbor_k,
+            obstacle_neighbor_k=obstacle_neighbor_k,
+            search_backend=search_backend, fused_group_size=fused_group_size,
+            fused_slab_cap=fused_slab_cap, fused_cell_scale=fused_cell_scale,
+            grid_lower=grid_lower, grid_upper=grid_upper,
+            grid_max_per_cell=grid_max_per_cell, query_chunk=query_chunk,
+            conv_precision=conv_precision, shard_group=shard_group,
+            halo_size=halo_size, halo_axis=halo_axis)
         if search_backend not in SEARCH_BACKENDS:
             raise ValueError(
                 f"unknown search_backend {search_backend!r}: expected one "
@@ -194,6 +209,16 @@ class ParticleNet(nn.Module):
                 init_linear(m, gen)
             elif isinstance(m, ContinuousConvLayer):
                 m.reset_parameters(gen)
+
+    def clone(self, **changes) -> "ParticleNet":
+        """A new ParticleNet of this one's constructor arguments with
+        `changes` applied, on this one's device, holding this one's weights
+        (flax's `Module.clone` with the same params)."""
+        net = ParticleNet(**{**self.init_kwargs, **changes},
+                          device=self.conv0_fluid.kernel.device,
+                          generator=torch.Generator().manual_seed(0))
+        net.load_state_dict(self.state_dict())
+        return net
 
     def integrate_pos_vel(self, pos, vel):
         dt = self.timestep

@@ -59,3 +59,40 @@ def test_nerf_seeded_init_is_reproducible():
         assert torch.equal(va, vb)
     assert "xyz_encoding_1.0.weight" in a.state_dict()
     assert "rgb.0.weight" in a.state_dict()
+
+
+def _dense_layers(state):
+    """(weight (out, in), bias) of each Linear in a NeRF state_dict."""
+    return {k[:-len(".weight")]: (state[k], state[k[:-len("weight")] + "bias"])
+            for k in state if k.endswith(".weight")}
+
+
+def test_seeded_init_is_flax_dense_default():
+    """Every Linear of the NeRF (8 x 256, as the renderer builds it) is
+    drawn as flax's `Dense` default, as in the JAX package: zero bias, the
+    weight a truncated normal of variance 1 / fan_in, cut at two of its
+    scale units. PyTorch's default init (uniform weight and bias) fails
+    this; under it the sigma head often started negative at every sample
+    and its MLP never trained. Held against JAX's NeRF initialised from a
+    key, layer by layer: the same bound, zeros and spread."""
+    in_xyz, in_dir = 63, 27
+    jnet = JNeRF(in_channels_xyz=in_xyz, in_channels_dir=in_dir)
+    jparams = jnet.init(jax.random.PRNGKey(10),
+                        jnp.zeros((1, in_xyz + in_dir)))
+    jlayers = _dense_layers(nerf_state_from_flax(
+        jax.tree_util.tree_map(np.asarray, jparams)))
+    tlayers = _dense_layers(NeRF(
+        in_channels_xyz=in_xyz, in_channels_dir=in_dir, device="cpu",
+        generator=torch.Generator().manual_seed(10)).state_dict())
+    assert tlayers.keys() == jlayers.keys() and len(tlayers) == 12
+    for name, (w, b) in tlayers.items():
+        jw, jb = (torch.as_tensor(np.asarray(a)) for a in jlayers[name])
+        fan_in = w.shape[1]
+        assert jw.shape == w.shape
+        assert not b.any() and not jb.any(), name
+        bound = 2.0 / (0.87962566103423978 * fan_in ** 0.5)
+        for x in (w, jw):
+            assert float(x.abs().max()) <= bound * (1 + 1e-6), name
+        if w.numel() >= 4096:  # spreads estimated within ~2%
+            for x in (w, jw):
+                assert abs(float(x.std()) * fan_in ** 0.5 - 1.0) < 0.03, name
