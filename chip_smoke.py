@@ -4,8 +4,8 @@ GPU at the bench working point: the serving path (rollout + render), the
 end-to-end train step, the transition-only train step on three search
 backends, a scene written, loaded and rendered, the stage trainers and
 evaluators at full width, the renderer's options and list path, the
-sharded paths in a world of one over NCCL, and the reference-protocol run
-at a cut scene.
+sharded paths in a world of one over NCCL, the reference-protocol run
+at a cut scene, and the trainers' draw of JAX's seeded initial weights.
 
     python3 chip_smoke.py
 
@@ -125,7 +125,12 @@ Phases (each prints its own line; any failure raises and exits non-zero):
    every metric finite, per stage its wall time, peak memory and
    launches (K7 and K8 none); `cli.reval_e2e_rollout.main` on the saved
    e2e checkpoint and a second, resumed run, each against the first;
-16. the kernels line, the card line, and the result line last.
+16. JAX's initial weights (`seed_phase`): the protocol's warm-up RenderNet
+   and its ParticleNet as the seeded trainers draw them (JAX's key stream
+   of TRAIN.seed 10 and flax's per-parameter keys, on the host), built on
+   the card and on the host, every tensor bitwise equal, SEED_PINS (pinned
+   from JAX) met, no kernel launched;
+17. the kernels line, the card line, and the result line last.
 
 Without a CUDA device, or without the package beside it, the script exits
 non-zero before printing any result.
@@ -338,6 +343,64 @@ PROTOCOL_KERNELS = {"data": (), "warmup": ("K3", "K5", "K6"),
 # run's: relative, per window (K1's forward sums in a fixed order, so equal
 # weights are expected to give equal rows; the rows print their difference)
 PROTOCOL_RESUME_TOL = 1e-6
+
+# phase 16, JAX's initial weights drawn by the port: the protocol's warm-up
+# renderer (NeRF 8 x 256) and its ParticleNet (32, 64, 64, 3), each from the
+# first key of a seeded trainer's stream, against the JAX package's own
+# draw at TRAIN.seed SEED: per tensor the exact (math.fsum) f64 sum of its
+# entries, its first 4 and its last 4 entries (tests/test_torch_jax_random.py
+# recomputes them with JAX)
+SEED = 10
+SEED_PINS = {
+    "nerf_coarse.xyz_encoding_1.0.weight": (
+        0.9116928101650501,
+        (0.026124469935894012, 0.07853846251964569, -0.04901311919093132,
+         0.04723445698618889),
+        (0.039674628525972366, 0.06523337960243225, 0.010675880126655102,
+         -0.08309857547283173)),
+    "nerf_coarse.rgb.0.weight": (
+        3.2168942187927314,
+        (-0.1412343531847, 0.12180859595537186, 0.11436279863119125,
+         0.15120720863342285),
+        (0.0388544537127018, -0.04205228388309479, 0.04275912791490555,
+         -0.015550659038126469)),
+    "nerf_fine.xyz_encoding_5.0.weight": (
+        -19.035408770959748,
+        (0.029413344338536263, -0.04204307869076729, 0.000724553712643683,
+         0.0075010634027421474),
+        (-0.04582025855779648, 0.028460867702960968, 0.061775438487529755,
+         0.05662287399172783)),
+    "nerf_fine.sigma.weight": (
+        0.4349590407218784,
+        (0.014583040960133076, 0.020994698628783226, -0.01624017208814621,
+         -0.04360579326748848),
+        (-0.03603089973330498, 0.0730949118733406, -0.05392294377088547,
+         -0.04744524508714676)),
+    "conv0_fluid.kernel": (
+        5.012676740078859,
+        (-0.0303149726241827, 0.025895316153764725, 0.04176458716392517,
+         0.03360588476061821),
+        (0.030052972957491875, -0.03525010868906975, -0.005445252172648907,
+         -0.006633615121245384)),
+    "conv3.kernel": (
+        -0.27147165266887896,
+        (-0.03021715208888054, -0.025847595185041428, -0.003183950437232852,
+         -0.0315125435590744),
+        (0.03048218972980976, -0.013652277179062366, -0.004767265636473894,
+         0.012645323760807514)),
+    "dense0_fluid.weight": (
+        -0.34527473128400743,
+        (-0.08204323053359985, -0.9844965934753418, -0.3489277958869934,
+         0.1615144908428192),
+        (0.3784289062023163, 0.48656991124153137, -0.6664910316467285,
+         0.11707697808742523)),
+    "dense2.weight": (
+        5.645576929222443,
+        (0.03663887456059456, -0.025851795449852943, -0.1948397308588028,
+         0.002729407511651516),
+        (0.05365024134516716, -0.030387837439775467, 0.1490926295518875,
+         -0.06657557934522629)),
+}
 
 
 def bound_ms(n_bytes, n_ops, n_tc_ops=0.0):
@@ -1758,6 +1821,67 @@ def protocol_phase(torch, build_dir, counts):
     return launched
 
 
+def seed_summary(values) -> tuple:
+    """A tensor's pin: (the exact f64 sum of its entries, its first 4,
+    its last 4), from a host array."""
+    flat = [float(x) for x in values.reshape(-1)]
+    return math.fsum(flat), tuple(flat[:4]), tuple(flat[-4:])
+
+
+def seed_models(device):
+    """The protocol's warm-up renderer and its transition model as a
+    seeded trainer of each stage draws them, at TRAIN.seed SEED: the first
+    key of its stream (`TrainerBase.next_key` on the key of its
+    `__init__`), then the stage's `build_renderer` / `build_particle_net`.
+    (RenderNet, ParticleNet) on `device`."""
+    from types import SimpleNamespace
+
+    from neurofluid_torch.cli.full_protocol_run import renderer_cfg
+    from neurofluid_torch.train.trainer_base import TrainerBase
+    from neurofluid_torch.train.transition import build_particle_net
+    from neurofluid_torch.train.warmup import build_renderer
+    from neurofluid_torch.utils import jax_random
+    from neurofluid_torch.utils.config import ConfigNode
+
+    def first_key():
+        return TrainerBase.next_key(
+            SimpleNamespace(key=jax_random.prng_key(SEED)))
+
+    cfg = ConfigNode(dict(near=9.0, far=13.0, TRAIN=dict(seed=SEED),
+                          RENDERER=renderer_cfg()))
+    return (build_renderer(cfg, device, key=first_key()),
+            build_particle_net(cfg, device, key=first_key()))
+
+
+def seed_phase(torch, counts):
+    """Phase 16: `seed_models` on the card and on the host, every tensor
+    bitwise equal (the draw is the host's), SEED_PINS met, no launch."""
+    before = counts()
+    t0 = time.perf_counter()
+    on_card, on_host = seed_models("cuda"), seed_models("cpu")
+    states, n_tensors = {}, 0
+    for card, hosted in zip(on_card, on_host):
+        want = hosted.state_dict()
+        for name, p in card.state_dict().items():
+            n_tensors += 1
+            if not torch.equal(p.cpu(), want[name]):
+                raise AssertionError(f"seed phase: {name} differs between "
+                                     "the card and the host")
+            states[name] = want[name].numpy()
+    for name, pin in SEED_PINS.items():
+        got = seed_summary(states[name])
+        if got != pin:
+            raise AssertionError(f"seed phase: {name} drew {got}, JAX's "
+                                 f"draw is {pin}")
+    launched = {k: v - before[k] for k, v in counts().items()}
+    if any(launched.values()):
+        raise AssertionError(f"seed phase: launches {launched}")
+    print(f"seed phase: JAX's seed-{SEED} draw of the warm-up RenderNet "
+          f"and the ParticleNet, {n_tensors} tensors equal on the card and "
+          f"the host, {len(SEED_PINS)} pins of JAX's draw met, no launch, "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+
 def main():
     import torch
 
@@ -2760,7 +2884,10 @@ def main():
     launched = protocol_phase(torch, build_dir, counts)
     total_launches = {k: v + launched[k] for k, v in total_launches.items()}
 
-    # ---- 16. summary lines. launches: each kernel's count over the counted
+    # ---- 16. JAX's seed-10 initial weights, drawn by the trainers' code
+    seed_phase(torch, counts)
+
+    # ---- 17. summary lines. launches: each kernel's count over the counted
     # runs (the serving path once, the e2e train path TRAIN_STEPS times, the
     # transition train path TRANSITION_STEPS times on each backend, the
     # scene render once, the trainers phase, the options phase, the

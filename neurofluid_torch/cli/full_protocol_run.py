@@ -68,6 +68,12 @@ KERNELS = {"K1": fused_cconv.KERNEL, "K2": fused_cconv.BWD_KERNEL,
            "K3": ball_features.KERNEL, "K4": ball_features.BWD_KERNEL,
            "K5": composite.KERNEL, "K6": composite.BWD_KERNEL,
            "K7": fused_query.KERNEL, "K8": segment_ops.KERNEL}
+# the trainers' initial weights (TRAIN.seed 10): JAX's own draw, computed
+# by utils.jax_random
+INIT = "JAX seed-10 draw (threefry2x32, flax keys), jax 0.9.0 semantics"
+INIT_CAVEAT = ("PROTOCOL_R5.json does not name the JAX it ran on; a JAX "
+               "before the partitionable threefry default (0.5.0) drew "
+               "other initial weights there")
 # the four static caps a retried rollout doubles
 CAPS = ("fluid_neighbor_k", "obstacle_neighbor_k", "grid_max_per_cell",
         "fused_slab_cap")
@@ -284,6 +290,8 @@ def main(n_frames=61, n_side=24, img=400, pretrain_frames=50,
                     "3xTF32 tensor-core products in K1/K2, TF32 off for "
                     "torch products (models/particle_net.py)",
         "n_frames": n_frames, "n_side": n_side,
+        "init": INIT,
+        "init_caveat": INIT_CAVEAT,
     }}
     stages = {}
     results["device"] = dict(device_info(device), stages=stages)

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from neurofluid_torch.data.blender import BlenderDataset
+from neurofluid_torch.models.init import flax_init_state
 from neurofluid_torch.models.particle_net import ParticleNet
 from neurofluid_torch.train import checkpoint as ckpt
 from neurofluid_torch.train import losses, schedules
@@ -206,9 +207,12 @@ class E2ETrainer(TrainerBase):
             fused_group_size=int(t.get("fused_group_size", 16)),
             fused_slab_cap=int(t.get("fused_slab_cap", 256)),
             fused_cell_scale=float(t.get("fused_cell_scale", 1.0)),
-            device=self.device, generator=self.torch_gen,
+            device=self.device,
         )
-        self.renderer = build_renderer(cfg, self.device, self.torch_gen)
+        # JAX's key order: the transition model's draw, then the renderer's
+        self.transition.load_state_dict(
+            flax_init_state(self.transition, self.next_key()))
+        self.renderer = build_renderer(cfg, self.device, key=self.next_key())
 
         # the static boundary's search structure: built once per scene and
         # passed to every step; the per-step check below fails loudly if

@@ -8,10 +8,11 @@ boundary-loss constants, pixel sampling with pre-crop, chunked full-image
 rendering, and visualization dumps.
 
 Randomness is explicit: a `numpy.random.Generator` from TRAIN.seed for
-the host (pixel choices, shuffles), drawn in the JAX trainers' order, and a
-`torch.Generator` from the same seed for weight initialisation, where the
-JAX package splits a `jax.random.PRNGKey`. Trainers run on the card unless
-built with `device="cpu"`.
+the host (pixel choices, shuffles), drawn in the JAX trainers' order, and
+JAX's `PRNGKey(TRAIN.seed)` for weight initialisation, split as the JAX
+trainers split it and drawn by `utils.jax_random` on the host, so that a
+seeded trainer starts from the JAX trainer's weights. Trainers run on the
+card unless built with `device="cpu"`.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import torch
 
 from neurofluid_torch.cuda import resolve_device
 from neurofluid_torch.train import losses
+from neurofluid_torch.utils import jax_random
 from neurofluid_torch.utils.logging import MetricsLogger, to8b
 
 
@@ -41,9 +43,14 @@ class TrainerBase:
 
         seed = int(cfg.TRAIN.seed)
         self.np_rng = np.random.default_rng(seed)
-        self.torch_gen = torch.Generator().manual_seed(seed)
+        self.key = jax_random.prng_key(seed)
 
         self.box_bounds = losses.default_box_bounds(device=self.device)
+
+    def next_key(self) -> np.ndarray:
+        """A fresh JAX key: `key, sub = jax.random.split(key)`."""
+        self.key, sub = jax_random.split(self.key)
+        return sub
 
     def to_device(self, x) -> torch.Tensor:
         """A host array (numpy) as a float32 tensor on the trainer's

@@ -26,6 +26,7 @@ import torch
 
 from neurofluid_torch.data import io as data_io
 from neurofluid_torch.data.particles import ParticleDataset
+from neurofluid_torch.models.init import flax_init_state
 from neurofluid_torch.models.particle_net import ParticleNet
 from neurofluid_torch.train import checkpoint as ckpt
 from neurofluid_torch.train import losses
@@ -52,10 +53,12 @@ def clip_grads_(params, grads, norm: torch.Tensor, clip: torch.Tensor):
 
 
 def build_particle_net(cfg, device="cuda",
-                       generator: torch.Generator | None = None
-                       ) -> ParticleNet:
+                       generator: torch.Generator | None = None,
+                       key=None) -> ParticleNet:
     """The transition stage's ParticleNet from cfg.TRAIN, with the JAX
-    trainer's defaults: search backend 'auto', fused_slab_cap 256."""
+    trainer's defaults: search backend 'auto', fused_slab_cap 256. Its
+    weights are flax's draw under the JAX `key` when one is given, else
+    drawn from `generator`."""
     t = cfg.TRAIN
     extra = {}
     # Rotation-safe grid bounds: ParticleDataset's random z-rotation swings
@@ -65,7 +68,7 @@ def build_particle_net(cfg, device="cuda",
         extra["grid_lower"] = tuple(float(x) for x in t.grid_lower)
     if t.get("grid_upper"):
         extra["grid_upper"] = tuple(float(x) for x in t.grid_upper)
-    return ParticleNet(
+    net = ParticleNet(
         gravity=tuple(float(x) for x in t.get("gravity", (0.0, -9.81, 0.0))),
         particle_radius=float(t.get("particle_radius", 0.025)),
         search_backend=t.get("search_backend", "auto"),
@@ -80,6 +83,9 @@ def build_particle_net(cfg, device="cuda",
         fused_cell_scale=float(t.get("fused_cell_scale", 1.0)),
         device=device, generator=generator,
     )
+    if key is not None:
+        net.load_state_dict(flax_init_state(net, key))
+    return net
 
 
 def make_rollout_fn(net: ParticleNet):
@@ -204,7 +210,8 @@ class TransitionTrainer(TrainerBase):
         )
 
     def build_model(self):
-        self.net = build_particle_net(self.cfg, self.device, self.torch_gen)
+        self.net = build_particle_net(self.cfg, self.device,
+                                      key=self.next_key())
         # the JAX trainer reads sample 0 to initialise its weights, which
         # draws one augmentation angle: draw it too, so that every later
         # sample is rotated as there

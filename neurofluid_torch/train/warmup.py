@@ -23,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from neurofluid_torch.data.blender import BlenderDataset
+from neurofluid_torch.models.init import flax_init_state
 from neurofluid_torch.models.render_net import RenderNet
 from neurofluid_torch.train import checkpoint as ckpt
 from neurofluid_torch.train import schedules
@@ -30,14 +31,16 @@ from neurofluid_torch.train.trainer_base import TrainerBase, host
 from neurofluid_torch.utils.metrics import psnr as psnr_np
 
 def build_renderer(cfg, device="cuda",
-                   generator: torch.Generator | None = None) -> RenderNet:
+                   generator: torch.Generator | None = None,
+                   key=None) -> RenderNet:
     """The RenderNet of cfg.RENDERER, every key read as the JAX package's
     `build_renderer` reads it, with its defaults: the encoding switches,
     `bf16` (bf16 products in the NeRF MLPs), and `NN_search.mode` ('dense'
     or 'list'), `backend` and `selection` (which only the list path
-    reads)."""
+    reads). Its weights are flax's draw under the JAX `key` when one is
+    given, else drawn from `generator`."""
     r = cfg.RENDERER
-    return RenderNet(
+    model = RenderNet(
         near=float(cfg.near),
         far=float(cfg.far),
         n_samples=int(r.ray.N_samples),
@@ -58,6 +61,9 @@ def build_renderer(cfg, device="cuda",
         search_mode=r.NN_search.get("mode", "dense"),
         device=device, generator=generator,
     )
+    if key is not None:
+        model.load_state_dict(flax_init_state(model, key))
+    return model
 
 
 def load_renderer(renderer: RenderNet, cfg, path: str) -> None:
@@ -136,7 +142,8 @@ class WarmupTrainer(TrainerBase):
         )
 
     def build_model(self):
-        self.model = build_renderer(self.cfg, self.device, self.torch_gen)
+        self.model = build_renderer(self.cfg, self.device,
+                                    key=self.next_key())
         if self.cfg.TRAIN.get("pretrained_renderer"):
             load_renderer(self.model, self.cfg,
                           self.cfg.TRAIN.pretrained_renderer)

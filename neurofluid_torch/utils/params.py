@@ -8,6 +8,8 @@ The port's modules use the upstream NeuroFluid state_dict layout, the one
 - RenderNet: `nerf_coarse.xyz_encoding_1.0.weight` (the Linear inside
   Sequential(Linear, ReLU)), likewise `dir_encoding.0` and `rgb.0`; bare
   `xyz_encoding_final` and `sigma`.
+
+`flax_param_path` is the inverse of that naming, parameter by parameter.
 """
 
 from __future__ import annotations
@@ -24,6 +26,22 @@ def _params(tree: dict) -> dict:
 
 def _tensor(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=np.float32))
+
+
+def flax_param_path(name: str) -> tuple[tuple[str, ...], str, bool]:
+    """A port parameter's name -> (its flax scope path, its flax leaf name,
+    whether the port holds it transposed): `nerf_fine.rgb.0.weight` ->
+    (("nerf_fine", "rgb"), "kernel", True), `conv0_fluid.kernel` ->
+    (("conv0_fluid",), "kernel", False). The inverse of the converters
+    below: Sequential indices dropped, a Linear's `weight` is flax's
+    `kernel` transposed."""
+    *path, leaf = name.split(".")
+    path = tuple(p for p in path if not p.isdigit())
+    if leaf == "weight":
+        return path, "kernel", True
+    if leaf in ("kernel", "bias"):
+        return path, leaf, False
+    raise ValueError(f"no flax counterpart for parameter {name!r}")
 
 
 def transition_state_from_flax(tree: dict) -> dict:

@@ -366,7 +366,8 @@ def test_orchestration_matches_jax(jfpr, monkeypatch, tmp_path):
     assert set(trec) == set(jrec) | {"device"}
     assert _without_walls(trec) == _without_walls(jrec)
     extra = set(trec["config"]) - set(jrec["config"])
-    assert extra == {"products", "n_frames", "n_side"}
+    assert extra == {"products", "n_frames", "n_side", "init",
+                     "init_caveat"}
     assert {k: v for k, v in trec["config"].items()
             if k not in extra | {"lpips"}} == {
         k: v for k, v in jrec["config"].items() if k != "lpips"}

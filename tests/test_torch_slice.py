@@ -119,7 +119,8 @@ def test_package_imports_no_jax():
         "for name in ('models.render_net', 'ops.fused_query', 'data.blender', "
         "'ops.neighbor_search', 'ops.segment_ops', 'train.transition', "
         "'utils.config', 'train.trainer_base', 'train.warmup', "
-        "'train.evaluation', 'cli.train_e2e'):\n"
+        "'train.evaluation', 'cli.train_e2e', 'utils.jax_random', "
+        "'models.init'):\n"
         "    assert 'neurofluid_torch.' + name in sys.modules, name\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,

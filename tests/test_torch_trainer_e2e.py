@@ -80,6 +80,22 @@ def trainers(tmp_path_factory):
     return JE2ETrainer(jcfg), E2ETrainer(tcfg, device="cpu"), tcfg
 
 
+def test_initial_weights_in_jax_key_order(trainers):
+    """JAX's e2e trainer draws the transition model under its first key
+    and the renderer under its second; the port's trainer starts from the
+    same weights, so it splits its key in the same order."""
+    jtr, ttr, _ = trainers
+    for module, params, convert in (
+            (ttr.transition, jtr.params_t, transition_state_from_flax),
+            (ttr.renderer, jtr.params_r, renderer_state_from_flax)):
+        want = convert(jax.tree_util.tree_map(np.asarray, params))
+        got = module.state_dict()
+        assert set(got) == set(want)
+        for name, w in want.items():
+            np.testing.assert_array_equal(got[name].numpy(), w.numpy(),
+                                          err_msg=name)
+
+
 def _aux(i, n_views, lib):
     """A step's aux as the trainers log it, from `lib` (numpy or torch)."""
     full = (lambda shape: np.full(shape, 0.1 * (i + 1), np.float32)) \

@@ -87,19 +87,32 @@ def test_host_loop_matches_jax(scene, tmp_path):
 
 @pytest.fixture(scope="module")
 def trained(scene, tmp_path_factory):
-    """One real epoch of each trainer from JAX's initial weights."""
+    """One real epoch of each trainer, each from its own initial draw (the
+    port's is JAX's), and the two initial states."""
     tmp = tmp_path_factory.mktemp("epoch")
     jcfg, tcfg = configs(_cfg(scene, log_interval=1), tmp)
     jtr, ttr = JTransitionTrainer(jcfg), TransitionTrainer(tcfg, device="cpu")
-    init = jax.tree_util.tree_map(np.asarray, jtr.params)
-    ttr.net.load_state_dict(transition_state_from_flax(init))
+    init = (transition_state_from_flax(
+        jax.tree_util.tree_map(np.asarray, jtr.params)),
+        {k: v.clone() for k, v in ttr.net.state_dict().items()})
     jtr.train(n_epochs=1)
     ttr.train(n_epochs=1)
-    return jtr, ttr, tcfg
+    return jtr, ttr, tcfg, init
+
+
+def test_initial_weights_are_jax_draw(trained):
+    """From one config (TRAIN.seed 10) the port's trainer starts from the
+    JAX trainer's initial ParticleNet: flax's init under the first key of
+    PRNGKey(10), drawn by the port on the host."""
+    want, got = trained[3]
+    assert set(got) == set(want)
+    for name, w in want.items():
+        np.testing.assert_array_equal(got[name].numpy(), w.numpy(),
+                                      err_msg=name)
 
 
 def test_one_epoch_matches_jax(trained):
-    jtr, ttr, _ = trained
+    jtr, ttr, _, _ = trained
     losses_j = metric_values(jtr.exppath, "loss")
     losses_t = metric_values(ttr.exppath, "loss")
     assert len(losses_t) == len(losses_j) == 6
@@ -118,7 +131,7 @@ def test_one_epoch_matches_jax(trained):
 
 
 def test_resume_restores_optimizer(trained):
-    jtr, ttr, tcfg = trained
+    jtr, ttr, tcfg, _ = trained
     # each saved after its epoch, at global step 6
     jtr.resume(jtr.modelpath)
     resumed = TransitionTrainer(tcfg.clone().merge(

@@ -69,6 +69,20 @@ def trainers(tmp_path_factory):
     return JWarmupTrainer(jcfg), WarmupTrainer(tcfg, device="cpu"), tcfg
 
 
+def test_initial_weights_are_jax_draw(trainers):
+    """From one config (TRAIN.seed 10) the port's trainer starts from the
+    JAX trainer's initial weights: flax's init of the 8 x 256 RenderNet
+    under the first key of PRNGKey(10), drawn by the port on the host."""
+    jtr, ttr, _ = trainers
+    want = renderer_state_from_flax(
+        jax.tree_util.tree_map(np.asarray, jtr.params))
+    got = ttr.model.state_dict()
+    assert set(got) == set(want)
+    for name, w in want.items():
+        np.testing.assert_array_equal(got[name].numpy(), w.numpy(),
+                                      err_msg=name)
+
+
 def test_host_loop_matches_jax(trainers):
     jtr, ttr, _ = trainers
     n_views = len(ttr.train_views)
