@@ -13,11 +13,14 @@ Phases (each prints its own line; any failure raises and exits non-zero):
 1. device: name and power limit (nvidia-smi), torch and CUDA versions;
    TF32 off for every matmul and convolution;
 2. build: nvcc of csrc/*.cu for sm_90a, one process per source, timed;
-   then the tensor-core product of csrc/split_gemm.cuh (3xTF32 mma.sync,
-   the contractions of K1 and K2) on its own at the shapes of its three
-   uses at the bench point, against a float64 product of the same seeded
-   inputs (error relative to sum |a||b|, held to GEMM_TOL), timed beside
-   `torch.matmul` in f32 (its library time, used nowhere in the port);
+   `cuobjdump -sass` of the built K1/K2 library: each instantiation of the
+   tensor-core product holds HGMMA (`wgmma`) and no HMMA (`mma.sync`);
+   then that product (csrc/split_gemm.cuh, 3xTF32 `wgmma` fed by TMA, the
+   contractions of K1 and K2) on its own at the shapes of its three uses
+   at the bench point, in the splits of k K1 and K2 give it, against a
+   float64 product of the same seeded inputs (error relative to sum
+   |a||b|, held to GEMM_TOL), timed beside `torch.matmul` in f32 (its
+   library time, used nowhere in the port);
 3. forward kernels: K1 (fused conv), K3 (ball sums), K5 (compositing
    weights), each called at the shapes the serving path gives it (recorded
    from one warm-up pass) and held against its plain PyTorch version on the
@@ -531,6 +534,22 @@ def bench_weights(gen, *modules):
                 uniform_(m.bias, bound, gen)
             elif isinstance(m, ContinuousConvLayer):
                 m.reset_parameters(gen)
+
+
+def sass_tensor_ops(lib, kernel="split_gemm_kernel"):
+    """{function name: (HGMMA count, HMMA count)} of each instantiation of
+    `kernel` (not its `_b` prep) in `cuobjdump -sass` of the built library:
+    `wgmma` shows as HGMMA, `mma.sync` as HMMA."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME") or "/usr/local/cuda", "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    found = {}
+    for section in sass.split("Function : ")[1:]:
+        name = section.split(None, 1)[0]
+        if kernel in name and kernel + "_b" not in name:
+            found[name] = (section.count("HGMMA"), section.count("HMMA"))
+    return found
 
 
 def event_ms(torch, fn, reps=10):
@@ -1927,17 +1946,26 @@ def main():
           f"ball_walk.cuh, async_copy.cuh) with nvcc -gencode "
           f"arch=compute_90a,code=sm_90a in {build_s:.1f} s", flush=True)
 
+    tensor_ops = sass_tensor_ops(nf_cuda.library_path("fused_cconv.cu"))
+    print(f"sass: the tensor-core product's {len(tensor_ops)} "
+          f"instantiations (split_gemm_kernel), HGMMA / HMMA each: "
+          f"{sorted(tensor_ops.values())}", flush=True)
+    if not tensor_ops or any(h == 0 or m for h, m in tensor_ops.values()):
+        raise AssertionError("the tensor-core product is not on wgmma "
+                             f"(HGMMA) alone: {tensor_ops}")
+
     def product_operands(m_, k_, n_, trans, gen=None):
         """Random operands of one tensor-core product (M, K) x (K, N) and
-        the keywords of its call; `trans`: K2's dW form, A stored (K, M) and
-        the K range in the splits `dw_split` gives."""
+        the keywords of its call: the K range in the splits that K1 and K2
+        give it (`product_splits`); `trans`: K2's dW form, A stored (K,
+        M)."""
         a_ = torch.randn((k_, m_) if trans else (m_, k_), device=dev,
                          generator=gen)
         b_ = torch.randn((k_, n_), device=dev, generator=gen)
-        kw = {}
-        if trans:
-            n_split, per = fc.dw_split(k_, m_, n_)
-            kw = dict(trans_a=True, n_split=n_split, k_per_split=per)
+        n_split, per = fc.product_splits(m_, n_, k_)
+        kw = dict(trans_a=True) if trans else {}
+        if n_split > 1:
+            kw.update(n_split=n_split, k_per_split=per)
         return a_, b_, kw
 
     # the tensor-core product at its three uses' shapes: the 14,336 sorted
@@ -1960,7 +1988,7 @@ def main():
         torch.cuda.synchronize()
         if fc.GEMM_KERNEL.launches != before + 1:
             raise AssertionError("the tensor-core product did not launch")
-        a_op = a_g.t() if kw else a_g
+        a_op = a_g.t() if kw.get("trans_a") else a_g
         want = a_op.double() @ b_g.double()
         scale = a_op.double().abs() @ b_g.double().abs()
         err = float(((got.double() - want).abs() / scale).max())
@@ -1971,7 +1999,7 @@ def main():
         b_ms, b_by = bound_ms(nbytes(a_g, b_g, got), 0.0,
                               2.0 * m_g * k_g * b_g.shape[1])
         print(f"tensor-core product, {use} ({m_g} x {k_g}) x ({k_g} x "
-              f"{b_g.shape[1]}){', %d splits' % kw['n_split'] if kw else ''}: "
+              f"{b_g.shape[1]}){', %d splits' % kw['n_split'] if 'n_split' in kw else ''}: "
               f"max err / sum|a||b| {err:.3e} (tol {GEMM_TOL:.3e}; "
               f"torch.matmul f32 {err_lib:.3e}) ms {ms:.4f} bound_ms "
               f"{b_ms:.4f} ({b_by}) library_ms {lib_ms:.4f} (torch.matmul, "

@@ -50,10 +50,12 @@
 //   (the wide layers: 1.5 MB at Cin 96, Cout 64) the walk owns no W: it
 //   writes its accumulator rows to a scratch buffer (a chunk of query rows
 //   at a time, so the scratch stays bounded) and `nf::split_gemm`
-//   (split_gemm.cuh: 3xTF32 `mma.sync` on the tensor cores, f32-class
-//   accuracy) computes out = rows W, d_acc = ct W^T and dW = rows^T ct in
-//   (64, 64) tiles: W leaves L2 once per 64 query rows instead of once per
-//   4- or 8-query block. Where W fits (<= 64 KB: the input layers and the
+//   (split_gemm.cuh: 3xTF32 `wgmma` fed by TMA, f32-class accuracy)
+//   computes out = rows W, d_acc = ct W^T and dW = rows^T ct in (128, 64)
+//   tiles, W split once per call into K-major hi / lo scratch: W leaves L2
+//   once per 128 query rows instead of once per 4- or 8-query block; the
+//   fold and dW cut their k range into splits that fill the card, summed in
+//   order. Where W fits (<= 64 KB: the input layers and the
 //   3-channel output layer), it is staged once into the shared memory of a
 //   block that then walks at least 64 query rows, and the fold (K1) or
 //   d_acc (K2) stays in the walk kernel.
@@ -96,10 +98,10 @@
 // tenth (tools/profile_torch_port.py --walk-phases). No block shape (1 to
 // 16 queries, 128 to 512 threads) moved a walk by more than a tenth beyond
 // the one chosen, and neither did the 16-byte phase 2 nor tiles that run
-// across slab borders. The products take as long as the walk at the wide
-// layers (`mma.sync` TF32 reaches under a fifth of the card's
-// `wgmma` rate). The scratch rows are traffic of this design, not bytes
-// the function has to move, so the bound leaves them out.
+// across slab borders. On `wgmma` the products take a quarter of K1's
+// time at the wide layers (conv1 0.19 of 0.76 ms on an H100, PERF.md),
+// and the walk the rest. The scratch rows are traffic of this design, not
+// bytes the function has to move, so the bound leaves them out.
 
 #include <cuda_runtime.h>
 
@@ -1106,18 +1108,24 @@ bool bad_block(int threads, int least) {
 // K1. rows == null: W fits shared memory and the walk folds it itself.
 // Otherwise the walk writes its accumulator rows to `rows` (chunk_rows,
 // 64 * cin) one chunk of query rows at a time and the tensor-core product
-// folds each chunk with W. qb queries per block (1, 2, 4, 8 or 16) and the
-// block size come from ops/fused_cconv.py `walk_config`.
+// folds each chunk with W (bt: its B scratch), in k_splits splits of
+// k_per_split terms written to part (k_splits, chunk_rows, cout) and
+// summed in order when k_splits > 1. qb queries per block (1, 2, 4, 8 or
+// 16), the block size and the splits come from ops/fused_cconv.py
+// `walk_config` and `product_splits`.
 extern "C" int nf_fused_cconv_fwd(
     const int* gcol, const int* gzlo, const int* gzhi, const int* gstart,
     const int* pstarts, const float* qpos, const float* cpos,
     const float* feats, const float* w, float* out, float* cnt, float* rows,
-    int n_groups, int group_size, int n_q, int chunk_rows, int qb,
-    int threads, int d0, int d1, int d2, int kz, int ky, int kx, int cin,
-    int cout, float inv_r, int exclude_self, void* stream) {
+    float* bt, float* part, int n_groups, int group_size, int n_q,
+    int chunk_rows, int k_splits, int k_per_split, int qb, int threads,
+    int d0, int d1, int d2, int kz, int ky, int kx, int cin, int cout,
+    float inv_r, int exclude_self, void* stream) {
   const bool fold = rows == nullptr;
   if (cout < 1 || cout > 256 || n_q < 1 || bad_block(threads, 32) ||
-      (fold && threads < cout) || (!fold && chunk_rows < 1))
+      (fold && threads < cout) ||
+      (!fold && (chunk_rows < 1 || bt == nullptr || k_splits < 1 ||
+                 (k_splits > 1 && part == nullptr))))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Walk a{gcol, gzlo, gzhi, gstart, pstarts, qpos, cpos, feats,
@@ -1129,8 +1137,15 @@ extern "C" int nf_fused_cconv_fwd(
     const int hi = min(n_q, lo + chunk_rows);
     int err = walk_fwd(a, false, qb, w, rows, cnt, threads, lo, hi);
     if (err != 0) return err;
-    err = nf::split_gemm(rows, w, out + static_cast<long>(lo) * cout, hi - lo,
-                         cout, klen, false, 1, 0, st);
+    float* out_lo = out + static_cast<long>(lo) * cout;
+    err = nf::split_gemm(rows, w, k_splits > 1 ? part : out_lo, bt, hi - lo,
+                         cout, klen, false, k_splits, k_per_split, st);
+    if (err != 0) return err;
+    if (k_splits == 1) continue;
+    const int len = (hi - lo) * cout;
+    nf::sum_splits_kernel<<<(len + 255) / 256, 256, 0, st>>>(part, out_lo,
+                                                            k_splits, len);
+    err = static_cast<int>(cudaGetLastError());
     if (err != 0) return err;
   }
   return 0;
@@ -1144,13 +1159,14 @@ extern "C" int nf_fused_cconv_fwd(
 // tensor-core product into `scratch` (chunk_rows, 64 * cin), which then
 // also takes the accumulator rows of the dW product, chunk by chunk. Split
 // s of a chunk sums rows [s, s + 1) * rows_per_split of it (a multiple of
-// 32); the splits of all chunks are added in order.
+// 32); the splits of all chunks are added in order. bt is the products' B
+// scratch (ops/fused_cconv.py `gemm_b_floats` of the larger B).
 extern "C" int nf_fused_cconv_bwd(
     const int* gcol, const int* gzlo, const int* gzhi, const int* gstart,
     const int* pstarts, const float* qpos, const float* cpos,
     const float* feats, const float* wt, const float* ct, float* scratch,
-    float* part, float* dw, float* dq, float* dc, float* df, int n_groups,
-    int group_size, int n_q, int chunk_rows, int splits_per_chunk,
+    float* part, float* bt, float* dw, float* dq, float* dc, float* df,
+    int n_groups, int group_size, int n_q, int chunk_rows, int splits_per_chunk,
     int rows_per_split, int local, int qb_fwd, int threads_fwd, int qb_bwd,
     int threads_bwd, int d0, int d1, int d2, int kz, int ky, int kx, int cin,
     int cout, float inv_r, int exclude_self, void* stream) {
@@ -1158,6 +1174,7 @@ extern "C" int nf_fused_cconv_bwd(
   const bool need_dacc = dq != nullptr || df != nullptr;
   if (cout < 1 || n_q < 1 || chunk_rows < 1 ||
       (dq == nullptr) != (dc == nullptr) ||
+      ((need_w || (need_dacc && !local)) && bt == nullptr) ||
       (need_w && (part == nullptr || scratch == nullptr ||
                   bad_block(threads_fwd, 32) || splits_per_chunk < 1 ||
                   rows_per_split % 32 != 0 ||
@@ -1179,8 +1196,8 @@ extern "C" int nf_fused_cconv_bwd(
     int err = 0;
     if (need_dacc) {
       if (!local)
-        err = nf::split_gemm(ct_lo, wt, scratch, hi - lo, klen, cout, false, 1,
-                             0, st);
+        err = nf::split_gemm(ct_lo, wt, scratch, bt, hi - lo, klen, cout,
+                             false, 1, 0, st);
       if (err != 0) return err;
       err = walk_bwd(a, local != 0, qb_bwd, wt, ct, scratch, dq, dc, df,
                      threads_bwd, lo, hi);
@@ -1191,8 +1208,9 @@ extern "C" int nf_fused_cconv_bwd(
                      lo, hi);
       if (err != 0) return err;
       err = nf::split_gemm(scratch, ct_lo,
-                           part + n_chunks * splits_per_chunk * len, klen, cout,
-                           hi - lo, true, splits_per_chunk, rows_per_split, st);
+                           part + n_chunks * splits_per_chunk * len, bt, klen,
+                           cout, hi - lo, true, splits_per_chunk,
+                           rows_per_split, st);
       if (err != 0) return err;
     }
   }
@@ -1203,19 +1221,22 @@ extern "C" int nf_fused_cconv_bwd(
 }
 
 // The tensor-core product on its own: c (m, n) = a b with a (m, k), or
-// (k, m) when trans_a, and b (k, n), all row-major f32. With n_split > 1 the
-// k range is cut into splits of k_per_split (a multiple of 32) whose
-// products go to part (n_split, m, n) and are summed in order into c.
+// (k, m) when trans_a, and b (k, n), all row-major f32; bt is its B scratch
+// (ops/fused_cconv.py `gemm_b_floats(k, n)`). With n_split > 1 the k range
+// is cut into splits of k_per_split (a multiple of 32) whose products go to
+// part (n_split, m, n) and are summed in order into c.
 extern "C" int nf_split_gemm(const float* a, const float* b, float* c,
-                             float* part, int m, int n, int k, int trans_a,
-                             int n_split, int k_per_split, void* stream) {
+                             float* part, float* bt, int m, int n, int k,
+                             int trans_a, int n_split, int k_per_split,
+                             void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (m < 1 || n < 1 || k < 0 || n_split < 1 ||
       (n_split > 1 && part == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (n_split == 1) return nf::split_gemm(a, b, c, m, n, k, trans_a != 0, 1, 0, st);
-  const int err = nf::split_gemm(a, b, part, m, n, k, trans_a != 0, n_split,
-                                 k_per_split, st);
+  if (n_split == 1)
+    return nf::split_gemm(a, b, c, bt, m, n, k, trans_a != 0, 1, 0, st);
+  const int err = nf::split_gemm(a, b, part, bt, m, n, k, trans_a != 0,
+                                 n_split, k_per_split, st);
   if (err != 0) return err;
   const int len = m * n;
   nf::sum_splits_kernel<<<(len + 255) / 256, 256, 0, st>>>(part, c, n_split,

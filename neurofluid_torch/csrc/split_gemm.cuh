@@ -6,37 +6,74 @@
 //   K1 fold:   out   (Nq, Cout)      = rows (Nq, 64 Cin)   * W
 //   K2 d_acc:  d_acc (Nq, 64 Cin)    = ct   (Nq, Cout)     * W^T
 //   K2 dW:     dW    (64 Cin, Cout)  = rows^T              * ct   (TRANS_A:
-//              A is stored (K, M); the K range is cut into splits whose
-//              partial products are written apart and summed in order)
+//              A is stored (K, M))
+//
+// The K range may be cut into splits whose partial products are written
+// apart and summed in order (`sum_splits_kernel`): the result is bitwise
+// repeatable, with no atomics.
 //
 // The TPU kernels contract these inside their own bodies on the MXU at
 // HIGHEST precision (neurofluid_tpu/ops/fused_cconv.py `_fwd_kernel`,
-// `_bwd_kernel`). Here every f32 operand is split in registers into
-// hi = tf32(x) and lo = tf32(x - hi), and each k-step of 8 runs three
-// `mma.sync.m16n8k8` TF32 products, lo*hi + hi*lo + hi*hi (small terms
-// first), chained through the tensor core from a zero accumulator; their
-// sum is then added to the f32 accumulator with an ordinary rounded add.
-// The tensor core truncates when it accumulates, so a sum carried through
-// it over a long k drifts far beyond f32's own error (at k = 6,144 the
-// fold then missed the kernel tests' rtol of 1e-4); summed outside, the
-// truncation touches only 8-term partial sums. The dropped
-// lo*lo term is below 2^-21 of |a||b|, so the result is as accurate as an
-// f32 SIMT product.
+// `_bwd_kernel`). Here every f32 operand is split into hi = tf32(x) and
+// lo = tf32(x - hi), and each product runs as three TF32 passes, lo*hi +
+// hi*lo + hi*hi, on Hopper's `wgmma`. The dropped lo*lo term is below
+// 2^-21 of |a||b|. The tensor core truncates when it accumulates, so a sum
+// carried through it over the whole of k drifts far beyond f32's own error
+// (at k = 6,144 it missed the kernel tests' rtol of 1e-4): each k-tile of
+// 32 is one chain of 12 `wgmma` from a zero accumulator, the small passes of
+// its 4 k-steps first, then their hi*hi, and the chain's sum is added to
+// the f32 accumulator in registers with a rounded add.
+// tests/test_torch_split_gemm.py emulates chains of 8 and of 32 within the
+// limit; on an H100 the chains of 32 left d_acc (k = 64, the shortest sum)
+// at 0.44 of the limit with the small passes first and 0.84 with the
+// passes of each k-step together.
 //
-// A block owns a (BM, BN) tile of C; with KG = 2 two groups of warps take
-// alternate k-steps of the same tile and add their sums through shared
-// memory at the end, which doubles the warps per SM where the grid is
-// small. (BM or BK, 32)-deep tiles of A and B arrive in a three-stage ring
-// of shared memory by `cp.async` (16-byte copies where the leading
-// dimension and the base pointer allow, 4-byte copies with zero fill on
-// ragged edges and odd widths such as Cout = 3), so every element of A and B leaves L2 once per (BM, BN) tile: once per 64
-// query rows in the fold and in d_acc. Row strides of the tiles are chosen
-// so that the fragment reads of a warp fall on 32 different banks.
-// Bound on the card: operations (3 TF32 passes over 2 M N K) for the fold
-// and dW, bytes (the M x N output) for d_acc.
+// Bound on the card: bytes at every use (the fold streams the (Nq, 64 Cin)
+// rows once; d_acc writes them once); the three TF32 passes are 0.034 ms
+// of tensor work against 0.054 ms of bytes at conv1's fold. The design:
+//
+// * A block owns a (128, BN) tile of C (BN = 8 for N <= 8, 128 from N =
+//   1,024, else 64) and walks (tile, split) units persistently, one block
+//   per SM. Warpgroup 0 is the producer: one warp keeps a ring of shared
+//   memory full, (128 x 32) of A (16 KB) plus B's hi and lo (BN x 32 each)
+//   per stage, five stages (three at BN = 128), by TMA
+//   (`cp.async.bulk.tensor`) completing on an `mbarrier` per stage. Up to
+//   80 KB of A is in flight per SM. Warpgroups 1 and 2 each take 64 rows of
+//   the tile and hand each stage back on an `mbarrier` when their chains
+//   over it are done.
+// * `wgmma` with TF32 reads B from shared memory K-major only, so a small
+//   prep kernel (`split_gemm_kernel_b`) writes B transposed to (N, K),
+//   split into hi and lo, padded to BN and to 32 in k, into scratch the
+//   caller allocates. A comes from registers: each consumer thread reads
+//   its fragment of the tile from shared memory once and splits it there.
+// * The ring's rows are 128 bytes, loaded with TMA's 128-byte swizzle: the
+//   `wgmma` descriptor of B names it, and the fragment reads of A undo it,
+//   so the 8 rows a warp reads fall on 32 different banks (two-way in the
+//   TRANS_A form, whose A arrives as (32 x 32) M-major sub-tiles).
+// * While a tile's chain runs, each consumer waits for the next stage and
+//   loads and splits its A fragments; the wait and add of one warpgroup's
+//   chain overlap the other warpgroup's chain.
+// * The epilogue stages C in shared memory and stores it by TMA while the
+//   next unit's chains run (16-byte runs of rows by the threads where TMA
+//   cannot take C). The 128-wide N-tile halves d_acc's units and their
+//   starts and stores per byte of output; its 64-float sums need more than
+//   the 168 registers a thread of 384 gets, so there the producer gives
+//   registers to the consumers (`setmaxnreg`).
+// * Where TMA cannot take A (a base address off 16 bytes or a row stride
+//   that is no multiple of 16 bytes), the producer warp fills the same
+//   swizzled ring with 4-byte `cp.async` copies, zero-filled at the edges,
+//   completing on the same `mbarrier`.
+//
+// What limits it now (H100 80GB HBM3, 700 W; PERF.md): 0.52-0.65 of the
+// bytes bound at the wide uses. Not the L2 reads of B (loading B once per
+// unit instead of once per k-tile gained under 1%), not the ring (four to
+// six stages within 3%), not the store; the third pass costs 10-15%, and a
+// second chain in flight per warpgroup was 5-10% slower (it holds a stage
+// longer). The chains of n64 `wgmma` with A from registers are the rest.
 
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -44,6 +81,12 @@
 #include "async_copy.cuh"
 
 namespace nf {
+
+constexpr int kGemmBK = 32;    // k per tile: one 128-byte swizzled row of f32
+constexpr int kGemmBM = 128;   // rows per tile: two consumer warpgroups
+constexpr int kGemmThreads = 384;  // producer warpgroup + two consumers
+// empty-barrier arrivals per stage: one per consumer warp
+constexpr int kGemmConsumerWarps = 8;
 
 // x = hi + lo with both representable in TF32 (10-bit mantissa)
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
@@ -53,228 +96,529 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(rest));
 }
 
-// d = a b (a zero accumulator goes in)
-__device__ __forceinline__ void mma_tf32_first(float (&d)[4],
-                                               const uint32_t (&a)[4],
-                                               const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
-        "f"(0.0f));
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// d += a b
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+// ---- mbarriers
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
 }
 
-constexpr int kGemmBK = 32;
-constexpr int kGemmStages = 3;
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
 
-// Copy a (rows, 4 * chunks) tile of the row-major matrix `src` (leading
-// dimension ld), whose first element is (r0, c0), into `dst` (row stride
-// `stride`); entries at rows >= r_lim or columns >= c_lim become zero.
-template <int THREADS>
-__device__ __forceinline__ void gemm_load_tile(float* dst, int stride,
-                                               const float* src, int ld,
-                                               int rows, int chunks, int r0,
-                                               int c0, int r_lim, int c_lim,
-                                               bool vec) {
-  for (int i = threadIdx.x; i < rows * chunks; i += THREADS) {
-    const int r = i / chunks, cc = i % chunks;
-    const int gr = r0 + r, gc = c0 + cc * 4;
-    float* d = dst + r * stride + cc * 4;
-    const float* s = src + static_cast<long>(gr) * ld + gc;
-    if (vec && gr < r_lim && gc + 4 <= c_lim) {
-      cp_async16(d, s);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool ok = gr < r_lim && gc + e < c_lim;
-        cp_async4(d + e, ok ? s + e : src, ok);
-      }
-    }
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// arrive once all of this thread's earlier cp.async copies have landed
+__device__ __forceinline__ void mbar_arrive_cp_async(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed. A wait of more
+// than ~2^35 cycles (about 20 s) can only be a pipeline that never
+// completes: it traps, an error the caller sees, instead of hanging.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  long long start = 0;
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (start == 0) start = clock64();
+    else if (clock64() - start > (1ll << 35)) __trap();
   }
 }
 
-template <int BM, int BN, bool TRANS_A>
-struct GemmTiles {
-  static constexpr int kAStride = TRANS_A ? BM + 8 : kGemmBK + 4;
-  static constexpr int kARows = TRANS_A ? kGemmBK : BM;
-  static constexpr int kBStride = BN + (BN % 32 == 0 ? 8 : 0);
-  static constexpr int kATile = kARows * kAStride;
-  static constexpr int kBTile = kGemmBK * kBStride;
-  static constexpr size_t kSmemBytes =
-      sizeof(float) * kGemmStages * (kATile + kBTile);
+// ---- TMA
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// ---- wgmma
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keep the compiler from moving reads or writes of r across a wgmma wait
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// Shared-memory descriptor of a K-major tile with 128-byte rows in TMA's
+// 128-byte swizzle: 8-row groups 1,024 bytes apart (the leading offset is
+// unused for this layout). A k-step of 8 f32 moves the start by 32 bytes.
+__device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
+  return static_cast<uint64_t>((smem_addr(tile) & 0x3FFFF) >> 4) |
+         (uint64_t{1} << 16) | (uint64_t{1024 >> 4} << 32) |
+         (uint64_t{1} << 62);
+}
+
+// d (+)= a b for one 64 x BN x 8 step: a from registers (the m16n8k8 A
+// fragment of each warp's 16 rows), b from shared memory; scale_d = 0
+// starts from a zero accumulator
+template <int BN>
+struct Wgmma;
+
+template <>
+struct Wgmma<64> {
+  static __device__ __forceinline__ void mma(float (&d)[32],
+                                             const uint32_t* a, uint64_t b,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
 };
 
-// Split z of the grid contracts k in [z * k_per_split, (z + 1) *
-// k_per_split) and writes its (m, n) product at c + z * m * n. With
-// TRANS_A, `a` is the (k, m) row-major matrix A^T.
-template <int BM, int BN, int WARPS_M, int WARPS_N, int KG, bool TRANS_A>
-__global__ void __launch_bounds__(WARPS_M* WARPS_N* KG * 32)
-    split_gemm_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                      float* __restrict__ c, int m, int n, int k, int lda,
-                      int ldb, int k_per_split) {
-  using T = GemmTiles<BM, BN, TRANS_A>;
-  constexpr int kGroup = WARPS_M * WARPS_N * 32;  // threads per k-group
-  constexpr int kThreads = kGroup * KG;
-  constexpr int MT = BM / WARPS_M / 16, NT = BN / WARPS_N / 8;
-  constexpr int AS = T::kAStride, BS = T::kBStride;
-  extern __shared__ __align__(16) float gemm_smem[];
-  float* sa = gemm_smem;
-  float* sb = gemm_smem + kGemmStages * T::kATile;
-
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int k_begin = blockIdx.z * k_per_split;
-  const int k_end = min(k, k_begin + k_per_split);
-  const int n_kt = k_end > k_begin ? (k_end - k_begin + kGemmBK - 1) / kGemmBK
-                                   : 0;
-  c += static_cast<long>(blockIdx.z) * m * n;
-  const bool a_vec = lda % 4 == 0 && aligned16(a);
-  const bool b_vec = ldb % 4 == 0 && aligned16(b);
-
-  auto load = [&](int stage, int kt) {
-    const int kb = k_begin + kt * kGemmBK;
-    if (TRANS_A)
-      gemm_load_tile<kThreads>(sa + stage * T::kATile, AS, a, lda, kGemmBK,
-                               BM / 4, kb, m0, k_end, m, a_vec);
-    else
-      gemm_load_tile<kThreads>(sa + stage * T::kATile, AS, a, lda, BM,
-                               kGemmBK / 4, m0, kb, m, k_end, a_vec);
-    gemm_load_tile<kThreads>(sb + stage * T::kBTile, BS, b, ldb, kGemmBK,
-                             BN / 4, kb, n0, k_end, n, b_vec);
-  };
-
-  const int kg = threadIdx.x / kGroup;
-  const int warp = (threadIdx.x % kGroup) / 32, lane = threadIdx.x % 32;
-  const int wm = (warp % WARPS_M) * (BM / WARPS_M);
-  const int wn = (warp / WARPS_M) * (BN / WARPS_N);
-  const int g = lane >> 2, t = lane & 3;
-  float acc[MT][NT][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
-
-  for (int s = 0; s < kGemmStages - 1; ++s) {
-    if (s < n_kt) load(s, s);
-    cp_async_commit();
+template <>
+struct Wgmma<128> {
+  static __device__ __forceinline__ void mma(float (&d)[64],
+                                             const uint32_t* a, uint64_t b,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+        "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+        "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
   }
-  for (int kt = 0; kt < n_kt; ++kt) {
-    cp_async_wait<kGemmStages - 2>();  // tile kt has landed
-    __syncthreads();  // ... for every thread, and tile kt - 1 is consumed
-    const int next = kt + kGemmStages - 1;
-    if (next < n_kt) load(next % kGemmStages, next);
-    cp_async_commit();
-    const float* ta = sa + (kt % kGemmStages) * T::kATile;
-    const float* tb = sb + (kt % kGemmStages) * T::kBTile;
+};
+
+template <>
+struct Wgmma<8> {
+  static __device__ __forceinline__ void mma(float (&d)[4], const uint32_t* a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+// ---- the product
+
+template <int BN>
+struct GemmLayout {
+  static constexpr int kABytes = kGemmBM * kGemmBK * 4;  // 16 KB
+  static constexpr int kBBytes = BN * kGemmBK * 4;       // hi, then lo
+  static constexpr int kStage = kABytes + 2 * kBBytes;
+  // five stages; three at BN = 128, whose staging of C takes 64 KB
+  static constexpr int kStages = BN == 128 ? 3 : 5;
+  // a consumer's 64 rows of C: (64 x 32) boxes in the 128-byte swizzle
+  // (BN = 64), or dense 32-byte rows (BN = 8)
+  static constexpr int kStaging = 2 * 64 * BN * 4;
+  static constexpr int kBarOffset = kStages * kStage + kStaging;
+  // + the full and empty barriers, + slack to align the ring to 1,024
+  static constexpr size_t kBytes = kBarOffset + 2 * kStages * 8 + 1024;
+  static_assert(kStage % 1024 == 0, "swizzled tiles start on 1,024 bytes");
+};
+
+struct GemmArgs {
+  const float* a;  // read directly only when a_tma == 0
+  float* c;        // split z writes c + z * m * n; directly if c_tma == 0
+  int m, n, k, lda;
+  int k_per_split, n_split, m_tiles, n_tiles;
+  int a_tma, c_tma;
+};
+
+// float offset of C's (row r, column c) in a consumer's staging (c even)
+template <int BN>
+__device__ __forceinline__ int staged_at(int r, int c) {
+  if (BN == 8) return r * 8 + c;
+  return (c >> 5) * 2048 + r * 32 + ((((c & 31) >> 2) ^ (r & 7)) << 2) +
+         (c & 3);
+}
+
+// This thread's m16n8k8 A fragments of the 64 rows of warpgroup `cw` over
+// the tile's 4 k-steps, split: x[4 ks + e] with e = (row g, k t),
+// (g + 8, t), (g, t + 4), (g + 8, t + 4) of the warp's 16 rows.
+template <bool TRANS_A>
+__device__ __forceinline__ void load_a_frags(const uint8_t* tile, int cw,
+                                             int w, int g, int t,
+                                             uint32_t (&hi)[16],
+                                             uint32_t (&lo)[16]) {
+  const int r0 = 64 * cw + 16 * w + g;  // tile row (TRANS_A: column)
 #pragma unroll
-    for (int ks = 0; ks < kGemmBK / (8 * KG); ++ks) {
-      const int kk = (ks * KG + kg) * 8;
-      uint32_t ah[MT][4], al[MT][4], bh[NT][2], bl[NT][2];
+  for (int ks = 0; ks < 4; ++ks) {
+    float x[4];
+    if (!TRANS_A) {  // (128 rows x 32 k), row r's 16-byte chunk j at j ^ r%8
+      const uint8_t* row0 = tile + r0 * 128 + 4 * t;
+      const uint8_t* row1 = row0 + 8 * 128;
+      const int c0 = ((2 * ks) ^ g) << 4, c1 = ((2 * ks + 1) ^ g) << 4;
+      x[0] = *reinterpret_cast<const float*>(row0 + c0);
+      x[1] = *reinterpret_cast<const float*>(row1 + c0);
+      x[2] = *reinterpret_cast<const float*>(row0 + c1);
+      x[3] = *reinterpret_cast<const float*>(row1 + c1);
+    } else {  // four (32 k x 32 m) sub-tiles, k row's chunk j at j ^ k%8
+      const uint8_t* sub = tile + (r0 >> 5) * 4096 + 4 * (r0 & 3);
+      const int mi0 = (r0 & 31) >> 2, mi1 = mi0 + 2;  // chunks of m, m + 8
+      const uint8_t* k0 = sub + (8 * ks + t) * 128;
+      const uint8_t* k1 = k0 + 4 * 128;
+      x[0] = *reinterpret_cast<const float*>(k0 + ((mi0 ^ t) << 4));
+      x[1] = *reinterpret_cast<const float*>(k0 + ((mi1 ^ t) << 4));
+      x[2] = *reinterpret_cast<const float*>(k1 + ((mi0 ^ (t + 4)) << 4));
+      x[3] = *reinterpret_cast<const float*>(k1 + ((mi1 ^ (t + 4)) << 4));
+    }
 #pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        const int r0 = wm + i * 16 + g, r1 = r0 + 8;
-        const int k0 = kk + t, k1 = k0 + 4;
-        float x[4];
-        if (TRANS_A) {
-          x[0] = ta[k0 * AS + r0];
-          x[1] = ta[k0 * AS + r1];
-          x[2] = ta[k1 * AS + r0];
-          x[3] = ta[k1 * AS + r1];
-        } else {
-          x[0] = ta[r0 * AS + k0];
-          x[1] = ta[r1 * AS + k0];
-          x[2] = ta[r0 * AS + k1];
-          x[3] = ta[r1 * AS + k1];
+    for (int e = 0; e < 4; ++e) split_tf32(x[e], hi[4 * ks + e], lo[4 * ks + e]);
+  }
+}
+
+// The producer's fallback for an A that TMA cannot take: 4-byte copies
+// into the same swizzled layout, zero beyond m and k_end.
+template <bool TRANS_A>
+__device__ __forceinline__ void load_a_cp_async(uint8_t* tile,
+                                                const GemmArgs& p, int m0,
+                                                int k0, int k_end, int lane) {
+  for (int i = lane; i < kGemmBM * kGemmBK; i += 32) {
+    int r, c, gm, gk;  // (row, column) in the tile's 128-byte rows
+    uint8_t* dst;
+    if (!TRANS_A) {
+      r = i >> 5, c = i & 31, gm = m0 + r, gk = k0 + c;
+      dst = tile + r * 128;
+    } else {
+      const int mc = i & 127;
+      r = i >> 7, c = mc & 31, gm = m0 + mc, gk = k0 + r;
+      dst = tile + (mc >> 5) * 4096 + r * 128;
+    }
+    dst += ((((c >> 2) ^ (r & 7)) << 4) | ((c & 3) << 2));
+    const bool ok = gm < p.m && gk < k_end;
+    const long off = TRANS_A ? static_cast<long>(gk) * p.lda + gm
+                             : static_cast<long>(gm) * p.lda + gk;
+    cp_async4(reinterpret_cast<float*>(dst), ok ? p.a + off : p.a, ok);
+  }
+}
+
+template <int STAGES>
+__device__ __forceinline__ void ring_advance(int& stage, uint32_t& phase) {
+  if (++stage == STAGES) stage = 0, phase ^= 1u;
+}
+
+// The k-tiles of unit u of the (m tile, n tile, split) walk: its first row
+// and column and its k range; returns the number of k-tiles.
+__device__ __forceinline__ int gemm_unit(const GemmArgs& p, int bn, int u,
+                                         int& m0, int& n0, int& k_begin,
+                                         int& k_end) {
+  const int rest = u / p.m_tiles;
+  m0 = (u % p.m_tiles) * kGemmBM;
+  n0 = (rest % p.n_tiles) * bn;
+  k_begin = (rest / p.n_tiles) * p.k_per_split;
+  k_end = min(p.k, k_begin + p.k_per_split);
+  return k_end > k_begin ? (k_end - k_begin + kGemmBK - 1) / kGemmBK : 0;
+}
+
+// Issue one chain of 12 wgmma over the k-tile in stage `st`, from a zero
+// accumulator, small terms first: lo*hi and hi*lo of the 4 k-steps, then
+// their hi*hi. The truncating adds of the chain then meet the large terms
+// only 4 times (8 times in the order lo*hi, hi*lo, hi*hi per k-step, which
+// left d_acc at 0.84 of the limit on the card).
+template <int BN>
+__device__ __forceinline__ void gemm_chain(const uint8_t* st,
+                                           float (&d)[BN / 2],
+                                           const uint32_t (&a_hi)[16],
+                                           const uint32_t (&a_lo)[16]) {
+  using L = GemmLayout<BN>;
+  const uint64_t bh = sw128_desc(st + L::kABytes);
+  const uint64_t bl = bh + (L::kBBytes >> 4);
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    Wgmma<BN>::mma(d, &a_lo[4 * ks], bh + 2 * ks, ks);
+    Wgmma<BN>::mma(d, &a_hi[4 * ks], bl + 2 * ks, 1);
+  }
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+    Wgmma<BN>::mma(d, &a_hi[4 * ks], bh + 2 * ks, 1);
+  wgmma_commit();
+}
+
+// Wait for the chain, add its sum into acc, hand the stage back.
+template <int N>
+__device__ __forceinline__ void gemm_retire(float (&acc)[N], float (&d)[N],
+                                            uint64_t* empty, int lane) {
+  wgmma_wait_all();
+  fence_regs(d);
+  if (lane == 0) mbar_arrive(empty);
+#pragma unroll
+  for (int i = 0; i < N; ++i) acc[i] += d[i];
+}
+
+// Split z of the K range is [z * k_per_split, (z + 1) * k_per_split); the
+// blocks walk the (m tile, n tile, split) units with a stride of the grid.
+template <int BN, bool TRANS_A>
+__global__ void __launch_bounds__(kGemmThreads, 1)
+    split_gemm_kernel(const __grid_constant__ CUtensorMap a_map,
+                      const __grid_constant__ CUtensorMap b_map,
+                      const __grid_constant__ CUtensorMap c_map,
+                      const GemmArgs p) {
+  using L = GemmLayout<BN>;
+  constexpr int NA = BN / 2;  // accumulator floats per consumer thread
+  extern __shared__ uint8_t gemm_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(gemm_raw) + 1023) & ~uintptr_t{1023});
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBarOffset);
+  uint64_t* empty = full + L::kStages;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::kStages; ++s) {
+      mbar_init(&full[s], p.a_tma ? 1 : 1 + 32);
+      mbar_init(&empty[s], kGemmConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int units = p.m_tiles * p.n_tiles * p.n_split;
+  const int wg = threadIdx.x / 128;
+  int stage = 0;
+  uint32_t phase = 0;
+  int m0, n0, k_begin, k_end;
+
+  // At BN = 128 a consumer thread holds 64 floats of C, 64 of a chain's
+  // sum and 64 words of A fragments: the producer gives up registers to
+  // the consumers (40 and 232 of the 168 a thread of 384 is launched with).
+  if (wg == 0) {  // producer: one warp fills the ring
+    if (BN == 128)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x >= 32) return;
+    const int lane = threadIdx.x;
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      const int n_kt = gemm_unit(p, BN, u, m0, n0, k_begin, k_end);
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int k0 = k_begin + kt * kGemmBK;
+        mbar_wait(&empty[stage], phase ^ 1u);
+        uint8_t* st = smem + stage * L::kStage;
+        if (lane == 0) {
+          mbar_expect_tx(&full[stage],
+                         2 * L::kBBytes + (p.a_tma ? L::kABytes : 0));
+          tma_load_3d(st + L::kABytes, &b_map, &full[stage], k0, n0, 0);
+          if (p.a_tma) {
+            if (TRANS_A) {
+#pragma unroll
+              for (int j = 0; j < kGemmBM / 32; ++j)
+                tma_load_2d(st + j * 4096, &a_map, &full[stage], m0 + 32 * j,
+                            k0);
+            } else {
+              tma_load_2d(st, &a_map, &full[stage], k0, m0);
+            }
+          }
         }
-#pragma unroll
-        for (int e = 0; e < 4; ++e) split_tf32(x[e], ah[i][e], al[i][e]);
+        if (!p.a_tma) {
+          load_a_cp_async<TRANS_A>(st, p, m0, k0, k_end, lane);
+          mbar_arrive_cp_async(&full[stage]);
+        }
+        ring_advance<L::kStages>(stage, phase);
       }
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int cn = wn + j * 8 + g;
-        split_tf32(tb[(kk + t) * BS + cn], bh[j][0], bl[j][0]);
-        split_tf32(tb[(kk + t + 4) * BS + cn], bh[j][1], bl[j][1]);
-      }
-      // the three products of one tile are MT * NT instructions apart, so
-      // the tensor pipe never waits on its own result
-      float d[MT][NT][4];
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int j = 0; j < NT; ++j) mma_tf32_first(d[i][j], al[i], bh[j]);
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int j = 0; j < NT; ++j) mma_tf32(d[i][j], ah[i], bl[j]);
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int j = 0; j < NT; ++j) mma_tf32(d[i][j], ah[i], bh[j]);
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[i][j][e] += d[i][j][e];
     }
-  }
-  cp_async_wait<0>();
-  if (KG > 1) {  // the second k-group hands its sums to the first
-    float* red = gemm_smem;
-    const int slot = threadIdx.x % kGroup;
-    __syncthreads();  // the ring is consumed
-    if (kg == 1) {
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            red[((i * NT + j) * 4 + e) * kGroup + slot] = acc[i][j][e];
-    }
-    __syncthreads();
-    if (kg != 0) return;
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          acc[i][j][e] += red[((i * NT + j) * 4 + e) * kGroup + slot];
+    return;
   }
 
-  const bool pair_store = (n & 1) == 0 && (reinterpret_cast<uintptr_t>(c) & 7u) == 0;
+  // consumers: warpgroup cw takes rows [64 cw, 64 cw + 64) of each tile
+  if (BN == 128)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int cw = wg - 1, tid = threadIdx.x - 128 * wg;
+  const int w = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  float* staged = reinterpret_cast<float*>(smem + L::kStages * L::kStage) +
+                  cw * 64 * BN;
+  const int bar_id = 1 + cw;  // named barrier of this warpgroup
+
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const int n_kt = gemm_unit(p, BN, u, m0, n0, k_begin, k_end);
+    float acc[NA], d[NA];
 #pragma unroll
-  for (int i = 0; i < MT; ++i) {
+    for (int i = 0; i < NA; ++i) acc[i] = d[i] = 0.0f;
+    // A fragments of two k-tiles: the next is loaded while a chain runs
+    uint32_t ah0[16], al0[16], ah1[16], al1[16];
+    if (n_kt > 0) {
+      mbar_wait(&full[stage], phase);
+      load_a_frags<TRANS_A>(smem + stage * L::kStage, cw, w, g, t, ah0, al0);
+    }
+    // tiles in pairs, so that the fragment buffers are named at compile time
+    for (int kt = 0; kt < n_kt; kt += 2) {
+      int s = stage;
+      ring_advance<L::kStages>(stage, phase);
+      gemm_chain<BN>(smem + s * L::kStage, d, ah0, al0);
+      if (kt + 1 < n_kt) {
+        mbar_wait(&full[stage], phase);
+        load_a_frags<TRANS_A>(smem + stage * L::kStage, cw, w, g, t, ah1,
+                              al1);
+      }
+      gemm_retire(acc, d, &empty[s], lane);
+      if (kt + 1 >= n_kt) break;
+      s = stage;
+      ring_advance<L::kStages>(stage, phase);
+      gemm_chain<BN>(smem + s * L::kStage, d, ah1, al1);
+      if (kt + 2 < n_kt) {
+        mbar_wait(&full[stage], phase);
+        load_a_frags<TRANS_A>(smem + stage * L::kStage, cw, w, g, t, ah0,
+                              al0);
+      }
+      gemm_retire(acc, d, &empty[s], lane);
+    }
+
+    // epilogue: C through shared memory, then a TMA store of the
+    // warpgroup's 64 rows (or, where TMA cannot take C, 16-byte runs of
+    // rows stored by the threads); the next unit's chains start while the
+    // store drains
+    if (p.c_tma && tid == 0)  // the last store has read the staging
+      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    asm volatile("bar.sync %0, 128;\n" ::"r"(bar_id) : "memory");
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const int col = n0 + wn + j * 8 + 2 * t;
+    for (int j = 0; j < BN / 8; ++j) {
+      const int r = 16 * w + g, c = 8 * j + 2 * t;
+      *reinterpret_cast<float2*>(staged + staged_at<BN>(r, c)) =
+          make_float2(acc[4 * j], acc[4 * j + 1]);
+      *reinterpret_cast<float2*>(staged + staged_at<BN>(r + 8, c)) =
+          make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+    }
+    const int z = k_begin / p.k_per_split;
+    if (p.c_tma) {
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      asm volatile("bar.sync %0, 128;\n" ::"r"(bar_id) : "memory");
+      if (tid == 0) {
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = m0 + wm + i * 16 + g + 8 * h;
-        if (row >= m || col >= n) continue;
-        float* dst = c + static_cast<long>(row) * n + col;
-        if (pair_store && col + 1 < n) {
-          *reinterpret_cast<float2*>(dst) =
-              make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
-        } else {
-          dst[0] = acc[i][j][2 * h];
-          if (col + 1 < n) dst[1] = acc[i][j][2 * h + 1];
-        }
+        for (int j = 0; j < (BN + 31) / 32; ++j)
+          tma_store_3d(&c_map, staged + 2048 * j, n0 + 32 * j, m0 + 64 * cw,
+                       z);
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      }
+      continue;
+    }
+    asm volatile("bar.sync %0, 128;\n" ::"r"(bar_id) : "memory");
+    float* c = p.c + static_cast<long>(z) * p.m * p.n;
+    const bool vec = p.n % 4 == 0 && aligned16(c);
+    for (int i = tid; i < 64 * (BN / 4); i += 128) {
+      const int r = i / (BN / 4), c4 = 4 * (i % (BN / 4));
+      const int row = m0 + 64 * cw + r, col = n0 + c4;
+      if (row >= p.m || col >= p.n) continue;
+      const float* src = staged + staged_at<BN>(r, c4);
+      float* dst = c + static_cast<long>(row) * p.n + col;
+      if (vec && col + 4 <= p.n) {
+        *reinterpret_cast<float4*>(dst) =
+            *reinterpret_cast<const float4*>(src);
+      } else {
+        for (int e = 0; e < 4 && col + e < p.n; ++e) dst[e] = src[e];
       }
     }
+  }
+  if (p.c_tma && tid == 0)
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// hi / lo (n_pad, k_pad) = the TF32 parts of b^T, b (k, n) row-major; zero
+// beyond k and n. (32 x 32) tiles through shared memory: both sides move in
+// whole rows.
+__global__ void split_gemm_kernel_b(const float* __restrict__ b, int k, int n,
+                                    float* __restrict__ hi,
+                                    float* __restrict__ lo, int k_pad,
+                                    int n_pad) {
+  __shared__ float tile[32][33];
+  const int k0 = blockIdx.x * 32, n0 = blockIdx.y * 32;
+  for (int r = threadIdx.y; r < 32; r += 8) {
+    const int kk = k0 + r, nn = n0 + threadIdx.x;
+    tile[r][threadIdx.x] =
+        kk < k && nn < n ? b[static_cast<long>(kk) * n + nn] : 0.0f;
+  }
+  __syncthreads();
+  for (int r = threadIdx.y; r < 32; r += 8) {
+    const int nn = n0 + r, kk = k0 + threadIdx.x;
+    if (nn >= n_pad) break;
+    uint32_t h, l;
+    split_tf32(tile[threadIdx.x][r], h, l);
+    const long at = static_cast<long>(nn) * k_pad + kk;
+    hi[at] = __uint_as_float(h);
+    lo[at] = __uint_as_float(l);
   }
 }
 
@@ -289,64 +633,147 @@ __global__ void sum_splits_kernel(const float* __restrict__ part,
   out[i] = v;
 }
 
-template <int BM, int BN, int WARPS_M, int WARPS_N, int KG, bool TRANS_A>
-int launch_split_gemm(const float* a, const float* b, float* c, int m, int n,
-                      int k, int lda, int ldb, int n_split, int k_per_split,
+// ---- host side
+
+inline int gemm_round_up(int x, int to) { return (x + to - 1) / to * to; }
+
+// N-tile of the product: 8 for N <= 8, 128 for N >= 1,024, else 64
+inline int gemm_bn(int n) { return n <= 8 ? 8 : n >= 1024 ? 128 : 64; }
+
+using TensorMapEncoder = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, reached through the runtime's
+// entry-point query so that the library needs no link against libcuda
+inline TensorMapEncoder tensor_map_encoder() {
+  static const TensorMapEncoder fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<TensorMapEncoder>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// f32 tensor map, in the 128-byte swizzle unless `dense`, zero fill out of
+// bounds; dims and box innermost first, strides in bytes of every
+// dimension but the first
+inline bool encode_map(CUtensorMap* map, const void* base, int rank,
+                       const cuuint64_t* dims, const cuuint64_t* strides,
+                       const cuuint32_t* box, bool dense = false) {
+  const TensorMapEncoder encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, rank,
+                const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE,
+                dense ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+inline int gemm_sm_count() {
+  static const int sms = [] {
+    int dev = 0, n = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    return n > 0 ? n : 132;
+  }();
+  return sms;
+}
+
+template <int BN, bool TRANS_A>
+int launch_split_gemm(const CUtensorMap& a_map, const CUtensorMap& b_map,
+                      const CUtensorMap& c_map, const GemmArgs& p,
                       cudaStream_t stream) {
-  using T = GemmTiles<BM, BN, TRANS_A>;
-  static_assert(KG == 1 || KG == 2, "one or two k-groups");
-  static_assert(sizeof(float) * BM * BN <= T::kSmemBytes,
-                "the k-groups' sums pass through the ring");
-  auto kernel = split_gemm_kernel<BM, BN, WARPS_M, WARPS_N, KG, TRANS_A>;
+  using L = GemmLayout<BN>;
+  auto kernel = split_gemm_kernel<BN, TRANS_A>;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(T::kSmemBytes));
+                           static_cast<int>(L::kBytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((m + BM - 1) / BM, (n + BN - 1) / BN, n_split);
-  kernel<<<grid, WARPS_M * WARPS_N * KG * 32, T::kSmemBytes, stream>>>(
-      a, b, c, m, n, k, lda, ldb, k_per_split);
+  const long units = static_cast<long>(p.m_tiles) * p.n_tiles * p.n_split;
+  const int grid = static_cast<int>(units < gemm_sm_count() ? units
+                                                            : gemm_sm_count());
+  kernel<<<grid, kGemmThreads, L::kBytes, stream>>>(a_map, b_map, c_map, p);
   return static_cast<int>(cudaGetLastError());
 }
 
 // c (n_split, m, n) = per split of k, a * b. a is (m, k) row-major, or
-// (k, m) with trans_a; b is (k, n) row-major. k_per_split is a multiple of
-// 32 (only read when n_split > 1). n <= 8 takes (128, 8) tiles on 4 warps,
-// wider outputs (64, 64) tiles on 4 warps (on two k-groups of 4 where the
-// grid has at most 264 blocks); ragged edges are masked in the kernel.
-inline int split_gemm(const float* a, const float* b, float* c, int m, int n,
-                      int k, bool trans_a, int n_split, int k_per_split,
-                      cudaStream_t stream) {
+// (k, m) with trans_a; b is (k, n) row-major; bt is 16-byte aligned scratch
+// for B split and transposed: hi and lo, each (n padded to the N-tile, k
+// padded to 32) (ops/fused_cconv.py `gemm_b_floats`). k_per_split is a
+// multiple of 32 (only read when n_split > 1). Ragged edges are zero-filled
+// by TMA (or by the fallback's copies).
+inline int split_gemm(const float* a, const float* b, float* c, float* bt,
+                      int m, int n, int k, bool trans_a, int n_split,
+                      int k_per_split, cudaStream_t stream) {
   if (m <= 0 || n <= 0 || n_split <= 0) return 0;
-  if (n_split == 1) k_per_split = ((k + kGemmBK - 1) / kGemmBK) * kGemmBK;
-  if (k_per_split <= 0) k_per_split = kGemmBK;
-  if (k_per_split % kGemmBK != 0)
+  if (bt == nullptr || !aligned16(bt))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int lda = trans_a ? m : k, ldb = n;
-  if (n <= 8) {
-    return trans_a ? launch_split_gemm<128, 8, 4, 1, 1, true>(
-                         a, b, c, m, n, k, lda, ldb, n_split, k_per_split,
-                         stream)
-                   : launch_split_gemm<128, 8, 4, 1, 1, false>(
-                         a, b, c, m, n, k, lda, ldb, n_split, k_per_split,
-                         stream);
+  if (n_split == 1) k_per_split = gemm_round_up(k < 1 ? 1 : k, kGemmBK);
+  if (k_per_split <= 0 || k_per_split % kGemmBK != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int bn = gemm_bn(n);
+  const int n_pad = gemm_round_up(n, bn);
+  const int k_pad = gemm_round_up(k < 1 ? 1 : k, kGemmBK);
+  float* bt_lo = bt + static_cast<long>(n_pad) * k_pad;
+  split_gemm_kernel_b<<<dim3(k_pad / 32, (n_pad + 31) / 32), dim3(32, 8), 0,
+                        stream>>>(b, k, n, bt, bt_lo, k_pad, n_pad);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  GemmArgs p{a, c, m, n, k, trans_a ? m : k, k_per_split, n_split,
+             (m + kGemmBM - 1) / kGemmBM, n_pad / bn, 0, 0};
+  p.a_tma = aligned16(a) && p.lda % 4 == 0;
+  p.c_tma = aligned16(c) && n % 4 == 0;
+  CUtensorMap a_map{}, b_map{}, c_map{};
+  const cuuint64_t b_dims[3] = {static_cast<cuuint64_t>(k_pad),
+                                static_cast<cuuint64_t>(n_pad), 2};
+  const cuuint64_t b_strides[2] = {4ull * k_pad, 4ull * k_pad * n_pad};
+  const cuuint32_t b_box[3] = {kGemmBK, static_cast<cuuint32_t>(bn), 2};
+  if (!encode_map(&b_map, bt, 3, b_dims, b_strides, b_box))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (p.a_tma) {
+    const cuuint64_t a_dims[2] = {
+        static_cast<cuuint64_t>(trans_a ? m : (k < 1 ? 1 : k)),
+        static_cast<cuuint64_t>(trans_a ? (k < 1 ? 1 : k) : m)};
+    const cuuint64_t a_strides[1] = {4ull * p.lda};
+    const cuuint32_t a_box[2] = {kGemmBK, trans_a ? 32u : kGemmBM};
+    if (!encode_map(&a_map, a, 2, a_dims, a_strides, a_box))
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  // a small grid takes two k-groups per block: twice the warps per SM
-  const long blocks = static_cast<long>((m + 63) / 64) * ((n + 63) / 64) *
-                      n_split;
-  if (blocks <= 264) {
-    return trans_a ? launch_split_gemm<64, 64, 2, 2, 2, true>(
-                         a, b, c, m, n, k, lda, ldb, n_split, k_per_split,
-                         stream)
-                   : launch_split_gemm<64, 64, 2, 2, 2, false>(
-                         a, b, c, m, n, k, lda, ldb, n_split, k_per_split,
-                         stream);
+  if (p.c_tma) {  // (n_split, m, n), stored in (64 x 32) or (64 x 8) boxes
+    const cuuint64_t c_dims[3] = {static_cast<cuuint64_t>(n),
+                                  static_cast<cuuint64_t>(m),
+                                  static_cast<cuuint64_t>(n_split)};
+    const cuuint64_t c_strides[2] = {4ull * n, 4ull * n * m};
+    const cuuint32_t c_box[3] = {bn == 8 ? 8u : 32u, 64, 1};
+    if (!encode_map(&c_map, c, 3, c_dims, c_strides, c_box, bn == 8))
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  return trans_a ? launch_split_gemm<64, 64, 2, 2, 1, true>(
-                       a, b, c, m, n, k, lda, ldb, n_split, k_per_split,
-                       stream)
-                 : launch_split_gemm<64, 64, 2, 2, 1, false>(
-                       a, b, c, m, n, k, lda, ldb, n_split, k_per_split,
-                       stream);
+  if (bn == 8)
+    return trans_a
+               ? launch_split_gemm<8, true>(a_map, b_map, c_map, p, stream)
+               : launch_split_gemm<8, false>(a_map, b_map, c_map, p, stream);
+  if (bn == 128)
+    return trans_a
+               ? launch_split_gemm<128, true>(a_map, b_map, c_map, p, stream)
+               : launch_split_gemm<128, false>(a_map, b_map, c_map, p, stream);
+  return trans_a
+             ? launch_split_gemm<64, true>(a_map, b_map, c_map, p, stream)
+             : launch_split_gemm<64, false>(a_map, b_map, c_map, p, stream);
 }
 
 }  // namespace nf

@@ -48,20 +48,26 @@ _MIN_PAD = 64  # sorted arrays carry at least this many sentinel/zero rows
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNEL = Kernel("fused_cconv.cu", "nf_fused_cconv_fwd",
-                [_P] * 12 + [_I] * 14 + [_F, _I])
+                [_P] * 14 + [_I] * 16 + [_F, _I])
 BWD_KERNEL = Kernel("fused_cconv.cu", "nf_fused_cconv_bwd",
-                    [_P] * 16 + [_I] * 19 + [_F, _I])
-GEMM_KERNEL = Kernel("fused_cconv.cu", "nf_split_gemm", [_P] * 4 + [_I] * 6)
+                    [_P] * 17 + [_I] * 19 + [_F, _I])
+GEMM_KERNEL = Kernel("fused_cconv.cu", "nf_split_gemm", [_P] * 5 + [_I] * 6)
 
 # dynamic shared memory one block may take on the H100 and what an SM
 # holds, the largest filter that is staged into a block, the scratch rows
-# one call may hold, and the row tile of the tensor-core product
-# (csrc/split_gemm.cuh)
+# one call may hold; the tensor-core product's (csrc/split_gemm.cuh) row
+# tile, its k-tile, its N-tiles (for N <= 8, below WIDE_N, from it) and
+# the SMs its persistent blocks walk
 SMEM_LIMIT = 232448
 SMEM_PER_SM = 233472
 W_SHARED_LIMIT = 64 * 1024
 SCRATCH_LIMIT = 256 * 2 ** 20
-ROW_TILE = 64
+ROW_TILE = 128
+K_TILE = 32
+N_TILES = (8, 64, 128)
+WIDE_N = 1024  # N from which the product takes its widest N-tile
+GEMM_SMS = 132
+UNIT_TILES = 2  # a unit's start and store, in k-tiles (`product_splits`)
 _TILE = 32  # candidates per tile of the walk
 
 
@@ -383,15 +389,48 @@ def scratch_chunk_rows(n: int, klen: int) -> int:
     return rows
 
 
+def gemm_bn(n: int) -> int:
+    """N-tile of the tensor-core product: 8 for N <= 8, 128 from WIDE_N
+    (K2's d_acc, N = 64 Cin), else 64."""
+    if n <= N_TILES[0]:
+        return N_TILES[0]
+    return N_TILES[2] if n >= WIDE_N else N_TILES[1]
+
+
+def gemm_b_floats(k: int, n: int) -> int:
+    """Floats of the product's B scratch for a (k, n) B: its TF32 hi and lo
+    parts, each (N padded to the N-tile, k padded to K_TILE), K-major."""
+    bn = gemm_bn(n)
+    return 2 * (-(-n // bn) * bn) * (-(-max(k, 1) // K_TILE) * K_TILE)
+
+
+def product_splits(m: int, n: int, k: int) -> tuple:
+    """(splits, k per split) of an (m, k) x (k, n) tensor-core product, the
+    splits summed in order. Its GEMM_SMS persistent blocks walk (ROW_TILE,
+    N-tile, split) units, so a split count s costs about the busiest
+    block's k-tiles, ceil(units / GEMM_SMS) * (k-tiles per split +
+    UNIT_TILES for a unit's start and store), times the partial sums'
+    traffic, 1 + 2 s n / k of the bytes of A; the cheapest s (the fewest
+    among equals) is taken, each split at least 4 k-tiles. On an H100 this
+    picked the fastest measured count at each bench product
+    (tools/split_gemm_bench.py --sweep)."""
+    tiles = -(-m // ROW_TILE) * -(-n // gemm_bn(n))
+    k_tiles = -(-max(k, 1) // K_TILE)
+    best = None
+    for want in range(1, max(1, min(32, k_tiles // 4)) + 1):
+        per = -(-k_tiles // want)
+        s = -(-k_tiles // per)
+        cost = (-(-tiles * s // GEMM_SMS) * (per + UNIT_TILES)
+                * (1 + 2 * s * n / max(k, 1)))
+        if best is None or cost < best[0]:
+            best = (cost, s, per * K_TILE)
+    return best[1], best[2]
+
+
 def dw_split(n: int, klen: int, cout: int) -> tuple:
     """(splits over the rows of one chunk, rows per split) of K2's dW
-    product: enough (64, 64)-tile blocks ((128, 8) for Cout <= 8) to fill
-    the card, each split a multiple of 32 rows."""
-    tiles = -(-klen // 128) if cout <= 8 else -(-klen // 64) * -(-cout // 64)
-    n_split = max(1, min(-(-n // 256), -(-528 // tiles)))
-    rows = -(-n // n_split)
-    rows = -(-rows // 32) * 32
-    return -(-n // rows), rows
+    product rows^T ct, each split a multiple of 32 rows."""
+    return product_splits(klen, cout, n)
 
 
 def _check_cuda_args(weights, qplan, qpos_s, cplan, cpos_s, feats_s):
@@ -419,6 +458,10 @@ def _ptr(t):
     return 0 if t is None else t.data_ptr()
 
 
+def _scratch(floats: int, dev):
+    return torch.empty((floats,), dtype=torch.float32, device=dev)
+
+
 def fused_cconv_cuda(weights, qplan, qpos_s, cplan, cpos_s, feats_s,
                      radius: float, exclude_self: bool):
     """K1. Returns (out (Nq, Cout), counts (Nq,)) in sorted query order. A
@@ -436,17 +479,24 @@ def fused_cconv_cuda(weights, qplan, qpos_s, cplan, cpos_s, feats_s,
     if n:
         fold = w_fits_shared(n_taps, cin, cout)
         qb, threads = walk_config(n_taps, cin, cout, fold)
-        chunk = 0 if fold else scratch_chunk_rows(n, n_taps * cin)
-        rows = None if fold else torch.empty(
-            (min(chunk, n), n_taps * cin), dtype=torch.float32, device=dev)
+        klen = n_taps * cin
+        chunk = 0 if fold else scratch_chunk_rows(n, klen)
+        rows = bt = part = None
+        k_splits, k_per = 1, 0
+        if not fold:
+            rows = _scratch(min(chunk, n) * klen, dev)
+            bt = _scratch(gemm_b_floats(klen, cout), dev)
+            k_splits, k_per = product_splits(min(chunk, n), cout, klen)
+            if k_splits > 1:
+                part = _scratch(k_splits * min(chunk, n) * cout, dev)
         KERNEL(qplan.gcol.data_ptr(), qplan.gzlo.data_ptr(),
                qplan.gzhi.data_ptr(), qplan.gstart.data_ptr(),
                cplan.pstarts.data_ptr(), qpos_s.data_ptr(),
                cpos_s.data_ptr(), feats_s.data_ptr(), weights.data_ptr(),
-               out.data_ptr(), cnt.data_ptr(), _ptr(rows),
-               qplan.n_groups, qplan.group_size, n, chunk, qb, threads,
-               d0, d1, d2, kz, ky, kx, cin, cout,
-               float(np.float32(1.0 / radius)), int(exclude_self))
+               out.data_ptr(), cnt.data_ptr(), _ptr(rows), _ptr(bt),
+               _ptr(part), qplan.n_groups, qplan.group_size, n, chunk,
+               k_splits, k_per, qb, threads, d0, d1, d2, kz, ky, kx, cin,
+               cout, float(np.float32(1.0 / radius)), int(exclude_self))
     return out, cnt
 
 
@@ -489,14 +539,18 @@ def fused_cconv_bwd_cuda(weights, qplan, qpos_s, cplan, cpos_s, feats_s, ct,
         part = torch.empty((-(-n // chunk) * n_split, klen, cout),
                            dtype=torch.float32, device=dev) \
             if need_w else None
+        b_floats = max(gemm_b_floats(min(chunk, n), cout) if need_w else 0,
+                       gemm_b_floats(cout, klen)
+                       if (need_pos or need_f) and not local else 0)
+        bt = _scratch(b_floats, dev) if b_floats else None
         wt = weights.reshape(klen, cout).t().contiguous()
         d0, d1, d2 = qplan.dims
         BWD_KERNEL(qplan.gcol.data_ptr(), qplan.gzlo.data_ptr(),
                    qplan.gzhi.data_ptr(), qplan.gstart.data_ptr(),
                    cplan.pstarts.data_ptr(), qpos_s.data_ptr(),
                    cpos_s.data_ptr(), feats_s.data_ptr(), wt.data_ptr(),
-                   ct.data_ptr(), _ptr(scratch), _ptr(part), _ptr(dw),
-                   _ptr(dq), _ptr(dc), _ptr(df),
+                   ct.data_ptr(), _ptr(scratch), _ptr(part), _ptr(bt),
+                   _ptr(dw), _ptr(dq), _ptr(dc), _ptr(df),
                    qplan.n_groups, qplan.group_size, n, chunk, n_split, rows,
                    int(local), qb_f, threads_f, qb_b, threads_b,
                    d0, d1, d2, kz, ky, kx, cin, cout,
@@ -514,13 +568,35 @@ def split_gemm_plain(a, b, trans_a: bool = False):
     return (a.t() if trans_a else a) @ b
 
 
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> the nearest TF32 value, ties away from zero (cvt.rna.tf32.f32):
+    half a TF32 unit added to the magnitude's bits, the low 13 dropped."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def gemm_b_prep_plain(b: torch.Tensor) -> torch.Tensor:
+    """Plain version of the product's B prep (`split_gemm_kernel_b`): b (K,
+    N) transposed to K-major, split into TF32 hi = tf32(b) and lo =
+    tf32(b - hi), zero-padded to (N-tile, K_TILE) multiples: (2, N_pad,
+    K_pad), the layout of its scratch (`gemm_b_floats`)."""
+    k, n = b.shape
+    bn = gemm_bn(n)
+    out = b.new_zeros((2, -(-n // bn) * bn, -(-max(k, 1) // K_TILE) * K_TILE))
+    hi = tf32_round(b.t())
+    out[0, :n, :k] = hi
+    out[1, :n, :k] = tf32_round(b.t() - hi)
+    return out
+
+
 def split_gemm_cuda(a, b, trans_a: bool = False, n_split: int = 1,
                     k_per_split: int = 0):
     """The tensor-core product of `csrc/split_gemm.cuh` on its own: a (M, K)
     (or (K, M) with trans_a) times b (K, N), f32, each operand split into
     two TF32 parts and three products summed in f32. With n_split > 1 the K
     range is cut into splits of k_per_split (a multiple of 32) whose
-    products are summed in order, as K2's dW does."""
+    products are summed in order, as K1's fold and K2's dW do
+    (`product_splits`)."""
     dev = a.device
     check_tensor("a", a, dev)
     check_tensor("b", b, dev)
@@ -536,8 +612,10 @@ def split_gemm_cuda(a, b, trans_a: bool = False, n_split: int = 1,
     part = torch.empty((n_split, m, n), dtype=torch.float32, device=dev) \
         if n_split > 1 else None
     if m and n:
+        bt = _scratch(gemm_b_floats(k, n), dev)
         GEMM_KERNEL(a.data_ptr(), b.data_ptr(), c.data_ptr(), _ptr(part),
-                    m, n, k, int(trans_a), n_split, k_per_split)
+                    bt.data_ptr(), m, n, k, int(trans_a), n_split,
+                    k_per_split)
     return c
 
 

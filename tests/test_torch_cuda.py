@@ -313,22 +313,36 @@ def test_fused_cconv_scratch_chunks_match_plain(dev, monkeypatch):
                                    err_msg=name)
 
 
-# m, n, k, trans_a, splits, k per split: ragged in every dimension, the
-# narrow (n <= 8) and the wide tiles, odd leading dimensions, and K2's dW
-# form (a stored transposed, the k range in splits summed in order)
-@pytest.mark.parametrize("m,n,k,trans_a,n_split,k_per_split", [
-    (100, 7, 50, False, 1, 0), (130, 70, 333, False, 1, 0),
-    (64, 64, 6144, False, 1, 0), (300, 6144, 64, False, 1, 0),
-    (70, 3, 200, True, 3, 96), (200, 64, 1000, True, 4, 256),
-    (257, 20, 129, True, 1, 0)])
+# m, n, k, trans_a, splits, k per split, a's offset in floats: ragged in
+# every dimension, the narrow (n <= 8) and the wide tiles, odd leading
+# dimensions (no TMA for a: the kernel's cp.async path), K2's dW form (a
+# stored transposed, the k range in splits summed in order); then the five
+# bench products at reduced rows (conv1's fold in its two splits, conv2's
+# fold, d_acc, dW of conv1 and conv3 in their splits), an `a` one float
+# off 16 bytes (the cp.async path again), and the 128-wide N-tile of
+# n >= 1,024 with an odd n (C stored by the threads, not TMA), unaligned,
+# and transposed
+@pytest.mark.parametrize("m,n,k,trans_a,n_split,k_per_split,offset", [
+    (100, 7, 50, False, 1, 0, 0), (130, 70, 333, False, 1, 0, 0),
+    (64, 64, 6144, False, 1, 0, 0), (300, 6144, 64, False, 1, 0, 0),
+    (70, 3, 200, True, 3, 96, 0), (200, 64, 1000, True, 4, 256, 0),
+    (257, 20, 129, True, 1, 0, 0),
+    (300, 64, 6144, False, 2, 3072, 0), (520, 64, 4096, False, 1, 0, 0),
+    (200, 6144, 64, False, 1, 0, 0), (6144, 64, 700, True, 2, 352, 0),
+    (4096, 3, 900, True, 4, 256, 0),
+    (130, 64, 256, False, 1, 0, 1), (256, 64, 300, True, 2, 160, 1),
+    (130, 1030, 40, False, 1, 0, 1), (200, 1024, 300, True, 2, 160, 0)])
 def test_split_gemm_matches_float64(dev, m, n, k, trans_a, n_split,
-                                    k_per_split):
+                                    k_per_split, offset):
     """The 3xTF32 tensor-core product against a float64 product of the same
     inputs: within 4e-7 of sum |a||b| (tests/test_torch_split_gemm.py holds
-    the scheme's emulation to the same limit; one TF32 pass is ~1e-4)."""
+    the scheme's emulation to the same limit; one TF32 pass is ~1e-4), and
+    bitwise the same when called again."""
     rng = np.random.default_rng(11)
-    a = torch.tensor(rng.normal(size=(k, m) if trans_a else (m, k)),
-                     dtype=torch.float32, device=dev)
+    shape = (k, m) if trans_a else (m, k)
+    buf = torch.empty(m * k + offset, dtype=torch.float32, device=dev)
+    a = buf[offset:].view(shape)
+    a.copy_(torch.tensor(rng.normal(size=shape), dtype=torch.float32))
     b = torch.tensor(rng.normal(size=(k, n)), dtype=torch.float32, device=dev)
     before = fc.GEMM_KERNEL.launches
     got = fc.split_gemm_cuda(a, b, trans_a, n_split, k_per_split)

@@ -1,7 +1,8 @@
 """The split-precision scheme of the port's tensor-core product
 (`neurofluid_torch/csrc/split_gemm.cuh`) emulated on the CPU, and the plain
 functions that route a fused-conv call: whether the filter fits a block's
-shared memory, the walk's block shape and the chunking of the scratch rows.
+shared memory, the walk's block shape, the chunking of the scratch rows and
+the product's splits of k.
 
 The kernel rounds each f32 operand to TF32 (10-bit mantissa, round to
 nearest, ties away) as hi, the remainder to TF32 as lo, multiplies the three
@@ -79,6 +80,114 @@ def test_three_pass_split_is_f32_class_and_one_pass_is_not(k):
     assert three <= LIMIT, three
     assert three <= 4.0 * max(f32, 2.0 ** -24), (three, f32)
     assert one > 20.0 * LIMIT, one
+
+
+def rz32(x):
+    """float64 -> f32 rounded toward zero."""
+    f = x.astype(np.float32)
+    over = np.abs(f.astype(np.float64)) > np.abs(x)
+    f[over] = np.nextafter(f[over], np.float32(0))
+    return f
+
+
+def emulated_chains(a, b, span):
+    """The `wgmma` kernel's sum: B split by the plain version of its prep
+    (K-major hi / lo, N padded), A split in registers; per chain of `span`
+    terms of k, from a zero accumulator, the small passes lo*hi and hi*lo of
+    each k-step of 8, then the hi*hi of each, every 8-term product exact and
+    carried through the tensor core's accumulator, which truncates (rounds
+    toward zero to f32); each chain's sum then added to the f32 accumulator
+    with a rounded add."""
+    k, n = b.shape
+    prep = fc.gemm_b_prep_plain(torch.from_numpy(b)).numpy()
+    bh, bl = (prep[i, :n, :k].T.astype(np.float64) for i in (0, 1))
+    ah, al = (x.astype(np.float64) for x in split(a))
+    acc = np.zeros((a.shape[0], n), np.float32)
+    for c0 in range(0, k, span):
+        d = np.zeros(acc.shape, np.float32)
+        steps = [slice(k0, k0 + 8) for k0 in range(c0, min(k, c0 + span), 8)]
+        terms = [(s, x, y) for s in steps for x, y in ((al, bh), (ah, bl))]
+        for s, x, y in terms + [(s, ah, bh) for s in steps]:
+            d = rz32(d.astype(np.float64) + x[:, s] @ y[s])
+        acc = (acc + d).astype(np.float32)
+    return acc
+
+
+# the span of k summed inside the tensor core before an f32 add: the
+# kernel's 32 (one chain per k-tile) and the 8 of a chain per k-step, at
+# K2's d_acc (k = Cout = 64), the folds (4,096, 6,144) and dW over a whole
+# chunk (14,336)
+@pytest.mark.parametrize("span", [8, 32])
+@pytest.mark.parametrize("k", [64, 4096, 6144, 14336])
+def test_chains_of_the_wgmma_kernel_meet_the_limit(span, k):
+    rng = np.random.default_rng(k + span)
+    a = rng.normal(size=(48, k)).astype(np.float32)
+    b = (rng.normal(size=(k, 40)) * 0.05).astype(np.float32)
+    assert rel_err(emulated_chains(a, b, span), a, b) <= LIMIT
+
+
+def test_chains_through_the_whole_k_miss_the_limit():
+    # what the chains are cut for: one sum carried through the tensor core
+    # over all of k = 6,144 drifts far past f32's own error
+    rng = np.random.default_rng(1)
+    a = rng.normal(size=(48, 6144)).astype(np.float32)
+    b = (rng.normal(size=(6144, 40)) * 0.05).astype(np.float32)
+    assert rel_err(emulated_chains(a, b, 6144), a, b) > 2.0 * LIMIT
+
+
+def test_tf32_round_matches_the_emulation_bitwise():
+    rng = np.random.default_rng(2)
+    x = np.concatenate([
+        rng.normal(size=1000).astype(np.float32),
+        # ties: exactly half a TF32 unit above 1 and -1 round away from zero
+        np.float32([1 + 2.0 ** -11, -(1 + 2.0 ** -11), 0.0, -0.0, 3e-39])])
+    got = fc.tf32_round(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32),
+                                  tf32_round(x).view(np.uint32))
+    assert got[1000] == np.float32(1 + 2.0 ** -10)
+    assert got[1001] == np.float32(-(1 + 2.0 ** -10))
+
+
+@pytest.mark.parametrize("k,n", [(50, 3), (333, 70), (64, 20), (6144, 64),
+                                 (64, 6144), (1, 9)])
+def test_b_prep_plain_is_the_split_transposed_and_padded(k, n):
+    rng = np.random.default_rng(k * n)
+    b = rng.normal(size=(k, n)).astype(np.float32)
+    got = fc.gemm_b_prep_plain(torch.from_numpy(b)).numpy()
+    bn = 8 if n <= 8 else 128 if n >= 1024 else 64
+    n_pad, k_pad = -(-n // bn) * bn, -(-k // 32) * 32
+    assert got.shape == (2, n_pad, k_pad)
+    assert got.size == fc.gemm_b_floats(k, n)
+    hi, lo = split(b)
+    np.testing.assert_array_equal(got[0, :n, :k], hi.T)
+    np.testing.assert_array_equal(got[1, :n, :k], lo.T)
+    assert not got[:, n:].any() and not got[:, :, k:].any()
+
+
+# (m, n, k) of the five bench products: the folds of conv1 (a 7,168-row
+# scratch chunk) and conv2, d_acc, dW of conv1 and conv3; then odd shapes
+@pytest.mark.parametrize("m,n,k", [(7168, 64, 6144), (14336, 64, 4096),
+                                   (7168, 6144, 64), (6144, 64, 7168),
+                                   (4096, 3, 14336), (100, 7, 50),
+                                   (1, 1, 1), (257, 20, 129), (64, 64, 0)])
+def test_product_splits_cover_k_in_whole_tiles(m, n, k):
+    n_split, per = fc.product_splits(m, n, k)
+    assert per % fc.K_TILE == 0 and 1 <= n_split <= 32
+    assert (n_split - 1) * per < max(k, 1) <= n_split * per
+    assert n_split == 1 or per >= 4 * fc.K_TILE
+
+
+def test_product_splits_at_the_bench_point():
+    # the counts that ran fastest on an H100 (tools/split_gemm_bench.py
+    # --sweep): conv1's fold two splits (112 units of 132 SMs), conv2's fold
+    # none, conv1's dW five (240 units: 48 tiles in one wave left 36 SMs
+    # idle), conv2's and conv3's dW four
+    assert fc.product_splits(7168, 64, 6144) == (2, 3072)  # folds
+    assert fc.product_splits(14336, 64, 4096) == (1, 4096)
+    assert fc.dw_split(7168, 6144, 64) == (5, 1440)
+    assert fc.dw_split(14336, 4096, 64) == (4, 3584)
+    assert fc.dw_split(14336, 4096, 3) == (4, 3584)
+    assert fc.product_splits(7168, 6144, 64) == (1, 64)  # d_acc
 
 
 @pytest.mark.parametrize("n_taps,cin,cout,fits", [
