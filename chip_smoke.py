@@ -13,14 +13,20 @@ Phases (each prints its own line; any failure raises and exits non-zero):
 1. device: name and power limit (nvidia-smi), torch and CUDA versions;
    TF32 off for every matmul and convolution;
 2. build: nvcc of csrc/*.cu for sm_90a, one process per source, timed;
-   `cuobjdump -sass` of the built K1/K2 library: each instantiation of the
-   tensor-core product holds HGMMA (`wgmma`) and no HMMA (`mma.sync`);
-   then that product (csrc/split_gemm.cuh, 3xTF32 `wgmma` fed by TMA, the
-   contractions of K1 and K2) on its own at the shapes of its three uses
-   at the bench point, in the splits of k K1 and K2 give it, against a
-   float64 product of the same seeded inputs (error relative to sum
-   |a||b|, held to GEMM_TOL), timed beside `torch.matmul` in f32 (its
-   library time, used nowhere in the port);
+   `cuobjdump -sass` of the built K1/K2 library: each of the 12
+   instantiations of the tensor-core product holds HGMMA (`wgmma`) and no
+   HMMA (`mma.sync`), TF32 HGMMA in the 6 3xTF32 ones and bf16 HGMMA
+   alone in the 6 bf16 ones; then that product (csrc/split_gemm.cuh,
+   3xTF32 `wgmma` fed by TMA, the contractions of K1 and K2) on its own
+   at the shapes of its three uses at the bench point, in the splits of k
+   K1 and K2 give it, against a float64 product of the same seeded inputs
+   (error relative to sum |a||b|, held to GEMM_TOL), timed beside
+   `torch.matmul` in f32 (its library time, used nowhere in the port);
+   then its bf16 mode (conv_precision 'default') at the same shapes
+   against a float64 product of the bf16-rounded inputs (GEMM_TOL, and
+   at least 100 GEMM_TOL from the unrounded product, as
+   tests/test_torch_split_gemm.py holds its emulation), timed beside
+   cuBLAS in bf16;
 3. forward kernels: K1 (fused conv), K3 (ball sums), K5 (compositing
    weights), each called at the shapes the serving path gives it (recorded
    from one warm-up pass) and held against its plain PyTorch version on the
@@ -31,6 +37,10 @@ Phases (each prints its own line; any failure raises and exits non-zero):
    its per-render totals);
    where a K1 or K2 call is a walk plus tensor-core products, the
    products' time at that call's shapes and the walk's share beside it;
+   K1d (K1 at conv_precision 'default', its bf16 instantiations) at the
+   same calls against the plain 'default' version (TOL, and BF16_MARGIN
+   times nearer it than the plain 'highest' result), timed and bounded
+   with its contractions at the bf16 rate;
    for each K3 (and, in 7, K7) call its staged-walk plan and the work of
    its groups: live slots, padded slots in live groups, dead groups,
    candidate tests;
@@ -41,7 +51,9 @@ Phases (each prints its own line; any failure raises and exits non-zero):
 5. backward kernels: K2 (fused conv), K4 (ball sums), K6 (compositing
    weights) at the shapes of one recorded warm-up train step, against their
    plain backward versions, timed and bounded as in 3; K2 also once per
-   layer with every gradient asked for (its dq/dc path); for each K4 call
+   layer with every gradient asked for (its dq/dc path); K2d (K2 at
+   'default') at the same calls in both forms, held as K1d in 3; for each
+   K4 call
    its staged-walk plan and its work beside that of a warp-per-slot design
    (a warp per packed slot, every occupied slot of its rows tested, a
    global atomic triple per selected pair): groups, slots walked and
@@ -68,6 +80,11 @@ Phases (each prints its own line; any failure raises and exits non-zero):
    other; the warm-up step again with the path's kernels on their plain
    versions, and on `fused` with K8 alone on its plain version (loss
    bitwise equal, each leaf's gradient within 1e-4 of its largest entry);
+   then TRANSITION_STEPS steps on `fused_cconv` at conv_precision
+   'default' (K1d 10, K2d 10 per step and the bf16 product: their main
+   path) beside as many at 'highest' from the same weights, the first
+   steps' loss and grad_norm within BF16_STEP_TOL (and not equal), both
+   medians on the host clock;
 9. transition train path on `auto`, the JAX trainers' own backend: the
    search it resolves to for the fluid and the box (both the plain grid
    search at the bench point), its first step against `fused`'s from the
@@ -123,7 +140,8 @@ Phases (each prints its own line; any failure raises and exits non-zero):
    `cli.full_protocol_run.main` at a cut scene (PROTOCOL_SCENE: 1,728
    fluid particles, 100 x 100 images, 61 frames, one pretraining sim of
    50 frames; PROTOCOL_KNOBS: 20 warm-up iterations, one transition and
-   one e2e epoch, every 25th frame rendered) at full model width, under
+   one e2e epoch, every 25th frame rendered) at full model width and the
+   runner's conv_precision 'default' (K1d, K2d), under
    build/: every key of PROTOCOL_R5.json and `device` in its record,
    every metric finite, per stage its wall time, peak memory and
    launches (K7 and K8 none); `cli.reval_e2e_rollout.main` on the saved
@@ -133,7 +151,8 @@ Phases (each prints its own line; any failure raises and exits non-zero):
    of TRAIN.seed 10 and flax's per-parameter keys, on the host), built on
    the card and on the host, every tensor bitwise equal, SEED_PINS (pinned
    from JAX) met, no kernel launched;
-17. the kernels line, the card line, and the result line last.
+17. the kernels line (K1-K8, then K1d, K2d and the bf16 product), the
+   card line, and the result line last.
 
 Without a CUDA device, or without the package beside it, the script exits
 non-zero before printing any result.
@@ -143,6 +162,7 @@ import copy
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -182,6 +202,10 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
 PEAK_TF32_PER_S = 495e12
 TF32_PASSES = 3
+# conv_precision 'default': the products of K1d and K2d (K1 and K2's bf16
+# instantiations) and the bf16 product run one bf16 pass at the dense bf16
+# tensor-core rate
+PEAK_BF16_PER_S = 989e12
 # the tensor-core product against float64, relative to sum |a||b|: 8 units
 # of f32's rounding (2^-24), the limit tests/test_torch_split_gemm.py holds
 # the split scheme's emulation to (one TF32 pass alone is ~1e-4)
@@ -217,6 +241,21 @@ TOL = {"K1": 1e-4, "K3": 1e-5, "K5": 1e-5, "K2": 1e-4, "K4": 1e-5,
        "K6": 1e-5, "K7": 0.0, "K8": 1e-5}
 RELATIVE = {"K1": "max1", "K3": "max1", "K5": "abs", "K2": "max", "K4": "max",
             "K6": "max", "K7": "abs", "K8": "max"}
+# K1d and K2d (K1 and K2 at precision 'default') against their plain
+# 'default' versions: the same bf16-rounded operands summed in another f32
+# order, so a sum on the edge of a bf16 rounding step (bf(acc), bf(d_acc))
+# rounds one way in the kernel and the other in the plain version: one bf16
+# unit (2^-8) of the largest entry; and the kernel's mean deviation from the
+# plain 'default' result at least BF16_MARGIN times below its deviation
+# from the plain 'highest' one (neither the f32 kernel nor an f32 fallback
+# passes)
+KERNEL_TOL = dict(TOL, K1d=2.0 ** -8, K2d=2.0 ** -8)
+KERNEL_RELATIVE = dict(RELATIVE, K1d="max", K2d="max")
+BF16_MARGIN = 10.0
+# phase 8, the `fused_cconv` transition step at 'default' against the same
+# step at 'highest' from the same weights (the first step), relative: the
+# bf16 operands move the conv outputs by about 2^-9 of a value
+BF16_STEP_TOL = {"loss": 1e-2, "grad_norm": 5e-2}
 # the train step against the kernels', from the same weights and state.
 # With only K2, K4 and K6 on their plain versions the forward is bitwise
 # the kernels', and every leaf's gradient differs only by the backward
@@ -406,12 +445,14 @@ SEED_PINS = {
 }
 
 
-def bound_ms(n_bytes, n_ops, n_tc_ops=0.0):
+def bound_ms(n_bytes, n_ops, n_tc_ops=0.0, n_bf16_ops=0.0):
     """n_ops: f32 SIMT operations; n_tc_ops: operations of a contraction
-    that runs on the tensor cores, once (the passes are counted here)."""
+    that runs on the tensor cores in 3xTF32, once (the passes are counted
+    here); n_bf16_ops: of one that runs as one bf16 pass."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = (n_ops / PEAK_F32_PER_S
-             + TF32_PASSES * n_tc_ops / PEAK_TF32_PER_S) * 1e3
+             + TF32_PASSES * n_tc_ops / PEAK_TF32_PER_S
+             + n_bf16_ops / PEAK_BF16_PER_S) * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -537,9 +578,11 @@ def bench_weights(gen, *modules):
 
 
 def sass_tensor_ops(lib, kernel="split_gemm_kernel"):
-    """{function name: (HGMMA count, HMMA count)} of each instantiation of
-    `kernel` (not its `_b` prep) in `cuobjdump -sass` of the built library:
-    `wgmma` shows as HGMMA, `mma.sync` as HMMA."""
+    """{function name: (HGMMA count, HMMA count, bf16 HGMMA count)} of each
+    instantiation of `kernel` (not its `_b` preps) in `cuobjdump -sass` of
+    the built library: `wgmma` shows as HGMMA (`.BF16` in the bf16 mode,
+    whose instantiations end their template arguments in `ELb1EE`),
+    `mma.sync` as HMMA."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME") or "/usr/local/cuda", "bin", "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
@@ -548,7 +591,9 @@ def sass_tensor_ops(lib, kernel="split_gemm_kernel"):
     for section in sass.split("Function : ")[1:]:
         name = section.split(None, 1)[0]
         if kernel in name and kernel + "_b" not in name:
-            found[name] = (section.count("HGMMA"), section.count("HMMA"))
+            found[name] = (section.count("HGMMA"), section.count("HMMA"),
+                           sum("BF16" in line for line in section.splitlines()
+                               if "HGMMA" in line))
     return found
 
 
@@ -1714,8 +1759,11 @@ def protocol_phase(torch, build_dir, counts):
         if set(stages) != set(PROTOCOL_KERNELS):
             raise AssertionError(f"protocol phase, {what}: stages "
                                  f"{sorted(stages)}")
+        # at conv_precision 'default' K1 and K2 run as K1d and K2d
+        kid = ({"K1": "K1d", "K2": "K2d"}
+               if rec["config"]["conv_precision"] == "default" else {})
         for name, st in stages.items():
-            want = PROTOCOL_KERNELS[name]
+            want = tuple(kid.get(k, k) for k in PROTOCOL_KERNELS[name])
             if what != "first run" and name in ("warmup", "transition"):
                 # resumed fully trained: the warm-up's eval renders alone
                 want = ("K3", "K5") if name == "warmup" else ()
@@ -1734,14 +1782,14 @@ def protocol_phase(torch, build_dir, counts):
             attempts = 1 + round(math.log2(
                 rec[tag]["caps_used"]["fused_slab_cap"]
                 / rec["config"]["fused_slab_cap"]))
-            expect[(stage, "K1")] = 5 * 60 * attempts
-        e2e_steps = lau["e2e"]["K1"] // 5
-        expect[("e2e", "K2")] = 5 * e2e_steps
+            expect[(stage, kid.get("K1", "K1"))] = 5 * 60 * attempts
+        e2e_steps = lau["e2e"][kid.get("K1", "K1")] // 5
+        expect[("e2e", kid.get("K2", "K2"))] = 5 * e2e_steps
         if what == "first run":
             windows = rec["transition"]["train_windows"]
             epochs = rec["config"]["trans_epochs"]
-            expect[("transition", "K1")] = 10 * windows * epochs
-            expect[("transition", "K2")] = 10 * windows * epochs
+            for k in ("K1", "K2"):
+                expect[("transition", kid.get(k, k))] = 10 * windows * epochs
             iters = rec["config"]["warmup_iters"]
             expect[("warmup", "K6")] = 8 * iters
             expect[("warmup", "K3")] = 8 * iters + 2 * chunks
@@ -1947,12 +1995,21 @@ def main():
           f"arch=compute_90a,code=sm_90a in {build_s:.1f} s", flush=True)
 
     tensor_ops = sass_tensor_ops(nf_cuda.library_path("fused_cconv.cu"))
-    print(f"sass: the tensor-core product's {len(tensor_ops)} "
-          f"instantiations (split_gemm_kernel), HGMMA / HMMA each: "
-          f"{sorted(tensor_ops.values())}", flush=True)
-    if not tensor_ops or any(h == 0 or m for h, m in tensor_ops.values()):
+    # split_gemm_kernel<BN, TRANS_A, BF16>, mangled ...ILi64ELb0ELb1EE...
+    bf16_ops = {n: v for n, v in tensor_ops.items()
+                if re.search(r"split_gemm_kernelILi\d+ELb[01]ELb1E", n)}
+    tf32_ops = {n: v for n, v in tensor_ops.items() if n not in bf16_ops}
+    print(f"sass: the tensor-core product's {len(tf32_ops)} 3xTF32 "
+          f"instantiations (split_gemm_kernel<BN, TRANS_A, false>), HGMMA / "
+          f"HMMA / bf16 HGMMA each: {sorted(tf32_ops.values())}; its "
+          f"{len(bf16_ops)} bf16 instantiations (<BN, TRANS_A, true>): "
+          f"{sorted(bf16_ops.values())}", flush=True)
+    if (len(tf32_ops) != 6 or len(bf16_ops) != 6
+            or any(h == 0 or m or b for h, m, b in tf32_ops.values())
+            or any(h == 0 or m or b != h for h, m, b in bf16_ops.values())):
         raise AssertionError("the tensor-core product is not on wgmma "
-                             f"(HGMMA) alone: {tensor_ops}")
+                             f"(HGMMA) alone, TF32 and bf16 in their own "
+                             f"instantiations: {tensor_ops}")
 
     def product_operands(m_, k_, n_, trans, gen=None):
         """Random operands of one tensor-core product (M, K) x (K, N) and
@@ -2009,6 +2066,82 @@ def main():
                                  f"> {GEMM_TOL:.3e}")
         del a_g, b_g, got, want, scale, a_op
 
+    # the bf16 product (precision 'default') at the same shapes, against a
+    # float64 product of the bf16-rounded inputs (the products of bf16
+    # values are exact: only the f32 sums differ), beside cuBLAS in bf16:
+    # torch.mm with out_dtype f32 where this torch has it, else
+    # torch.matmul on bf16 tensors (a bf16 result); its line's numbers are
+    # the sums over the five shapes
+    product_bf16 = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                        library_ms=0.0, bytes=0.0, bf16_ops=0.0)
+    gen_g = torch.Generator(device=dev).manual_seed(3)
+    lib_name = None
+    for use, n_rows, cin_g, cout_g in (("K1 fold", 14336, 96, 64),
+                                       ("K1 fold", 14336, 64, 64),
+                                       ("K2 d_acc", 14336, 96, 64),
+                                       ("K2 dW", 14336, 96, 64),
+                                       ("K2 dW", 14336, 64, 3)):
+        klen_g = 64 * cin_g
+        rows_g = min(n_rows, fc.scratch_chunk_rows(n_rows, klen_g))
+        mkn = {"K1 fold": (rows_g, klen_g, cout_g, False),
+               "K2 d_acc": (rows_g, cout_g, klen_g, False),
+               "K2 dW": (klen_g, rows_g, cout_g, True)}[use]
+        a_g, b_g, kw = product_operands(*mkn, gen=gen_g)
+        kw["precision"] = "default"
+        kern = fc.BF16_KERNELS["product"]
+        before = (kern.launches, fc.GEMM_KERNEL.launches)
+        got = fc.split_gemm_cuda(a_g, b_g, **kw)
+        torch.cuda.synchronize()
+        if (kern.launches, fc.GEMM_KERNEL.launches) != (before[0] + 1,
+                                                        before[1]):
+            raise AssertionError("the bf16 product did not launch alone")
+        a_op = a_g.t() if kw.get("trans_a") else a_g
+        a_r, b_r = fc.bf16_round(a_op).double(), fc.bf16_round(b_g).double()
+        want = a_r @ b_r
+        scale = a_r.abs() @ b_r.abs()
+        err = float(((got.double() - want).abs() / scale).max())
+        off_f32 = float(((got.double() - a_op.double() @ b_g.double()).abs()
+                         / scale).max())
+        abs_err = float((got.double() - want).abs().max())
+        a_bf, b_bf = a_op.to(torch.bfloat16), b_g.to(torch.bfloat16)
+        if lib_name is None:
+            try:
+                torch.mm(a_bf, b_bf, out_dtype=torch.float32)
+                lib_name = "torch.mm bf16 -> f32"
+            except (TypeError, RuntimeError):
+                lib_name = "torch.matmul bf16 -> bf16"
+        if lib_name.startswith("torch.mm"):
+            def lib_call():
+                torch.mm(a_bf, b_bf, out_dtype=torch.float32)
+        else:
+            def lib_call():
+                torch.matmul(a_bf, b_bf)
+        ms = event_ms(torch, lambda: fc.split_gemm_cuda(a_g, b_g, **kw))
+        plain_ms = event_ms(torch, lambda: fc.split_gemm_plain(
+            a_g, b_g, kw.get("trans_a", False), "default"))
+        lib_ms = event_ms(torch, lib_call)
+        m_g, k_g = a_op.shape
+        n_b, n_ops = nbytes(a_g, b_g, got), 2.0 * m_g * k_g * b_g.shape[1]
+        b_ms, b_by = bound_ms(n_b, 0.0, n_bf16_ops=n_ops)
+        print(f"bf16 product, {use} ({m_g} x {k_g}) x ({k_g} x "
+              f"{b_g.shape[1]}){', %d splits' % kw['n_split'] if 'n_split' in kw else ''}: "
+              f"max err / sum|a||b| {err:.3e} against float64 of the rounded "
+              f"inputs (tol {GEMM_TOL:.3e}; {off_f32:.3e} from the unrounded "
+              f"product) max_abs_err {abs_err:.3e} ms {ms:.4f} plain_ms "
+              f"{plain_ms:.4f} bound_ms {b_ms:.4f} ({b_by}) library_ms "
+              f"{lib_ms:.4f} ({lib_name})", flush=True)
+        if not (err <= GEMM_TOL and off_f32 > 100.0 * GEMM_TOL):
+            raise AssertionError(f"bf16 product {use}: error {err:.3e} "
+                                 f"(tol {GEMM_TOL:.3e}), {off_f32:.3e} from "
+                                 f"the f32 product")
+        for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b_ms),
+                       ("library_ms", lib_ms), ("bytes", n_b),
+                       ("bf16_ops", n_ops)):
+            product_bf16[key] += v
+        product_bf16["max_abs_err"] = max(product_bf16["max_abs_err"],
+                                          abs_err)
+        del a_g, b_g, got, want, scale, a_op, a_r, b_r, a_bf, b_bf
+
     # ---- scene and models
     pos, vel, box, nrm, ro_v, rays_v, rgbs_v = (
         torch.from_numpy(a).to(dev) for a in scene.build_problem())
@@ -2027,8 +2160,10 @@ def main():
                  "K3": bf.ball_sums_cuda, "K4": bf.ball_sums_bwd_cuda,
                  "K5": comp.composite_weights_cuda,
                  "K6": comp.composite_weights_bwd_cuda,
-                 "K7": fq.ball_query_compact_cuda, "K8": so.segment_sum_cuda}
+                 "K7": fq.ball_query_compact_cuda, "K8": so.segment_sum_cuda,
+                 "K1d": fc.fused_cconv_cuda, "K2d": fc.fused_cconv_bwd_cuda}
     plain = {"K1": fc.fused_cconv_plain, "K2": fc.fused_cconv_bwd_plain,
+             "K1d": fc.fused_cconv_plain, "K2d": fc.fused_cconv_bwd_plain,
              "K3": bf.ball_sums_plain, "K4": bf.ball_sums_bwd_plain,
              "K5": comp.composite_weights_plain,
              "K6": comp.composite_weights_bwd_plain,
@@ -2059,6 +2194,14 @@ def main():
     def counts():
         return {k: c.launches for k, c in counters.items()}
 
+    # K1 and K2 at precision 'default' (their bf16 instantiations) and the
+    # bf16 product inside them, counted apart: the runs at 'default'
+    # (phases 8 and 15) read them
+    def bf16_counts():
+        return {"K1d": fc.BF16_KERNELS["K1"].launches,
+                "K2d": fc.BF16_KERNELS["K2"].launches,
+                "product": fc.product_launches("default")}
+
     def reset_counts():
         for c in counters.values():
             c.launches = 0
@@ -2067,10 +2210,13 @@ def main():
 
     def gemm_ms(shapes):
         """CUDA-event time of the tensor-core products of one K1 or K2
-        call: (M, K, N, trans_a) per product, on random operands."""
+        call: (M, K, N, trans_a) per product, then its precision where it
+        is not 'highest', on random operands."""
         total = 0.0
         for shape in shapes:
-            a_, b_, kw = product_operands(*shape)
+            a_, b_, kw = product_operands(*shape[:4])
+            if len(shape) > 4:
+                kw["precision"] = shape[4]
             total += event_ms(torch, lambda: fc.split_gemm_cuda(a_, b_, **kw))
         return total
 
@@ -2080,7 +2226,7 @@ def main():
 
     def check(name, i, args, outputs, n_bytes, n_ops, exact=None,
               timed=True, library=None, n_tc_ops=0.0, products=(),
-              floor=None, in_totals=True):
+              floor=None, in_totals=True, n_bf16_ops=0.0, highest=()):
         """outputs: (label, got, want) float outputs, each held to TOL
         scaled as RELATIVE says; exact: integer-valued outputs that must
         agree exactly (in-radius counts, selection counts, ids); library:
@@ -2088,15 +2234,37 @@ def main():
         kernel and used nowhere else; floor: an empty kernel at the
         kernel's grid, timed beside it; in_totals: add the call's times to
         the kernel's per-step totals (False for a call the main path does
-        not make)."""
+        not make); n_bf16_ops: bf16 tensor-core operations (K1d, K2d);
+        highest: (label, plain 'highest' result) of each output of a K1d or
+        K2d call, from which its mean deviation must be BF16_MARGIN times
+        that from its plain 'default' result."""
         err = 0.0
+        want_of = {label: (got, want) for label, got, want in outputs}
+        far = []
+        for label, want_h in highest:
+            got, want = want_of[label]
+            if got is None:
+                continue
+            d_d = float((got - want).abs().mean())
+            d_h = float((got - want_h).abs().mean())
+            if not BF16_MARGIN * d_d <= d_h:
+                raise AssertionError(f"{name} call {i} {label}: mean "
+                                     f"deviation {d_d:.3e} from the plain "
+                                     f"'default' result, {d_h:.3e} from the "
+                                     f"plain 'highest' one")
+            far.append(f"{label} {d_h / max(d_d, 1e-30):.0f}x")
+        if far:
+            print(f"{name} call {i}: mean deviation from plain 'highest' "
+                  f"over that from plain 'default': " + ", ".join(far),
+                  flush=True)
         for label, got, want in outputs:
             if got is None and want is None:
                 continue
             e = float((got - want).abs().max())
             scale = float(want.abs().max())
-            tol = TOL[name] * {"abs": 1.0, "max": scale,
-                               "max1": max(scale, 1.0)}[RELATIVE[name]]
+            tol = KERNEL_TOL[name] * {
+                "abs": 1.0, "max": scale,
+                "max1": max(scale, 1.0)}[KERNEL_RELATIVE[name]]
             if not e <= tol:
                 raise AssertionError(f"{name} call {i} {label}: max abs err "
                                      f"{e:.3e} > tolerance {tol:.3e}")
@@ -2109,15 +2277,16 @@ def main():
         k = kernels.setdefault(name, dict(max_abs_err=0.0, ms=0.0,
                                           plain_ms=0.0, bound_ms=0.0,
                                           ops=0.0, bytes=0.0, tc_ops=0.0,
-                                          library_ms=None))
+                                          bf16_ops=0.0, library_ms=None))
         k["max_abs_err"] = max(k["max_abs_err"], err)
         if not timed:
             print(f"kernel {name} call {i}: max_abs_err {err:.3e} (tol "
-                  f"{TOL[name]:.0e}, {RELATIVE[name]})", flush=True)
+                  f"{KERNEL_TOL[name]:.0e}, {KERNEL_RELATIVE[name]})",
+                  flush=True)
             return
         ms = event_ms(torch, lambda: originals[name](*args))
         plain_ms = event_ms(torch, lambda: plain[name](*args))
-        b_ms, b_by = bound_ms(n_bytes, n_ops, n_tc_ops)
+        b_ms, b_by = bound_ms(n_bytes, n_ops, n_tc_ops, n_bf16_ops)
         lib = ""
         if products:  # a walk plus tensor-core products
             g_ms = gemm_ms(products)
@@ -2130,13 +2299,14 @@ def main():
         if floor is not None:
             lib += f" launch_floor_ms {event_ms(torch, floor):.4f}"
         print(f"kernel {name} call {i}: max_abs_err {err:.3e} (tol "
-              f"{TOL[name]:.0e}, {RELATIVE[name]}) ms {ms:.4f} plain_ms "
+              f"{KERNEL_TOL[name]:.0e}, {KERNEL_RELATIVE[name]}) ms "
+              f"{ms:.4f} plain_ms "
               f"{plain_ms:.3f} bound_ms {b_ms:.4f} ({b_by}){lib}", flush=True)
         if not in_totals:
             return
         for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b_ms),
                        ("ops", n_ops), ("bytes", n_bytes),
-                       ("tc_ops", n_tc_ops)):
+                       ("tc_ops", n_tc_ops), ("bf16_ops", n_bf16_ops)):
             k[key] += v
 
     def check_k8(i, vals, plan, in_totals=True):
@@ -2167,7 +2337,7 @@ def main():
 
     with torch.no_grad():
         for i, args in enumerate(calls["K1"]):
-            w, qplan, qpos_s, cplan, cpos_s, feats_s, radius, _ = args
+            w, qplan, qpos_s, cplan, cpos_s, feats_s, radius, _, _ = args
             got = fc.fused_cconv_cuda(*args)
             want = fc.fused_cconv_plain(*args)
             kz, ky, kx, cin, cout = w.shape
@@ -2188,6 +2358,32 @@ def main():
                   products=() if in_walk else [
                       (m_, klen, cout, False)
                       for m_ in chunks_of(qplan.n, klen)])
+        # K1d: the same calls at precision 'default'
+        for i, args in enumerate(calls["K1"]):
+            w, qplan, qpos_s, cplan, cpos_s, feats_s, radius, _, _ = args
+            args_d = args[:8] + ("default",)
+            got = fc.fused_cconv_cuda(*args_d)
+            want = fc.fused_cconv_plain(*args_d)
+            want_h = fc.fused_cconv_plain(*args[:8])
+            kz, ky, kx, cin, cout = w.shape
+            pairs = float(want[1].sum())
+            klen = kz * ky * kx * cin
+            ops = pairs * (K1_GEOMETRY_OPS + 16 * cin)
+            fold_ops = 2.0 * qplan.n * klen * cout
+            in_walk = fc.w_fits_shared(kz * ky * kx, cin, cout)
+            n_b = (nbytes(qpos_s[: qplan.n], cpos_s[: cplan.n],
+                          feats_s[: cplan.n], w, qplan.gcol, qplan.gzlo,
+                          qplan.gzhi, qplan.gstart, cplan.pstarts)
+                   + nbytes(*got))
+            check("K1d", f"{i} (Cin {cin}, Cout {cout})", args_d,
+                  [("out", got[0], want[0])], n_b,
+                  ops + (fold_ops if in_walk else 0.0),
+                  exact=(got[1], want[1]),
+                  n_bf16_ops=0.0 if in_walk else fold_ops,
+                  products=() if in_walk else [
+                      (m_, klen, cout, False, "default")
+                      for m_ in chunks_of(qplan.n, klen)],
+                  highest=[("out", want_h[0])])
         for i, args in enumerate(calls["K3"]):
             q_rep, tx, ty, tz, gcell, dims, radius, k, t = args
             got, want = bf.ball_sums_cuda(*args), bf.ball_sums_plain(*args)
@@ -2351,31 +2547,35 @@ def main():
         raise AssertionError(f"warm-up step calls {got_calls} != {want_calls}")
 
     with torch.no_grad():
-        for i, args in enumerate(calls["K2"]):
+        # K2 at the step's calls, then K2d: the same at precision 'default'
+        for (i, args), prec in [(c, p) for p in ("highest", "default")
+                                for c in enumerate(calls["K2"])]:
             (w, qplan, qpos_s, cplan, cpos_s, feats_s, ct, radius, excl,
-             needs) = args
+             needs, _) = args
             kz, ky, kx, cin, cout = w.shape
             klen = kz * ky * kx * cin
             pairs = float(fc.fused_cconv_cuda(w, qplan, qpos_s, cplan, cpos_s,
                                               feats_s, radius, excl)[1].sum())
+            bf16 = prec == "default"
             for form, nd in (("step", needs), ("all", (True,) * 4)):
-                a = args[:-1] + (nd,)
+                a = args[:9] + (nd, prec)
                 got = fc.fused_cconv_bwd_cuda(*a)
                 want = fc.fused_cconv_bwd_plain(*a)
                 need_w, need_q, need_c, need_f = nd
                 in_walk = fc.w_fits_shared(kz * ky * kx, cin, cout)
                 ops, tc_ops, products = pairs * K1_GEOMETRY_OPS, 0.0, []
+                tail = (prec,) if bf16 else ()
                 if need_q or need_c or need_f:  # d_acc = ct W^T
                     if in_walk:
                         ops += 2.0 * qplan.n * klen * cout
                     else:
                         tc_ops += 2.0 * qplan.n * klen * cout
-                        products += [(m_, cout, klen, False)
+                        products += [(m_, cout, klen, False) + tail
                                      for m_ in chunks_of(qplan.n, klen)]
                 if need_w:  # the tap-feature rows again, and A^T ct
                     ops += pairs * 16 * cin
                     tc_ops += 2.0 * qplan.n * klen * cout
-                    products += [(klen, m_, cout, True)
+                    products += [(klen, m_, cout, True) + tail
                                  for m_ in chunks_of(qplan.n, klen)]
                 if need_f:
                     ops += pairs * 16 * cin
@@ -2387,11 +2587,18 @@ def main():
                               cplan.pstarts)
                        + nbytes(*got))
                 labels = ("dW", "dq", "dc", "dfeats")
-                check("K2", f"{i} (Cin {cin}, Cout {cout}, {form} "
-                      f"{''.join(str(int(x)) for x in nd)})",
+                highest = ()
+                if bf16:
+                    highest = list(zip(labels, fc.fused_cconv_bwd_plain(
+                        *args[:9], nd)))
+                check("K2d" if bf16 else "K2", f"{i} (Cin {cin}, Cout "
+                      f"{cout}, {form} {''.join(str(int(x)) for x in nd)})",
                       a, list(zip(labels, got, want)), n_b, ops,
-                      timed=form == "step", n_tc_ops=tc_ops,
-                      products=products)
+                      timed=form == "step",
+                      n_tc_ops=0.0 if bf16 else tc_ops,
+                      n_bf16_ops=tc_ops if bf16 else 0.0,
+                      products=products,
+                      highest=[(lb, h) for lb, h in highest if h is not None])
         for i, args in enumerate(calls["K4"]):
             (q_rep, cot_rep, tx, ty, tz, table_idx, gcell, dims, radius, k,
              t, n_points) = args
@@ -2537,11 +2744,13 @@ def main():
     # ---- 7. list kernels at the shapes of one recorded transition step
     pos1, pos2 = pos + 0.001, pos + 0.002
 
-    def transition_trainer(backend):
-        """A fresh ParticleNet on `backend` from the seeded initial weights,
-        its Adam state, train step and box plan."""
+    def transition_trainer(backend, precision="highest"):
+        """A fresh ParticleNet on `backend` (its convs at `precision`) from
+        the seeded initial weights, its Adam state, train step and box
+        plan."""
         t_net = ParticleNet(**scene.particle_net_kwargs(),
-                            search_backend=backend, device=dev,
+                            search_backend=backend, conv_precision=precision,
+                            device=dev,
                             generator=torch.Generator().manual_seed(1))
         t_net.load_state_dict(init_state[0])
         opt = torch.optim.Adam(t_net.parameters(), lr=LR_TRANSITION_ONLY)
@@ -2604,7 +2813,7 @@ def main():
         k2_ms = []
         for i, args in enumerate(calls["K2"]):
             ms = event_ms(torch, lambda: fc.fused_cconv_bwd_cuda(*args))
-            needs = "".join(str(int(x)) for x in args[-1])
+            needs = "".join(str(int(x)) for x in args[9])
             cin, cout = args[0].shape[-2:]
             k2_ms.append(ms)
             print(f"transition step K2 call {i}: Cin {cin} Cout {cout} needs "
@@ -2731,6 +2940,65 @@ def main():
     compare_transition("fused_cconv",
                        "fused_cconv transition step with plain K1, K2",
                        ("K1", "K2"), CCONV_STEP_TOL)
+
+    # the `fused_cconv` transition step at 'default' (K1d, K2d and the bf16
+    # product: their main path) beside 'highest', from the same weights:
+    # TRANSITION_STEPS counted, timed steps each, the counts set to 0 just
+    # before the 'default' steps and read just after; the first steps'
+    # loss and grad_norm within BF16_STEP_TOL, and not equal
+    prec_runs = {}
+    for prec in ("highest", "default"):
+        p_net, p_step, p_plan = transition_trainer("fused_cconv", prec)
+        torch.cuda.synchronize()
+        reset_counts()
+        fc.BF16_KERNELS["K1"].launches = fc.BF16_KERNELS["K2"].launches = 0
+        before_d = bf16_counts()
+        step_s, step_losses, gns = [], [], []
+        for _ in range(TRANSITION_STEPS):
+            t0 = time.perf_counter()
+            loss, aux = run_transition(p_step, p_plan)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            step_losses.append(float(loss))
+            gns.append(float(aux["grad_norm"]))
+        launched = {k: v for k, v in counts().items() if v}
+        launched.update({k: v - before_d[k] for k, v in bf16_counts().items()
+                         if v - before_d[k]})
+        want = ({"K1": 10 * TRANSITION_STEPS, "K2": 10 * TRANSITION_STEPS}
+                if prec == "highest" else
+                {"K1d": 10 * TRANSITION_STEPS, "K2d": 10 * TRANSITION_STEPS,
+                 "product": launched.get("product", 0)})
+        med = statistics.median(step_s)
+        print(f"transition train path (fused_cconv, conv_precision "
+              f"'{prec}'): launches {launched} in {TRANSITION_STEPS} steps; "
+              f"median {med * 1e3:.2f} ms (min {min(step_s) * 1e3:.2f}, max "
+              f"{max(step_s) * 1e3:.2f}); losses "
+              + ", ".join(f"{x:.6f}" for x in step_losses)
+              + f"; grad_norm first {gns[0]:.6e} last {gns[-1]:.6e}",
+              flush=True)
+        if launched != want or (prec == "default" and not want["product"]):
+            raise AssertionError(f"{prec} transition steps: launches "
+                                 f"{launched} != {want}, and the bf16 "
+                                 f"product must launch at 'default'")
+        if not all(math.isfinite(x) for x in step_losses + gns):
+            raise AssertionError(f"{prec} transition steps: loss "
+                                 f"{step_losses}, grad_norm {gns}")
+        prec_runs[prec] = dict(loss=step_losses[0], grad_norm=gns[0],
+                               ms=med * 1e3, launched=launched)
+    bf16_launches = {k: prec_runs["default"]["launched"][k]
+                     for k in ("K1d", "K2d", "product")}
+    d_prec = {k: abs(prec_runs["default"][k] - prec_runs["highest"][k])
+              / abs(prec_runs["highest"][k]) for k in BF16_STEP_TOL}
+    print("fused_cconv transition step, 'default' against 'highest' from "
+          "the same weights, first step: diffs "
+          + ", ".join(f"{k} {v:.3e}" for k, v in d_prec.items())
+          + f" (relative; tolerance {BF16_STEP_TOL}); median ms "
+          f"{prec_runs['default']['ms']:.2f} / "
+          f"{prec_runs['highest']['ms']:.2f} (host clock)", flush=True)
+    if not all(0.0 < d_prec[k] <= tol for k, tol in BF16_STEP_TOL.items()):
+        raise AssertionError(f"'default' against 'highest': {d_prec} not "
+                             f"within (0, {BF16_STEP_TOL}]")
+    reset_counts()
 
     # ---- 9. the transition train path on 'auto' (the JAX trainers' own
     # search backend): which search it runs, its first step against
@@ -2908,9 +3176,13 @@ def main():
         bare_ms["e2e fused_cconv"])
     total_launches = {k: v + launched[k] for k, v in total_launches.items()}
 
-    # ---- 15. the reference-protocol run of the port's runner, cut
+    # ---- 15. the reference-protocol run of the port's runner, cut (at the
+    # runner's conv_precision, 'default': K1d and K2d)
+    before_d = bf16_counts()
     launched = protocol_phase(torch, build_dir, counts)
     total_launches = {k: v + launched[k] for k, v in total_launches.items()}
+    bf16_launches = {k: v + bf16_counts()[k] - before_d[k]
+                     for k, v in bf16_launches.items()}
 
     # ---- 16. JAX's seed-10 initial weights, drawn by the trainers' code
     seed_phase(torch, counts)
@@ -2955,6 +3227,41 @@ def main():
          "includes": [f"neurofluid_torch/csrc/{h}"
                       for h in includes.get(src, ())]}
         for kid, (name, src, replaces) in sources.items()]}
+    # K1 and K2 at conv_precision 'default' (launches: phase 8's 'default'
+    # steps and phase 15; times per call of phases 3 and 5), and the bf16
+    # product inside them (launches counted by the library where it
+    # launches them; its numbers the sums over phase 2's five shapes)
+    for kid, name, replaces in (
+            ("K1d", "fused_cconv (conv_precision 'default', bf16)",
+             "neurofluid_tpu/ops/fused_cconv.py:622"),
+            ("K2d", "fused_cconv_bwd (conv_precision 'default', bf16)",
+             "neurofluid_tpu/ops/fused_cconv.py:698")):
+        k = kernels[kid]
+        line["kernels"].append({
+            "name": f"{kid} {name}", "route": "cuda",
+            "source": "neurofluid_torch/csrc/fused_cconv.cu",
+            "replaces": replaces, "launches": bf16_launches[kid],
+            "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": bound_ms(k["bytes"], k["ops"], k["tc_ops"],
+                                 k["bf16_ops"])[1],
+            "library_ms": k["library_ms"],
+            "includes": [f"neurofluid_torch/csrc/{h}"
+                         for h in includes["fused_cconv.cu"]]})
+    line["kernels"].append({
+        "name": "split_gemm bf16 product (K1d/K2d contractions)",
+        "route": "cuda", "source": "neurofluid_torch/csrc/split_gemm.cuh",
+        "replaces": "neurofluid_tpu/ops/fused_cconv.py:509",
+        "launches": bf16_launches["product"],
+        "max_abs_err": product_bf16["max_abs_err"], "ms": product_bf16["ms"],
+        "plain_ms": product_bf16["plain_ms"],
+        "bound_ms": product_bf16["bound_ms"],
+        "bound_by": bound_ms(product_bf16["bytes"], 0.0,
+                             n_bf16_ops=product_bf16["bf16_ops"])[1],
+        "library_ms": product_bf16["library_ms"]})
+    for k in line["kernels"]:
+        if not k["launches"]:
+            raise AssertionError(f"{k['name']}: no launch on its path")
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -54,6 +54,7 @@ from neurofluid_torch.data.synthetic import (
 )
 from neurofluid_torch.ops import ball_features, composite, fused_cconv
 from neurofluid_torch.ops import fused_query, segment_ops
+from neurofluid_torch.ops.cconv import conv_bf16
 from neurofluid_torch.train import transition as trans_mod
 from neurofluid_torch.train.e2e import E2ETrainer
 from neurofluid_torch.train.transition import TransitionTrainer
@@ -63,8 +64,11 @@ from neurofluid_torch.utils.metrics import FluidErrors
 from neurofluid_torch.utils.metrics import psnr as psnr_np, ssim as ssim_np
 
 RECORD = Path(__file__).resolve().parents[2] / "PROTOCOL_TORCH.json"
-# the kernels' launch counters, read per stage
+# the kernels' launch counters, read per stage; K1d and K2d are K1 and K2
+# at conv_precision 'default' (their bf16 instantiations)
 KERNELS = {"K1": fused_cconv.KERNEL, "K2": fused_cconv.BWD_KERNEL,
+           "K1d": fused_cconv.BF16_KERNELS["K1"],
+           "K2d": fused_cconv.BF16_KERNELS["K2"],
            "K3": ball_features.KERNEL, "K4": ball_features.BWD_KERNEL,
            "K5": composite.KERNEL, "K6": composite.BWD_KERNEL,
            "K7": fused_query.KERNEL, "K8": segment_ops.KERNEL}
@@ -77,6 +81,21 @@ INIT_CAVEAT = ("PROTOCOL_R5.json does not name the JAX it ran on; a JAX "
 # the four static caps a retried rollout doubles
 CAPS = ("fluid_neighbor_k", "obstacle_neighbor_k", "grid_max_per_cell",
         "fused_slab_cap")
+
+
+def products_note(conv_prec: str) -> str:
+    """What the run's arithmetic was, for its record."""
+    dense = ("the dense layers and the renderer f32 (TF32 off for torch "
+             "products)")
+    if conv_bf16(conv_prec):
+        return ("conv_precision 'default': every conv contraction on bf16-"
+                "rounded operands with f32 sums, forward and backward (K1d/"
+                "K2d, the bf16 instantiations of K1/K2, and one bf16 wgmma "
+                "pass in their products; the list conv's bf16_product), as "
+                "JAX's DEFAULT on the TPU; " + dense)
+    return (f"conv_precision {conv_prec!r}: f32 class (f32 SIMT, 3xTF32 "
+            f"tensor-core products in K1/K2, f32 list-conv products); "
+            + dense)
 
 
 def knobs() -> dict:
@@ -286,9 +305,7 @@ def main(n_frames=61, n_side=24, img=400, pretrain_frames=50,
         "lpips": "blocked: no VGG16 weights in the repo and none obtainable "
                  "offline (neurofluid_torch/utils/lpips.py reads a "
                  "user-supplied .npz)",
-        "products": "f32 class whatever conv_precision says: f32 SIMT, "
-                    "3xTF32 tensor-core products in K1/K2, TF32 off for "
-                    "torch products (models/particle_net.py)",
+        "products": products_note(k["conv_prec"]),
         "n_frames": n_frames, "n_side": n_side,
         "init": INIT,
         "init_caveat": INIT_CAVEAT,

@@ -70,6 +70,20 @@
 // six stages within 3%), not the store; the third pass costs 10-15%, and a
 // second chain in flight per warpgroup was 5-10% slower (it holds a stage
 // longer). The chains of n64 `wgmma` with A from registers are the rest.
+//
+// The bf16 mode (template BF16; the JAX package's `DEFAULT` precision, one
+// bf16 MXU pass with f32 accumulation): the same ring, units, A tiles and
+// epilogue; each k-tile of 32 is one chain of two
+// `wgmma.m64nNk16.f32.bf16.bf16` from a zero accumulator, the chain's sum
+// added in f32 as in the TF32 mode. A stays an f32 TMA tile, rounded to
+// bf16 (round to nearest even) in registers as its fragments are read
+// (`cvt.rn.bf16x2.f32`), so the walk's scratch rows and the fallback copies
+// are those of the TF32 mode. B is prepared K-major in bf16
+// (`split_gemm_kernel_b_bf16`, rounded as it is transposed): (BN x 32) bf16
+// tiles with 64-byte rows, loaded by TMA in the 64-byte swizzle that the
+// `wgmma` descriptor names. The products of bf16 values are exact in f32, so
+// the result differs from a float64 product of the rounded operands only by
+// the f32 sums.
 
 #pragma once
 
@@ -87,6 +101,20 @@ constexpr int kGemmBM = 128;   // rows per tile: two consumer warpgroups
 constexpr int kGemmThreads = 384;  // producer warpgroup + two consumers
 // empty-barrier arrivals per stage: one per consumer warp
 constexpr int kGemmConsumerWarps = 8;
+
+// x rounded to the nearest bf16 (ties to even), as f32
+__device__ __forceinline__ float bf16_round(float x) {
+  unsigned short h;
+  asm("cvt.rn.bf16.f32 %0, %1;\n" : "=h"(h) : "f"(x));
+  return __uint_as_float(static_cast<uint32_t>(h) << 16);
+}
+
+// bf16(lo) in the low half, bf16(hi) in the high half of one register
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
 
 // x = hi + lo with both representable in TF32 (10-bit mantissa)
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
@@ -215,6 +243,15 @@ __device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
          (uint64_t{1} << 62);
 }
 
+// The same for a K-major bf16 tile with 64-byte rows in TMA's 64-byte
+// swizzle: 8-row groups 512 bytes apart. A k-step of 16 bf16 moves the
+// start by 32 bytes.
+__device__ __forceinline__ uint64_t sw64_desc(const void* tile) {
+  return static_cast<uint64_t>((smem_addr(tile) & 0x3FFFF) >> 4) |
+         (uint64_t{1} << 16) | (uint64_t{512 >> 4} << 32) |
+         (uint64_t{2} << 62);
+}
+
 // d (+)= a b for one 64 x BN x 8 step: a from registers (the m16n8k8 A
 // fragment of each warp's 16 rows), b from shared memory; scale_d = 0
 // starts from a zero accumulator
@@ -287,13 +324,88 @@ struct Wgmma<8> {
   }
 };
 
+// d (+)= a b for one 64 x BN x 16 step in bf16: a from registers (the
+// m16n8k16 A fragment of each warp's 16 rows, two bf16 a register), b a
+// K-major tile in shared memory; scale_d = 0 starts from a zero accumulator
+template <int BN>
+struct WgmmaBf16;
+
+template <>
+struct WgmmaBf16<64> {
+  static __device__ __forceinline__ void mma(float (&d)[32],
+                                             const uint32_t* a, uint64_t b,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaBf16<128> {
+  static __device__ __forceinline__ void mma(float (&d)[64],
+                                             const uint32_t* a, uint64_t b,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+        "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+        "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaBf16<8> {
+  static __device__ __forceinline__ void mma(float (&d)[4], const uint32_t* a,
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
 // ---- the product
 
-template <int BN>
+template <int BN, bool BF16 = false>
 struct GemmLayout {
   static constexpr int kABytes = kGemmBM * kGemmBK * 4;  // 16 KB
-  static constexpr int kBBytes = BN * kGemmBK * 4;       // hi, then lo
-  static constexpr int kStage = kABytes + 2 * kBBytes;
+  // TF32: hi, then lo, (BN x 32) f32 each; bf16: one (BN x 32) bf16 tile
+  static constexpr int kBBytes = BN * kGemmBK * (BF16 ? 2 : 4);
+  static constexpr int kBLoad = BF16 ? kBBytes : 2 * kBBytes;  // per stage
+  // a stage's B takes whole 1,024-byte blocks
+  static constexpr int kStage = kABytes + (kBLoad + 1023) / 1024 * 1024;
   // five stages; three at BN = 128, whose staging of C takes 64 KB
   static constexpr int kStages = BN == 128 ? 3 : 5;
   // a consumer's 64 rows of C: (64 x 32) boxes in the 128-byte swizzle
@@ -304,6 +416,10 @@ struct GemmLayout {
   static constexpr size_t kBytes = kBarOffset + 2 * kStages * 8 + 1024;
   static_assert(kStage % 1024 == 0, "swizzled tiles start on 1,024 bytes");
 };
+static_assert(GemmLayout<8>::kStage == 16384 + 2 * 8 * 128 &&
+                  GemmLayout<64>::kStage == 16384 + 2 * 64 * 128 &&
+                  GemmLayout<128>::kStage == 16384 + 2 * 128 * 128,
+              "the TF32 layouts are those of the A + hi + lo stages");
 
 struct GemmArgs {
   const float* a;  // read directly only when a_tma == 0
@@ -381,6 +497,38 @@ __device__ __forceinline__ void load_a_cp_async(uint8_t* tile,
   }
 }
 
+// The bf16 mode's A fragments of the tile's 2 k-steps of 16, rounded to
+// bf16 in pairs: a[4 ks + e] with e = (row g, k 2t, 2t + 1), (g + 8, ...),
+// (g, k 2t + 8, 2t + 9), (g + 8, ...) of the warp's 16 rows.
+template <bool TRANS_A>
+__device__ __forceinline__ void load_a_frags_bf16(const uint8_t* tile,
+                                                  int cw, int w, int g, int t,
+                                                  uint32_t (&a)[8]) {
+  const int r0 = 64 * cw + 16 * w + g;  // tile row (TRANS_A: column)
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = r0 + 8 * (e & 1), c = 16 * ks + 2 * t + 8 * (e >> 1);
+      float x0, x1;
+      if (!TRANS_A) {  // (128 rows x 32 k), row r's 16-byte chunk j at j ^ r%8
+        const float2 v = *reinterpret_cast<const float2*>(
+            tile + r * 128 + (((c >> 2) ^ g) << 4) + ((c & 3) << 2));
+        x0 = v.x;
+        x1 = v.y;
+      } else {  // four (32 k x 32 m) sub-tiles, k row's chunk j at j ^ k%8
+        const uint8_t* sub = tile + (r >> 5) * 4096 + 4 * (r & 3);
+        const int mi = (r & 31) >> 2;
+        x0 = *reinterpret_cast<const float*>(sub + c * 128 +
+                                             ((mi ^ (c & 7)) << 4));
+        x1 = *reinterpret_cast<const float*>(sub + (c + 1) * 128 +
+                                             ((mi ^ ((c + 1) & 7)) << 4));
+      }
+      a[4 * ks + e] = pack_bf16x2(x0, x1);
+    }
+  }
+}
+
 template <int STAGES>
 __device__ __forceinline__ void ring_advance(int& stage, uint32_t& phase) {
   if (++stage == STAGES) stage = 0, phase ^= 1u;
@@ -424,6 +572,19 @@ __device__ __forceinline__ void gemm_chain(const uint8_t* st,
   wgmma_commit();
 }
 
+// The bf16 mode's chain over the k-tile in stage `st`: two k-steps of 16
+// from a zero accumulator.
+template <int BN>
+__device__ __forceinline__ void gemm_chain_bf16(const uint8_t* st,
+                                                float (&d)[BN / 2],
+                                                const uint32_t (&a)[8]) {
+  const uint64_t b = sw64_desc(st + GemmLayout<BN, true>::kABytes);
+  wgmma_fence();
+  WgmmaBf16<BN>::mma(d, &a[0], b, 0);
+  WgmmaBf16<BN>::mma(d, &a[4], b + 2, 1);
+  wgmma_commit();
+}
+
 // Wait for the chain, add its sum into acc, hand the stage back.
 template <int N>
 __device__ __forceinline__ void gemm_retire(float (&acc)[N], float (&d)[N],
@@ -437,13 +598,18 @@ __device__ __forceinline__ void gemm_retire(float (&acc)[N], float (&d)[N],
 
 // Split z of the K range is [z * k_per_split, (z + 1) * k_per_split); the
 // blocks walk the (m tile, n tile, split) units with a stride of the grid.
-template <int BN, bool TRANS_A>
+// BF16: the bf16 mode (see the top of the file).
+template <int BN, bool TRANS_A, bool BF16>
 __global__ void __launch_bounds__(kGemmThreads, 1)
     split_gemm_kernel(const __grid_constant__ CUtensorMap a_map,
                       const __grid_constant__ CUtensorMap b_map,
                       const __grid_constant__ CUtensorMap c_map,
                       const GemmArgs p) {
-  using L = GemmLayout<BN>;
+  using L = GemmLayout<BN, BF16>;
+  // registers moved by setmaxnreg (TF32 at BN = 128 only: the bf16 mode's
+  // fragments are a quarter of the TF32 mode's, and it runs on the 168
+  // registers a thread is launched with)
+  constexpr bool kMoveRegs = BN == 128 && !BF16;
   constexpr int NA = BN / 2;  // accumulator floats per consumer thread
   extern __shared__ uint8_t gemm_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
@@ -469,7 +635,7 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
   // sum and 64 words of A fragments: the producer gives up registers to
   // the consumers (40 and 232 of the 168 a thread of 384 is launched with).
   if (wg == 0) {  // producer: one warp fills the ring
-    if (BN == 128)
+    if (kMoveRegs)
       asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     if (threadIdx.x >= 32) return;
     const int lane = threadIdx.x;
@@ -481,7 +647,7 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
         uint8_t* st = smem + stage * L::kStage;
         if (lane == 0) {
           mbar_expect_tx(&full[stage],
-                         2 * L::kBBytes + (p.a_tma ? L::kABytes : 0));
+                         L::kBLoad + (p.a_tma ? L::kABytes : 0));
           tma_load_3d(st + L::kABytes, &b_map, &full[stage], k0, n0, 0);
           if (p.a_tma) {
             if (TRANS_A) {
@@ -505,7 +671,7 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
   }
 
   // consumers: warpgroup cw takes rows [64 cw, 64 cw + 64) of each tile
-  if (BN == 128)
+  if (kMoveRegs)
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
   const int cw = wg - 1, tid = threadIdx.x - 128 * wg;
   const int w = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
@@ -518,6 +684,35 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
     float acc[NA], d[NA];
 #pragma unroll
     for (int i = 0; i < NA; ++i) acc[i] = d[i] = 0.0f;
+    if constexpr (BF16) {
+      // the same walk over the k-tiles with the bf16 fragments and chains
+      uint32_t a0[8], a1[8];
+      if (n_kt > 0) {
+        mbar_wait(&full[stage], phase);
+        load_a_frags_bf16<TRANS_A>(smem + stage * L::kStage, cw, w, g, t, a0);
+      }
+      for (int kt = 0; kt < n_kt; kt += 2) {
+        int s = stage;
+        ring_advance<L::kStages>(stage, phase);
+        gemm_chain_bf16<BN>(smem + s * L::kStage, d, a0);
+        if (kt + 1 < n_kt) {
+          mbar_wait(&full[stage], phase);
+          load_a_frags_bf16<TRANS_A>(smem + stage * L::kStage, cw, w, g, t,
+                                     a1);
+        }
+        gemm_retire(acc, d, &empty[s], lane);
+        if (kt + 1 >= n_kt) break;
+        s = stage;
+        ring_advance<L::kStages>(stage, phase);
+        gemm_chain_bf16<BN>(smem + s * L::kStage, d, a1);
+        if (kt + 2 < n_kt) {
+          mbar_wait(&full[stage], phase);
+          load_a_frags_bf16<TRANS_A>(smem + stage * L::kStage, cw, w, g, t,
+                                     a0);
+        }
+        gemm_retire(acc, d, &empty[s], lane);
+      }
+    } else {
     // A fragments of two k-tiles: the next is loaded while a chain runs
     uint32_t ah0[16], al0[16], ah1[16], al1[16];
     if (n_kt > 0) {
@@ -545,6 +740,7 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
                               al0);
       }
       gemm_retire(acc, d, &empty[s], lane);
+    }
     }
 
     // epilogue: C through shared memory, then a TMA store of the
@@ -622,6 +818,29 @@ __global__ void split_gemm_kernel_b(const float* __restrict__ b, int k, int n,
   }
 }
 
+// b (k, n) row-major -> bt (n_pad, k_pad) bf16 bits of b^T, rounded to the
+// nearest (ties to even); zero beyond k and n
+__global__ void split_gemm_kernel_b_bf16(const float* __restrict__ b, int k,
+                                         int n,
+                                         unsigned short* __restrict__ bt,
+                                         int k_pad, int n_pad) {
+  __shared__ float tile[32][33];
+  const int k0 = blockIdx.x * 32, n0 = blockIdx.y * 32;
+  for (int r = threadIdx.y; r < 32; r += 8) {
+    const int kk = k0 + r, nn = n0 + threadIdx.x;
+    tile[r][threadIdx.x] =
+        kk < k && nn < n ? b[static_cast<long>(kk) * n + nn] : 0.0f;
+  }
+  __syncthreads();
+  for (int r = threadIdx.y; r < 32; r += 8) {
+    const int nn = n0 + r, kk = k0 + threadIdx.x;
+    if (nn >= n_pad) break;
+    unsigned short h;
+    asm("cvt.rn.bf16.f32 %0, %1;\n" : "=h"(h) : "f"(tile[threadIdx.x][r]));
+    bt[static_cast<long>(nn) * k_pad + kk] = h;
+  }
+}
+
 // out[i] = the n_split partial arrays of `len` entries summed in order
 __global__ void sum_splits_kernel(const float* __restrict__ part,
                                   float* __restrict__ out, int n_split,
@@ -668,19 +887,30 @@ inline TensorMapEncoder tensor_map_encoder() {
 
 // f32 tensor map, in the 128-byte swizzle unless `dense`, zero fill out of
 // bounds; dims and box innermost first, strides in bytes of every
-// dimension but the first
+// dimension but the first. `bf16`: a bf16 map in the 64-byte swizzle.
 inline bool encode_map(CUtensorMap* map, const void* base, int rank,
                        const cuuint64_t* dims, const cuuint64_t* strides,
-                       const cuuint32_t* box, bool dense = false) {
+                       const cuuint32_t* box, bool dense = false,
+                       bool bf16 = false) {
   const TensorMapEncoder encode = tensor_map_encoder();
   if (encode == nullptr) return false;
   const cuuint32_t unit[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, rank,
-                const_cast<void*>(base), dims, strides, box, unit,
+  return encode(map,
+                bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                     : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                rank, const_cast<void*>(base), dims, strides, box, unit,
                 CU_TENSOR_MAP_INTERLEAVE_NONE,
-                dense ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B,
+                bf16    ? CU_TENSOR_MAP_SWIZZLE_64B
+                : dense ? CU_TENSOR_MAP_SWIZZLE_NONE
+                        : CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the products launched so far in this process, [0] TF32, [1] bf16
+inline long long* product_launches() {
+  static long long n[2] = {0, 0};
+  return n;
 }
 
 inline int gemm_sm_count() {
@@ -693,12 +923,12 @@ inline int gemm_sm_count() {
   return sms;
 }
 
-template <int BN, bool TRANS_A>
+template <int BN, bool TRANS_A, bool BF16>
 int launch_split_gemm(const CUtensorMap& a_map, const CUtensorMap& b_map,
                       const CUtensorMap& c_map, const GemmArgs& p,
                       cudaStream_t stream) {
-  using L = GemmLayout<BN>;
-  auto kernel = split_gemm_kernel<BN, TRANS_A>;
+  using L = GemmLayout<BN, BF16>;
+  auto kernel = split_gemm_kernel<BN, TRANS_A, BF16>;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(L::kBytes));
@@ -707,18 +937,43 @@ int launch_split_gemm(const CUtensorMap& a_map, const CUtensorMap& b_map,
   const int grid = static_cast<int>(units < gemm_sm_count() ? units
                                                             : gemm_sm_count());
   kernel<<<grid, kGemmThreads, L::kBytes, stream>>>(a_map, b_map, c_map, p);
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t launched = cudaGetLastError();
+  if (launched == cudaSuccess) ++product_launches()[BF16];
+  return static_cast<int>(launched);
+}
+
+// the instantiation of N-tile bn and form trans_a
+template <bool BF16>
+int launch_split_gemm_for(int bn, bool trans_a, const CUtensorMap& a_map,
+                          const CUtensorMap& b_map, const CUtensorMap& c_map,
+                          const GemmArgs& p, cudaStream_t stream) {
+  if (bn == 8)
+    return trans_a ? launch_split_gemm<8, true, BF16>(a_map, b_map, c_map, p,
+                                                       stream)
+                   : launch_split_gemm<8, false, BF16>(a_map, b_map, c_map,
+                                                        p, stream);
+  if (bn == 128)
+    return trans_a ? launch_split_gemm<128, true, BF16>(a_map, b_map, c_map,
+                                                         p, stream)
+                   : launch_split_gemm<128, false, BF16>(a_map, b_map, c_map,
+                                                          p, stream);
+  return trans_a ? launch_split_gemm<64, true, BF16>(a_map, b_map, c_map, p,
+                                                      stream)
+                 : launch_split_gemm<64, false, BF16>(a_map, b_map, c_map, p,
+                                                       stream);
 }
 
 // c (n_split, m, n) = per split of k, a * b. a is (m, k) row-major, or
 // (k, m) with trans_a; b is (k, n) row-major; bt is 16-byte aligned scratch
 // for B split and transposed: hi and lo, each (n padded to the N-tile, k
-// padded to 32) (ops/fused_cconv.py `gemm_b_floats`). k_per_split is a
-// multiple of 32 (only read when n_split > 1). Ragged edges are zero-filled
-// by TMA (or by the fallback's copies).
+// padded to 32), or with bf16 one such array of bf16 (ops/fused_cconv.py
+// `gemm_b_floats`). k_per_split is a multiple of 32 (only read when
+// n_split > 1). Ragged edges are zero-filled by TMA (or by the fallback's
+// copies). bf16: the bf16 mode.
 inline int split_gemm(const float* a, const float* b, float* c, float* bt,
                       int m, int n, int k, bool trans_a, int n_split,
-                      int k_per_split, cudaStream_t stream) {
+                      int k_per_split, cudaStream_t stream,
+                      bool bf16 = false) {
   if (m <= 0 || n <= 0 || n_split <= 0) return 0;
   if (bt == nullptr || !aligned16(bt))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -729,8 +984,13 @@ inline int split_gemm(const float* a, const float* b, float* c, float* bt,
   const int n_pad = gemm_round_up(n, bn);
   const int k_pad = gemm_round_up(k < 1 ? 1 : k, kGemmBK);
   float* bt_lo = bt + static_cast<long>(n_pad) * k_pad;
-  split_gemm_kernel_b<<<dim3(k_pad / 32, (n_pad + 31) / 32), dim3(32, 8), 0,
-                        stream>>>(b, k, n, bt, bt_lo, k_pad, n_pad);
+  if (bf16)
+    split_gemm_kernel_b_bf16<<<dim3(k_pad / 32, (n_pad + 31) / 32),
+                               dim3(32, 8), 0, stream>>>(
+        b, k, n, reinterpret_cast<unsigned short*>(bt), k_pad, n_pad);
+  else
+    split_gemm_kernel_b<<<dim3(k_pad / 32, (n_pad + 31) / 32), dim3(32, 8),
+                          0, stream>>>(b, k, n, bt, bt_lo, k_pad, n_pad);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
@@ -739,11 +999,15 @@ inline int split_gemm(const float* a, const float* b, float* c, float* bt,
   p.a_tma = aligned16(a) && p.lda % 4 == 0;
   p.c_tma = aligned16(c) && n % 4 == 0;
   CUtensorMap a_map{}, b_map{}, c_map{};
+  // (k_pad, n_pad, parts): TF32 hi and lo, or one bf16 array
+  const cuuint64_t elem = bf16 ? 2 : 4;
   const cuuint64_t b_dims[3] = {static_cast<cuuint64_t>(k_pad),
-                                static_cast<cuuint64_t>(n_pad), 2};
-  const cuuint64_t b_strides[2] = {4ull * k_pad, 4ull * k_pad * n_pad};
-  const cuuint32_t b_box[3] = {kGemmBK, static_cast<cuuint32_t>(bn), 2};
-  if (!encode_map(&b_map, bt, 3, b_dims, b_strides, b_box))
+                                static_cast<cuuint64_t>(n_pad),
+                                bf16 ? 1ull : 2ull};
+  const cuuint64_t b_strides[2] = {elem * k_pad, elem * k_pad * n_pad};
+  const cuuint32_t b_box[3] = {kGemmBK, static_cast<cuuint32_t>(bn),
+                               bf16 ? 1u : 2u};
+  if (!encode_map(&b_map, bt, 3, b_dims, b_strides, b_box, false, bf16))
     return static_cast<int>(cudaErrorInvalidValue);
   if (p.a_tma) {
     const cuuint64_t a_dims[2] = {
@@ -763,17 +1027,10 @@ inline int split_gemm(const float* a, const float* b, float* c, float* bt,
     if (!encode_map(&c_map, c, 3, c_dims, c_strides, c_box, bn == 8))
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (bn == 8)
-    return trans_a
-               ? launch_split_gemm<8, true>(a_map, b_map, c_map, p, stream)
-               : launch_split_gemm<8, false>(a_map, b_map, c_map, p, stream);
-  if (bn == 128)
-    return trans_a
-               ? launch_split_gemm<128, true>(a_map, b_map, c_map, p, stream)
-               : launch_split_gemm<128, false>(a_map, b_map, c_map, p, stream);
-  return trans_a
-             ? launch_split_gemm<64, true>(a_map, b_map, c_map, p, stream)
-             : launch_split_gemm<64, false>(a_map, b_map, c_map, p, stream);
+  if (bf16) return launch_split_gemm_for<true>(bn, trans_a, a_map, b_map,
+                                               c_map, p, stream);
+  return launch_split_gemm_for<false>(bn, trans_a, a_map, b_map, c_map, p,
+                                      stream);
 }
 
 }  // namespace nf

@@ -104,6 +104,12 @@ def build(sources) -> None:
         raise RuntimeError("\n".join(errors))
 
 
+def loaded(source: str) -> ctypes.CDLL | None:
+    """The library of `csrc/<source>` if this process has loaded it, else
+    None (nothing is built)."""
+    return _libs.get(source)
+
+
 def load(source: str) -> ctypes.CDLL:
     """The loaded library of `csrc/<source>`, built first if needed."""
     with _lock:

@@ -63,17 +63,19 @@ SEARCH_BACKENDS = ("fused_cconv", "fused", "grid", "brute", "auto")
 # 'auto' searches by grid from this many searched points on, else by brute
 # force (the JAX package's threshold)
 AUTO_GRID_POINTS = 4096
-# the JAX package's `conv_precision` values (jax.lax.Precision names)
-CONV_PRECISIONS = ("default", "high", "highest")
 
 
 class ContinuousConvLayer(nn.Module):
     """Open3D ContinuousConv parameters: `kernel` (kz, ky, kx, Cin, Cout)
     and `bias` (Cout,); the conv itself is `ops.fused_cconv` (`forward`) or
-    `ops.cconv` over a neighbour list (`forward_list`)."""
+    `ops.cconv` over a neighbour list (`forward_list`), its contractions at
+    `precision` (a `conv_precision` name; JAX's `precision` field)."""
 
-    def __init__(self, in_channels: int, filters: int, kernel_size: tuple):
+    def __init__(self, in_channels: int, filters: int, kernel_size: tuple,
+                 precision: str = "highest"):
         super().__init__()
+        cconv.conv_bf16(precision)  # an unknown name raises
+        self.precision = str(precision).lower()
         self.kernel = nn.Parameter(torch.empty(
             (*kernel_size, in_channels, filters), device="meta"))
         self.bias = nn.Parameter(torch.empty(filters, device="meta"))
@@ -90,14 +92,15 @@ class ContinuousConvLayer(nn.Module):
     def forward(self, feats_s, qplan, qpos_s, cplan, cpos_s, radius,
                 exclude_self):
         out, counts = fc.fused_cconv(self.kernel, qplan, qpos_s, cplan,
-                                     cpos_s, feats_s, radius, exclude_self)
+                                     cpos_s, feats_s, radius, exclude_self,
+                                     self.precision)
         return out + self.bias, counts
 
     def forward_list(self, feats, neighbors, corner, tapw, plan,
                      tap_matrix=None):
         return cconv.continuous_conv_apply(
             self.kernel, corner, tapw, feats, neighbors, plan=plan,
-            tap_matrix=tap_matrix) + self.bias
+            tap_matrix=tap_matrix, precision=self.precision) + self.bias
 
 
 class ParticleNet(nn.Module):
@@ -124,9 +127,15 @@ class ParticleNet(nn.Module):
         brute-force searches take at a time (their memory, not their
         result); `fused_*` size the `fused_cconv` backend's plan.
         `conv_precision` takes the JAX package's values (its MXU precision
-        of the conv contractions); this package computes every one in f32
-        class (f32 SIMT, or 3xTF32 tensor-core products in K1 and K2), so
-        the value changes nothing.
+        of the conv contractions), any case, and reaches every conv layer
+        on every backend, sharded included: 'default' rounds both operands
+        of every conv contraction, forward and backward, to bf16 and sums
+        in f32, as JAX's one `DEFAULT` MXU pass does on the TPU (K1 and K2
+        run their bf16 instantiations, the list conv `cconv.bf16_product`);
+        'highest' and 'high' compute in f32 class (f32 SIMT, 3xTF32
+        tensor-core products in K1 and K2, f32 torch products), 'high'
+        bitwise as 'highest' (JAX runs it as bf16_3x in the list conv). The
+        dense layers are f32 whatever the value, as in JAX.
         `other_feats_channels`: width of the optional per-particle `feats`
         of `forward`.
         `shard_group`: the process group over which the particles are
@@ -168,9 +177,10 @@ class ParticleNet(nn.Module):
                 f"of {SEARCH_BACKENDS}")
         if halo_size and shard_group is None:
             raise ValueError("halo_size > 0 needs a shard_group")
-        if str(conv_precision).lower() not in CONV_PRECISIONS:
+        prec = str(conv_precision).lower()
+        if prec not in cconv.PRECISIONS:
             raise ValueError(f"unknown conv_precision {conv_precision!r}: "
-                             f"expected one of {CONV_PRECISIONS}")
+                             f"expected one of {cconv.PRECISIONS}")
         self.search_backend = search_backend
         self.shard_group = shard_group
         self.halo_size = int(halo_size)
@@ -194,12 +204,13 @@ class ParticleNet(nn.Module):
         c0 = self.layer_channels[0]
         ks = tuple(kernel_size)
         fluid_ch = 4 + other_feats_channels
-        self.conv0_fluid = ContinuousConvLayer(fluid_ch, c0, ks)
-        self.conv0_obstacle = ContinuousConvLayer(3, c0, ks)
+        self.conv0_fluid = ContinuousConvLayer(fluid_ch, c0, ks, prec)
+        self.conv0_obstacle = ContinuousConvLayer(3, c0, ks, prec)
         self.dense0_fluid = nn.Linear(fluid_ch, c0, device="meta")
         width = 3 * c0
         for i, ch in enumerate(self.layer_channels[1:], start=1):
-            setattr(self, f"conv{i}", ContinuousConvLayer(width, ch, ks))
+            setattr(self, f"conv{i}",
+                    ContinuousConvLayer(width, ch, ks, prec))
             setattr(self, f"dense{i}", nn.Linear(width, ch, device="meta"))
             width = ch
         self.to_empty(device=resolve_device(device))

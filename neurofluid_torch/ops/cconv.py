@@ -19,6 +19,12 @@ the selected branch of every `where` is differentiated, sign' = abs'(0) =
 range, and the degenerate (coincident) offset gets zero. They agree with
 JAX's autodiff of `fused_cconv._slab_contrib` except on measure-zero kinks
 (the hat-form taps there, corner/fraction taps here).
+
+The contractions take the JAX package's precision names (`PRECISIONS`,
+`conv_bf16`): at 'default' both operands of each are rounded to bf16 and
+the product is summed in f32 (`bf16_product`), what the TPU's one `DEFAULT`
+MXU pass computes; 'high' and 'highest' are f32 products. (JAX's list conv
+runs 'high' as bf16_3x, about 1e-6 relative: the port keeps it f32.)
 """
 
 from __future__ import annotations
@@ -31,6 +37,9 @@ from neurofluid_torch.ops import segment_ops
 from neurofluid_torch.ops.neighbor_search import NeighborList
 
 EPS = 1e-8
+# the JAX package's precision names of the conv contractions
+# (jax.lax.Precision)
+PRECISIONS = ("default", "high", "highest")
 ATAN_COEFFS = (
     9.999999880828e-01, -3.333312078100e-01, 1.999371614268e-01,
     -1.421319619692e-01, 1.068142103287e-01, -7.596809867133e-02,
@@ -229,6 +238,52 @@ def ball_to_cube_vjp(xyz: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return torch.where(degenerate[..., None], 0.0, out)
 
 
+def conv_bf16(precision) -> bool:
+    """Whether the conv contractions at `precision` (a name of PRECISIONS,
+    any case) take bf16-rounded operands: 'default' only. An unknown name
+    raises."""
+    name = str(precision).lower()
+    if name not in PRECISIONS:
+        raise ValueError(f"unknown conv precision {precision!r}: expected "
+                         f"one of {PRECISIONS}")
+    return name == "default"
+
+
+def bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> the nearest bf16 value (8 exponent, 7 mantissa bits; ties to
+    even, as `lax.reduce_precision(x, 8, 7)`), kept in f32."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+class Bf16Product(torch.autograd.Function):
+    """a @ b (matrices or a batch of them) of the bf16-rounded operands,
+    products and sums in f32; the backward rounds the cotangent and the
+    other operand before each product, as JAX transposes a `DEFAULT` dot:
+    da = bf(ct) bf(b)^T, db = bf(a)^T bf(ct). Autograd through `.to(bf16)`
+    casts would round each cotangent after its product instead."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        a_r, b_r = bf16_round(a), bf16_round(b)
+        ctx.save_for_backward(a_r, b_r)
+        return a_r @ b_r
+
+    @staticmethod
+    def backward(ctx, ct):
+        a_r, b_r = ctx.saved_tensors
+        ct_r = bf16_round(ct)
+        da = ct_r @ b_r.transpose(-1, -2) if ctx.needs_input_grad[0] else None
+        db = a_r.transpose(-1, -2) @ ct_r if ctx.needs_input_grad[1] else None
+        return da, db
+
+
+def bf16_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """`Bf16Product`: the list conv's contractions at 'default'. The
+    products are plain in the JAX package too (outside Pallas), so they run
+    as torch.matmul on the rounded operands, TF32 off."""
+    return Bf16Product.apply(a, b)
+
+
 def tap_weights(off: torch.Tensor, kernel_size: tuple):
     """Per pair of normalized offset `off` (..., 3): (corner (..., 8), the 8
     trilinear tap weights times the poly6 window (..., 8)). The window
@@ -303,7 +358,8 @@ def cconv_tap_matrix(corner: torch.Tensor, tapw: torch.Tensor,
 def continuous_conv_apply(filters: torch.Tensor, corner, tapw,
                           feats: torch.Tensor, neighbors: NeighborList,
                           plan: segment_ops.AdjointPlan | None = None,
-                          tap_matrix: torch.Tensor | None = None):
+                          tap_matrix: torch.Tensor | None = None,
+                          precision: str = "highest"):
     """Contract one layer's features against the shared geometry.
 
     filters (kz, ky, kx, Cin, Cout); corner/tapw from `cconv_geometry`, or
@@ -314,7 +370,9 @@ def continuous_conv_apply(filters: torch.Tensor, corner, tapw,
         basis[q, t, c] = sum_k tw[q, t, k] * feats[idx[q, k], c]
         out[q, o]      = sum_{t, c} basis[q, t, c] * filters[t, c, o]
 
-    Both contractions are plain matrix products, as in the JAX package."""
+    Both contractions are plain matrix products, as in the JAX package; at
+    `precision` 'default' of bf16-rounded operands (`bf16_product`)."""
+    bf16 = conv_bf16(precision)
     *ks, cin, cout = filters.shape
     num_taps = math.prod(ks)
     if plan is None:
@@ -322,9 +380,12 @@ def continuous_conv_apply(filters: torch.Tensor, corner, tapw,
     nb_feats = segment_ops.take_rows_planned(feats, neighbors.idx, plan)
     tw = tap_matrix if tap_matrix is not None else cconv_tap_matrix(
         corner, tapw, num_taps)
+    w2 = filters.reshape(num_taps * cin, cout)
+    if bf16:
+        basis = bf16_product(tw, nb_feats)  # (Q, T, Cin)
+        return bf16_product(basis.reshape(-1, num_taps * cin), w2)
     basis = torch.bmm(tw, nb_feats)  # (Q, T, Cin)
-    return basis.reshape(-1, num_taps * cin) @ filters.reshape(
-        num_taps * cin, cout)
+    return basis.reshape(-1, num_taps * cin) @ w2
 
 
 def continuous_conv(filters: torch.Tensor, points: torch.Tensor,

@@ -26,6 +26,16 @@ Outputs are in sorted query order; `unsort_values` restores the original.
 query and candidate positions and the sorted candidate features
 (`FusedCConv`); the in-radius counts are discrete. Sentinel and zero pad
 rows get exactly zero gradient.
+
+`precision` takes the JAX package's names (`cconv.PRECISIONS`). At
+'default' every operand of every contraction is rounded to bf16 (round to
+nearest even) and products and sums stay f32, as the TPU's `DEFAULT` MXU
+pass computes the Pallas bodies' dots: the slab sum bf(w) bf(f) per pair
+and tap, the fold bf(acc) bf(W), d_acc = bf(ct) bf(W)^T, the tap-weight
+cotangent <bf(d_acc), bf(f)>, dfeats += bf(w) bf(d_acc) and dW = bf(acc)^T
+bf(ct). The kernels run their own bf16 instantiations there (the walks
+round at those operands, the product is one bf16 `wgmma` pass) with a
+launch count each (`BF16_KERNELS`). 'high' and 'highest' are f32 class.
 """
 
 from __future__ import annotations
@@ -37,8 +47,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from neurofluid_torch import cuda
 from neurofluid_torch.cuda import Kernel, check_tensor
 from neurofluid_torch.ops import cconv
+from neurofluid_torch.ops.cconv import bf16_round, conv_bf16
 from neurofluid_torch.ops.neighbor_search import cell_dims, cell_ids
 
 SENTINEL = 1e9
@@ -48,10 +60,15 @@ _MIN_PAD = 64  # sorted arrays carry at least this many sentinel/zero rows
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNEL = Kernel("fused_cconv.cu", "nf_fused_cconv_fwd",
-                [_P] * 14 + [_I] * 16 + [_F, _I])
+                [_P] * 14 + [_I] * 16 + [_F, _I, _I])
 BWD_KERNEL = Kernel("fused_cconv.cu", "nf_fused_cconv_bwd",
-                    [_P] * 17 + [_I] * 19 + [_F, _I])
-GEMM_KERNEL = Kernel("fused_cconv.cu", "nf_split_gemm", [_P] * 5 + [_I] * 6)
+                    [_P] * 17 + [_I] * 19 + [_F, _I, _I])
+GEMM_KERNEL = Kernel("fused_cconv.cu", "nf_split_gemm", [_P] * 5 + [_I] * 7)
+# the same entry points called at precision 'default', which run the bf16
+# instantiations: a handle each, so that each has its own launch count
+BF16_KERNELS = {name: Kernel(k.source, k.symbol, k.argtypes)
+                for name, k in (("K1", KERNEL), ("K2", BWD_KERNEL),
+                                ("product", GEMM_KERNEL))}
 
 # dynamic shared memory one block may take on the H100 and what an SM
 # holds, the largest filter that is staged into a block, the scratch rows
@@ -247,25 +264,33 @@ def _tap_sums(rows, qi, cand, corner, cw, feats_s, n_taps):
                           contrib.reshape(-1, cin))
 
 
+def _rounding(precision):
+    """The rounding of every contraction operand at `precision`: bf16 at
+    'default', none otherwise."""
+    return bf16_round if conv_bf16(precision) else (lambda x: x)
+
+
 def fused_cconv_plain(weights, qplan, qpos_s, cplan, cpos_s, feats_s,
                       radius: float, exclude_self: bool,
-                      chunk_rows: int = 2048):
+                      precision: str = "highest", chunk_rows: int = 2048):
     """Plain PyTorch twin of K1: the in-radius pairs of `_pairs`, window on
     min(d^2/r^2, 2), corner/fraction taps, an index_add of the tap-feature
-    sums, then one matmul with the filter. Returns (out (Nq, Cout),
-    counts (Nq,))."""
+    sums, then one matmul with the filter (at 'default' each on
+    bf16-rounded operands). Returns (out (Nq, Cout), counts (Nq,))."""
     check_plans(qplan, cplan, radius)
+    rnd = _rounding(precision)
     kz, ky, kx, cin, cout = weights.shape
     n_taps = kz * ky * kx
-    w2 = weights.reshape(n_taps * cin, cout)
+    w2 = rnd(weights.reshape(n_taps * cin, cout))
+    feats_r = rnd(feats_s)
     chunks, pairs = _row_walk(qplan, cplan, radius, chunk_rows)
     outs, counts = [], []
     for rows in chunks:
         qi, cand, off, cnt = pairs(rows, qpos_s, cpos_s, exclude_self)
         counts.append(cnt.float())
         corner, cw = cconv.tap_weights(off, (kz, ky, kx))
-        taps = _tap_sums(rows, qi, cand, corner, cw, feats_s, n_taps)
-        outs.append(taps.reshape(rows.shape[0], n_taps * cin) @ w2)
+        taps = _tap_sums(rows, qi, cand, corner, rnd(cw), feats_r, n_taps)
+        outs.append(rnd(taps.reshape(rows.shape[0], n_taps * cin)) @ w2)
     if not outs:
         return qpos_s.new_zeros((0, cout)), qpos_s.new_zeros((0,))
     return torch.cat(outs), torch.cat(counts)
@@ -273,7 +298,7 @@ def fused_cconv_plain(weights, qplan, qpos_s, cplan, cpos_s, feats_s,
 
 def fused_cconv_bwd_plain(weights, qplan, qpos_s, cplan, cpos_s, feats_s,
                           ct, radius: float, exclude_self: bool, needs,
-                          chunk_rows: int = 512):
+                          precision: str = "highest", chunk_rows: int = 512):
     """Plain PyTorch twin of K2, an explicit adjoint (not autograd through
     the forward). ct: (Nq, Cout) cotangent of the conv output in sorted
     query order; needs: which of (dW, dq, dc, dfeats) to compute.
@@ -282,13 +307,17 @@ def fused_cconv_bwd_plain(weights, qplan, qpos_s, cplan, cpos_s, feats_s,
     in-radius pair, dfeats[c] += sum over its 8 taps of w * d_acc, and the
     tap-weight cotangent <d_acc[tap], f_c> goes through
     `cconv.tap_weights_vjp` into dq (minus) and dc (plus), over r; the
-    recomputed tap-feature sums give dW += acc^T ct. Returns (dW, dq, dc,
-    dfeats) shaped as their inputs, None where not needed."""
+    recomputed tap-feature sums give dW += acc^T ct. At 'default' both
+    operands of each of those products are rounded to bf16 (JAX's
+    transpose of a `DEFAULT` dot). Returns (dW, dq, dc, dfeats) shaped as
+    their inputs, None where not needed."""
     check_plans(qplan, cplan, radius)
+    rnd = _rounding(precision)
     need_w, need_q, need_c, need_f = needs
     kz, ky, kx, cin, cout = weights.shape
     n_taps = kz * ky * kx
-    w2 = weights.reshape(n_taps * cin, cout)
+    w2 = rnd(weights.reshape(n_taps * cin, cout))
+    feats_r = rnd(feats_s)
     inv_r = float(np.float32(1.0 / radius))
     dw = torch.zeros_like(w2) if need_w else None
     dq = torch.zeros_like(qpos_s) if need_q else None
@@ -298,18 +327,19 @@ def fused_cconv_bwd_plain(weights, qplan, qpos_s, cplan, cpos_s, feats_s,
     for rows in chunks:
         qi, cand, off, _ = pairs(rows, qpos_s, cpos_s, exclude_self)
         corner, cw = cconv.tap_weights(off, (kz, ky, kx))
-        ct_rows = ct[rows]
+        cw_r = rnd(cw)
+        ct_rows = rnd(ct[rows])
         if need_w:
-            acc = _tap_sums(rows, qi, cand, corner, cw, feats_s, n_taps)
-            dw += acc.reshape(rows.shape[0], n_taps * cin).T @ ct_rows
+            acc = _tap_sums(rows, qi, cand, corner, cw_r, feats_r, n_taps)
+            dw += rnd(acc.reshape(rows.shape[0], n_taps * cin)).T @ ct_rows
         if not (need_q or need_c or need_f):
             continue
-        d_acc = (ct_rows @ w2.T).reshape(rows.shape[0] * n_taps, cin)
+        d_acc = rnd((ct_rows @ w2.T).reshape(rows.shape[0] * n_taps, cin))
         d_pair = d_acc[qi[:, None] * n_taps + corner]  # (P, 8, Cin)
         if need_f:
-            df.index_add_(0, cand, (cw[..., None] * d_pair).sum(1))
+            df.index_add_(0, cand, (cw_r[..., None] * d_pair).sum(1))
         if need_q or need_c:
-            g_cw = (d_pair * feats_s[cand][:, None, :]).sum(-1)
+            g_cw = (d_pair * feats_r[cand][:, None, :]).sum(-1)
             g_off = cconv.tap_weights_vjp(off, (kz, ky, kx), g_cw) * inv_r
             if need_q:
                 dq.index_add_(0, rows[qi], -g_off)
@@ -397,11 +427,13 @@ def gemm_bn(n: int) -> int:
     return N_TILES[2] if n >= WIDE_N else N_TILES[1]
 
 
-def gemm_b_floats(k: int, n: int) -> int:
+def gemm_b_floats(k: int, n: int, bf16: bool = False) -> int:
     """Floats of the product's B scratch for a (k, n) B: its TF32 hi and lo
-    parts, each (N padded to the N-tile, k padded to K_TILE), K-major."""
+    parts, each (N padded to the N-tile, k padded to K_TILE), K-major; or,
+    for the bf16 product, one such array of bf16 (half a float each)."""
     bn = gemm_bn(n)
-    return 2 * (-(-n // bn) * bn) * (-(-max(k, 1) // K_TILE) * K_TILE)
+    size = (-(-n // bn) * bn) * (-(-max(k, 1) // K_TILE) * K_TILE)
+    return size // 2 if bf16 else 2 * size
 
 
 def product_splits(m: int, n: int, k: int) -> tuple:
@@ -463,13 +495,15 @@ def _scratch(floats: int, dev):
 
 
 def fused_cconv_cuda(weights, qplan, qpos_s, cplan, cpos_s, feats_s,
-                     radius: float, exclude_self: bool):
+                     radius: float, exclude_self: bool,
+                     precision: str = "highest"):
     """K1. Returns (out (Nq, Cout), counts (Nq,)) in sorted query order. A
     filter that fits shared memory is folded by the walk; otherwise the walk
     writes its tap-feature rows to a scratch chunk and the tensor-core
-    product folds them."""
+    product folds them. At 'default' the bf16 instantiations run."""
     check_plans(qplan, cplan, radius)
     _check_cuda_args(weights, qplan, qpos_s, cplan, cpos_s, feats_s)
+    bf16 = conv_bf16(precision)
     dev = qpos_s.device
     kz, ky, kx, cin, cout = weights.shape
     n_taps, n = kz * ky * kx, qplan.n
@@ -485,23 +519,26 @@ def fused_cconv_cuda(weights, qplan, qpos_s, cplan, cpos_s, feats_s,
         k_splits, k_per = 1, 0
         if not fold:
             rows = _scratch(min(chunk, n) * klen, dev)
-            bt = _scratch(gemm_b_floats(klen, cout), dev)
+            bt = _scratch(gemm_b_floats(klen, cout, bf16), dev)
             k_splits, k_per = product_splits(min(chunk, n), cout, klen)
             if k_splits > 1:
                 part = _scratch(k_splits * min(chunk, n) * cout, dev)
-        KERNEL(qplan.gcol.data_ptr(), qplan.gzlo.data_ptr(),
+        kernel = BF16_KERNELS["K1"] if bf16 else KERNEL
+        kernel(qplan.gcol.data_ptr(), qplan.gzlo.data_ptr(),
                qplan.gzhi.data_ptr(), qplan.gstart.data_ptr(),
                cplan.pstarts.data_ptr(), qpos_s.data_ptr(),
                cpos_s.data_ptr(), feats_s.data_ptr(), weights.data_ptr(),
                out.data_ptr(), cnt.data_ptr(), _ptr(rows), _ptr(bt),
                _ptr(part), qplan.n_groups, qplan.group_size, n, chunk,
                k_splits, k_per, qb, threads, d0, d1, d2, kz, ky, kx, cin,
-               cout, float(np.float32(1.0 / radius)), int(exclude_self))
+               cout, float(np.float32(1.0 / radius)), int(exclude_self),
+               int(bf16))
     return out, cnt
 
 
 def fused_cconv_bwd_cuda(weights, qplan, qpos_s, cplan, cpos_s, feats_s, ct,
-                         radius: float, exclude_self: bool, needs):
+                         radius: float, exclude_self: bool, needs,
+                         precision: str = "highest"):
     """K2: one call computes what `needs` asks of (dW, dq, dc, dfeats).
     d_acc = ct W^T is a tensor-core product into scratch rows (or contracted
     by the walk from a filter that fits shared memory); the backward walk
@@ -510,10 +547,11 @@ def fused_cconv_bwd_cuda(weights, qplan, qpos_s, cplan, cpos_s, feats_s, ct,
     dW is the forward walk's tap-feature rows against ct, a tensor-core
     product over fixed splits of the rows summed in order. One scratch
     buffer serves d_acc and the rows in turn, a chunk of query rows at a
-    time."""
+    time. At 'default' the bf16 instantiations run."""
     check_plans(qplan, cplan, radius)
     _check_cuda_args(weights, qplan, qpos_s, cplan, cpos_s, feats_s)
     check_tensor("ct", ct, qpos_s.device)
+    bf16 = conv_bf16(precision)
     need_w, need_q, need_c, need_f = needs
     dev = qpos_s.device
     kz, ky, kx, cin, cout = weights.shape
@@ -539,33 +577,37 @@ def fused_cconv_bwd_cuda(weights, qplan, qpos_s, cplan, cpos_s, feats_s, ct,
         part = torch.empty((-(-n // chunk) * n_split, klen, cout),
                            dtype=torch.float32, device=dev) \
             if need_w else None
-        b_floats = max(gemm_b_floats(min(chunk, n), cout) if need_w else 0,
-                       gemm_b_floats(cout, klen)
-                       if (need_pos or need_f) and not local else 0)
+        b_floats = max(
+            gemm_b_floats(min(chunk, n), cout, bf16) if need_w else 0,
+            gemm_b_floats(cout, klen, bf16)
+            if (need_pos or need_f) and not local else 0)
         bt = _scratch(b_floats, dev) if b_floats else None
         wt = weights.reshape(klen, cout).t().contiguous()
         d0, d1, d2 = qplan.dims
-        BWD_KERNEL(qplan.gcol.data_ptr(), qplan.gzlo.data_ptr(),
-                   qplan.gzhi.data_ptr(), qplan.gstart.data_ptr(),
-                   cplan.pstarts.data_ptr(), qpos_s.data_ptr(),
-                   cpos_s.data_ptr(), feats_s.data_ptr(), wt.data_ptr(),
-                   ct.data_ptr(), _ptr(scratch), _ptr(part), _ptr(bt),
-                   _ptr(dw), _ptr(dq), _ptr(dc), _ptr(df),
-                   qplan.n_groups, qplan.group_size, n, chunk, n_split, rows,
-                   int(local), qb_f, threads_f, qb_b, threads_b,
-                   d0, d1, d2, kz, ky, kx, cin, cout,
-                   float(np.float32(1.0 / radius)), int(exclude_self))
+        kernel = BF16_KERNELS["K2"] if bf16 else BWD_KERNEL
+        kernel(qplan.gcol.data_ptr(), qplan.gzlo.data_ptr(),
+               qplan.gzhi.data_ptr(), qplan.gstart.data_ptr(),
+               cplan.pstarts.data_ptr(), qpos_s.data_ptr(),
+               cpos_s.data_ptr(), feats_s.data_ptr(), wt.data_ptr(),
+               ct.data_ptr(), _ptr(scratch), _ptr(part), _ptr(bt),
+               _ptr(dw), _ptr(dq), _ptr(dc), _ptr(df),
+               qplan.n_groups, qplan.group_size, n, chunk, n_split, rows,
+               int(local), qb_f, threads_f, qb_b, threads_b,
+               d0, d1, d2, kz, ky, kx, cin, cout,
+               float(np.float32(1.0 / radius)), int(exclude_self), int(bf16))
     elif need_w:
         dw.zero_()
     return ((dw.reshape(weights.shape) if need_w else None),
             dq if need_q else None, dc if need_c else None, df)
 
 
-def split_gemm_plain(a, b, trans_a: bool = False):
-    """Plain version of the tensor-core product: a b, or a^T b (the plain
-    K1 and K2 contract with `@` themselves; the tests and `chip_smoke.py`
-    hold `split_gemm_cuda` against a float64 product)."""
-    return (a.t() if trans_a else a) @ b
+def split_gemm_plain(a, b, trans_a: bool = False, precision: str = "highest"):
+    """Plain version of the tensor-core product: a b, or a^T b, at
+    'default' of the bf16-rounded operands (the plain K1 and K2 contract
+    with `@` themselves; the tests and `chip_smoke.py` hold
+    `split_gemm_cuda` against a float64 product)."""
+    rnd = _rounding(precision)
+    return rnd(a.t() if trans_a else a) @ rnd(b)
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
@@ -575,13 +617,21 @@ def tf32_round(x: torch.Tensor) -> torch.Tensor:
     return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
-def gemm_b_prep_plain(b: torch.Tensor) -> torch.Tensor:
+def gemm_b_prep_plain(b: torch.Tensor, precision: str = "highest"
+                      ) -> torch.Tensor:
     """Plain version of the product's B prep (`split_gemm_kernel_b`): b (K,
     N) transposed to K-major, split into TF32 hi = tf32(b) and lo =
     tf32(b - hi), zero-padded to (N-tile, K_TILE) multiples: (2, N_pad,
-    K_pad), the layout of its scratch (`gemm_b_floats`)."""
+    K_pad), the layout of its scratch (`gemm_b_floats`). At 'default'
+    (`split_gemm_kernel_b_bf16`) b^T rounded to bf16, padded the same:
+    (N_pad, K_pad) in torch.bfloat16."""
     k, n = b.shape
     bn = gemm_bn(n)
+    if conv_bf16(precision):
+        out = b.new_zeros((-(-n // bn) * bn, -(-max(k, 1) // K_TILE) * K_TILE),
+                          dtype=torch.bfloat16)
+        out[:n, :k] = b.t().to(torch.bfloat16)
+        return out
     out = b.new_zeros((2, -(-n // bn) * bn, -(-max(k, 1) // K_TILE) * K_TILE))
     hi = tf32_round(b.t())
     out[0, :n, :k] = hi
@@ -590,13 +640,15 @@ def gemm_b_prep_plain(b: torch.Tensor) -> torch.Tensor:
 
 
 def split_gemm_cuda(a, b, trans_a: bool = False, n_split: int = 1,
-                    k_per_split: int = 0):
+                    k_per_split: int = 0, precision: str = "highest"):
     """The tensor-core product of `csrc/split_gemm.cuh` on its own: a (M, K)
     (or (K, M) with trans_a) times b (K, N), f32, each operand split into
-    two TF32 parts and three products summed in f32. With n_split > 1 the K
-    range is cut into splits of k_per_split (a multiple of 32) whose
-    products are summed in order, as K1's fold and K2's dW do
-    (`product_splits`)."""
+    two TF32 parts and three products summed in f32; at 'default' each
+    operand rounded to bf16 and one bf16 product, each chain of 32 k summed
+    in f32. With n_split > 1 the K range is cut into splits of k_per_split
+    (a multiple of 32) whose products are summed in order, as K1's fold and
+    K2's dW do (`product_splits`)."""
+    bf16 = conv_bf16(precision)
     dev = a.device
     check_tensor("a", a, dev)
     check_tensor("b", b, dev)
@@ -612,11 +664,24 @@ def split_gemm_cuda(a, b, trans_a: bool = False, n_split: int = 1,
     part = torch.empty((n_split, m, n), dtype=torch.float32, device=dev) \
         if n_split > 1 else None
     if m and n:
-        bt = _scratch(gemm_b_floats(k, n), dev)
-        GEMM_KERNEL(a.data_ptr(), b.data_ptr(), c.data_ptr(), _ptr(part),
-                    bt.data_ptr(), m, n, k, int(trans_a), n_split,
-                    k_per_split)
+        bt = _scratch(gemm_b_floats(k, n, bf16), dev)
+        kernel = BF16_KERNELS["product"] if bf16 else GEMM_KERNEL
+        kernel(a.data_ptr(), b.data_ptr(), c.data_ptr(), _ptr(part),
+               bt.data_ptr(), m, n, k, int(trans_a), n_split, k_per_split,
+               int(bf16))
     return c
+
+
+def product_launches(precision: str = "highest") -> int:
+    """Launches of the tensor-core product at `precision` so far in this
+    process, inside K1 and K2 and alone, as the library counts them where
+    it launches them (`nf_product_launches`); 0 before it is loaded."""
+    lib = cuda.loaded("fused_cconv.cu")
+    if lib is None:
+        return 0
+    fn = lib.nf_product_launches
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_longlong
+    return int(fn(int(conv_bf16(precision))))
 
 
 class FusedCConv(torch.autograd.Function):
@@ -626,28 +691,30 @@ class FusedCConv(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, weights, qpos_s, cpos_s, feats_s, qplan, cplan,
-                radius, exclude_self):
+                radius, exclude_self, precision):
         fwd = fused_cconv_cuda if qpos_s.is_cuda else fused_cconv_plain
         out, cnt = fwd(weights, qplan, qpos_s, cplan, cpos_s, feats_s,
-                       radius, exclude_self)
+                       radius, exclude_self, precision)
         ctx.save_for_backward(weights, qpos_s, cpos_s, feats_s)
-        ctx.plans = (qplan, cplan, radius, exclude_self)
+        ctx.plans = (qplan, cplan, radius, exclude_self, precision)
         ctx.mark_non_differentiable(cnt)
         return out, cnt
 
     @staticmethod
     def backward(ctx, g_out, _g_cnt):
         weights, qpos_s, cpos_s, feats_s = ctx.saved_tensors
-        qplan, cplan, radius, exclude_self = ctx.plans
+        qplan, cplan, radius, exclude_self, precision = ctx.plans
         needs = tuple(ctx.needs_input_grad[:4])
         bwd = fused_cconv_bwd_cuda if qpos_s.is_cuda else fused_cconv_bwd_plain
         dw, dq, dc, df = bwd(weights, qplan, qpos_s, cplan, cpos_s, feats_s,
-                             g_out.contiguous(), radius, exclude_self, needs)
-        return dw, dq, dc, df, None, None, None, None
+                             g_out.contiguous(), radius, exclude_self, needs,
+                             precision)
+        return dw, dq, dc, df, None, None, None, None, None
 
 
 def fused_cconv(weights, qplan, qpos_s, cplan, cpos_s, feats_s,
-                radius: float, exclude_self: bool):
+                radius: float, exclude_self: bool,
+                precision: str = "highest"):
     """Fused continuous conv over the 27-cell candidate range.
 
     weights: (kz, ky, kx, Cin, Cout) filter grid. qplan/qpos_s: query
@@ -656,6 +723,9 @@ def fused_cconv(weights, qplan, qpos_s, cplan, cpos_s, feats_s,
     fluid -> fluid pass the same plan and positions on both sides with
     exclude_self=True. Returns (out (Nq, Cout), counts (Nq,) true in-radius
     neighbour counts), both in sorted query order. K1 (forward) and K2
-    (backward) for CUDA tensors, the plain versions for CPU tensors."""
+    (backward) for CUDA tensors, the plain versions for CPU tensors.
+    `precision`: a JAX `conv_precision` name (see the module docstring);
+    an unknown one raises."""
+    conv_bf16(precision)
     return FusedCConv.apply(weights, qpos_s, cpos_s, feats_s, qplan, cplan,
-                            radius, exclude_self)
+                            radius, exclude_self, precision)

@@ -132,3 +132,97 @@ def test_geometry_matches_jax_and_masks_padding():
     assert tw_t.shape == (len(qs), 64, K)
     np.testing.assert_allclose(tw_t.numpy(), np.asarray(tw_j), rtol=0,
                                atol=2e-6)
+
+
+def test_bf16_product_and_its_transpose_match_the_oracle():
+    """`cconv.bf16_product` forward and backward against the oracle's
+    `DEFAULT` einsum (tests/torch_bf16_oracle.py: both operands of each
+    product rounded, the cotangent too, products in float64), batched as the
+    basis contraction and plain as the fold: only the f32 sums differ
+    (relative to the largest entry, 1e-6); and its backward is not that of
+    autograd through bf16 casts, which rounds each gradient after its
+    product."""
+    from torch_bf16_oracle import bf16_einsum
+
+    rng = np.random.default_rng(5)
+    for spec, sa, sb in (("qtk,qkc->qtc", (9, 64, 24), (9, 24, 5)),
+                         ("qk,kn->qn", (40, 320), (320, 7))):
+        a, b = (rng.normal(size=s).astype(np.float32) for s in (sa, sb))
+        ct = rng.normal(size=np.einsum(spec, a, b).shape).astype(np.float32)
+        out_j, vjp = jax.vjp(bf16_einsum(spec), jnp.asarray(a), jnp.asarray(b))
+        grads_j = vjp(jnp.asarray(ct))
+        ta, tb = (torch.from_numpy(x).requires_grad_(True) for x in (a, b))
+        out_t = tcc.bf16_product(ta, tb)
+        grads_t = torch.autograd.grad(out_t, (ta, tb), torch.from_numpy(ct))
+        for name, got, want in (("out", out_t, out_j),
+                                ("da", grads_t[0], grads_j[0]),
+                                ("db", grads_t[1], grads_j[1])):
+            want = np.asarray(want)
+            np.testing.assert_allclose(got.detach().numpy(), want, rtol=0,
+                                       atol=1e-6 * np.abs(want).max(),
+                                       err_msg=f"{spec} {name}")
+        ca, cb = (torch.from_numpy(x).requires_grad_(True) for x in (a, b))
+        cast = (ca.to(torch.bfloat16).float() @ cb.to(torch.bfloat16).float())
+        g_cast = torch.autograd.grad(cast, (ca, cb), torch.from_numpy(ct))
+        assert float((g_cast[0] - grads_t[0]).abs().max()) > 1e-4 * float(
+            grads_t[0].abs().max())
+
+
+@pytest.mark.parametrize("same_points", [False, True])
+@pytest.mark.parametrize("use_tap_matrix", [False, True])
+def test_list_conv_default_matches_the_bf16_oracle(same_points,
+                                                   use_tap_matrix):
+    """`continuous_conv_apply(..., precision='default')` forward and its
+    four gradients against the oracle (the JAX package's geometry and tap
+    matrix, both einsums at the TPU's `DEFAULT`): each at least MARGIN times
+    closer to it than to JAX's 'highest' result, by mean absolute
+    deviation; 'highest' and 'high' are bitwise the port's f32 result."""
+    from torch_bf16_oracle import (
+        assert_bf16_oracle, continuous_conv_default,
+    )
+
+    pts, qs, idx, mask, count, feats, filt, ct = _case(same_points)
+    disc = (idx, mask, count, use_tap_matrix)
+
+    def jconv(apply, filt_, feats_, pts_, qs_):
+        nb = jns.NeighborList(jnp.asarray(idx), jnp.zeros(idx.shape),
+                              jnp.asarray(mask), jnp.asarray(count))
+        plan = jso.adjoint_plan(jnp.maximum(nb.idx, 0), pts.shape[0])
+        corner, tapw = jcc.cconv_geometry(pts_, qs_, nb, EXTENT, plan=plan)
+        tw = jcc.cconv_tap_matrix(corner, tapw, 64) if use_tap_matrix \
+            else None
+        return apply(filt_, corner, tapw, feats_, nb, plan=plan,
+                     tap_matrix=tw)
+
+    jargs = tuple(map(jnp.asarray, (filt, feats, pts, qs)))
+    ref = {}
+    for name, apply in (("oracle", continuous_conv_default),
+                        ("highest", jcc.continuous_conv_apply)):
+        out = jconv(apply, *jargs)
+        grads = jax.grad(lambda *a: jnp.sum(jconv(apply, *a)
+                                            * jnp.asarray(ct)),
+                         argnums=(0, 1, 2, 3))(*jargs)
+        ref[name] = (out,) + tuple(grads)
+
+    results = {}
+    for prec in ("default", "highest", "high"):
+        targs = [torch.from_numpy(a).requires_grad_(True)
+                 for a in (filt, feats, pts, qs)]
+        nb = tns.NeighborList(torch.from_numpy(idx), torch.zeros(idx.shape),
+                              torch.from_numpy(mask), torch.from_numpy(count))
+        plan = tso.AdjointPlan(nb.idx, pts.shape[0])
+        corner, tapw = tcc.cconv_geometry(targs[2], targs[3], nb, EXTENT, KS,
+                                          plan)
+        tw = tcc.cconv_tap_matrix(corner, tapw, 64) if use_tap_matrix \
+            else None
+        out = tcc.continuous_conv_apply(targs[0], corner, tapw, targs[1], nb,
+                                        plan=plan, tap_matrix=tw,
+                                        precision=prec)
+        grads = torch.autograd.grad((out * torch.from_numpy(ct)).sum(), targs)
+        results[prec] = (out.detach(),) + grads
+    names = ("out", "filters", "feats", "points", "queries")
+    for name, got, oracle, high in zip(names, results["default"],
+                                       ref["oracle"], ref["highest"]):
+        assert_bf16_oracle(name, got.numpy(), oracle, high)
+    for got, want in zip(results["high"], results["highest"]):
+        assert torch.equal(got, want)

@@ -355,6 +355,114 @@ def test_split_gemm_matches_float64(dev, m, n, k, trans_a, n_split,
     assert torch.equal(got, again)
 
 
+# the bf16 instantiations (precision 'default') against the plain 'default'
+# versions on the CPU: the two sum in another f32 order, so a sum on the edge
+# of a bf16 rounding step (bf(acc), bf(d_acc)) can round one way in the
+# kernel and the other in the plain version; each output is held within one
+# bf16 unit (2^-8) of its largest entry, and its mean deviation from the
+# plain 'default' result at least 10x below its deviation from the plain
+# 'highest' one (so neither the f32 kernel nor an f32 fallback can pass)
+BF16_UNIT = 2.0 ** -8
+
+
+def _held_to_default(name, got, want_d, want_h):
+    got, want_d, want_h = (x.double().cpu() for x in (got, want_d, want_h))
+    np.testing.assert_allclose(got.numpy(), want_d.numpy(), rtol=0,
+                               atol=BF16_UNIT * float(want_d.abs().max()),
+                               err_msg=name)
+    dev_d = float((got - want_d).abs().mean())
+    dev_h = float((got - want_h).abs().mean())
+    assert 10.0 * dev_d <= dev_h, (name, dev_d, dev_h)
+
+
+@pytest.mark.parametrize("exclude_self,cin,cout,n_q", [
+    (True, 4, 32, 300), (True, 96, 64, 300), (False, 3, 32, 300),
+    (True, 64, 64, 300), (True, 64, 3, 300), (False, 96, 20, 173)])
+def test_fused_cconv_bf16_kernel_matches_plain(dev, exclude_self, cin, cout,
+                                               n_q):
+    cpu = _cconv_inputs("cpu", 1, exclude_self, cin, cout, twin=False,
+                        n_q=n_q)
+    w, qp, qs, cp, cs, fs, _ = _cconv_inputs(dev, 1, exclude_self, cin, cout,
+                                             twin=False, n_q=n_q)
+    k1 = fc.BF16_KERNELS["K1"]
+    before = (k1.launches, fc.KERNEL.launches)
+    products = fc.product_launches("default")
+    out, cnt = fc.fused_cconv_cuda(w, qp, qs, cp, cs, fs, 0.25, exclude_self,
+                                   "default")
+    assert (k1.launches, fc.KERNEL.launches) == (before[0] + 1, before[1])
+    staged = fc.w_fits_shared(64, cin, cout)
+    assert fc.product_launches("default") == products + (0 if staged else 1)
+    want_d, want_cnt = fc.fused_cconv_plain(*cpu[:6], 0.25, exclude_self,
+                                            "default")
+    want_h, _ = fc.fused_cconv_plain(*cpu[:6], 0.25, exclude_self)
+    np.testing.assert_array_equal(cnt.cpu().numpy(), want_cnt.numpy())
+    _held_to_default("out", out, want_d, want_h)
+
+
+@pytest.mark.parametrize("exclude_self,cin,cout,n_q", [
+    (True, 4, 32, 300), (True, 96, 64, 300), (False, 3, 32, 300),
+    (True, 64, 3, 300), (True, 64, 64, 300), (False, 96, 20, 173)])
+def test_fused_cconv_bf16_bwd_kernel_matches_plain(dev, exclude_self, cin,
+                                                   cout, n_q):
+    cpu = _cconv_inputs("cpu", 1, exclude_self, cin, cout, n_q=n_q)
+    cud = _cconv_inputs(dev, 1, exclude_self, cin, cout, n_q=n_q)
+    k2 = fc.BF16_KERNELS["K2"]
+    for needs in ((True,) * 4, (True, False, False, True)):
+        want_d = fc.fused_cconv_bwd_plain(*cpu, 0.25, exclude_self, needs,
+                                          "default")
+        want_h = fc.fused_cconv_bwd_plain(*cpu, 0.25, exclude_self, needs)
+        before = (k2.launches, fc.BWD_KERNEL.launches)
+        got = fc.fused_cconv_bwd_cuda(*cud, 0.25, exclude_self, needs,
+                                      "default")
+        assert (k2.launches, fc.BWD_KERNEL.launches) == (before[0] + 1,
+                                                         before[1])
+        for name, a, b, h in zip(("dW", "dq", "dc", "dfeats"), got, want_d,
+                                 want_h):
+            if b is None:
+                assert a is None, name
+                continue
+            _held_to_default(f"{name} {needs}", a, b, h)
+
+
+@pytest.mark.parametrize("m,n,k,trans_a,n_split,k_per_split,offset", [
+    (100, 7, 50, False, 1, 0, 0), (130, 70, 333, False, 1, 0, 0),
+    (300, 6144, 64, False, 1, 0, 0), (70, 3, 200, True, 3, 96, 0),
+    (257, 20, 129, True, 1, 0, 0), (300, 64, 6144, False, 2, 3072, 0),
+    (6144, 64, 700, True, 2, 352, 0), (130, 64, 256, False, 1, 0, 1),
+    (256, 64, 300, True, 2, 160, 1), (130, 1030, 40, False, 1, 0, 1),
+    (200, 1024, 300, True, 2, 160, 0)])
+def test_split_gemm_bf16_matches_float64(dev, m, n, k, trans_a, n_split,
+                                         k_per_split, offset):
+    """The bf16 product against a float64 product of the bf16-rounded
+    inputs: the products of bf16 values are exact, so only the f32 sums
+    differ (each chain of 32 k in the tensor core, then an f32 add), within
+    4e-7 of sum |a||b| as the 3xTF32 mode; bitwise the same again."""
+    rng = np.random.default_rng(12)
+    shape = (k, m) if trans_a else (m, k)
+    buf = torch.empty(m * k + offset, dtype=torch.float32, device=dev)
+    a = buf[offset:].view(shape)
+    a.copy_(torch.tensor(rng.normal(size=shape), dtype=torch.float32))
+    b = torch.tensor(rng.normal(size=(k, n)), dtype=torch.float32, device=dev)
+    kern = fc.BF16_KERNELS["product"]
+    before = (kern.launches, fc.GEMM_KERNEL.launches)
+    products = fc.product_launches("default")
+    got = fc.split_gemm_cuda(a, b, trans_a, n_split, k_per_split, "default")
+    assert (kern.launches, fc.GEMM_KERNEL.launches) == (before[0] + 1,
+                                                        before[1])
+    assert fc.product_launches("default") == products + 1
+    a64 = fc.bf16_round(a.t() if trans_a else a).double()
+    b64 = fc.bf16_round(b).double()
+    want = a64 @ b64
+    scale = a64.abs() @ b64.abs()
+    assert float(((got.double() - want).abs() / scale).max()) <= 4e-7
+    # and not the f32 product of the unrounded inputs
+    exact = (a.t() if trans_a else a).double() @ b.double()
+    assert float(((got.double() - exact).abs() / scale).max()) > 1e-4
+    again = fc.split_gemm_cuda(a, b, trans_a, n_split, k_per_split,
+                               "default")
+    assert torch.equal(got, again)
+
+
 def test_ball_sums_bwd_kernel_matches_plain(dev):
     rng = np.random.default_rng(4)
     lo, hi = (-0.7,) * 3, (0.7,) * 3

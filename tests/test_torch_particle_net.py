@@ -268,18 +268,155 @@ def test_query_chunk_smaller_than_n_changes_nothing():
                                    msg=name)
 
 
-def test_conv_precision_values_give_the_same_output():
-    """JAX's conv_precision values are accepted and change nothing: every
-    product here is f32 class; an unknown value raises."""
-    pos, vel, box, nrm = map(torch.from_numpy,
-                             _scene(np.random.default_rng(4)))
+def _assert_f32_class_values_agree():
     outs = []
-    for precision in ("highest", "high", "default", "HIGH"):
+    for precision in ("highest", "high", "HIGH"):
         net = ParticleNet(conv_precision=precision, device="cpu",
                           generator=torch.Generator().manual_seed(2), **TIGHT)
+        pos, vel, box, nrm = map(torch.from_numpy,
+                                 _scene(np.random.default_rng(4)))
         with torch.no_grad():
             outs.append(net(pos, vel, box, nrm)[0])
     for o in outs[1:]:
-        torch.testing.assert_close(o, outs[0], rtol=0, atol=0)
-    with pytest.raises(ValueError, match="conv_precision"):
-        ParticleNet(conv_precision="bf16", device="cpu", **TIGHT)
+        assert torch.equal(o, outs[0])
+
+
+def test_conv_precision_values_give_the_same_output():
+    """The f32-class values of JAX's conv_precision, 'highest', 'high' and
+    'HIGH', give the same output bit for bit ('high', JAX's bf16_3x in its
+    list conv, is f32 in the port on purpose); `test_conv_precision_contract`
+    holds 'default' and unknown values."""
+    _assert_f32_class_values_agree()
+
+
+def _loss_and_grads_jax(jnet, params, scene, ct):
+    """sum(pos' * ct) of one JAX step and its gradients, as port-named
+    numpy arrays (the parameters by `transition_state_from_flax`, then
+    'pos' and 'vel')."""
+    def loss(p, pos, vel):
+        out = jnet.apply(p, pos, vel, *map(jnp.asarray, scene[2:]))[0]
+        return jnp.sum(out * jnp.asarray(ct)), out
+
+    (_, out), (g_p, g_pos, g_vel) = jax.value_and_grad(
+        loss, argnums=(0, 1, 2), has_aux=True)(
+        params, *map(jnp.asarray, scene[:2]))
+    grads = {k: v.numpy() for k, v in transition_state_from_flax(
+        jax.tree_util.tree_map(np.asarray, g_p)).items()}
+    return np.asarray(out), dict(grads, pos=np.asarray(g_pos),
+                                 vel=np.asarray(g_vel))
+
+
+def _loss_and_grads_port(net, scene, ct):
+    pos, vel = (torch.from_numpy(a).requires_grad_(True) for a in scene[:2])
+    out = net(pos, vel, *map(torch.from_numpy, scene[2:]))[0]
+    (out * torch.from_numpy(ct)).sum().backward()
+    grads = {n: p.grad.numpy() for n, p in net.named_parameters()}
+    return out.detach().numpy(), dict(grads, pos=pos.grad.numpy(),
+                                      vel=vel.grad.numpy())
+
+
+@pytest.mark.parametrize("case", ["f32_class_bitwise", "default_bf16",
+                                  "unknown_raises"])
+def test_conv_precision_contract(nets, monkeypatch, case):
+    """JAX's conv_precision values in the port. 'highest', 'high' and
+    'HIGH' compute the same f32-class step bit for bit. 'default' rounds
+    every conv contraction's operands to bf16 (the TPU's `DEFAULT`): on
+    every search backend one step's output and every gradient of
+    sum(pos' * ct) (each parameter, pos, vel) differ from 'highest' and
+    are at least MARGIN times closer, by mean absolute deviation, to the
+    oracle of tests/torch_bf16_oracle.py (JAX's step on 'brute' with its
+    list conv's einsums at `DEFAULT`, patched in for this test) than to
+    JAX's 'highest' step; the leaves whose oracle and 'highest' agree to
+    1e-6 of their largest entry (the last layer's biases, since the loss is
+    linear in the output, and the box conv's filter, which no box pair of
+    this scene reaches) are held to the oracle within 1e-5 of it. An
+    unknown value raises."""
+    if case == "f32_class_bitwise":
+        _assert_f32_class_values_agree()
+        return
+    if case == "unknown_raises":
+        with pytest.raises(ValueError, match="conv_precision"):
+            ParticleNet(conv_precision="bf16", device="cpu", **TIGHT)
+        with pytest.raises(ValueError, match="conv precision"):
+            ParticleNet(device="cpu", **TIGHT).conv1.__class__(
+                4, 4, (4, 4, 4), "bf16")
+        return
+    from neurofluid_tpu.ops import cconv as jcc
+    from torch_bf16_oracle import assert_bf16_oracle, continuous_conv_default
+
+    scene, _, params, _ = nets
+    ct = np.random.default_rng(8).normal(size=scene[0].shape).astype(
+        np.float32)
+    jnet = JParticleNet(search_backend="brute", **TIGHT)
+    highest = _loss_and_grads_jax(jnet, params, scene, ct)
+    monkeypatch.setattr(jcc, "continuous_conv_apply",
+                        continuous_conv_default)
+    oracle = _loss_and_grads_jax(jnet, params, scene, ct)
+    monkeypatch.undo()
+    state = transition_state_from_flax(jax.tree_util.tree_map(np.asarray,
+                                                              params))
+    for backend in ("fused_cconv", "fused", "grid", "brute", "auto"):
+        net = ParticleNet(search_backend=backend, conv_precision="default",
+                          device="cpu", **TIGHT)
+        net.load_state_dict(state)
+        out, grads = _loss_and_grads_port(net, scene, ct)
+        assert_bf16_oracle(f"{backend} pos", out, oracle[0], highest[0])
+        for name, g in grads.items():
+            o, h = oracle[1][name], highest[1][name]
+            if np.abs(o - h).max() <= 1e-6 * np.abs(o).max():
+                np.testing.assert_allclose(g, o, rtol=0,
+                                           atol=1e-5 * np.abs(o).max(),
+                                           err_msg=f"{backend} {name}")
+            else:
+                assert_bf16_oracle(f"{backend} {name}", g, o, h)
+
+
+def test_fused_cconv_matches_brute_at_default(nets):
+    """One step and its gradients at 'default' on `fused_cconv` (the plain
+    K1 and K2) against `brute` (the list conv's bf16_product), from the same
+    weights: the same bf16-rounded operands summed in another f32 order, so
+    an f32 sum on the edge of a bf16 rounding step can round one way on each
+    backend; the output within 2e-5 (the f32 tolerance of
+    test_one_step_matches_jax), each gradient within one bf16 unit (2^-8)
+    of its largest entry."""
+    scene, _, params, _ = nets
+    ct = np.random.default_rng(9).normal(size=scene[0].shape).astype(
+        np.float32)
+    state = transition_state_from_flax(jax.tree_util.tree_map(np.asarray,
+                                                              params))
+    res = {}
+    for backend in ("fused_cconv", "brute"):
+        net = ParticleNet(search_backend=backend, conv_precision="default",
+                          device="cpu", **TIGHT)
+        net.load_state_dict(state)
+        res[backend] = _loss_and_grads_port(net, scene, ct)
+    (out_f, g_f), (out_b, g_b) = res["fused_cconv"], res["brute"]
+    np.testing.assert_allclose(out_f, out_b, rtol=0, atol=2e-5)
+    for name, g in g_f.items():
+        np.testing.assert_allclose(g, g_b[name], rtol=0,
+                                   atol=2.0 ** -8 * np.abs(g_b[name]).max(),
+                                   err_msg=name)
+
+
+def test_trainer_net_and_its_clone_carry_conv_precision():
+    """TRAIN.conv_precision reaches every conv layer of the transition
+    trainer's net (`build_particle_net`, JAX's default 'highest' when
+    unset), and `clone` (the protocol runner's retry with doubled caps)
+    keeps it."""
+    from neurofluid_torch.models.particle_net import ContinuousConvLayer
+    from neurofluid_torch.train.transition import build_particle_net
+    from neurofluid_torch.utils.config import ConfigNode
+
+    def precisions(net):
+        return {m.precision for m in net.modules()
+                if isinstance(m, ContinuousConvLayer)}
+
+    gen = torch.Generator().manual_seed(0)
+    net = build_particle_net(ConfigNode(dict(TRAIN=dict(
+        conv_precision="DEFAULT", search_backend="fused_cconv"))),
+        device="cpu", generator=gen)
+    assert precisions(net) == {"default"}
+    assert precisions(net.clone(fluid_neighbor_k=128)) == {"default"}
+    unset = build_particle_net(ConfigNode(dict(TRAIN=dict())), device="cpu",
+                               generator=gen)
+    assert precisions(unset) == {"highest"}

@@ -262,3 +262,97 @@ def test_split_gemm_plain_and_its_argument_checks():
         a.numpy() @ b.numpy(), rtol=1e-6)
     with pytest.raises(ValueError):  # a CPU tensor never reaches the kernel
         fc.split_gemm_cuda(a, b)
+
+
+# ---- the bf16 mode (precision 'default')
+
+def bf16_round(x):
+    """f32 -> nearest bf16 (ties to even, as cvt.rn.bf16.f32), as f32."""
+    bits = np.asarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    bits = bits + 0x7FFF + ((bits >> 16) & 1)
+    return (bits & 0xFFFF0000).astype(np.uint32).view(np.float32)
+
+
+def emulated_bf16_chains(a, b, span=32):
+    """The bf16 mode's sum: both operands rounded to bf16 (B by the plain
+    version of its prep), every product exact; per chain of `span` terms of
+    k, from a zero accumulator, the k-steps of 16 carried through the
+    tensor core's truncating accumulator, then the chain's sum added to the
+    f32 accumulator with a rounded add."""
+    k, n = b.shape
+    prep = fc.gemm_b_prep_plain(torch.from_numpy(b), "default")
+    bt = prep.float().numpy()[:n, :k].T.astype(np.float64)
+    ar = bf16_round(a).astype(np.float64)
+    acc = np.zeros((a.shape[0], n), np.float32)
+    for c0 in range(0, k, span):
+        d = np.zeros(acc.shape, np.float32)
+        for k0 in range(c0, min(k, c0 + span), 16):
+            s = slice(k0, k0 + 16)
+            d = rz32(d.astype(np.float64) + ar[:, s] @ bt[s])
+        acc = (acc + d).astype(np.float32)
+    return acc
+
+
+def test_bf16_round_matches_torch_and_the_helper():
+    rng = np.random.default_rng(3)
+    x = np.concatenate([
+        rng.normal(size=1000).astype(np.float32),
+        # ties: half a bf16 unit above 1 rounds to even (down), above the
+        # next value up
+        np.float32([1 + 2.0 ** -8, 1 + 3 * 2.0 ** -8, -(1 + 2.0 ** -8), 0.0,
+                    3e-39])])
+    want = bf16_round(x)
+    assert want[1000] == np.float32(1.0)
+    assert want[1001] == np.float32(1 + 2.0 ** -6)
+    got = fc.bf16_round(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+@pytest.mark.parametrize("k", [64, 4096, 6144, 14336])
+def test_bf16_chains_meet_the_limit_against_the_rounded_inputs(k):
+    """Against a float64 product of the bf16-rounded inputs the bf16 mode
+    errs only in its f32 sums: chains of 32 k within the 3xTF32 mode's
+    limit at K2's d_acc, the folds and dW; the product of the unrounded
+    inputs is ~1e-3 away (one bf16 rounding, 2^-9 relative)."""
+    rng = np.random.default_rng(k + 7)
+    a = rng.normal(size=(48, k)).astype(np.float32)
+    b = (rng.normal(size=(k, 40)) * 0.05).astype(np.float32)
+    got = emulated_bf16_chains(a, b)
+    ar, br = bf16_round(a), bf16_round(b)
+    assert rel_err(got, ar, br) <= LIMIT
+    assert rel_err(got, a, b) > 100 * LIMIT
+
+
+@pytest.mark.parametrize("k,n", [(50, 3), (333, 70), (6144, 64), (64, 6144),
+                                 (1, 9)])
+def test_bf16_b_prep_plain_is_b_rounded_transposed_and_padded(k, n):
+    rng = np.random.default_rng(k * n + 1)
+    b = rng.normal(size=(k, n)).astype(np.float32)
+    got = fc.gemm_b_prep_plain(torch.from_numpy(b), "default")
+    bn = 8 if n <= 8 else 128 if n >= 1024 else 64
+    n_pad, k_pad = -(-n // bn) * bn, -(-k // 32) * 32
+    assert got.dtype == torch.bfloat16 and got.shape == (n_pad, k_pad)
+    # bf16 scratch: two entries a float
+    assert got.numel() == 2 * fc.gemm_b_floats(k, n, bf16=True)
+    got = got.float().numpy()
+    np.testing.assert_array_equal(got[:n, :k], bf16_round(b).T)
+    assert not got[n:].any() and not got[:, k:].any()
+
+
+def test_split_gemm_plain_default_is_the_product_of_the_rounded_operands():
+    rng = np.random.default_rng(4)
+    a = rng.normal(size=(30, 200)).astype(np.float32)
+    b = rng.normal(size=(200, 9)).astype(np.float32)
+    want = bf16_round(a).astype(np.float64) @ bf16_round(b).astype(np.float64)
+    for trans_a, a_in in ((False, a), (True, np.ascontiguousarray(a.T))):
+        got = fc.split_gemm_plain(torch.from_numpy(a_in), torch.from_numpy(b),
+                                  trans_a=trans_a, precision="default")
+        assert rel_err(got.numpy(), bf16_round(a), bf16_round(b)) <= LIMIT
+        np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                   atol=1e-5 * np.abs(want).max())
+    high = fc.split_gemm_plain(torch.from_numpy(a), torch.from_numpy(b),
+                               precision="high")
+    assert torch.equal(high, torch.from_numpy(a) @ torch.from_numpy(b))
+    with pytest.raises(ValueError, match="conv precision"):
+        fc.split_gemm_plain(torch.from_numpy(a), torch.from_numpy(b),
+                            precision="tf32")

@@ -5,6 +5,7 @@ of K1 and K2) at the shapes of its five uses at the bench point, beside
 card.
 
     python3 tools/split_gemm_bench.py [--root DIR] [--reps N] [--sweep 1,2,4]
+                                      [--precision default]
 
 `--root` imports `neurofluid_torch` from another checkout (for example a
 `git archive` of an earlier commit unpacked under build/), so that two
@@ -16,7 +17,11 @@ line holds the error against a float64 product relative to sum |a||b|,
 CUDA-event ms (median of `--reps` after a warm-up, a spin kernel queued
 ahead of each), `torch.matmul` ms and the bound; the last line is one JSON
 object of the same numbers. `--sweep` also times each use in each of the
-given numbers of splits of k.
+given numbers of splits of k. `--precision default` times the product's
+bf16 mode (conv_precision 'default') instead: its error against a float64
+product of the bf16-rounded inputs, beside cuBLAS in bf16 (`torch.mm` with
+an f32 result where this torch has it, else `torch.matmul` on bf16
+tensors), its bound at the dense bf16 rate.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from pathlib import Path
 
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_TF32_PER_S = 495e12    # dense TF32 tensor-core rate
+PEAK_BF16_PER_S = 989e12    # dense bf16 tensor-core rate
 TF32_PASSES = 3
 # (use, rows of the bench point's scratch chunk, Cin, Cout): 14,336 sorted
 # fluid rows in chunks of scratch_chunk_rows
@@ -59,7 +65,10 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--sweep", default="",
                     help="comma-separated numbers of splits to time")
+    ap.add_argument("--precision", default="highest",
+                    choices=("highest", "default"))
     args = ap.parse_args()
+    bf16 = args.precision == "default"
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
     import torch
@@ -95,16 +104,30 @@ def main() -> int:
         else:
             n_split, per = 1, 0
         kw = dict(trans_a=trans, n_split=n_split, k_per_split=per)
+        if bf16:
+            kw["precision"] = "default"
         got = fc.split_gemm_cuda(a, b, **kw)
         torch.cuda.synchronize()
         a_op = a.t() if trans else a
-        want = a_op.double() @ b.double()
-        scale = a_op.double().abs() @ b.double().abs()
+        a64, b64 = ((fc.bf16_round(a_op), fc.bf16_round(b)) if bf16
+                    else (a_op, b))
+        want = a64.double() @ b64.double()
+        scale = a64.double().abs() @ b64.double().abs()
         err = float(((got.double() - want).abs() / scale).max())
         ms = event_ms(torch, lambda: fc.split_gemm_cuda(a, b, **kw), args.reps)
-        lib_ms = event_ms(torch, lambda: a_op @ b, args.reps)
+        if bf16:
+            a_bf, b_bf = a_op.to(torch.bfloat16), b.to(torch.bfloat16)
+            try:
+                torch.mm(a_bf, b_bf, out_dtype=torch.float32)
+                lib = lambda: torch.mm(a_bf, b_bf, out_dtype=torch.float32)  # noqa: E731
+            except (TypeError, RuntimeError):
+                lib = lambda: torch.matmul(a_bf, b_bf)  # noqa: E731
+        else:
+            lib = lambda: a_op @ b  # noqa: E731
+        lib_ms = event_ms(torch, lib, args.reps)
         t_bytes = 4.0 * (m * k + k * n + m * n) / PEAK_BYTES_PER_S * 1e3
-        t_ops = TF32_PASSES * 2.0 * m * k * n / PEAK_TF32_PER_S * 1e3
+        t_ops = (2.0 * m * k * n / PEAK_BF16_PER_S * 1e3 if bf16 else
+                 TF32_PASSES * 2.0 * m * k * n / PEAK_TF32_PER_S * 1e3)
         row = dict(use=use, m=m, k=k, n=n, splits=n_split, err=err, ms=ms,
                    matmul_ms=lib_ms, bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations")
@@ -116,14 +139,16 @@ def main() -> int:
                 torch, lambda: fc.split_gemm_cuda(a, b, **kw_s), args.reps)
         rows_out.append(row)
         print(f"{use} ({m} x {k}) x ({k} x {n}), {n_split} splits: err "
-              f"{err:.3e} ms {ms:.4f} torch.matmul {lib_ms:.4f} bound "
+              f"{err:.3e} ms {ms:.4f} "
+              f"{'cuBLAS bf16' if bf16 else 'torch.matmul'} {lib_ms:.4f} bound "
               f"{row['bound_ms']:.4f} ({row['bound_by']}) share "
               f"{row['bound_ms'] / ms:.2f}"
               + (f" sweep (splits: ms) {row['sweep']}" if "sweep" in row
                  else ""), flush=True)
         del a, b, got, want, scale, a_op
     print(json.dumps({"root": str(root), "device": torch.cuda.get_device_name(0),
-                      "smi": smi, "products": rows_out}))
+                      "smi": smi, "precision": args.precision,
+                      "products": rows_out}))
     return 0
 
 
