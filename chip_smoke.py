@@ -16,17 +16,20 @@ Phases (each prints its own line; any failure raises and exits non-zero):
    `cuobjdump -sass` of the built K1/K2 library: each of the 12
    instantiations of the tensor-core product holds HGMMA (`wgmma`) and no
    HMMA (`mma.sync`), TF32 HGMMA in the 6 3xTF32 ones and bf16 HGMMA
-   alone in the 6 bf16 ones; then that product (csrc/split_gemm.cuh,
+   alone in the 6 bf16 ones; each of the BF16_WALKS walk kernels of K1d
+   and K2d holds bf16 HMMA; the 20 f32 walks of K1 and K2 and the 6
+   3xTF32 products hold the parent's instructions (PARENT_F32_CODE, the
+   count to the byte beside it); then that product (csrc/split_gemm.cuh,
    3xTF32 `wgmma` fed by TMA, the contractions of K1 and K2) on its own
    at the shapes of its three uses at the bench point, in the splits of k
    K1 and K2 give it, against a float64 product of the same seeded inputs
    (error relative to sum |a||b|, held to GEMM_TOL), timed beside
    `torch.matmul` in f32 (its library time, used nowhere in the port);
-   then its bf16 mode (conv_precision 'default') at the same shapes
-   against a float64 product of the bf16-rounded inputs (GEMM_TOL, and
-   at least 100 GEMM_TOL from the unrounded product, as
-   tests/test_torch_split_gemm.py holds its emulation), timed beside
-   cuBLAS in bf16;
+   then its bf16 mode (conv_precision 'default') at the same shapes, A in
+   bf16 as the walks write it, against a float64 product of the bf16
+   inputs (GEMM_TOL, and at least 100 GEMM_TOL from the product with B
+   unrounded, as tests/test_torch_split_gemm.py holds its emulation),
+   timed beside cuBLAS in bf16 on the same bf16 A;
 3. forward kernels: K1 (fused conv), K3 (ball sums), K5 (compositing
    weights), each called at the shapes the serving path gives it (recorded
    from one warm-up pass) and held against its plain PyTorch version on the
@@ -71,7 +74,7 @@ Phases (each prints its own line; any failure raises and exits non-zero):
    1e-5 of the largest entry), timed and bounded as in 3, K8 also beside
    `index_add_` on the same inputs (its library time); K2 timed at the
    calls of a transition step on `fused_cconv`, whose second rollout step
-   asks it for the position gradients;
+   asks it for the position gradients, and K2d at the same calls;
 8. transition train path: TRANSITION_STEPS timed 2-step train steps (clip
    by global norm 1.0, Adam 1e-4, targets pos + 0.001 / pos + 0.002) on
    `fused_cconv` and on `fused`, launch counts per step, a finite loss that
@@ -252,6 +255,71 @@ RELATIVE = {"K1": "max1", "K3": "max1", "K5": "abs", "K2": "max", "K4": "max",
 KERNEL_TOL = dict(TOL, K1d=2.0 ** -8, K2d=2.0 ** -8)
 KERNEL_RELATIVE = dict(RELATIVE, K1d="max", K2d="max")
 BF16_MARGIN = 10.0
+# K1d's and K2d's walk kernels: walk_fwd_bf16_kernel<QB, NT, FOLD> at its
+# six channel widths, walk_bwd_bf16_kernel<QB, LOCAL> at 2, 4 and 8 queries
+BF16_WALKS = 18
+# the f32 walks of K1 and K2 and the 3xTF32 product as the parent tree
+# built them (`f32_sass_digests` of its library on an H100 machine, nvcc
+# PARENT_F32_SASS_NVCC): phase 2 holds this tree's instructions to them
+# with branch and call targets masked (PARENT_F32_CODE), and counts those
+# that are the same to the byte (PARENT_F32_SASS)
+PARENT_F32_SASS_NVCC = "12.9.86"
+PARENT_F32_CODE = {
+    "split_gemm_kernel<128,0,0>": "bed30e959a5fbee5",
+    "split_gemm_kernel<128,1,0>": "24305c4ed3084144",
+    "split_gemm_kernel<64,0,0>": "a3f4ed4fee73461c",
+    "split_gemm_kernel<64,1,0>": "c4767c6c1fcb395f",
+    "split_gemm_kernel<8,0,0>": "4659dd8d9ac88366",
+    "split_gemm_kernel<8,1,0>": "25132f0d48f18cfe",
+    "walk_bwd_kernel<1,0>": "12b6bdb63d881517",
+    "walk_bwd_kernel<1,1>": "7c7cd17897627224",
+    "walk_bwd_kernel<16,0>": "4d0f378b8f0eb028",
+    "walk_bwd_kernel<16,1>": "9f2858da63909e10",
+    "walk_bwd_kernel<2,0>": "b80dae3273f61c42",
+    "walk_bwd_kernel<2,1>": "eed74fa373708a38",
+    "walk_bwd_kernel<4,0>": "852bba9d02611b6b",
+    "walk_bwd_kernel<4,1>": "04313aaa94d1566c",
+    "walk_bwd_kernel<8,0>": "445c3df04753cd66",
+    "walk_bwd_kernel<8,1>": "2f4beb1e216bb4f5",
+    "walk_fwd_kernel<1,0>": "41a138c1db04b033",
+    "walk_fwd_kernel<1,1>": "16bcea6fea2bd8ed",
+    "walk_fwd_kernel<16,0>": "a16b2a3bc9054cdf",
+    "walk_fwd_kernel<16,1>": "ed77e18ac6e3ce09",
+    "walk_fwd_kernel<2,0>": "4211dbca6fea3e60",
+    "walk_fwd_kernel<2,1>": "f068b531dd34159d",
+    "walk_fwd_kernel<4,0>": "5bcb599eb77a84ba",
+    "walk_fwd_kernel<4,1>": "cbc5dc226864ea78",
+    "walk_fwd_kernel<8,0>": "29878005d23ecbf4",
+    "walk_fwd_kernel<8,1>": "f15a44af9cd7a006",
+}
+PARENT_F32_SASS = {
+    "split_gemm_kernel<128,0,0>": "011191e9c98ef539",
+    "split_gemm_kernel<128,1,0>": "12e586b016e7c996",
+    "split_gemm_kernel<64,0,0>": "2fb3d6e544652290",
+    "split_gemm_kernel<64,1,0>": "c14cb5db5a374ea2",
+    "split_gemm_kernel<8,0,0>": "b83f9b9154b7eb3f",
+    "split_gemm_kernel<8,1,0>": "f4be9536f28a2830",
+    "walk_bwd_kernel<1,0>": "4a11eed11282f7d1",
+    "walk_bwd_kernel<1,1>": "ec569820bfb747be",
+    "walk_bwd_kernel<16,0>": "819d886e29961b26",
+    "walk_bwd_kernel<16,1>": "0358b6e5274d4096",
+    "walk_bwd_kernel<2,0>": "a5dbf576c36986a4",
+    "walk_bwd_kernel<2,1>": "f31207f854be4c07",
+    "walk_bwd_kernel<4,0>": "52d8443fee536fae",
+    "walk_bwd_kernel<4,1>": "670f3ab04e7c60b9",
+    "walk_bwd_kernel<8,0>": "02ff813f11f07d24",
+    "walk_bwd_kernel<8,1>": "2d1080c9a42ec3f6",
+    "walk_fwd_kernel<1,0>": "3314d551085c7c9f",
+    "walk_fwd_kernel<1,1>": "71360c2a02026322",
+    "walk_fwd_kernel<16,0>": "58534b5557f9c203",
+    "walk_fwd_kernel<16,1>": "3762b5d91932ff7d",
+    "walk_fwd_kernel<2,0>": "6acb3128a23b8099",
+    "walk_fwd_kernel<2,1>": "824f73220b300352",
+    "walk_fwd_kernel<4,0>": "75fc6991fd5af3ce",
+    "walk_fwd_kernel<4,1>": "48b9c2e674623c28",
+    "walk_fwd_kernel<8,0>": "e56c4ee17697501f",
+    "walk_fwd_kernel<8,1>": "486632377fb25828",
+}
 # phase 8, the `fused_cconv` transition step at 'default' against the same
 # step at 'highest' from the same weights (the first step), relative: the
 # bf16 operands move the conv outputs by about 2^-9 of a value
@@ -577,24 +645,71 @@ def bench_weights(gen, *modules):
                 m.reset_parameters(gen)
 
 
-def sass_tensor_ops(lib, kernel="split_gemm_kernel"):
-    """{function name: (HGMMA count, HMMA count, bf16 HGMMA count)} of each
-    instantiation of `kernel` (not its `_b` preps) in `cuobjdump -sass` of
-    the built library: `wgmma` shows as HGMMA (`.BF16` in the bf16 mode,
-    whose instantiations end their template arguments in `ELb1EE`),
-    `mma.sync` as HMMA."""
+def sass_sections(lib):
+    """{function name: its SASS} of the built library (`cuobjdump -sass`)."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME") or "/usr/local/cuda", "bin", "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                           text=True, timeout=300, check=True).stdout
+    return {section.split(None, 1)[0]: section
+            for section in sass.split("Function : ")[1:]}
+
+
+def sass_tensor_ops(sections, kernel="split_gemm_kernel"):
+    """{function name: (HGMMA count, HMMA count, bf16 HGMMA count, bf16
+    HMMA count)} of each instantiation of `kernel` (not its `_b` preps) in
+    `sass_sections`: `wgmma` shows as HGMMA, `mma.sync` as HMMA, each with
+    `.BF16` on bf16 operands (the product's bf16 mode ends its template
+    arguments in `ELb1EE`)."""
     found = {}
-    for section in sass.split("Function : ")[1:]:
-        name = section.split(None, 1)[0]
+    for name, section in sections.items():
         if kernel in name and kernel + "_b" not in name:
+            lines = section.splitlines()
             found[name] = (section.count("HGMMA"), section.count("HMMA"),
-                           sum("BF16" in line for line in section.splitlines()
-                               if "HGMMA" in line))
+                           sum("BF16" in ln for ln in lines if "HGMMA" in ln),
+                           sum("BF16" in ln for ln in lines
+                               if "HMMA" in ln and "HGMMA" not in ln))
     return found
+
+
+# the f32 code of K1 and K2: the walks' instantiations and the 3xTF32
+# product's, keyed by their template arguments (a walk of the parent tree
+# may carry a trailing BF16 = false); and the anonymous namespace's
+# per-file token, which any edit of the source moves
+F32_SASS = re.compile(r"(walk_fwd_kernel|walk_bwd_kernel)ILi(\d+)ELb([01])E"
+                      r"(?:Lb0E)?E|split_gemm_kernelILi(\d+)ELb([01])ELb0EE")
+ANON_NS = re.compile(r"_GLOBAL__N__[0-9a-f]+_\d+_fused_cconv_cu_[0-9a-f]+")
+# the target address of a branch or call, which moves with the order of
+# the slow-path subroutines (sqrt, division) that the compiler appends to
+# each function
+JUMP_TARGET = re.compile(r"^((?:@!?U?P\w+\s+)?(?:BRA|BSSY|CALL|JMP|BRX|JMX)"
+                         r"[\w.]*\s+(?:[!\w.]+,\s*)*)0x[0-9a-f]+")
+
+
+def f32_sass_digests(sections, targets=True):
+    """{'walk_fwd_kernel<8,0>' ...: sha256 of its SASS} of the f32 walks
+    and the 3xTF32 product: instructions only (comments, addresses and
+    encodings dropped, the namespace token fixed), so a function whose
+    code is unchanged hashes the same in another build of the file; with
+    targets False, branch and call targets masked as well."""
+    import hashlib
+
+    out = {}
+    for name, section in sections.items():
+        m = F32_SASS.search(name)
+        if m is None:
+            continue
+        key = (f"{m.group(1)}<{m.group(2)},{m.group(3)}>" if m.group(1)
+               else f"split_gemm_kernel<{m.group(4)},{m.group(5)},0>")
+        body = []
+        for ln in section.splitlines()[1:]:
+            ln = re.sub(r"/\*.*?\*/", "", ANON_NS.sub("NS", ln)).strip()
+            if not targets:
+                ln = JUMP_TARGET.sub(r"\1T", ln)
+            if ln and not ln.startswith("."):
+                body.append(ln)
+        out[key] = hashlib.sha256("\n".join(body).encode()).hexdigest()[:16]
+    return out
 
 
 def event_ms(torch, fn, reps=10):
@@ -1987,29 +2102,66 @@ def main():
 
     # ---- 2. build
     t0 = time.perf_counter()
-    nf_cuda.build(["fused_cconv.cu", "ball_features.cu", "composite.cu",
-                   "fused_query.cu", "segment_sum.cu"])
+    nf_cuda.build(["fused_cconv.cu", "fused_cconv_bf16.cu",
+                   "ball_features.cu", "composite.cu", "fused_query.cu",
+                   "segment_sum.cu"])
     build_s = time.perf_counter() - t0
-    print(f"build: 5 sources (K1-K8; headers split_gemm.cuh, "
+    print(f"build: 6 sources (K1-K8, K1d and K2d; headers split_gemm.cuh, "
           f"ball_walk.cuh, async_copy.cuh) with nvcc -gencode "
           f"arch=compute_90a,code=sm_90a in {build_s:.1f} s", flush=True)
 
-    tensor_ops = sass_tensor_ops(nf_cuda.library_path("fused_cconv.cu"))
-    # split_gemm_kernel<BN, TRANS_A, BF16>, mangled ...ILi64ELb0ELb1EE...
-    bf16_ops = {n: v for n, v in tensor_ops.items()
-                if re.search(r"split_gemm_kernelILi\d+ELb[01]ELb1E", n)}
-    tf32_ops = {n: v for n, v in tensor_ops.items() if n not in bf16_ops}
+    # the K1/K2 library holds the 3xTF32 product, the K1d/K2d library the
+    # bf16 one: split_gemm_kernel<BN, TRANS_A, BF16>, mangled
+    # ...ILi64ELb0ELb1EE... in the bf16 mode
+    sections = sass_sections(nf_cuda.library_path("fused_cconv.cu"))
+    sections_bf16 = sass_sections(nf_cuda.library_path("fused_cconv_bf16.cu"))
+    tf32_ops = sass_tensor_ops(sections)
+    bf16_ops = sass_tensor_ops(sections_bf16)
+    tensor_ops = {**tf32_ops, **bf16_ops}
     print(f"sass: the tensor-core product's {len(tf32_ops)} 3xTF32 "
           f"instantiations (split_gemm_kernel<BN, TRANS_A, false>), HGMMA / "
-          f"HMMA / bf16 HGMMA each: {sorted(tf32_ops.values())}; its "
-          f"{len(bf16_ops)} bf16 instantiations (<BN, TRANS_A, true>): "
+          f"HMMA / bf16 HGMMA / bf16 HMMA each: {sorted(tf32_ops.values())}; "
+          f"its {len(bf16_ops)} bf16 instantiations (<BN, TRANS_A, true>): "
           f"{sorted(bf16_ops.values())}", flush=True)
     if (len(tf32_ops) != 6 or len(bf16_ops) != 6
-            or any(h == 0 or m or b for h, m, b in tf32_ops.values())
-            or any(h == 0 or m or b != h for h, m, b in bf16_ops.values())):
+            or not all(re.search(r"split_gemm_kernelILi\d+ELb[01]ELb1E", n)
+                       for n in bf16_ops)
+            or any(h == 0 or m or b for h, m, b, _ in tf32_ops.values())
+            or any(h == 0 or m or b != h
+                   for h, m, b, _ in bf16_ops.values())):
         raise AssertionError("the tensor-core product is not on wgmma "
                              f"(HGMMA) alone, TF32 and bf16 in their own "
                              f"instantiations: {tensor_ops}")
+    # K1d's and K2d's walks: bf16 tensor-core instructions (mma.sync shows
+    # as HMMA ... BF16) in each of their instantiations
+    walk_ops = {**sass_tensor_ops(sections_bf16, "walk_fwd_bf16_kernel"),
+                **sass_tensor_ops(sections_bf16, "walk_bwd_bf16_kernel")}
+    print(f"sass: K1d's and K2d's walks, {len(walk_ops)} instantiations "
+          f"(walk_fwd_bf16_kernel<QB, NT, FOLD>, walk_bwd_bf16_kernel<QB, "
+          f"LOCAL>), bf16 HMMA each: "
+          f"{sorted(v[3] for v in walk_ops.values())}", flush=True)
+    if len(walk_ops) != BF16_WALKS or any(v[3] == 0
+                                          for v in walk_ops.values()):
+        raise AssertionError(f"K1d's and K2d's walks without bf16 tensor-"
+                             f"core instructions: {walk_ops}")
+    # the f32 walks and the 3xTF32 product: the code of the tree they were
+    # last changed in (PARENT_F32_CODE, taken with the toolkit it names)
+    code = f32_sass_digests(sections, targets=False)
+    exact = f32_sass_digests(sections)
+    nvcc_ver = nf_cuda.nvcc_version()
+    same = sorted(k for k, v in code.items() if PARENT_F32_CODE.get(k) == v)
+    bytewise = sorted(k for k, v in exact.items()
+                      if PARENT_F32_SASS.get(k) == v)
+    print(f"sass: the f32 walks and the 3xTF32 product, {len(code)} "
+          f"instantiations: {len(same)} the parent's instructions, "
+          f"{len(bytewise)} of them to the byte (the others' branch and "
+          f"call targets moved: {sorted(set(same) - set(bytewise))}) "
+          f"(nvcc {nvcc_ver}; pinned with {PARENT_F32_SASS_NVCC}); "
+          f"digests {code}", flush=True)
+    if nvcc_ver == PARENT_F32_SASS_NVCC and (
+            len(code) != len(PARENT_F32_CODE) or len(same) != len(code)):
+        raise AssertionError(f"the f32 code of K1, K2 or the 3xTF32 product "
+                             f"changed: {sorted(set(code) - set(same))}")
 
     def product_operands(m_, k_, n_, trans, gen=None):
         """Random operands of one tensor-core product (M, K) x (K, N) and
@@ -2087,6 +2239,7 @@ def main():
                "K2 d_acc": (rows_g, cout_g, klen_g, False),
                "K2 dW": (klen_g, rows_g, cout_g, True)}[use]
         a_g, b_g, kw = product_operands(*mkn, gen=gen_g)
+        a_g = a_g.to(torch.bfloat16)  # A in bf16, as the walks write it
         kw["precision"] = "default"
         kern = fc.BF16_KERNELS["product"]
         before = (kern.launches, fc.GEMM_KERNEL.launches)
@@ -2096,14 +2249,14 @@ def main():
                                                         before[1]):
             raise AssertionError("the bf16 product did not launch alone")
         a_op = a_g.t() if kw.get("trans_a") else a_g
-        a_r, b_r = fc.bf16_round(a_op).double(), fc.bf16_round(b_g).double()
+        a_r, b_r = a_op.double(), fc.bf16_round(b_g).double()
         want = a_r @ b_r
         scale = a_r.abs() @ b_r.abs()
         err = float(((got.double() - want).abs() / scale).max())
         off_f32 = float(((got.double() - a_op.double() @ b_g.double()).abs()
                          / scale).max())
         abs_err = float((got.double() - want).abs().max())
-        a_bf, b_bf = a_op.to(torch.bfloat16), b_g.to(torch.bfloat16)
+        a_bf, b_bf = a_op, b_g.to(torch.bfloat16)
         if lib_name is None:
             try:
                 torch.mm(a_bf, b_bf, out_dtype=torch.float32)
@@ -2125,9 +2278,10 @@ def main():
         b_ms, b_by = bound_ms(n_b, 0.0, n_bf16_ops=n_ops)
         print(f"bf16 product, {use} ({m_g} x {k_g}) x ({k_g} x "
               f"{b_g.shape[1]}){', %d splits' % kw['n_split'] if 'n_split' in kw else ''}: "
-              f"max err / sum|a||b| {err:.3e} against float64 of the rounded "
-              f"inputs (tol {GEMM_TOL:.3e}; {off_f32:.3e} from the unrounded "
-              f"product) max_abs_err {abs_err:.3e} ms {ms:.4f} plain_ms "
+              f"A bf16, max err / sum|a||b| {err:.3e} against float64 of the "
+              f"bf16 inputs (tol {GEMM_TOL:.3e}; {off_f32:.3e} from the "
+              f"product with B unrounded) max_abs_err {abs_err:.3e} ms "
+              f"{ms:.4f} plain_ms "
               f"{plain_ms:.4f} bound_ms {b_ms:.4f} ({b_by}) library_ms "
               f"{lib_ms:.4f} ({lib_name})", flush=True)
         if not (err <= GEMM_TOL and off_f32 > 100.0 * GEMM_TOL):
@@ -2217,6 +2371,8 @@ def main():
             a_, b_, kw = product_operands(*shape[:4])
             if len(shape) > 4:
                 kw["precision"] = shape[4]
+                if fc.conv_bf16(shape[4]):  # A in bf16, as the walks write it
+                    a_ = a_.to(torch.bfloat16)
             total += event_ms(torch, lambda: fc.split_gemm_cuda(a_, b_, **kw))
         return total
 
@@ -2358,7 +2514,9 @@ def main():
                   products=() if in_walk else [
                       (m_, klen, cout, False)
                       for m_ in chunks_of(qplan.n, klen)])
-        # K1d: the same calls at precision 'default'
+        # K1d: the same calls at precision 'default'; its tap-feature
+        # contraction (8 taps x Cin per pair) and both folds are bf16
+        # tensor-core work
         for i, args in enumerate(calls["K1"]):
             w, qplan, qpos_s, cplan, cpos_s, feats_s, radius, _, _ = args
             args_d = args[:8] + ("default",)
@@ -2368,7 +2526,6 @@ def main():
             kz, ky, kx, cin, cout = w.shape
             pairs = float(want[1].sum())
             klen = kz * ky * kx * cin
-            ops = pairs * (K1_GEOMETRY_OPS + 16 * cin)
             fold_ops = 2.0 * qplan.n * klen * cout
             in_walk = fc.w_fits_shared(kz * ky * kx, cin, cout)
             n_b = (nbytes(qpos_s[: qplan.n], cpos_s[: cplan.n],
@@ -2376,10 +2533,9 @@ def main():
                           qplan.gzhi, qplan.gstart, cplan.pstarts)
                    + nbytes(*got))
             check("K1d", f"{i} (Cin {cin}, Cout {cout})", args_d,
-                  [("out", got[0], want[0])], n_b,
-                  ops + (fold_ops if in_walk else 0.0),
+                  [("out", got[0], want[0])], n_b, pairs * K1_GEOMETRY_OPS,
                   exact=(got[1], want[1]),
-                  n_bf16_ops=0.0 if in_walk else fold_ops,
+                  n_bf16_ops=pairs * 16 * cin + fold_ops,
                   products=() if in_walk else [
                       (m_, klen, cout, False, "default")
                       for m_ in chunks_of(qplan.n, klen)],
@@ -2565,22 +2721,33 @@ def main():
                 in_walk = fc.w_fits_shared(kz * ky * kx, cin, cout)
                 ops, tc_ops, products = pairs * K1_GEOMETRY_OPS, 0.0, []
                 tail = (prec,) if bf16 else ()
+                # tensor-core work: the contractions with W (K2d's in-walk
+                # d_acc too), and K2d's tap-feature rows and tap cotangents
+                bf16_ops = 0.0
                 if need_q or need_c or need_f:  # d_acc = ct W^T
-                    if in_walk:
+                    if in_walk and not bf16:
                         ops += 2.0 * qplan.n * klen * cout
                     else:
                         tc_ops += 2.0 * qplan.n * klen * cout
+                    if not in_walk:
                         products += [(m_, cout, klen, False) + tail
                                      for m_ in chunks_of(qplan.n, klen)]
                 if need_w:  # the tap-feature rows again, and A^T ct
-                    ops += pairs * 16 * cin
+                    if bf16:
+                        bf16_ops += pairs * 16 * cin
+                    else:
+                        ops += pairs * 16 * cin
                     tc_ops += 2.0 * qplan.n * klen * cout
                     products += [(klen, m_, cout, True) + tail
                                  for m_ in chunks_of(qplan.n, klen)]
                 if need_f:
                     ops += pairs * 16 * cin
                 if need_q or need_c:  # 8 Cin-long dots and the adjoint
-                    ops += pairs * (16 * cin + K2_ADJOINT_OPS)
+                    if bf16:
+                        bf16_ops += pairs * 16 * cin
+                        ops += pairs * K2_ADJOINT_OPS
+                    else:
+                        ops += pairs * (16 * cin + K2_ADJOINT_OPS)
                 n_b = (nbytes(qpos_s[: qplan.n], cpos_s[: cplan.n],
                               feats_s[: cplan.n], w, ct, qplan.gcol,
                               qplan.gzlo, qplan.gzhi, qplan.gstart,
@@ -2596,7 +2763,7 @@ def main():
                       a, list(zip(labels, got, want)), n_b, ops,
                       timed=form == "step",
                       n_tc_ops=0.0 if bf16 else tc_ops,
-                      n_bf16_ops=tc_ops if bf16 else 0.0,
+                      n_bf16_ops=tc_ops + bf16_ops if bf16 else 0.0,
                       products=products,
                       highest=[(lb, h) for lb, h in highest if h is not None])
         for i, args in enumerate(calls["K4"]):
@@ -2810,17 +2977,22 @@ def main():
         # K2 as the transition step calls it on fused_cconv: autograd runs
         # the second rollout step's backward first, and that one asks for
         # the position gradients too
-        k2_ms = []
-        for i, args in enumerate(calls["K2"]):
-            ms = event_ms(torch, lambda: fc.fused_cconv_bwd_cuda(*args))
-            needs = "".join(str(int(x)) for x in args[9])
-            cin, cout = args[0].shape[-2:]
-            k2_ms.append(ms)
-            print(f"transition step K2 call {i}: Cin {cin} Cout {cout} needs "
-                  f"(dW, dq, dc, dfeats) {needs} ms {ms:.4f}", flush=True)
-        print(f"transition step K2: second rollout step {sum(k2_ms[:5]):.4f} "
-              f"ms, first rollout step {sum(k2_ms[5:]):.4f} ms, "
-              f"{sum(k2_ms):.4f} ms per train step", flush=True)
+        # (and K2d: the same calls at precision 'default')
+        for kid, prec in (("K2", "highest"), ("K2d", "default")):
+            k2_ms = []
+            for i, args in enumerate(calls["K2"]):
+                a = args[:10] + (prec,)
+                ms = event_ms(torch, lambda: fc.fused_cconv_bwd_cuda(*a))
+                needs = "".join(str(int(x)) for x in args[9])
+                cin, cout = args[0].shape[-2:]
+                k2_ms.append(ms)
+                print(f"transition step {kid} call {i}: Cin {cin} Cout {cout} "
+                      f"needs (dW, dq, dc, dfeats) {needs} ms {ms:.4f}",
+                      flush=True)
+            print(f"transition step {kid}: second rollout step "
+                  f"{sum(k2_ms[:5]):.4f} ms, first rollout step "
+                  f"{sum(k2_ms[5:]):.4f} ms, {sum(k2_ms):.4f} ms per train "
+                  f"step", flush=True)
     del calls
 
     # ---- 8. transition train path, counted, on each search backend
@@ -3212,6 +3384,8 @@ def main():
         "K8": ("segment_sum_accumulate", "segment_sum.cu",
                "neurofluid_tpu/ops/segment_ops.py:157")}
     includes = {"fused_cconv.cu": ("split_gemm.cuh", "async_copy.cuh"),
+                "fused_cconv_bf16.cu": ("fused_cconv.cu", "split_gemm.cuh",
+                                        "async_copy.cuh"),
                 "ball_features.cu": ("ball_walk.cuh", "async_copy.cuh"),
                 "fused_query.cu": ("ball_walk.cuh", "async_copy.cuh")}
     line = {"kernels": [
@@ -3239,7 +3413,7 @@ def main():
         k = kernels[kid]
         line["kernels"].append({
             "name": f"{kid} {name}", "route": "cuda",
-            "source": "neurofluid_torch/csrc/fused_cconv.cu",
+            "source": "neurofluid_torch/csrc/fused_cconv_bf16.cu",
             "replaces": replaces, "launches": bf16_launches[kid],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
@@ -3247,7 +3421,7 @@ def main():
                                  k["bf16_ops"])[1],
             "library_ms": k["library_ms"],
             "includes": [f"neurofluid_torch/csrc/{h}"
-                         for h in includes["fused_cconv.cu"]]})
+                         for h in includes["fused_cconv_bf16.cu"]]})
     line["kernels"].append({
         "name": "split_gemm bf16 product (K1d/K2d contractions)",
         "route": "cuda", "source": "neurofluid_torch/csrc/split_gemm.cuh",

@@ -6,7 +6,8 @@ same models and ops in PyTorch. Eight kernels carry its paths, each in
 
 - K1, K2 `csrc/fused_cconv.cu`: the fused continuous convolution and its
   backward (`ops/fused_cconv.py`), five launches each per ParticleNet step
-  on the `fused_cconv` search backend;
+  on the `fused_cconv` search backend; at `conv_precision='default'` K1d
+  and K2d, `csrc/fused_cconv_bf16.cu`;
 - K3, K4 `csrc/ball_features.cu`: the renderer's ball-query feature sums
   and their backward (`ops/ball_features.py`), one launch per render pass;
 - K5, K6 `csrc/composite.cu`: the volume-rendering weights and their

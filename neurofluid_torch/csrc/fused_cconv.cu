@@ -103,24 +103,10 @@
 // and the walk the rest. The scratch rows are traffic of this design, not
 // bytes the function has to move, so the bound leaves them out.
 //
-// precision 'default' (the JAX package's `DEFAULT`: one bf16 MXU pass per
-// dot in the Pallas bodies, f32 accumulation) runs the BF16 instantiations
-// of both walks and the bf16 mode of the product. Each operand of each
-// contraction is rounded to bf16 (round to nearest even) where the
-// contraction reads it, and every product and sum stays f32:
-//   the slab sum        acc += bf(w_t) bf(f)          (phase 2; w_t rounded
-//                                                      in phase 1)
-//   the fold            out  = bf(acc) bf(W)          (in-walk: W rounded
-//                                                      once as it is staged;
-//                                                      else the product)
-//   d_acc               = bf(ct) bf(W)^T              (LOCAL: both rounded
-//                                                      as they are staged)
-//   the slab dot's VJP  g_t = <bf(d_acc[t]), bf(f)>,  dfeats += bf(w_t)
-//                       bf(d_acc[t])
-//   dW                  = bf(acc)^T bf(ct)            (the product)
-// as JAX's transpose of a `DEFAULT` dot rounds the cotangent and the other
-// operand. The products of bf16 values are exact in f32, so only the order
-// of the f32 sums differs from the plain version's.
+// precision 'default' runs K1d and K2d, kernels of their own in
+// fused_cconv_bf16.cu, which includes this file for the device helpers
+// above the kernels (NF_CCONV_HELPERS_ONLY leaves the f32 kernels and
+// entry points out of it).
 
 #include <cuda_runtime.h>
 
@@ -137,26 +123,6 @@ constexpr float kEps = 1e-8f;
 constexpr float kFourOverPi = 1.27323954473516f;
 // dynamic shared memory a block may take on this card
 constexpr size_t kSmemLimit = 232448;
-
-// x, rounded to bf16 when BF16 (the operands of a contraction at 'default')
-template <bool BF16>
-__device__ __forceinline__ float rnd(float x) {
-  if constexpr (BF16) return nf::bf16_round(x);
-  return x;
-}
-
-template <bool BF16>
-__device__ __forceinline__ float4 rnd4(float4 v) {
-  if constexpr (BF16)
-    return make_float4(nf::bf16_round(v.x), nf::bf16_round(v.y),
-                       nf::bf16_round(v.z), nf::bf16_round(v.w));
-  return v;
-}
-
-// a 16-byte shared-memory read, each value rounded to bf16
-__device__ __forceinline__ float4 ld4_bf16(const float* p) {
-  return rnd4<true>(*reinterpret_cast<const float4*>(p));
-}
 
 __device__ __forceinline__ float sgn(float x) {
   return static_cast<float>((x > 0.0f) - (x < 0.0f));
@@ -316,8 +282,7 @@ __device__ __forceinline__ void axpy4(float4& a, float w, const float4& f) {
 
 // Phase 1 for pair p = q * kTile + j: the in-radius test and, for a pair in
 // radius, its first tap pt[p] and the 8 windowed corner weights
-// pw[8 * p + c] (corners z outer, x inner), rounded to bf16 when BF16.
-template <bool BF16>
+// pw[8 * p + c] (corners z outer, x inner).
 __device__ __forceinline__ bool pair_geometry(const float* cp, const float* qp,
                                               int q, int j, bool live,
                                               float inv_r, int exclude_self,
@@ -342,25 +307,22 @@ __device__ __forceinline__ bool pair_geometry(const float* cp, const float* qp,
     const float wy[2] = {1.0f - fy, fy};
     const float wx[2] = {1.0f - fx, fx};
     float4* dst = reinterpret_cast<float4*>(pw + 8 * p);
-    dst[0] = rnd4<BF16>(make_float4(wz[0] * wy[0] * wx[0],
-                                    wz[0] * wy[0] * wx[1],
-                                    wz[0] * wy[1] * wx[0],
-                                    wz[0] * wy[1] * wx[1]));
-    dst[1] = rnd4<BF16>(make_float4(wz[1] * wy[0] * wx[0],
-                                    wz[1] * wy[0] * wx[1],
-                                    wz[1] * wy[1] * wx[0],
-                                    wz[1] * wy[1] * wx[1]));
+    dst[0] = make_float4(wz[0] * wy[0] * wx[0], wz[0] * wy[0] * wx[1],
+                         wz[0] * wy[1] * wx[0], wz[0] * wy[1] * wx[1]);
+    dst[1] = make_float4(wz[1] * wy[0] * wx[0], wz[1] * wy[0] * wx[1],
+                         wz[1] * wy[1] * wx[0], wz[1] * wy[1] * wx[1]);
   }
   return within;
 }
 
+#ifndef NF_CCONV_HELPERS_ONLY
 // The forward walk. A block takes work items item = (group, y) in turn and
 // in each the query rows b0 = lo + y * QB, lo + (y + ysplit) * QB, ... of
 // the group's rows inside [row_lo, row_hi). FOLD: W is staged into shared
 // memory once and out (Nq, Cout) = acc W is written; otherwise the
 // accumulator rows go to out ((row_hi - row_lo), 64 * Cin), row - row_lo.
-// cnt (absolute rows) may be null. BF16: precision 'default' (top of file).
-template <int QB, bool FOLD, bool BF16>
+// cnt (absolute rows) may be null.
+template <int QB, bool FOLD>
 __global__ void __launch_bounds__(kMaxThreads) walk_fwd_kernel(
     const int* __restrict__ gcol, const int* __restrict__ gzlo,
     const int* __restrict__ gzhi, const int* __restrict__ gstart,
@@ -393,8 +355,7 @@ __global__ void __launch_bounds__(kMaxThreads) walk_fwd_kernel(
   const int sy = kx, sz = ky * kx;
 
   if (FOLD)
-    for (int i = tid; i < tap_len * cout; i += nthreads)
-      wsm[i] = rnd<BF16>(w[i]);
+    for (int i = tid; i < tap_len * cout; i += nthreads) wsm[i] = w[i];
   const int ks_count = nthreads / cout;  // fold: k split across threads
   const int fo = tid % cout, fks = tid / cout;
 
@@ -444,8 +405,8 @@ __global__ void __launch_bounds__(kMaxThreads) walk_fwd_kernel(
         for (int p = tid; p < pairs; p += nthreads) {
           const int q = p / kTile, j = p % kTile;
           const bool within =
-              pair_geometry<BF16>(tcp, qp, q, j, q < nq && j < nc, inv_r,
-                                  exclude_self, kz, ky, kx, p, pt, pw);
+              pair_geometry(tcp, qp, q, j, q < nq && j < nc, inv_r,
+                            exclude_self, kz, ky, kx, p, pt, pw);
           const unsigned hits = __ballot_sync(kFull, within);
           if (lane == 0) {
             qcnt[q] += __popc(hits);
@@ -465,8 +426,8 @@ __global__ void __launch_bounds__(kMaxThreads) walk_fwd_kernel(
             for (unsigned m = qmask[q]; m != 0; m &= m - 1) {
               const int j = __ffs(m) - 1;
               const int p = q * kTile + j;
-              const float4 f = rnd4<BF16>(
-                  *reinterpret_cast<const float4*>(tfe + j * cin + c));
+              const float4 f =
+                  *reinterpret_cast<const float4*>(tfe + j * cin + c);
               float* at = a + pt[p] * cin;
               const float4 w0 = *reinterpret_cast<const float4*>(pw + 8 * p);
               const float4 w1 =
@@ -506,7 +467,7 @@ __global__ void __launch_bounds__(kMaxThreads) walk_fwd_kernel(
             for (unsigned m = qmask[q]; m != 0; m &= m - 1) {
               const int j = __ffs(m) - 1;
               const int p = q * kTile + j;
-              const float f = rnd<BF16>(tfe[j * cin + c]);
+              const float f = tfe[j * cin + c];
               float* at = a + pt[p] * cin;
               const float4 w0 = *reinterpret_cast<const float4*>(pw + 8 * p);
               const float4 w1 =
@@ -550,8 +511,8 @@ __global__ void __launch_bounds__(kMaxThreads) walk_fwd_kernel(
             for (int u = 0; u < kFoldBatch; u += 4) {
 #pragma unroll
               for (int q = 0; q < QB; ++q) {
-                const float4 a = rnd4<BF16>(*reinterpret_cast<const float4*>(
-                    acc + q * tap_len + k + u));
+                const float4 a = *reinterpret_cast<const float4*>(
+                    acc + q * tap_len + k + u);
                 part[q] += a.x * wv[u];
                 part[q] += a.y * wv[u + 1];
                 part[q] += a.z * wv[u + 2];
@@ -562,8 +523,7 @@ __global__ void __launch_bounds__(kMaxThreads) walk_fwd_kernel(
           for (; k < k_end; ++k) {
             const float wv = wsm[k * cout + fo];
 #pragma unroll
-            for (int q = 0; q < QB; ++q)
-              part[q] += rnd<BF16>(acc[q * tap_len + k]) * wv;
+            for (int q = 0; q < QB; ++q) part[q] += acc[q * tap_len + k] * wv;
           }
 #pragma unroll
           for (int q = 0; q < QB; ++q)
@@ -590,6 +550,8 @@ __global__ void __launch_bounds__(kMaxThreads) walk_fwd_kernel(
   }
 }
 
+
+#endif  // NF_CCONV_HELPERS_ONLY
 
 // d atan01 / dt
 __device__ __forceinline__ float atan01_grad(float t) {
@@ -730,13 +692,13 @@ __device__ __forceinline__ void nth_pair(const unsigned* qmask, int i, int& q,
   j = __fns(qmask[q], 0, i + 1);
 }
 
+#ifndef NF_CCONV_HELPERS_ONLY
 // The backward walk: dq, dc (both or neither) and dfeats of the query rows
 // in [row_lo, row_hi), work items as in walk_fwd_kernel. LOCAL: W^T
 // (cout, 64 * cin) is staged into shared memory once and d_acc = ct W^T is
 // contracted per query block; otherwise d_acc rows are read from
-// dacc_rows ((row_hi - row_lo), 64 * cin), row - row_lo. BF16: precision
-// 'default' (top of file).
-template <int QB, bool LOCAL, bool BF16>
+// dacc_rows ((row_hi - row_lo), 64 * cin), row - row_lo.
+template <int QB, bool LOCAL>
 __global__ void __launch_bounds__(kMaxThreads) walk_bwd_kernel(
     const int* __restrict__ gcol, const int* __restrict__ gzlo,
     const int* __restrict__ gzhi, const int* __restrict__ gstart,
@@ -774,8 +736,7 @@ __global__ void __launch_bounds__(kMaxThreads) walk_bwd_kernel(
   const int coff[8] = {0, 1, sy, sy + 1, sz, sz + 1, sz + sy, sz + sy + 1};
 
   if (LOCAL)
-    for (int i = tid; i < cout * tap_len; i += nthreads)
-      wts[i] = rnd<BF16>(wt[i]);
+    for (int i = tid; i < cout * tap_len; i += nthreads) wts[i] = wt[i];
 
   for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
     const int g = item / ysplit, y = item % ysplit;
@@ -797,9 +758,7 @@ __global__ void __launch_bounds__(kMaxThreads) walk_bwd_kernel(
       }
       if (LOCAL) {
         for (int i = tid; i < qb * cout; i += nthreads)
-          sct[i] = i / cout < nq
-                       ? rnd<BF16>(ct[static_cast<long>(b0) * cout + i])
-                       : 0.0f;
+          sct[i] = i / cout < nq ? ct[static_cast<long>(b0) * cout + i] : 0.0f;
         __syncthreads();  // also after the staging of W^T
         // d_acc[q, k] = sum_o ct[q, o] W^T[o, k]
         for (int k = tid; k < tap_len; k += nthreads) {
@@ -847,8 +806,8 @@ __global__ void __launch_bounds__(kMaxThreads) walk_bwd_kernel(
         for (int p = tid; p < pairs; p += nthreads) {
           const int q = p / kTile, j = p % kTile;
           const bool within =
-              pair_geometry<BF16>(tcp, qp, q, j, q < nq && j < nc, inv_r,
-                                  exclude_self, kz, ky, kx, p, pt, pw);
+              pair_geometry(tcp, qp, q, j, q < nq && j < nc, inv_r,
+                            exclude_self, kz, ky, kx, p, pt, pw);
           const unsigned hits = __ballot_sync(kFull, within);
           if (lane == 0) qmask[q] = hits;
         }
@@ -867,10 +826,9 @@ __global__ void __launch_bounds__(kMaxThreads) walk_bwd_kernel(
             const float* fr = tfe + j * cin;
             float v[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
             for (int ch = lane; ch < cin; ch += 32) {
-              const float f = rnd<BF16>(fr[ch]);
+              const float f = fr[ch];
 #pragma unroll
-              for (int c = 0; c < 8; ++c)
-                v[c] += rnd<BF16>(dr[coff[c] * cin + ch]) * f;
+              for (int c = 0; c < 8; ++c) v[c] += dr[coff[c] * cin + ch] * f;
             }
             // fold the 8 sums across the warp: after the three halving
             // steps lane l holds corner (l >> 2) & 7 (bit 4 of the lane is
@@ -942,34 +900,19 @@ __global__ void __launch_bounds__(kMaxThreads) walk_bwd_kernel(
                 const float4 w0 = *reinterpret_cast<const float4*>(pw + 8 * p);
                 const float4 w1 =
                     *reinterpret_cast<const float4*>(pw + 8 * p + 4);
-                if constexpr (BF16) {
-                  axpy4(v, w0.x, ld4_bf16(dr));
-                  axpy4(v, w0.y, ld4_bf16(dr + cin));
-                  axpy4(v, w0.z, ld4_bf16(dr + sy * cin));
-                  axpy4(v, w0.w, ld4_bf16(dr + (sy + 1) * cin));
-                  axpy4(v, w1.x, ld4_bf16(dr + sz * cin));
-                  axpy4(v, w1.y, ld4_bf16(dr + (sz + 1) * cin));
-                  axpy4(v, w1.z, ld4_bf16(dr + (sz + sy) * cin));
-                  axpy4(v, w1.w, ld4_bf16(dr + (sz + sy + 1) * cin));
-                } else {
-                  // reads through float4 references: the f32 instantiation's
-                  // code depends on it (reads by value compile to other
-                  // loads)
-                  axpy4(v, w0.x, *reinterpret_cast<const float4*>(dr));
-                  axpy4(v, w0.y, *reinterpret_cast<const float4*>(dr + cin));
-                  axpy4(v, w0.z,
-                        *reinterpret_cast<const float4*>(dr + sy * cin));
-                  axpy4(v, w0.w,
-                        *reinterpret_cast<const float4*>(dr + (sy + 1) * cin));
-                  axpy4(v, w1.x,
-                        *reinterpret_cast<const float4*>(dr + sz * cin));
-                  axpy4(v, w1.y,
-                        *reinterpret_cast<const float4*>(dr + (sz + 1) * cin));
-                  axpy4(v, w1.z,
-                        *reinterpret_cast<const float4*>(dr + (sz + sy) * cin));
-                  axpy4(v, w1.w, *reinterpret_cast<const float4*>(
-                                     dr + (sz + sy + 1) * cin));
-                }
+                axpy4(v, w0.x, *reinterpret_cast<const float4*>(dr));
+                axpy4(v, w0.y, *reinterpret_cast<const float4*>(dr + cin));
+                axpy4(v, w0.z, *reinterpret_cast<const float4*>(dr + sy * cin));
+                axpy4(v, w0.w,
+                      *reinterpret_cast<const float4*>(dr + (sy + 1) * cin));
+                axpy4(v, w1.x, *reinterpret_cast<const float4*>(dr + sz * cin));
+                axpy4(v, w1.y,
+                      *reinterpret_cast<const float4*>(dr + (sz + 1) * cin));
+                axpy4(v, w1.z,
+                      *reinterpret_cast<const float4*>(dr + (sz + sy) * cin));
+                axpy4(v, w1.w,
+                      *reinterpret_cast<const float4*>(dr +
+                                                       (sz + sy + 1) * cin));
               }
               atomicAdd(reinterpret_cast<float4*>(
                             df + static_cast<long>(rows[j]) * cin + c),
@@ -987,13 +930,10 @@ __global__ void __launch_bounds__(kMaxThreads) walk_bwd_kernel(
                 const float4 w0 = *reinterpret_cast<const float4*>(pw + 8 * p);
                 const float4 w1 =
                     *reinterpret_cast<const float4*>(pw + 8 * p + 4);
-                v += w0.x * rnd<BF16>(dr[0]) + w0.y * rnd<BF16>(dr[cin]) +
-                     w0.z * rnd<BF16>(dr[sy * cin]) +
-                     w0.w * rnd<BF16>(dr[(sy + 1) * cin]) +
-                     w1.x * rnd<BF16>(dr[sz * cin]) +
-                     w1.y * rnd<BF16>(dr[(sz + 1) * cin]) +
-                     w1.z * rnd<BF16>(dr[(sz + sy) * cin]) +
-                     w1.w * rnd<BF16>(dr[(sz + sy + 1) * cin]);
+                v += w0.x * dr[0] + w0.y * dr[cin] + w0.z * dr[sy * cin] +
+                     w0.w * dr[(sy + 1) * cin] + w1.x * dr[sz * cin] +
+                     w1.y * dr[(sz + 1) * cin] + w1.z * dr[(sz + sy) * cin] +
+                     w1.w * dr[(sz + sy + 1) * cin];
               }
               atomicAdd(&df[static_cast<long>(rows[j]) * cin + c], v);
             }
@@ -1055,6 +995,8 @@ size_t bwd_smem_bytes(int qb, int n_taps, int cin, int cout, bool local) {
           (local ? q * cout : 0));
 }
 
+#endif  // NF_CCONV_HELPERS_ONLY
+
 // Blocks of a walk that stages W: each block reads W once, so at most one
 // block per 64 query rows, and no more blocks than the card holds at once.
 template <typename Kernel>
@@ -1069,6 +1011,7 @@ int staged_grid(Kernel kernel, int threads, size_t smem, int n_items,
   return max(grid, 1);
 }
 
+#ifndef NF_CCONV_HELPERS_ONLY
 struct Walk {
   const int *gcol, *gzlo, *gzhi, *gstart, *pstarts;
   const float *qpos, *cpos, *feats;
@@ -1076,16 +1019,15 @@ struct Walk {
   float inv_r;
   int exclude_self;
   cudaStream_t stream;
-  bool bf16;  // precision 'default': the BF16 instantiations
 };
 
-template <int QB, bool FOLD, bool BF16>
+template <int QB, bool FOLD>
 int launch_walk_fwd(const Walk& a, const float* w, float* out, float* cnt,
                     int threads, int row_lo, int row_hi) {
   const size_t smem =
       fwd_smem_bytes(QB, threads, a.kz * a.ky * a.kx, a.cin, a.cout, FOLD);
   if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = walk_fwd_kernel<QB, FOLD, BF16>;
+  auto kernel = walk_fwd_kernel<QB, FOLD>;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(smem));
@@ -1102,14 +1044,14 @@ int launch_walk_fwd(const Walk& a, const float* w, float* out, float* cnt,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int QB, bool LOCAL, bool BF16>
+template <int QB, bool LOCAL>
 int launch_walk_bwd(const Walk& a, const float* wt, const float* ct,
                     const float* dacc_rows, float* dq, float* dc, float* df,
                     int threads, int row_lo, int row_hi) {
   const size_t smem =
       bwd_smem_bytes(QB, a.kz * a.ky * a.kx, a.cin, a.cout, LOCAL);
   if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = walk_bwd_kernel<QB, LOCAL, BF16>;
+  auto kernel = walk_bwd_kernel<QB, LOCAL>;
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(smem));
@@ -1138,43 +1080,16 @@ int launch_walk_bwd(const Walk& a, const float* wt, const float* ct,
     default: return static_cast<int>(cudaErrorInvalidValue); \
   }
 
-template <bool BF16>
-int walk_fwd_as(const Walk& a, bool fold, int qb, const float* w, float* out,
-                float* cnt, int threads, int row_lo, int row_hi) {
-  if (fold) {
-#define NF_CALL(Q) \
-  launch_walk_fwd<Q, true, BF16>(a, w, out, cnt, threads, row_lo, row_hi)
-    NF_DISPATCH_QB(qb, NF_CALL)
-#undef NF_CALL
-  }
-#define NF_CALL(Q) \
-  launch_walk_fwd<Q, false, BF16>(a, w, out, cnt, threads, row_lo, row_hi)
-  NF_DISPATCH_QB(qb, NF_CALL)
-#undef NF_CALL
-}
-
 int walk_fwd(const Walk& a, bool fold, int qb, const float* w, float* out,
              float* cnt, int threads, int row_lo, int row_hi) {
-  return a.bf16 ? walk_fwd_as<true>(a, fold, qb, w, out, cnt, threads,
-                                    row_lo, row_hi)
-                : walk_fwd_as<false>(a, fold, qb, w, out, cnt, threads,
-                                     row_lo, row_hi);
-}
-
-template <bool BF16>
-int walk_bwd_as(const Walk& a, bool local, int qb, const float* wt,
-                const float* ct, const float* dacc_rows, float* dq, float* dc,
-                float* df, int threads, int row_lo, int row_hi) {
-  if (local) {
-#define NF_CALL(Q)                                                        \
-  launch_walk_bwd<Q, true, BF16>(a, wt, ct, dacc_rows, dq, dc, df, threads, \
-                                 row_lo, row_hi)
+  if (fold) {
+#define NF_CALL(Q) \
+  launch_walk_fwd<Q, true>(a, w, out, cnt, threads, row_lo, row_hi)
     NF_DISPATCH_QB(qb, NF_CALL)
 #undef NF_CALL
   }
-#define NF_CALL(Q)                                                         \
-  launch_walk_bwd<Q, false, BF16>(a, wt, ct, dacc_rows, dq, dc, df, threads, \
-                                  row_lo, row_hi)
+#define NF_CALL(Q) \
+  launch_walk_fwd<Q, false>(a, w, out, cnt, threads, row_lo, row_hi)
   NF_DISPATCH_QB(qb, NF_CALL)
 #undef NF_CALL
 }
@@ -1182,18 +1097,29 @@ int walk_bwd_as(const Walk& a, bool local, int qb, const float* wt,
 int walk_bwd(const Walk& a, bool local, int qb, const float* wt,
              const float* ct, const float* dacc_rows, float* dq, float* dc,
              float* df, int threads, int row_lo, int row_hi) {
-  return a.bf16 ? walk_bwd_as<true>(a, local, qb, wt, ct, dacc_rows, dq, dc,
-                                    df, threads, row_lo, row_hi)
-                : walk_bwd_as<false>(a, local, qb, wt, ct, dacc_rows, dq, dc,
-                                     df, threads, row_lo, row_hi);
+  if (local) {
+#define NF_CALL(Q)                                                        \
+  launch_walk_bwd<Q, true>(a, wt, ct, dacc_rows, dq, dc, df, threads, row_lo, \
+                           row_hi)
+    NF_DISPATCH_QB(qb, NF_CALL)
+#undef NF_CALL
+  }
+#define NF_CALL(Q)                                                         \
+  launch_walk_bwd<Q, false>(a, wt, ct, dacc_rows, dq, dc, df, threads, row_lo, \
+                            row_hi)
+  NF_DISPATCH_QB(qb, NF_CALL)
+#undef NF_CALL
 }
 
 bool bad_block(int threads, int least) {
   return threads % 32 != 0 || threads < least || threads > kMaxThreads;
 }
 
+#endif  // NF_CCONV_HELPERS_ONLY
+
 }  // namespace
 
+#ifndef NF_CCONV_HELPERS_ONLY
 // K1. rows == null: W fits shared memory and the walk folds it itself.
 // Otherwise the walk writes its accumulator rows to `rows` (chunk_rows,
 // 64 * cin) one chunk of query rows at a time and the tensor-core product
@@ -1201,8 +1127,7 @@ bool bad_block(int threads, int least) {
 // k_per_split terms written to part (k_splits, chunk_rows, cout) and
 // summed in order when k_splits > 1. qb queries per block (1, 2, 4, 8 or
 // 16), the block size and the splits come from ops/fused_cconv.py
-// `walk_config` and `product_splits`. precision: 1 for 'default' (the bf16
-// instantiations; bt then holds B in bf16), 0 for 'high' / 'highest'.
+// `walk_config` and `product_splits`.
 extern "C" int nf_fused_cconv_fwd(
     const int* gcol, const int* gzlo, const int* gzhi, const int* gstart,
     const int* pstarts, const float* qpos, const float* cpos,
@@ -1210,10 +1135,9 @@ extern "C" int nf_fused_cconv_fwd(
     float* bt, float* part, int n_groups, int group_size, int n_q,
     int chunk_rows, int k_splits, int k_per_split, int qb, int threads,
     int d0, int d1, int d2, int kz, int ky, int kx, int cin, int cout,
-    float inv_r, int exclude_self, int precision, void* stream) {
+    float inv_r, int exclude_self, void* stream) {
   const bool fold = rows == nullptr;
   if (cout < 1 || cout > 256 || n_q < 1 || bad_block(threads, 32) ||
-      (precision != 0 && precision != 1) ||
       (fold && threads < cout) ||
       (!fold && (chunk_rows < 1 || bt == nullptr || k_splits < 1 ||
                  (k_splits > 1 && part == nullptr))))
@@ -1221,7 +1145,7 @@ extern "C" int nf_fused_cconv_fwd(
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Walk a{gcol, gzlo, gzhi, gstart, pstarts, qpos, cpos, feats,
                n_groups, group_size, d0, d1, d2, kz, ky, kx, cin, cout,
-               inv_r, exclude_self, st, precision == 1};
+               inv_r, exclude_self, st};
   if (fold) return walk_fwd(a, true, qb, w, out, cnt, threads, 0, n_q);
   const int klen = kz * ky * kx * cin;
   for (int lo = 0; lo < n_q; lo += chunk_rows) {
@@ -1230,8 +1154,7 @@ extern "C" int nf_fused_cconv_fwd(
     if (err != 0) return err;
     float* out_lo = out + static_cast<long>(lo) * cout;
     err = nf::split_gemm(rows, w, k_splits > 1 ? part : out_lo, bt, hi - lo,
-                         cout, klen, false, k_splits, k_per_split, st,
-                         a.bf16);
+                         cout, klen, false, k_splits, k_per_split, st);
     if (err != 0) return err;
     if (k_splits == 1) continue;
     const int len = (hi - lo) * cout;
@@ -1252,8 +1175,7 @@ extern "C" int nf_fused_cconv_fwd(
 // also takes the accumulator rows of the dW product, chunk by chunk. Split
 // s of a chunk sums rows [s, s + 1) * rows_per_split of it (a multiple of
 // 32); the splits of all chunks are added in order. bt is the products' B
-// scratch (ops/fused_cconv.py `gemm_b_floats` of the larger B). precision
-// as in nf_fused_cconv_fwd.
+// scratch (ops/fused_cconv.py `gemm_b_floats` of the larger B).
 extern "C" int nf_fused_cconv_bwd(
     const int* gcol, const int* gzlo, const int* gzhi, const int* gstart,
     const int* pstarts, const float* qpos, const float* cpos,
@@ -1262,11 +1184,10 @@ extern "C" int nf_fused_cconv_bwd(
     int n_groups, int group_size, int n_q, int chunk_rows, int splits_per_chunk,
     int rows_per_split, int local, int qb_fwd, int threads_fwd, int qb_bwd,
     int threads_bwd, int d0, int d1, int d2, int kz, int ky, int kx, int cin,
-    int cout, float inv_r, int exclude_self, int precision, void* stream) {
+    int cout, float inv_r, int exclude_self, void* stream) {
   const bool need_w = dw != nullptr;
   const bool need_dacc = dq != nullptr || df != nullptr;
   if (cout < 1 || n_q < 1 || chunk_rows < 1 ||
-      (precision != 0 && precision != 1) ||
       (dq == nullptr) != (dc == nullptr) ||
       ((need_w || (need_dacc && !local)) && bt == nullptr) ||
       (need_w && (part == nullptr || scratch == nullptr ||
@@ -1280,7 +1201,7 @@ extern "C" int nf_fused_cconv_bwd(
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Walk a{gcol, gzlo, gzhi, gstart, pstarts, qpos, cpos, feats,
                n_groups, group_size, d0, d1, d2, kz, ky, kx, cin, cout,
-               inv_r, exclude_self, st, precision == 1};
+               inv_r, exclude_self, st};
   const int klen = kz * ky * kx * cin;
   const long len = static_cast<long>(klen) * cout;
   int n_chunks = 0;
@@ -1291,7 +1212,7 @@ extern "C" int nf_fused_cconv_bwd(
     if (need_dacc) {
       if (!local)
         err = nf::split_gemm(ct_lo, wt, scratch, bt, hi - lo, klen, cout,
-                             false, 1, 0, st, a.bf16);
+                             false, 1, 0, st);
       if (err != 0) return err;
       err = walk_bwd(a, local != 0, qb_bwd, wt, ct, scratch, dq, dc, df,
                      threads_bwd, lo, hi);
@@ -1304,7 +1225,7 @@ extern "C" int nf_fused_cconv_bwd(
       err = nf::split_gemm(scratch, ct_lo,
                            part + n_chunks * splits_per_chunk * len, bt, klen,
                            cout, hi - lo, true, splits_per_chunk,
-                           rows_per_split, st, a.bf16);
+                           rows_per_split, st);
       if (err != 0) return err;
     }
   }
@@ -1316,24 +1237,21 @@ extern "C" int nf_fused_cconv_bwd(
 
 // The tensor-core product on its own: c (m, n) = a b with a (m, k), or
 // (k, m) when trans_a, and b (k, n), all row-major f32; bt is its B scratch
-// (ops/fused_cconv.py `gemm_b_floats(k, n, bf16)`). With n_split > 1 the k
-// range is cut into splits of k_per_split (a multiple of 32) whose products
-// go to part (n_split, m, n) and are summed in order into c. precision 1:
-// the bf16 mode, 0: 3xTF32.
+// (ops/fused_cconv.py `gemm_b_floats(k, n)`). With n_split > 1 the k range
+// is cut into splits of k_per_split (a multiple of 32) whose products go to
+// part (n_split, m, n) and are summed in order into c.
 extern "C" int nf_split_gemm(const float* a, const float* b, float* c,
                              float* part, float* bt, int m, int n, int k,
                              int trans_a, int n_split, int k_per_split,
-                             int precision, void* stream) {
+                             void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (m < 1 || n < 1 || k < 0 || n_split < 1 ||
-      (n_split > 1 && part == nullptr) || (precision != 0 && precision != 1))
+      (n_split > 1 && part == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool bf16 = precision == 1;
   if (n_split == 1)
-    return nf::split_gemm(a, b, c, bt, m, n, k, trans_a != 0, 1, 0, st,
-                          bf16);
+    return nf::split_gemm(a, b, c, bt, m, n, k, trans_a != 0, 1, 0, st);
   const int err = nf::split_gemm(a, b, part, bt, m, n, k, trans_a != 0,
-                                 n_split, k_per_split, st, bf16);
+                                 n_split, k_per_split, st);
   if (err != 0) return err;
   const int len = m * n;
   nf::sum_splits_kernel<<<(len + 255) / 256, 256, 0, st>>>(part, c, n_split,
@@ -1341,9 +1259,10 @@ extern "C" int nf_split_gemm(const float* a, const float* b, float* c,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Tensor-core products launched so far in this process (in K1, K2 and
-// nf_split_gemm), counted where each launch is accepted: bf16 != 0 the bf16
-// mode's, else the TF32 mode's.
+// Tensor-core products launched so far in this process by this library
+// (in K1, K2 and nf_split_gemm), counted where each launch is accepted:
+// bf16 != 0 the bf16 mode's (none here), else the TF32 mode's.
 extern "C" long long nf_product_launches(int bf16) {
   return nf::product_launches()[bf16 != 0 ? 1 : 0];
 }
+#endif  // NF_CCONV_HELPERS_ONLY

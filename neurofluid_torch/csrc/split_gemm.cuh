@@ -72,18 +72,23 @@
 // longer). The chains of n64 `wgmma` with A from registers are the rest.
 //
 // The bf16 mode (template BF16; the JAX package's `DEFAULT` precision, one
-// bf16 MXU pass with f32 accumulation): the same ring, units, A tiles and
-// epilogue; each k-tile of 32 is one chain of two
-// `wgmma.m64nNk16.f32.bf16.bf16` from a zero accumulator, the chain's sum
-// added in f32 as in the TF32 mode. A stays an f32 TMA tile, rounded to
-// bf16 (round to nearest even) in registers as its fragments are read
-// (`cvt.rn.bf16x2.f32`), so the walk's scratch rows and the fallback copies
-// are those of the TF32 mode. B is prepared K-major in bf16
-// (`split_gemm_kernel_b_bf16`, rounded as it is transposed): (BN x 32) bf16
-// tiles with 64-byte rows, loaded by TMA in the 64-byte swizzle that the
-// `wgmma` descriptor names. The products of bf16 values are exact in f32, so
-// the result differs from a float64 product of the rounded operands only by
-// the f32 sums.
+// bf16 MXU pass with f32 accumulation): the same ring, units and epilogue;
+// each k-tile of 32 is one chain of two `wgmma.m64nNk16.f32.bf16.bf16` from
+// a zero accumulator, the chain's sum added in f32 as in the TF32 mode. A
+// arrives in bf16, rounded once by whoever wrote it (the walk rounds its
+// accumulator rows as it writes them, K2d a bf16 copy of its cotangent):
+// (128 x 32) bf16 tiles of 8 KB with 64-byte rows (TRANS_A: four (32 k x
+// 32 m) sub-tiles of 2 KB), loaded by TMA in the 64-byte swizzle and read
+// into the m16n8k16 fragments as they are, so A's bytes, in device memory
+// and in the ring, are half the TF32 mode's and a stage is smaller: eight
+// stages (four at BN = 128) keep as much of A in flight. Where TMA cannot
+// take A, the producer warp fills the same layout with 2-byte loads. B is
+// prepared K-major in bf16 (`split_gemm_kernel_b_bf16`, rounded as it is
+// transposed): (BN x 32) bf16 tiles with 64-byte rows in the same swizzle,
+// which the `wgmma` descriptor names. The epilogue writes C in f32, or in
+// bf16 for K2d's d_acc (`c_bf16`: rounded once, stored by the threads). The
+// products of bf16 values are exact in f32, so the result differs from a
+// float64 product of the rounded operands only by the f32 sums.
 
 #pragma once
 
@@ -400,14 +405,17 @@ struct WgmmaBf16<8> {
 
 template <int BN, bool BF16 = false>
 struct GemmLayout {
-  static constexpr int kABytes = kGemmBM * kGemmBK * 4;  // 16 KB
+  // (128 x 32) of A: 16 KB in f32, 8 KB in bf16
+  static constexpr int kABytes = kGemmBM * kGemmBK * (BF16 ? 2 : 4);
   // TF32: hi, then lo, (BN x 32) f32 each; bf16: one (BN x 32) bf16 tile
   static constexpr int kBBytes = BN * kGemmBK * (BF16 ? 2 : 4);
   static constexpr int kBLoad = BF16 ? kBBytes : 2 * kBBytes;  // per stage
   // a stage's B takes whole 1,024-byte blocks
   static constexpr int kStage = kABytes + (kBLoad + 1023) / 1024 * 1024;
-  // five stages; three at BN = 128, whose staging of C takes 64 KB
-  static constexpr int kStages = BN == 128 ? 3 : 5;
+  // five stages; three at BN = 128, whose staging of C takes 64 KB; the
+  // bf16 mode's stages are about half as large, and it keeps twice as many
+  // (8 and 4)
+  static constexpr int kStages = BN == 128 ? (BF16 ? 4 : 3) : (BF16 ? 8 : 5);
   // a consumer's 64 rows of C: (64 x 32) boxes in the 128-byte swizzle
   // (BN = 64), or dense 32-byte rows (BN = 8)
   static constexpr int kStaging = 2 * 64 * BN * 4;
@@ -422,11 +430,12 @@ static_assert(GemmLayout<8>::kStage == 16384 + 2 * 8 * 128 &&
               "the TF32 layouts are those of the A + hi + lo stages");
 
 struct GemmArgs {
-  const float* a;  // read directly only when a_tma == 0
+  const float* a;  // read directly only when a_tma == 0 (bf16 in the bf16 mode)
   float* c;        // split z writes c + z * m * n; directly if c_tma == 0
   int m, n, k, lda;
   int k_per_split, n_split, m_tiles, n_tiles;
   int a_tma, c_tma;
+  int c_bf16;  // the bf16 mode: C is written in bf16 (n_split 1, c_tma 0)
 };
 
 // float offset of C's (row r, column c) in a consumer's staging (c even)
@@ -497,9 +506,24 @@ __device__ __forceinline__ void load_a_cp_async(uint8_t* tile,
   }
 }
 
-// The bf16 mode's A fragments of the tile's 2 k-steps of 16, rounded to
-// bf16 in pairs: a[4 ks + e] with e = (row g, k 2t, 2t + 1), (g + 8, ...),
-// (g, k 2t + 8, 2t + 9), (g + 8, ...) of the warp's 16 rows.
+// Byte offset of entry (row, col) of a tile of 32 bf16 a row in TMA's
+// 64-byte swizzle (the tile on 512 bytes): 16-byte chunk j of row r at
+// j ^ ((r >> 1) & 3).
+__device__ __forceinline__ int sw64_at(int row, int col) {
+  return row * 64 + (((col >> 3) ^ ((row >> 1) & 3)) << 4) + ((col & 7) << 1);
+}
+
+// byte offset of A's entry (row m, k) in a bf16 A tile: (128 m x 32 k), or
+// with TRANS_A four (32 k x 32 m) sub-tiles
+template <bool TRANS_A>
+__device__ __forceinline__ int a_bf16_at(int m, int k) {
+  return TRANS_A ? (m >> 5) * 2048 + sw64_at(k, m & 31) : sw64_at(m, k);
+}
+
+// The bf16 mode's A fragments of the tile's 2 k-steps of 16, read as they
+// are: a[4 ks + e] with e = (row g, k 2t, 2t + 1), (g + 8, ...), (g, k
+// 2t + 8, 2t + 9), (g + 8, ...) of the warp's 16 rows. A row's k pair is
+// one word; in the TRANS_A form two entries of two k rows.
 template <bool TRANS_A>
 __device__ __forceinline__ void load_a_frags_bf16(const uint8_t* tile,
                                                   int cw, int w, int g, int t,
@@ -510,22 +534,38 @@ __device__ __forceinline__ void load_a_frags_bf16(const uint8_t* tile,
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int r = r0 + 8 * (e & 1), c = 16 * ks + 2 * t + 8 * (e >> 1);
-      float x0, x1;
-      if (!TRANS_A) {  // (128 rows x 32 k), row r's 16-byte chunk j at j ^ r%8
-        const float2 v = *reinterpret_cast<const float2*>(
-            tile + r * 128 + (((c >> 2) ^ g) << 4) + ((c & 3) << 2));
-        x0 = v.x;
-        x1 = v.y;
-      } else {  // four (32 k x 32 m) sub-tiles, k row's chunk j at j ^ k%8
-        const uint8_t* sub = tile + (r >> 5) * 4096 + 4 * (r & 3);
-        const int mi = (r & 31) >> 2;
-        x0 = *reinterpret_cast<const float*>(sub + c * 128 +
-                                             ((mi ^ (c & 7)) << 4));
-        x1 = *reinterpret_cast<const float*>(sub + (c + 1) * 128 +
-                                             ((mi ^ ((c + 1) & 7)) << 4));
+      if (!TRANS_A) {
+        a[4 * ks + e] = *reinterpret_cast<const uint32_t*>(
+            tile + a_bf16_at<false>(r, c));
+      } else {
+        const uint32_t lo = *reinterpret_cast<const uint16_t*>(
+            tile + a_bf16_at<true>(r, c));
+        const uint32_t hi = *reinterpret_cast<const uint16_t*>(
+            tile + a_bf16_at<true>(r, c + 1));
+        a[4 * ks + e] = lo | (hi << 16);
       }
-      a[4 * ks + e] = pack_bf16x2(x0, x1);
     }
+  }
+}
+
+// The producer's fallback for a bf16 A that TMA cannot take: 2-byte loads
+// and shared-memory stores into the same swizzled layout, zero beyond m and
+// k_end (the lane then arrives on the stage's barrier).
+template <bool TRANS_A>
+__device__ __forceinline__ void load_a_bf16_plain(uint8_t* tile,
+                                                  const GemmArgs& p, int m0,
+                                                  int k0, int k_end,
+                                                  int lane) {
+  const uint16_t* a = reinterpret_cast<const uint16_t*>(p.a);
+  for (int i = lane; i < kGemmBM * kGemmBK; i += 32) {
+    const int r = TRANS_A ? i & 127 : i >> 5;  // m in the tile
+    const int c = TRANS_A ? i >> 7 : i & 31;   // k in the tile
+    const int gm = m0 + r, gk = k0 + c;
+    const bool ok = gm < p.m && gk < k_end;
+    const long off = TRANS_A ? static_cast<long>(gk) * p.lda + gm
+                             : static_cast<long>(gm) * p.lda + gk;
+    *reinterpret_cast<uint16_t*>(tile + a_bf16_at<TRANS_A>(r, c)) =
+        ok ? a[off] : uint16_t{0};
   }
 }
 
@@ -653,16 +693,21 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
             if (TRANS_A) {
 #pragma unroll
               for (int j = 0; j < kGemmBM / 32; ++j)
-                tma_load_2d(st + j * 4096, &a_map, &full[stage], m0 + 32 * j,
-                            k0);
+                tma_load_2d(st + j * (BF16 ? 2048 : 4096), &a_map,
+                            &full[stage], m0 + 32 * j, k0);
             } else {
               tma_load_2d(st, &a_map, &full[stage], k0, m0);
             }
           }
         }
         if (!p.a_tma) {
+          if constexpr (BF16) {
+            load_a_bf16_plain<TRANS_A>(st, p, m0, k0, k_end, lane);
+            mbar_arrive(&full[stage]);
+          } else {
           load_a_cp_async<TRANS_A>(st, p, m0, k0, k_end, lane);
           mbar_arrive_cp_async(&full[stage]);
+          }
         }
         ring_advance<L::kStages>(stage, phase);
       }
@@ -772,6 +817,29 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
       continue;
     }
     asm volatile("bar.sync %0, 128;\n" ::"r"(bar_id) : "memory");
+    if constexpr (BF16) {
+      if (p.c_bf16) {  // C rounded to bf16 once, four entries a store
+        uint16_t* c16 = reinterpret_cast<uint16_t*>(p.c);
+        const bool vec8 = p.n % 4 == 0 &&
+                          (reinterpret_cast<uintptr_t>(c16) & 7u) == 0;
+        for (int i = tid; i < 64 * (BN / 4); i += 128) {
+          const int r = i / (BN / 4), c4 = 4 * (i % (BN / 4));
+          const int row = m0 + 64 * cw + r, col = n0 + c4;
+          if (row >= p.m || col >= p.n) continue;
+          const float* src = staged + staged_at<BN>(r, c4);
+          uint16_t* dst = c16 + static_cast<long>(row) * p.n + col;
+          if (vec8 && col + 4 <= p.n) {
+            *reinterpret_cast<uint2*>(dst) =
+                make_uint2(pack_bf16x2(src[0], src[1]),
+                           pack_bf16x2(src[2], src[3]));
+          } else {
+            for (int e = 0; e < 4 && col + e < p.n; ++e)
+              dst[e] = static_cast<uint16_t>(pack_bf16x2(src[e], 0.0f));
+          }
+        }
+        continue;
+      }
+    }
     float* c = p.c + static_cast<long>(z) * p.m * p.n;
     const bool vec = p.n % 4 == 0 && aligned16(c);
     for (int i = tid; i < 64 * (BN / 4); i += 128) {
@@ -969,13 +1037,19 @@ int launch_split_gemm_for(int bn, bool trans_a, const CUtensorMap& a_map,
 // padded to 32), or with bf16 one such array of bf16 (ops/fused_cconv.py
 // `gemm_b_floats`). k_per_split is a multiple of 32 (only read when
 // n_split > 1). Ragged edges are zero-filled by TMA (or by the fallback's
-// copies). bf16: the bf16 mode.
-inline int split_gemm(const float* a, const float* b, float* c, float* bt,
-                      int m, int n, int k, bool trans_a, int n_split,
-                      int k_per_split, cudaStream_t stream,
-                      bool bf16 = false) {
+// copies). BF16: the bf16 mode, a then holds bf16 entries (row stride lda
+// = its row length); c_bf16 (n_split 1): c is written in bf16. A source
+// instantiates the mode it calls, and only its kernels.
+template <bool BF16 = false>
+inline int split_gemm(const void* a_in, const float* b, void* c_out,
+                      float* bt, int m, int n, int k, bool trans_a,
+                      int n_split, int k_per_split, cudaStream_t stream,
+                      bool c_bf16 = false) {
+  constexpr bool bf16 = BF16;
+  const float* a = static_cast<const float*>(a_in);
+  float* c = static_cast<float*>(c_out);
   if (m <= 0 || n <= 0 || n_split <= 0) return 0;
-  if (bt == nullptr || !aligned16(bt))
+  if (bt == nullptr || !aligned16(bt) || (c_bf16 && (!bf16 || n_split != 1)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_split == 1) k_per_split = gemm_round_up(k < 1 ? 1 : k, kGemmBK);
   if (k_per_split <= 0 || k_per_split % kGemmBK != 0)
@@ -984,7 +1058,7 @@ inline int split_gemm(const float* a, const float* b, float* c, float* bt,
   const int n_pad = gemm_round_up(n, bn);
   const int k_pad = gemm_round_up(k < 1 ? 1 : k, kGemmBK);
   float* bt_lo = bt + static_cast<long>(n_pad) * k_pad;
-  if (bf16)
+  if constexpr (BF16)
     split_gemm_kernel_b_bf16<<<dim3(k_pad / 32, (n_pad + 31) / 32),
                                dim3(32, 8), 0, stream>>>(
         b, k, n, reinterpret_cast<unsigned short*>(bt), k_pad, n_pad);
@@ -996,8 +1070,10 @@ inline int split_gemm(const float* a, const float* b, float* c, float* bt,
 
   GemmArgs p{a, c, m, n, k, trans_a ? m : k, k_per_split, n_split,
              (m + kGemmBM - 1) / kGemmBM, n_pad / bn, 0, 0};
-  p.a_tma = aligned16(a) && p.lda % 4 == 0;
-  p.c_tma = aligned16(c) && n % 4 == 0;
+  // TMA takes rows whose stride is a multiple of 16 bytes
+  p.a_tma = aligned16(a) && p.lda % (bf16 ? 8 : 4) == 0;
+  p.c_tma = !c_bf16 && aligned16(c) && n % 4 == 0;
+  p.c_bf16 = c_bf16 ? 1 : 0;
   CUtensorMap a_map{}, b_map{}, c_map{};
   // (k_pad, n_pad, parts): TF32 hi and lo, or one bf16 array
   const cuuint64_t elem = bf16 ? 2 : 4;
@@ -1013,9 +1089,9 @@ inline int split_gemm(const float* a, const float* b, float* c, float* bt,
     const cuuint64_t a_dims[2] = {
         static_cast<cuuint64_t>(trans_a ? m : (k < 1 ? 1 : k)),
         static_cast<cuuint64_t>(trans_a ? (k < 1 ? 1 : k) : m)};
-    const cuuint64_t a_strides[1] = {4ull * p.lda};
+    const cuuint64_t a_strides[1] = {elem * p.lda};
     const cuuint32_t a_box[2] = {kGemmBK, trans_a ? 32u : kGemmBM};
-    if (!encode_map(&a_map, a, 2, a_dims, a_strides, a_box))
+    if (!encode_map(&a_map, a, 2, a_dims, a_strides, a_box, false, bf16))
       return static_cast<int>(cudaErrorInvalidValue);
   }
   if (p.c_tma) {  // (n_split, m, n), stored in (64 x 32) or (64 x 8) boxes
@@ -1027,10 +1103,8 @@ inline int split_gemm(const float* a, const float* b, float* c, float* bt,
     if (!encode_map(&c_map, c, 3, c_dims, c_strides, c_box, bn == 8))
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (bf16) return launch_split_gemm_for<true>(bn, trans_a, a_map, b_map,
-                                               c_map, p, stream);
-  return launch_split_gemm_for<false>(bn, trans_a, a_map, b_map, c_map, p,
-                                      stream);
+  return launch_split_gemm_for<BF16>(bn, trans_a, a_map, b_map, c_map, p,
+                                     stream);
 }
 
 }  // namespace nf

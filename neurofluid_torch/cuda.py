@@ -20,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -58,12 +59,24 @@ def _nvcc() -> str:
     return path
 
 
+def nvcc_version() -> str:
+    """The toolkit's version as `nvcc --version` names it (V12.9.86 ->
+    '12.9.86')."""
+    out = subprocess.run([_nvcc(), "--version"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout
+    m = re.search(r"V(\d+\.\d+\.\d+)", out)
+    return m.group(1) if m else out.strip().splitlines()[-1]
+
+
 def library_path(source: str) -> Path:
     """Build output for `csrc/<source>`, named by a hash of its text, the
-    headers' and the flags."""
-    digest = hashlib.sha256((CSRC / source).read_bytes())
+    headers', any other source it includes and the flags."""
+    text = (CSRC / source).read_bytes()
+    digest = hashlib.sha256(text)
     for header in sorted(CSRC.glob("*.cuh")):
         digest.update(header.read_bytes())
+    for name in re.findall(rb'#include "([^"]+\.cu)"', text):
+        digest.update((CSRC / name.decode()).read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{Path(source).stem}-{digest.hexdigest()[:16]}.so"
 

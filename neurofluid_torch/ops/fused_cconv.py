@@ -1,5 +1,6 @@
 """Fused continuous convolution: K1 (`csrc/fused_cconv.cu`
-`nf_fused_cconv_fwd`), its backward K2 (`nf_fused_cconv_bwd`, same source)
+`nf_fused_cconv_fwd`), its backward K2 (`nf_fused_cconv_bwd`, same source),
+their forms at precision 'default', K1d and K2d (`csrc/fused_cconv_bf16.cu`),
 and the plain version of each (port of neurofluid_tpu/ops/fused_cconv.py).
 Both kernels are a candidate walk plus tensor-core matrix products with the
 filter (`csrc/split_gemm.cuh`, also callable alone as `split_gemm_cuda`);
@@ -33,9 +34,13 @@ nearest even) and products and sums stay f32, as the TPU's `DEFAULT` MXU
 pass computes the Pallas bodies' dots: the slab sum bf(w) bf(f) per pair
 and tap, the fold bf(acc) bf(W), d_acc = bf(ct) bf(W)^T, the tap-weight
 cotangent <bf(d_acc), bf(f)>, dfeats += bf(w) bf(d_acc) and dW = bf(acc)^T
-bf(ct). The kernels run their own bf16 instantiations there (the walks
-round at those operands, the product is one bf16 `wgmma` pass) with a
-launch count each (`BF16_KERNELS`). 'high' and 'highest' are f32 class.
+bf(ct). The kernels there are K1d and K2d, entry points of their own with
+a launch count each (`BF16_KERNELS`): bf16 walks that round each operand
+once where it is staged (the features into a bf16 copy per call) and
+contract the pairs' tap weights with their features on the bf16 tensor
+cores, their scratch rows in bf16 (`walk_config_bf16`,
+`bf16_fwd_smem_bytes`, `bf16_bwd_smem_bytes`), and the product's bf16 mode
+(one bf16 `wgmma` pass, A in bf16). 'high' and 'highest' are f32 class.
 """
 
 from __future__ import annotations
@@ -60,15 +65,18 @@ _MIN_PAD = 64  # sorted arrays carry at least this many sentinel/zero rows
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNEL = Kernel("fused_cconv.cu", "nf_fused_cconv_fwd",
-                [_P] * 14 + [_I] * 16 + [_F, _I, _I])
+                [_P] * 14 + [_I] * 16 + [_F, _I])
 BWD_KERNEL = Kernel("fused_cconv.cu", "nf_fused_cconv_bwd",
-                    [_P] * 17 + [_I] * 19 + [_F, _I, _I])
-GEMM_KERNEL = Kernel("fused_cconv.cu", "nf_split_gemm", [_P] * 5 + [_I] * 7)
-# the same entry points called at precision 'default', which run the bf16
-# instantiations: a handle each, so that each has its own launch count
-BF16_KERNELS = {name: Kernel(k.source, k.symbol, k.argtypes)
-                for name, k in (("K1", KERNEL), ("K2", BWD_KERNEL),
-                                ("product", GEMM_KERNEL))}
+                    [_P] * 17 + [_I] * 19 + [_F, _I])
+GEMM_KERNEL = Kernel("fused_cconv.cu", "nf_split_gemm", [_P] * 5 + [_I] * 6)
+# precision 'default': K1d, K2d and the bf16 product (`csrc/fused_cconv_bf16.cu`)
+BF16_KERNELS = {
+    "K1": Kernel("fused_cconv_bf16.cu", "nf_fused_cconv_fwd_bf16",
+                 [_P] * 15 + [_I] * 17 + [_F, _I]),
+    "K2": Kernel("fused_cconv_bf16.cu", "nf_fused_cconv_bwd_bf16",
+                 [_P] * 19 + [_I] * 18 + [_F, _I]),
+    "product": Kernel("fused_cconv_bf16.cu", "nf_split_gemm_bf16",
+                      [_P] * 5 + [_I] * 6)}
 
 # dynamic shared memory one block may take on the H100 and what an SM
 # holds, the largest filter that is staged into a block, the scratch rows
@@ -86,6 +94,16 @@ WIDE_N = 1024  # N from which the product takes its widest N-tile
 GEMM_SMS = 132
 UNIT_TILES = 2  # a unit's start and store, in k-tiles (`product_splits`)
 _TILE = 32  # candidates per tile of the walk
+# the bf16 walks: threads per block, the forward walk's candidates per
+# tile, the n-tiles of 8 channels it is instantiated for, the queries per
+# block of the backward walk
+BF16_THREADS = 256
+BF16_TILE = 128
+BF16_NTILES = (1, 2, 4, 8, 12, 16)
+BF16_BWD_QB = (8, 4, 2)
+# blocks of the backward bf16 walk an SM holds by its registers
+# (`__launch_bounds__(256, 2)`)
+BF16_BWD_BLOCKS = 2
 
 
 class CConvPlan(NamedTuple):
@@ -407,6 +425,99 @@ def walk_config(n_taps: int, cin: int, cout: int, staged: bool,
     return best[1], threads
 
 
+def _round16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def bf16_ntiles(cin: int) -> int:
+    """n-tiles of 8 channels the bf16 forward walk holds per tap (its
+    template constant, `csrc/fused_cconv_bf16.cu` `bf16_ntiles`); past 128
+    channels it has none and raises."""
+    for nt in BF16_NTILES:
+        if 8 * nt >= cin:
+            return nt
+    raise ValueError(f"the bf16 walk takes at most {8 * BF16_NTILES[-1]} "
+                     f"channels, not {cin}")
+
+
+def bf16_fwd_qb(nt: int, fold: bool = False) -> int:
+    """Queries per block of the bf16 forward walk: a thread holds 2 qb nt
+    accumulator floats, kept within 128; at Cin 64 8 where the block folds
+    W, 4 where it writes rows (the faster of the two on an H100)."""
+    return 8 if nt <= 4 or (fold and nt <= 8) else 4 if nt <= 12 else 2
+
+
+def bf16_feat_width(cin: int) -> int:
+    """Channels of a row of the features' bf16 copy (zero past cin)."""
+    return _round16(8 * bf16_ntiles(cin))
+
+
+def bf16_fwd_smem_bytes(qb: int, nt: int, klen: int, cout: int,
+                        fold: bool) -> int:
+    """Dynamic shared memory of a bf16 forward-walk block (the layout of
+    `bf16_fwd_smem`): two tiles of BF16_TILE bf16 feature rows (8 nt + 8
+    channels apart) and a zero row, 8 bf16 weights, a corner code, a ballot
+    bit and a rank byte per pair, positions, the 8 warps' A tiles (qb / 2
+    m-tiles of 16 x 16 bf16 each, rows 48 bytes apart); with the fold, bf16
+    W^T and the block's bf16 accumulator rows (klen padded to 16, + 8) and
+    the warps' partial sums."""
+    fs, pairs = 8 * nt + 8, qb * BF16_TILE
+    kw = _round16(klen) + 8 if fold else 0
+    out = (2 * BF16_TILE * fs * 2 + fs * 2 + pairs * 16
+           + 2 * BF16_TILE * 3 * 4 + pairs * 4 + pairs // 8 + qb * 3072)
+    if fold:
+        out += cout * kw * 2 + qb * kw * 2 + 8 * qb * 32 * 4
+    return out + qb * 3 * 4 + 2 * qb * 4 + pairs
+
+
+def bf16_bwd_smem_bytes(qb: int, cin: int, cout: int, klen: int,
+                        local: bool) -> int:
+    """Dynamic shared memory of a bf16 backward-walk block (the layout of
+    `bf16_bwd_smem`): d_acc of qb queries and two tiles in bf16 rows of
+    round16(Cin) + 8, a zero row, 8 bf16 weights, 8 f32 tap cotangents, a
+    corner code and a rank byte per pair, positions; `local` adds bf16 W^T
+    (klen + 8 a row, to 16 bytes) and bf(ct)."""
+    ds, pairs = _round16(cin) + 8, qb * _TILE
+    out = (qb * 64 * ds * 2 + 2 * _TILE * ds * 2 + ds * 2 + pairs * 16
+           + pairs * 32 + 2 * _TILE * 3 * 4 + pairs * 4)
+    if local:
+        out += -(-cout * (klen + 8) * 2 // 16) * 16 \
+            + qb * (_round16(cout) + 8) * 2
+    return out + 2 * qb * 3 * 4 + 2 * qb * 4 + pairs
+
+
+@functools.lru_cache(maxsize=None)
+def walk_config_bf16(n_taps: int, cin: int, cout: int, staged: bool,
+                     backward: bool = False) -> tuple:
+    """(queries per block, threads per block) of a bf16 walk, 256 threads.
+    Forward: `bf16_fwd_qb` of the channels' n-tiles (registers bound it;
+    its shared memory is small). Backward: of 8, 4 and 2 queries, the one
+    that keeps the most queries on an SM, at most BF16_BWD_BLOCKS blocks
+    (registers) and as many as its shared memory allows; among equals one
+    that leaves two blocks per SM, then the larger."""
+    klen = n_taps * cin
+    nt = bf16_ntiles(cin)
+    if not backward:
+        qb = bf16_fwd_qb(nt, staged)
+        if bf16_fwd_smem_bytes(qb, nt, klen, cout, staged) > SMEM_LIMIT:
+            raise ValueError(f"no bf16 walk block fits shared memory at "
+                             f"Cin {cin}, Cout {cout}")
+        return qb, BF16_THREADS
+    best = None
+    for qb in BF16_BWD_QB:
+        need = bf16_bwd_smem_bytes(qb, cin, cout, klen, staged)
+        if need > SMEM_LIMIT:
+            continue
+        blocks = min(SMEM_PER_SM // (need + 1024), BF16_BWD_BLOCKS)
+        key = (qb * blocks, blocks >= 2, qb)
+        if best is None or key > best[0]:
+            best = (key, qb)
+    if best is None:
+        raise ValueError(f"no bf16 backward walk block fits shared memory at "
+                         f"Cin {cin}, Cout {cout}")
+    return best[1], BF16_THREADS
+
+
 def scratch_chunk_rows(n: int, klen: int) -> int:
     """Query rows per chunk of the (rows, klen) f32 scratch: the fewest
     equal chunks that keep it within SCRATCH_LIMIT, a multiple of the
@@ -494,6 +605,19 @@ def _scratch(floats: int, dev):
     return torch.empty((floats,), dtype=torch.float32, device=dev)
 
 
+def _bf16(shape, dev):
+    return torch.empty(shape, dtype=torch.bfloat16, device=dev)
+
+
+def scratch_rows(n: int, klen: int, precision: str, dev) -> torch.Tensor:
+    """The scratch rows one K1 or K2 call holds: a chunk of query rows of
+    klen entries, f32, or bf16 at 'default' (the bf16 walks write their
+    rows, and the product's epilogue d_acc, in bf16: half the bytes)."""
+    dtype = torch.bfloat16 if conv_bf16(precision) else torch.float32
+    return torch.empty((min(scratch_chunk_rows(n, klen), n), klen),
+                       dtype=dtype, device=dev)
+
+
 def fused_cconv_cuda(weights, qplan, qpos_s, cplan, cpos_s, feats_s,
                      radius: float, exclude_self: bool,
                      precision: str = "highest"):
@@ -512,27 +636,36 @@ def fused_cconv_cuda(weights, qplan, qpos_s, cplan, cpos_s, feats_s,
     d0, d1, d2 = qplan.dims
     if n:
         fold = w_fits_shared(n_taps, cin, cout)
-        qb, threads = walk_config(n_taps, cin, cout, fold)
+        qb, threads = (walk_config_bf16 if bf16 else walk_config)(
+            n_taps, cin, cout, fold)
         klen = n_taps * cin
         chunk = 0 if fold else scratch_chunk_rows(n, klen)
         rows = bt = part = None
         k_splits, k_per = 1, 0
         if not fold:
-            rows = _scratch(min(chunk, n) * klen, dev)
+            rows = scratch_rows(n, klen, precision, dev)
             bt = _scratch(gemm_b_floats(klen, cout, bf16), dev)
             k_splits, k_per = product_splits(min(chunk, n), cout, klen)
             if k_splits > 1:
                 part = _scratch(k_splits * min(chunk, n) * cout, dev)
-        kernel = BF16_KERNELS["K1"] if bf16 else KERNEL
-        kernel(qplan.gcol.data_ptr(), qplan.gzlo.data_ptr(),
-               qplan.gzhi.data_ptr(), qplan.gstart.data_ptr(),
-               cplan.pstarts.data_ptr(), qpos_s.data_ptr(),
-               cpos_s.data_ptr(), feats_s.data_ptr(), weights.data_ptr(),
-               out.data_ptr(), cnt.data_ptr(), _ptr(rows), _ptr(bt),
-               _ptr(part), qplan.n_groups, qplan.group_size, n, chunk,
-               k_splits, k_per, qb, threads, d0, d1, d2, kz, ky, kx, cin,
-               cout, float(np.float32(1.0 / radius)), int(exclude_self),
-               int(bf16))
+        geometry = (d0, d1, d2, kz, ky, kx, cin, cout,
+                    float(np.float32(1.0 / radius)), int(exclude_self))
+        plans = (qplan.gcol.data_ptr(), qplan.gzlo.data_ptr(),
+                 qplan.gzhi.data_ptr(), qplan.gstart.data_ptr(),
+                 cplan.pstarts.data_ptr(), qpos_s.data_ptr(),
+                 cpos_s.data_ptr(), feats_s.data_ptr())
+        if bf16:
+            fbf = _bf16((feats_s.shape[0], bf16_feat_width(cin)), dev)
+            BF16_KERNELS["K1"](
+                *plans, fbf.data_ptr(), weights.data_ptr(), out.data_ptr(),
+                cnt.data_ptr(), _ptr(rows), _ptr(bt), _ptr(part),
+                feats_s.shape[0], qplan.n_groups, qplan.group_size, n, chunk,
+                k_splits, k_per, qb, threads, *geometry)
+        else:
+            KERNEL(*plans, weights.data_ptr(), out.data_ptr(), cnt.data_ptr(),
+                   _ptr(rows), _ptr(bt), _ptr(part), qplan.n_groups,
+                   qplan.group_size, n, chunk, k_splits, k_per, qb, threads,
+                   *geometry)
     return out, cnt
 
 
@@ -567,12 +700,12 @@ def fused_cconv_bwd_cuda(weights, qplan, qpos_s, cplan, cpos_s, feats_s, ct,
         if need_w else None
     if n and (need_w or need_pos or need_f):
         local = w_fits_shared(n_taps, cin, cout)
-        qb_f, threads_f = walk_config(n_taps, cin, cout, False)
-        qb_b, threads_b = walk_config(n_taps, cin, cout, local, backward=True)
+        config = walk_config_bf16 if bf16 else walk_config
+        qb_f, threads_f = config(n_taps, cin, cout, False)
+        qb_b, threads_b = config(n_taps, cin, cout, local, backward=True)
         chunk = scratch_chunk_rows(n, klen)
         n_split, rows = dw_split(min(chunk, n), klen, cout)
-        scratch = torch.empty((min(chunk, n), klen), dtype=torch.float32,
-                              device=dev) \
+        scratch = scratch_rows(n, klen, precision, dev) \
             if need_w or not local else None
         part = torch.empty((-(-n // chunk) * n_split, klen, cout),
                            dtype=torch.float32, device=dev) \
@@ -584,17 +717,27 @@ def fused_cconv_bwd_cuda(weights, qplan, qpos_s, cplan, cpos_s, feats_s, ct,
         bt = _scratch(b_floats, dev) if b_floats else None
         wt = weights.reshape(klen, cout).t().contiguous()
         d0, d1, d2 = qplan.dims
-        kernel = BF16_KERNELS["K2"] if bf16 else BWD_KERNEL
-        kernel(qplan.gcol.data_ptr(), qplan.gzlo.data_ptr(),
-               qplan.gzhi.data_ptr(), qplan.gstart.data_ptr(),
-               cplan.pstarts.data_ptr(), qpos_s.data_ptr(),
-               cpos_s.data_ptr(), feats_s.data_ptr(), wt.data_ptr(),
-               ct.data_ptr(), _ptr(scratch), _ptr(part), _ptr(bt),
-               _ptr(dw), _ptr(dq), _ptr(dc), _ptr(df),
-               qplan.n_groups, qplan.group_size, n, chunk, n_split, rows,
-               int(local), qb_f, threads_f, qb_b, threads_b,
-               d0, d1, d2, kz, ky, kx, cin, cout,
-               float(np.float32(1.0 / radius)), int(exclude_self), int(bf16))
+        geometry = (d0, d1, d2, kz, ky, kx, cin, cout,
+                    float(np.float32(1.0 / radius)), int(exclude_self))
+        plans = (qplan.gcol.data_ptr(), qplan.gzlo.data_ptr(),
+                 qplan.gzhi.data_ptr(), qplan.gstart.data_ptr(),
+                 cplan.pstarts.data_ptr(), qpos_s.data_ptr(),
+                 cpos_s.data_ptr(), feats_s.data_ptr())
+        outs = (_ptr(dw), _ptr(dq), _ptr(dc), _ptr(df))
+        if bf16:
+            fbf = _bf16((feats_s.shape[0], bf16_feat_width(cin)), dev)
+            ct16 = _bf16((n, cout), dev) if (need_pos or need_f) \
+                and not local else None
+            BF16_KERNELS["K2"](
+                *plans, fbf.data_ptr(), wt.data_ptr(), ct.data_ptr(),
+                _ptr(ct16), _ptr(scratch), _ptr(part), _ptr(bt), *outs,
+                feats_s.shape[0], qplan.n_groups, qplan.group_size, n, chunk,
+                n_split, rows, int(local), qb_f, qb_b, *geometry)
+        else:
+            BWD_KERNEL(*plans, wt.data_ptr(), ct.data_ptr(), _ptr(scratch),
+                       _ptr(part), _ptr(bt), *outs, qplan.n_groups,
+                       qplan.group_size, n, chunk, n_split, rows, int(local),
+                       qb_f, threads_f, qb_b, threads_b, *geometry)
     elif need_w:
         dw.zero_()
     return ((dw.reshape(weights.shape) if need_w else None),
@@ -603,11 +746,12 @@ def fused_cconv_bwd_cuda(weights, qplan, qpos_s, cplan, cpos_s, feats_s, ct,
 
 def split_gemm_plain(a, b, trans_a: bool = False, precision: str = "highest"):
     """Plain version of the tensor-core product: a b, or a^T b, at
-    'default' of the bf16-rounded operands (the plain K1 and K2 contract
-    with `@` themselves; the tests and `chip_smoke.py` hold
-    `split_gemm_cuda` against a float64 product)."""
+    'default' of the bf16-rounded operands (a may be bf16 there, as
+    `split_gemm_cuda` takes it; the plain K1 and K2 contract with `@`
+    themselves; the tests and `chip_smoke.py` hold `split_gemm_cuda`
+    against a float64 product)."""
     rnd = _rounding(precision)
-    return rnd(a.t() if trans_a else a) @ rnd(b)
+    return rnd((a.t() if trans_a else a).float()) @ rnd(b)
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
@@ -643,14 +787,15 @@ def split_gemm_cuda(a, b, trans_a: bool = False, n_split: int = 1,
                     k_per_split: int = 0, precision: str = "highest"):
     """The tensor-core product of `csrc/split_gemm.cuh` on its own: a (M, K)
     (or (K, M) with trans_a) times b (K, N), f32, each operand split into
-    two TF32 parts and three products summed in f32; at 'default' each
-    operand rounded to bf16 and one bf16 product, each chain of 32 k summed
-    in f32. With n_split > 1 the K range is cut into splits of k_per_split
-    (a multiple of 32) whose products are summed in order, as K1's fold and
-    K2's dW do (`product_splits`)."""
+    two TF32 parts and three products summed in f32; at 'default' a in
+    bf16 (as K1d's and K2d's walks write their rows), b rounded to bf16,
+    one bf16 product, each chain of 32 k summed in f32. With n_split > 1
+    the K range is cut into splits of k_per_split (a multiple of 32) whose
+    products are summed in order, as K1's fold and K2's dW do
+    (`product_splits`)."""
     bf16 = conv_bf16(precision)
     dev = a.device
-    check_tensor("a", a, dev)
+    check_tensor("a", a, dev, torch.bfloat16 if bf16 else torch.float32)
     check_tensor("b", b, dev)
     k, m = a.shape if trans_a else a.shape[::-1]
     if b.shape[0] != k:
@@ -667,21 +812,22 @@ def split_gemm_cuda(a, b, trans_a: bool = False, n_split: int = 1,
         bt = _scratch(gemm_b_floats(k, n, bf16), dev)
         kernel = BF16_KERNELS["product"] if bf16 else GEMM_KERNEL
         kernel(a.data_ptr(), b.data_ptr(), c.data_ptr(), _ptr(part),
-               bt.data_ptr(), m, n, k, int(trans_a), n_split, k_per_split,
-               int(bf16))
+               bt.data_ptr(), m, n, k, int(trans_a), n_split, k_per_split)
     return c
 
 
 def product_launches(precision: str = "highest") -> int:
     """Launches of the tensor-core product at `precision` so far in this
-    process, inside K1 and K2 and alone, as the library counts them where
-    it launches them (`nf_product_launches`); 0 before it is loaded."""
-    lib = cuda.loaded("fused_cconv.cu")
+    process, inside K1 and K2 (K1d and K2d) and alone, as the library of
+    that precision counts them where it launches them
+    (`nf_product_launches`); 0 before it is loaded."""
+    bf16 = conv_bf16(precision)
+    lib = cuda.loaded("fused_cconv_bf16.cu" if bf16 else "fused_cconv.cu")
     if lib is None:
         return 0
     fn = lib.nf_product_launches
     fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_longlong
-    return int(fn(int(conv_bf16(precision))))
+    return int(fn(int(bf16)))
 
 
 class FusedCConv(torch.autograd.Function):

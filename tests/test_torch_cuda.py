@@ -194,9 +194,12 @@ def _directional_check(fn, inputs, dirs, g_out, tol):
     assert abs(numeric - analytic) <= tol * scale, (numeric, analytic, scale)
 
 
-def _cconv_inputs(d, rng_seed, exclude_self, cin, cout, twin=True, n_q=300):
+def _cconv_inputs(d, rng_seed, exclude_self, cin, cout, twin=True, n_q=300,
+                  far=False):
     """(weights, qplan, qpos_s, cplan, cpos_s, feats_s, ct) on device d,
-    from one numpy seed; `twin`: query 7 sits on query 3."""
+    from one numpy seed; `twin`: query 7 sits on query 3; `far` (separate
+    candidates): the first 40 queries sit in cells next to candidates'
+    cells with none of them within the radius."""
     rng = np.random.default_rng(rng_seed)
     lo, hi, r = (-0.6,) * 3, (0.6,) * 3, 0.25
     q = torch.tensor(rng.uniform(-0.5, 0.5, (n_q, 3)), dtype=torch.float32)
@@ -205,6 +208,11 @@ def _cconv_inputs(d, rng_seed, exclude_self, cin, cout, twin=True, n_q=300):
     n_c = 200 if n_q == 300 else 130
     c = q if exclude_self else torch.tensor(rng.uniform(-0.5, 0.5, (n_c, 3)),
                                             dtype=torch.float32)
+    if far:
+        q[:40] = torch.tensor(rng.uniform(0.47, 0.55, (40, 3)),
+                              dtype=torch.float32)
+        c = torch.tensor(rng.uniform(-0.5, 0.2, (n_c, 3)),
+                         dtype=torch.float32)
     w = torch.tensor(rng.normal(size=(4, 4, 4, cin, cout)) * 0.05,
                      dtype=torch.float32)
     feats = torch.tensor(rng.normal(size=(len(c), cin)), dtype=torch.float32)
@@ -375,15 +383,25 @@ def _held_to_default(name, got, want_d, want_h):
     assert 10.0 * dev_d <= dev_h, (name, dev_d, dev_h)
 
 
-@pytest.mark.parametrize("exclude_self,cin,cout,n_q", [
-    (True, 4, 32, 300), (True, 96, 64, 300), (False, 3, 32, 300),
-    (True, 64, 64, 300), (True, 64, 3, 300), (False, 96, 20, 173)])
+# the bench layers' widths (Cin 4, 3 -> 32; 96, 64 -> 64; 64 -> 3), Cout
+# 20 (no multiple of 8), Cin 20 (no multiple of 16 or 8: the bf16 walks'
+# row copies one entry at a time) and Cin 5 (odd: their pair stores one
+# entry at a time), and queries with no pair in radius (`far`); every plan
+# carries empty groups
+BF16_CASES = [(True, 4, 32, 300, False), (True, 96, 64, 300, False),
+              (False, 3, 32, 300, False), (True, 64, 64, 300, False),
+              (True, 64, 3, 300, False), (False, 96, 20, 173, False),
+              (False, 20, 24, 173, False), (True, 5, 7, 300, False),
+              (False, 6, 40, 300, True), (False, 96, 64, 300, True)]
+
+
+@pytest.mark.parametrize("exclude_self,cin,cout,n_q,far", BF16_CASES)
 def test_fused_cconv_bf16_kernel_matches_plain(dev, exclude_self, cin, cout,
-                                               n_q):
+                                               n_q, far):
     cpu = _cconv_inputs("cpu", 1, exclude_self, cin, cout, twin=False,
-                        n_q=n_q)
+                        n_q=n_q, far=far)
     w, qp, qs, cp, cs, fs, _ = _cconv_inputs(dev, 1, exclude_self, cin, cout,
-                                             twin=False, n_q=n_q)
+                                             twin=False, n_q=n_q, far=far)
     k1 = fc.BF16_KERNELS["K1"]
     before = (k1.launches, fc.KERNEL.launches)
     products = fc.product_launches("default")
@@ -396,16 +414,17 @@ def test_fused_cconv_bf16_kernel_matches_plain(dev, exclude_self, cin, cout,
                                             "default")
     want_h, _ = fc.fused_cconv_plain(*cpu[:6], 0.25, exclude_self)
     np.testing.assert_array_equal(cnt.cpu().numpy(), want_cnt.numpy())
+    if far:  # queries that walk tiles and find no pair
+        far_rows = fc.unsort_values(want_cnt[:, None], cpu[1])[:40, 0]
+        assert not bool(far_rows.any())
     _held_to_default("out", out, want_d, want_h)
 
 
-@pytest.mark.parametrize("exclude_self,cin,cout,n_q", [
-    (True, 4, 32, 300), (True, 96, 64, 300), (False, 3, 32, 300),
-    (True, 64, 3, 300), (True, 64, 64, 300), (False, 96, 20, 173)])
+@pytest.mark.parametrize("exclude_self,cin,cout,n_q,far", BF16_CASES)
 def test_fused_cconv_bf16_bwd_kernel_matches_plain(dev, exclude_self, cin,
-                                                   cout, n_q):
-    cpu = _cconv_inputs("cpu", 1, exclude_self, cin, cout, n_q=n_q)
-    cud = _cconv_inputs(dev, 1, exclude_self, cin, cout, n_q=n_q)
+                                                   cout, n_q, far):
+    cpu = _cconv_inputs("cpu", 1, exclude_self, cin, cout, n_q=n_q, far=far)
+    cud = _cconv_inputs(dev, 1, exclude_self, cin, cout, n_q=n_q, far=far)
     k2 = fc.BF16_KERNELS["K2"]
     for needs in ((True,) * 4, (True, False, False, True)):
         want_d = fc.fused_cconv_bwd_plain(*cpu, 0.25, exclude_self, needs,
@@ -433,13 +452,15 @@ def test_fused_cconv_bf16_bwd_kernel_matches_plain(dev, exclude_self, cin,
     (200, 1024, 300, True, 2, 160, 0)])
 def test_split_gemm_bf16_matches_float64(dev, m, n, k, trans_a, n_split,
                                          k_per_split, offset):
-    """The bf16 product against a float64 product of the bf16-rounded
-    inputs: the products of bf16 values are exact, so only the f32 sums
-    differ (each chain of 32 k in the tensor core, then an f32 add), within
-    4e-7 of sum |a||b| as the 3xTF32 mode; bitwise the same again."""
+    """The bf16 product, A in bf16 as the walks write their rows (offset 1:
+    A two bytes off 16, which TMA cannot take), against a float64 product
+    of the bf16 inputs: the products of bf16 values are exact, so only the
+    f32 sums differ (each chain of 32 k in the tensor core, then an f32
+    add), within 4e-7 of sum |a||b| as the 3xTF32 mode, and against
+    `split_gemm_plain` at 'default'; bitwise the same again."""
     rng = np.random.default_rng(12)
     shape = (k, m) if trans_a else (m, k)
-    buf = torch.empty(m * k + offset, dtype=torch.float32, device=dev)
+    buf = torch.empty(m * k + offset, dtype=torch.bfloat16, device=dev)
     a = buf[offset:].view(shape)
     a.copy_(torch.tensor(rng.normal(size=shape), dtype=torch.float32))
     b = torch.tensor(rng.normal(size=(k, n)), dtype=torch.float32, device=dev)
@@ -455,12 +476,17 @@ def test_split_gemm_bf16_matches_float64(dev, m, n, k, trans_a, n_split,
     want = a64 @ b64
     scale = a64.abs() @ b64.abs()
     assert float(((got.double() - want).abs() / scale).max()) <= 4e-7
-    # and not the f32 product of the unrounded inputs
-    exact = (a.t() if trans_a else a).double() @ b.double()
+    plain = fc.split_gemm_plain(a, b, trans_a, "default").double()
+    assert float(((got.double() - plain).abs() / scale).max()) <= 4e-7
+    # and not the f32 product of the unrounded B
+    exact = a64 @ b.double()
     assert float(((got.double() - exact).abs() / scale).max()) > 1e-4
     again = fc.split_gemm_cuda(a, b, trans_a, n_split, k_per_split,
                                "default")
     assert torch.equal(got, again)
+    with pytest.raises(ValueError, match="dtype"):  # A in f32 at 'default'
+        fc.split_gemm_cuda(a.float(), b, trans_a, n_split, k_per_split,
+                           "default")
 
 
 def test_ball_sums_bwd_kernel_matches_plain(dev):

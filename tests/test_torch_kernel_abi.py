@@ -17,9 +17,16 @@ _C_TYPES = {"int": ctypes.c_int, "float": ctypes.c_float}
 
 
 def _kernels():
-    return [k for mod in (ball_features, composite, fused_cconv, fused_query,
-                        segment_ops)
-            for k in vars(mod).values() if isinstance(k, cuda.Kernel)]
+    """Every Kernel handle of the modules, those in a dict of handles
+    (`fused_cconv.BF16_KERNELS`) too."""
+    found = []
+    for mod in (ball_features, composite, fused_cconv, fused_query,
+                segment_ops):
+        for v in vars(mod).values():
+            for k in v.values() if isinstance(v, dict) else (v,):
+                if isinstance(k, cuda.Kernel):
+                    found.append(k)
+    return found
 
 
 def _c_signature(source: str, symbol: str) -> list:
@@ -28,6 +35,7 @@ def _c_signature(source: str, symbol: str) -> list:
     assert m, f"no extern \"C\" {symbol} in {source}"
     types = []
     for param in m.group(1).split(","):
+        assert param.split(), f"an empty parameter in {symbol}"
         decl = " ".join(param.split()[:-1])  # drop the parameter name
         types.append(ctypes.c_void_p if "*" in param
                      else _C_TYPES[decl.replace("const ", "")])
@@ -40,8 +48,9 @@ def test_every_module_declares_its_kernels():
         "nf_ball_query_compact", "nf_ball_sums", "nf_ball_sums_bwd",
         "nf_composite_launch_floor", "nf_composite_weights",
         "nf_composite_weights_bwd",
-        "nf_fused_cconv_bwd", "nf_fused_cconv_fwd",
-        "nf_segment_sum_accumulate", "nf_split_gemm"])
+        "nf_fused_cconv_bwd", "nf_fused_cconv_bwd_bf16",
+        "nf_fused_cconv_fwd", "nf_fused_cconv_fwd_bf16",
+        "nf_segment_sum_accumulate", "nf_split_gemm", "nf_split_gemm_bf16"])
 
 
 @pytest.mark.parametrize("kernel", _kernels(), ids=lambda k: k.symbol)

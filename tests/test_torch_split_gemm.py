@@ -356,3 +356,141 @@ def test_split_gemm_plain_default_is_the_product_of_the_rounded_operands():
     with pytest.raises(ValueError, match="conv precision"):
         fc.split_gemm_plain(torch.from_numpy(a), torch.from_numpy(b),
                             precision="tf32")
+
+
+# ---- the bf16 walks of K1d and K2d: launch plan, shared memory, scratch
+
+@pytest.mark.parametrize("cin,nt", [(1, 1), (4, 1), (8, 1), (9, 2), (16, 2),
+                                    (20, 4), (32, 4), (33, 8), (64, 8),
+                                    (65, 12), (96, 12), (97, 16), (128, 16)])
+def test_bf16_ntiles_cover_the_channels(cin, nt):
+    assert fc.bf16_ntiles(cin) == nt
+    assert fc.bf16_feat_width(cin) >= max(8 * nt, -(-cin // 16) * 16)
+    assert fc.bf16_feat_width(cin) % 16 == 0
+    # a thread's accumulator, 2 qb nt floats, within 128 registers
+    for fold in (False, True):
+        assert 2 * fc.bf16_fwd_qb(nt, fold) * nt <= 128
+
+
+def test_bf16_walk_takes_at_most_128_channels():
+    with pytest.raises(ValueError, match="at most 128"):
+        fc.bf16_ntiles(129)
+    with pytest.raises(ValueError):
+        fc.walk_config_bf16(64, 200, 8, False)
+
+
+@pytest.mark.parametrize("cin,cout", [(4, 32), (3, 32), (96, 64), (64, 64),
+                                      (64, 3), (5, 7), (20, 20), (128, 64),
+                                      (1, 1), (1, 256)])
+@pytest.mark.parametrize("backward", [False, True])
+def test_bf16_walk_blocks_fit_shared_memory(cin, cout, backward):
+    staged = fc.w_fits_shared(64, cin, cout)
+    qb, threads = fc.walk_config_bf16(64, cin, cout, staged, backward)
+    assert threads == fc.BF16_THREADS == 256
+    klen = 64 * cin
+    if not backward:
+        nt = fc.bf16_ntiles(cin)
+        assert qb == fc.bf16_fwd_qb(nt, staged)
+        need = fc.bf16_fwd_smem_bytes(qb, nt, klen, cout, staged)
+        assert need <= fc.SMEM_LIMIT
+        return
+    assert qb in fc.BF16_BWD_QB
+    need = fc.bf16_bwd_smem_bytes(qb, cin, cout, klen, staged)
+    assert need <= fc.SMEM_LIMIT
+    held = qb * min(fc.SMEM_PER_SM // (need + 1024), fc.BF16_BWD_BLOCKS)
+    for other in fc.BF16_BWD_QB:  # no other block holds more queries
+        o = fc.bf16_bwd_smem_bytes(other, cin, cout, klen, staged)
+        assert o > fc.SMEM_LIMIT or other * min(
+            fc.SMEM_PER_SM // (o + 1024), fc.BF16_BWD_BLOCKS) <= held
+
+
+def test_walk_config_bf16_at_the_bench_layers():
+    # forward: 8 queries a block up to Cin 32 and where Cin 64 folds W, 4
+    # at Cin 64 writing rows and at Cin 96 (registers); backward: Cin 96 two
+    # blocks of 4 (74 KB each), Cin 64 two blocks of 8
+    assert fc.walk_config_bf16(64, 4, 32, True) == (8, 256)
+    assert fc.walk_config_bf16(64, 3, 32, True) == (8, 256)
+    assert fc.walk_config_bf16(64, 96, 64, False) == (4, 256)
+    assert fc.walk_config_bf16(64, 64, 64, False) == (4, 256)
+    assert fc.walk_config_bf16(64, 64, 3, True) == (8, 256)
+    assert fc.walk_config_bf16(64, 96, 64, False, backward=True) == (4, 256)
+    assert fc.walk_config_bf16(64, 64, 64, False, backward=True) == (8, 256)
+    assert fc.walk_config_bf16(64, 64, 3, True, backward=True) == (4, 256)
+    # the bf16 forward walk's block: its registers bound it, not this
+    assert fc.bf16_fwd_smem_bytes(4, 12, 6144, 64, False) == 79712
+    assert fc.bf16_bwd_smem_bytes(4, 96, 64, 6144, False) == 74448
+
+
+def _c_layouts(calls):
+    """The shared-memory layouts of csrc/fused_cconv_bf16.cu (`bf16_fwd_smem`,
+    `bf16_bwd_smem` and the plan helpers above them), compiled on the host
+    with g++ and evaluated at `calls`: (name, args) -> bytes."""
+    import shutil
+    import subprocess
+    import tempfile
+    from pathlib import Path
+
+    from neurofluid_torch import cuda
+
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to compile the C layouts on the host")
+    text = (cuda.CSRC / "fused_cconv_bf16.cu").read_text()
+    lo = text.index("constexpr int kBf16Threads")
+    hi = text.index("// f32 -> bf16 bits, round to nearest even")
+    lines = [f"std::printf(\"%d\\n\", {name}({', '.join(map(str, args))})"
+             f"{'.bytes' if 'smem' in name else ''});"
+             for name, args in calls]
+    src = ("#include <cstdio>\n#define __host__\n#define __device__\n"
+           "constexpr int kTile = 32;\n" + text[lo:hi]
+           + "int main() {\n" + "\n".join(lines) + "\nreturn 0;\n}\n")
+    with tempfile.TemporaryDirectory() as tmp:
+        cpp, exe = Path(tmp) / "layouts.cpp", Path(tmp) / "layouts"
+        cpp.write_text(src)
+        subprocess.run([gxx, "-std=c++17", "-o", str(exe), str(cpp)],
+                       check=True, capture_output=True, timeout=120)
+        out = subprocess.run([str(exe)], check=True, capture_output=True,
+                             text=True, timeout=60).stdout.split()
+    return [int(v) for v in out]
+
+
+def test_bf16_plans_and_layouts_match_the_c_source():
+    """The Python mirrors of the bf16 walks' plan and shared-memory layouts
+    against the C functions the kernels use (a disagreement would pass the
+    card a block whose layout overruns its allocation)."""
+    cases = []
+    for cin, cout in ((4, 32), (3, 32), (96, 64), (64, 64), (64, 3), (5, 7),
+                      (20, 20), (128, 64), (1, 256)):
+        staged = fc.w_fits_shared(64, cin, cout)
+        nt = fc.bf16_ntiles(cin)
+        for qb in (2, 4, 8):
+            cases.append((("bf16_fwd_smem", (qb, nt, 64 * cin, cout,
+                                             int(staged))),
+                          fc.bf16_fwd_smem_bytes(qb, nt, 64 * cin, cout,
+                                                 staged)))
+            cases.append((("bf16_bwd_smem", (qb, cin, cout, 64 * cin,
+                                             int(staged))),
+                          fc.bf16_bwd_smem_bytes(qb, cin, cout, 64 * cin,
+                                                 staged)))
+        cases += [(("bf16_ntiles", (cin,)), nt),
+                  (("bf16_fwd_qb", (nt, int(staged))),
+                   fc.bf16_fwd_qb(nt, staged)),
+                  (("bf16_feat_width", (cin,)), fc.bf16_feat_width(cin))]
+    got = _c_layouts([c for c, _ in cases])
+    assert got == [want for _, want in cases]
+
+
+@pytest.mark.parametrize("n,klen", [(14336, 6144), (14336, 4096),
+                                    (300, 256)])
+def test_bf16_scratch_rows_are_half_the_f32_bytes(n, klen):
+    # the same chunk of query rows, bf16 rows at 'default' (conv1: 7,168
+    # rows of 6,144, 88 MB where the f32 walk's took 176; conv2 one chunk)
+    rows = {p: fc.scratch_rows(n, klen, p, "cpu")
+            for p in ("highest", "high", "default")}
+    assert rows["highest"].shape == (min(fc.scratch_chunk_rows(n, klen), n),
+                                     klen)
+    assert rows["default"].dtype == torch.bfloat16
+    assert rows["default"].shape == rows["highest"].shape
+    f32 = rows["highest"].numel() * rows["highest"].element_size()
+    assert 2 * rows["default"].numel() * rows["default"].element_size() == f32
+    assert rows["high"].dtype == torch.float32

@@ -2,7 +2,9 @@
 on one GPU.
 
 Usage: python tools/profile_torch_port.py [--steps 10] [--rows 20]
-       python tools/profile_torch_port.py --walk-phases
+       python tools/profile_torch_port.py --walk-phases [--precision default]
+                                          [--root DIR]
+       python tools/profile_torch_port.py --conv-steps [--root DIR]
        python tools/profile_torch_port.py --ball-walk-sweep
        python tools/profile_torch_port.py --trainers
 
@@ -34,7 +36,18 @@ With --walk-phases it instead times K1 (CUDA events, median of 10) at the
 five calls of one ParticleNet step with parts of the forward walk taken out,
 in patched temporary copies of csrc/fused_cconv.cu: what a part costs is the
 time that goes with it. The patched kernels compute wrong results; only
-their time is read, and the package's own build is not touched.
+their time is read, and the package's own build is not touched. With
+--precision default it times K1d, the same calls at conv_precision
+'default', with the parts of its own walk taken out (`walk_patches`: the
+bf16 walk where the source has one, else the shared walk's bf16
+instantiation). --root imports the package and chip_smoke.py from another
+checkout (for example a `git archive` of the parent under the git-ignored
+build/), so that two trees are timed by one script in one call.
+
+With --conv-steps it instead times K1 and K1d (conv_precision 'highest'
+and 'default') at the calls of one ParticleNet step, and K2 and K2d at the
+calls of one transition train step on `fused_cconv` (CUDA events, median of
+10), per call and per step; --root as above.
 
 With --ball-walk-sweep it instead times K3 at the two calls of one render,
 K7 at the two calls of one ParticleNet step on `search_backend='fused'` and
@@ -180,8 +193,65 @@ class patched_source:
         shutil.rmtree(self.tmp)
 
 
-def walk_phases(torch, chip_smoke, calls):
+# the same parts of the bf16 walk (`walk_fwd_bf16_kernel`; phase 1 is
+# `pair_geometry_bf16`, which K2d's walk shares)
+WALK_PATCHES_BF16 = {
+    "the ball -> cube map of phase 1 (its square roots, divisions and "
+    "arctangent)": [
+        ("      ball_to_cube(ox, oy, oz, d2n, ux, uy, uz);",
+         "      ux = ox, uy = oy, uz = oz;")],
+    "phase 2 (the tap-feature contraction on the tensor cores)": [
+        ("        for (int k0 = 0; k0 < n; k0 += 16) {",
+         "        for (int k0 = 0; k0 < 0; k0 += 16) {")],
+    "the in-walk fold's product (conv0, conv3: its staging and sums "
+    "remain)": [
+        ("          for (int k0 = 16 * warp; k0 < kpad; k0 += 16 * kBf16Warps) {",
+         "          for (int k0 = 16 * warp; k0 < 0; k0 += 16 * kBf16Warps) {")],
+    "phases 1 and 2 (no pair is in radius: the tile loads, the barriers, "
+    "the rows or the fold, and the products remain)": [
+        ("  if (live) {\n    float ox, oy, oz, d2n;",
+         "  if (false) {\n    float ox, oy, oz, d2n;")],
+}
+
+
+def conv_steps(torch, chip_smoke, k1_calls, k2_calls):
     from neurofluid_torch.ops import fused_cconv as fc
+
+    for name, fn, calls, n_args, per in (
+            ("K1", fc.fused_cconv_cuda, k1_calls, 8, "ParticleNet step"),
+            ("K2", fc.fused_cconv_bwd_cuda, k2_calls, 10,
+             "transition train step")):
+        for prec, kid in (("highest", name), ("default", name + "d")):
+            ms = []
+            for i, a in enumerate(calls):
+                args = a[:n_args] + (prec,)
+                with torch.no_grad():
+                    ms.append(chip_smoke.event_ms(torch, lambda: fn(*args)))
+                cin, cout = a[0].shape[-2:]
+                needs = ("" if name == "K1" else " needs (dW, dq, dc, dfeats) "
+                         + "".join(str(int(x)) for x in a[9]))
+                print(f"{kid} call {i}: Cin {cin} Cout {cout}{needs} ms "
+                      f"{ms[-1]:.4f}", flush=True)
+            print(f"{kid} per {per}: {sum(ms):.4f} ms ({len(ms)} calls)",
+                  flush=True)
+
+
+def walk_patches(precision):
+    """(source, patch set) of the walk that K1 runs at `precision`: K1d's
+    own in a tree that has it, else the shared walk's bf16 instantiation."""
+    from neurofluid_torch import cuda as nf_cuda
+    if precision == "default" and (nf_cuda.CSRC
+                                   / "fused_cconv_bf16.cu").exists():
+        return "fused_cconv_bf16.cu", WALK_PATCHES_BF16
+    return "fused_cconv.cu", WALK_PATCHES
+
+
+def walk_phases(torch, chip_smoke, calls, precision="highest"):
+    from neurofluid_torch.ops import fused_cconv as fc
+
+    name_k = "K1d" if precision == "default" else "K1"
+    calls = [a[:8] + (precision,) for a in calls]
+    kernels = [fc.KERNEL, *getattr(fc, "BF16_KERNELS", {}).values()]
 
     def times():
         out = []
@@ -196,17 +266,19 @@ def walk_phases(torch, chip_smoke, calls):
             "; goes with it: " + ", ".join(
                 f"{b - m:.4f}" for b, m in zip(base, ms))
             + f" (sum {sum(base) - sum(ms):.4f})")
-        print(f"K1 without {name}: " if base else f"K1 {name}: ", end="")
+        print(f"{name_k} without {name}: " if base else f"{name_k} {name}: ",
+              end="")
         print(", ".join(f"{m:.4f}" for m in ms) + f" ms (sum {sum(ms):.4f})"
               + gone, flush=True)
 
     shapes = ", ".join(f"Cin {a[0].shape[-2]} Cout {a[0].shape[-1]}"
                        for a in calls)
-    print(f"K1 at the calls of one ParticleNet step: {shapes}")
+    print(f"{name_k} at the calls of one ParticleNet step: {shapes}")
     base = times()
     show("as built", base)
-    for name, edits in WALK_PATCHES.items():
-        with patched_source("fused_cconv.cu", edits, [fc.KERNEL]):
+    source, patches = walk_patches(precision)
+    for name, edits in patches.items():
+        with patched_source(source, edits, kernels):
             show(name, times(), base)
 
 
@@ -388,7 +460,17 @@ def main():
                         help="time K3, K7 and K4 across staged-walk plans")
     parser.add_argument("--trainers", action="store_true",
                         help="trace the stage trainers' loops")
+    parser.add_argument("--conv-steps", action="store_true",
+                        help="time K1/K1d and K2/K2d at a step's calls")
+    parser.add_argument("--precision", default="highest",
+                        choices=("highest", "default"),
+                        help="--walk-phases: the conv precision timed")
+    parser.add_argument("--root", default=None,
+                        help="import the package and chip_smoke.py from "
+                             "this checkout")
     args = parser.parse_args()
+    if args.root is not None:
+        sys.path.insert(0, os.path.abspath(args.root))
     if not torch.cuda.is_available():
         print("profile_torch_port: no CUDA device", file=sys.stderr)
         return 1
@@ -422,11 +504,28 @@ def main():
                   copy.deepcopy(ren.state_dict()))
     rollout = make_rollout_fn(net)
 
+    if args.conv_steps:
+        from neurofluid_torch.ops import fused_cconv as fc
+        print(f"root: {os.path.dirname(os.path.dirname(fc.__file__))}")
+        k1_calls = record(torch, fc, "fused_cconv_cuda",
+                          lambda: rollout(pos, vel, box, nrm, 1))
+        t_step = make_transition_train_step(
+            net, torch.optim.Adam(net.parameters(),
+                                  lr=chip_smoke.LR_TRANSITION_ONLY),
+            losses.default_box_bounds(device=dev), chip_smoke.TRANSITION_CLIP)
+        plan = net.make_box_plan(box)
+        k2_calls = record(torch, fc, "fused_cconv_bwd_cuda",
+                          lambda: t_step(pos, vel, pos + 0.001, pos + 0.002,
+                                         box, nrm, box_plan=plan), grad=True)
+        conv_steps(torch, chip_smoke, k1_calls, k2_calls)
+        print(f"card: {torch.cuda.get_device_name(0)}")
+        return 0
     if args.walk_phases:
         from neurofluid_torch.ops import fused_cconv as fc
         calls = record(torch, fc, "fused_cconv_cuda",
                        lambda: rollout(pos, vel, box, nrm, 1))
-        walk_phases(torch, chip_smoke, calls)
+        print(f"root: {os.path.dirname(os.path.dirname(fc.__file__))}")
+        walk_phases(torch, chip_smoke, calls, args.precision)
         print(f"card: {torch.cuda.get_device_name(0)}")
         return 0
     if args.ball_walk_sweep:

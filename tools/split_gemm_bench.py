@@ -21,7 +21,9 @@ given numbers of splits of k. `--precision default` times the product's
 bf16 mode (conv_precision 'default') instead: its error against a float64
 product of the bf16-rounded inputs, beside cuBLAS in bf16 (`torch.mm` with
 an f32 result where this torch has it, else `torch.matmul` on bf16
-tensors), its bound at the dense bf16 rate.
+tensors), its bound at the dense bf16 rate; A is then bf16 where the
+checkout's product takes it so (`nf_split_gemm_bf16`: the walks write their
+rows in bf16), f32 before.
 """
 
 from __future__ import annotations
@@ -106,6 +108,8 @@ def main() -> int:
         kw = dict(trans_a=trans, n_split=n_split, k_per_split=per)
         if bf16:
             kw["precision"] = "default"
+            if fc.BF16_KERNELS["product"].symbol == "nf_split_gemm_bf16":
+                a = a.to(torch.bfloat16)
         got = fc.split_gemm_cuda(a, b, **kw)
         torch.cuda.synchronize()
         a_op = a.t() if trans else a
@@ -125,7 +129,8 @@ def main() -> int:
         else:
             lib = lambda: a_op @ b  # noqa: E731
         lib_ms = event_ms(torch, lib, args.reps)
-        t_bytes = 4.0 * (m * k + k * n + m * n) / PEAK_BYTES_PER_S * 1e3
+        t_bytes = (a.element_size() * m * k + 4.0 * (k * n + m * n)) \
+            / PEAK_BYTES_PER_S * 1e3
         t_ops = (2.0 * m * k * n / PEAK_BF16_PER_S * 1e3 if bf16 else
                  TF32_PASSES * 2.0 * m * k * n / PEAK_TF32_PER_S * 1e3)
         row = dict(use=use, m=m, k=k, n=n, splits=n_split, err=err, ms=ms,
