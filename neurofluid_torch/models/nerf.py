@@ -24,6 +24,7 @@ from torch import nn
 
 from neurofluid_torch.cuda import resolve_device
 from neurofluid_torch.models.init import generator_or_default, init_linear
+from neurofluid_torch.utils.profiling import span
 
 
 class NeRF(nn.Module):
@@ -70,19 +71,20 @@ class NeRF(nn.Module):
 
         Returns (B, 1) sigma or (B, 4) [rgb, sigma], f32 whatever the
         compute dtype."""
-        input_xyz = x[..., : self.in_channels_xyz].to(self.compute_dtype)
-        h = input_xyz
-        for i in range(self.depth):
-            if i in self.skips:
-                h = torch.cat([input_xyz, h], dim=-1)
-            h = torch.relu(self._dense(
-                getattr(self, f"xyz_encoding_{i + 1}")[0], h))
-        sigma = self._dense(self.sigma, h).float()
-        if sigma_only:
-            return sigma
-        feat = self._dense(self.xyz_encoding_final, h)
-        d = torch.relu(self._dense(self.dir_encoding[0], torch.cat(
-            [feat, x[..., self.in_channels_xyz:].to(self.compute_dtype)],
-            dim=-1)))
-        rgb = torch.sigmoid(self._dense(self.rgb[0], d).float())
-        return torch.cat([rgb, sigma], dim=-1)
+        with span("render.nerf"):
+            input_xyz = x[..., : self.in_channels_xyz].to(self.compute_dtype)
+            h = input_xyz
+            for i in range(self.depth):
+                if i in self.skips:
+                    h = torch.cat([input_xyz, h], dim=-1)
+                h = torch.relu(self._dense(
+                    getattr(self, f"xyz_encoding_{i + 1}")[0], h))
+            sigma = self._dense(self.sigma, h).float()
+            if sigma_only:
+                return sigma
+            feat = self._dense(self.xyz_encoding_final, h)
+            d = torch.relu(self._dense(self.dir_encoding[0], torch.cat(
+                [feat, x[..., self.in_channels_xyz:].to(self.compute_dtype)],
+                dim=-1)))
+            rgb = torch.sigmoid(self._dense(self.rgb[0], d).float())
+            return torch.cat([rgb, sigma], dim=-1)

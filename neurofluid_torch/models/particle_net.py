@@ -58,6 +58,7 @@ from neurofluid_torch.ops.neighbor_search import CellGrid, build_cell_grid
 from neurofluid_torch.parallel.collectives import (
     all_gather_rows, any_over, shift,
 )
+from neurofluid_torch.utils.profiling import span
 
 SEARCH_BACKENDS = ("fused_cconv", "fused", "grid", "brute", "auto")
 # 'auto' searches by grid from this many searched points on, else by brute
@@ -233,7 +234,9 @@ class ParticleNet(nn.Module):
 
     def integrate_pos_vel(self, pos, vel):
         dt = self.timestep
-        g = torch.as_tensor(self.gravity, dtype=pos.dtype, device=pos.device)
+        with span("sync.gravity"):  # a host-to-device copy waits
+            g = torch.as_tensor(self.gravity, dtype=pos.dtype,
+                                device=pos.device)
         vel_new = vel + g * dt
         return pos + (vel + vel_new) / 2.0 * dt, vel_new
 
@@ -272,34 +275,38 @@ class ParticleNet(nn.Module):
         `fluid_neighbor_k` / `obstacle_neighbor_k` particles and the conv
         saw only k of them (the first k on `fused`, the k nearest on the
         others)."""
-        box, box_feats = box.detach(), box_feats.detach()
-        pos_new, vel_new = self.integrate_pos_vel(pos, vel)
-        fluid = [torch.ones_like(pos_new[:, :1]), vel_new]
-        if feats is not None:
-            fluid.append(feats)
-        fluid = torch.cat(fluid, dim=-1)
-        layers = (self._fused_cconv_layers
-                  if self.search_backend == "fused_cconv"
-                  and self.shard_group is None
-                  else self._list_layers)
-        correction, counts, diag = layers(pos_new, fluid, box, box_feats,
-                                          box_plan)
-        pos_corrected = pos_new + correction
-        vel_corrected = (pos_corrected - pos) / self.timestep
-        return pos_corrected, vel_corrected, counts, diag
+        with span("particle_net"):
+            box, box_feats = box.detach(), box_feats.detach()
+            pos_new, vel_new = self.integrate_pos_vel(pos, vel)
+            fluid = [torch.ones_like(pos_new[:, :1]), vel_new]
+            if feats is not None:
+                fluid.append(feats)
+            fluid = torch.cat(fluid, dim=-1)
+            layers = (self._fused_cconv_layers
+                      if self.search_backend == "fused_cconv"
+                      and self.shard_group is None
+                      else self._list_layers)
+            correction, counts, diag = layers(pos_new, fluid, box, box_feats,
+                                              box_plan)
+            pos_corrected = pos_new + correction
+            vel_corrected = (pos_corrected - pos) / self.timestep
+            return pos_corrected, vel_corrected, counts, diag
 
     def _fused_cconv_layers(self, pos_new, fluid, box, box_feats, box_plan):
         radius = self.radius
-        qplan = fc.build_plan(pos_new, self.grid_lower, self.grid_upper,
-                              self.cell_size, group_size=self.fused_group_size,
-                              slab_cap=self.fused_slab_cap)
-        if not isinstance(box_plan, fc.CConvPlan):
-            box_plan = self.make_box_plan(box)
-        pad = qplan.slab_cap
-        qpos_s = fc.sort_values(pos_new, qplan, pad, fc.SENTINEL).contiguous()
-        ff = fc.sort_values(fluid, qplan)
-        bfeats_s = fc.sort_values(box_feats, box_plan,
-                                  box_plan.slab_cap).contiguous()
+        with span("particle_net.plan"):
+            qplan = fc.build_plan(pos_new, self.grid_lower, self.grid_upper,
+                                  self.cell_size,
+                                  group_size=self.fused_group_size,
+                                  slab_cap=self.fused_slab_cap)
+            if not isinstance(box_plan, fc.CConvPlan):
+                box_plan = self.make_box_plan(box)
+            pad = qplan.slab_cap
+            qpos_s = fc.sort_values(pos_new, qplan, pad,
+                                    fc.SENTINEL).contiguous()
+            ff = fc.sort_values(fluid, qplan)
+            bfeats_s = fc.sort_values(box_feats, box_plan,
+                                      box_plan.slab_cap).contiguous()
 
         def pad0(x):
             return torch.cat([x, x.new_zeros((pad,) + x.shape[1:])]).contiguous()
@@ -418,27 +425,32 @@ class ParticleNet(nn.Module):
 
     def _list_layers(self, pos_new, fluid, box, box_feats, box_grid):
         extent = 2.0 * self.radius
-        extend_pos, extend_feats, valid, halo_over = self._extension(pos_new)
-        all_pos = extend_pos(pos_new)
-        fluid_nbrs, ov_fluid = self._search(pos_new, all_pos,
-                                            self.fluid_neighbor_k, True,
-                                            points_valid=valid)
-        if halo_over is not None:
-            ov_fluid = ov_fluid | halo_over
-        box_nbrs, ov_box = self._search(
-            pos_new, box, self.obstacle_neighbor_k, False,
-            grid=box_grid if isinstance(box_grid, CellGrid) else None)
+        with span("particle_net.plan"):
+            extend_pos, extend_feats, valid, halo_over = self._extension(
+                pos_new)
+            all_pos = extend_pos(pos_new)
+            fluid_nbrs, ov_fluid = self._search(pos_new, all_pos,
+                                                self.fluid_neighbor_k, True,
+                                                points_valid=valid)
+            if halo_over is not None:
+                ov_fluid = ov_fluid | halo_over
+            box_nbrs, ov_box = self._search(
+                pos_new, box, self.obstacle_neighbor_k, False,
+                grid=box_grid if isinstance(box_grid, CellGrid) else None)
 
-        # the geometry and the backward plans, once per list for all layers
-        fluid_plan = segment_ops.AdjointPlan(fluid_nbrs.idx, all_pos.shape[0])
-        box_plan = segment_ops.AdjointPlan(box_nbrs.idx, box.shape[0])
-        fl_corner, fl_tapw = cconv.cconv_geometry(
-            all_pos, pos_new, fluid_nbrs, extent, self.kernel_size, fluid_plan)
-        bx_corner, bx_tapw = cconv.cconv_geometry(
-            box, pos_new, box_nbrs, extent, self.kernel_size, box_plan)
-        # the fluid list feeds every fluid layer; the box list only one
-        fl_tw = cconv.cconv_tap_matrix(fl_corner, fl_tapw,
-                                       math.prod(self.kernel_size))
+            # the geometry and the backward plans, once per list for all
+            # layers
+            fluid_plan = segment_ops.AdjointPlan(fluid_nbrs.idx,
+                                                 all_pos.shape[0])
+            box_plan = segment_ops.AdjointPlan(box_nbrs.idx, box.shape[0])
+            fl_corner, fl_tapw = cconv.cconv_geometry(
+                all_pos, pos_new, fluid_nbrs, extent, self.kernel_size,
+                fluid_plan)
+            bx_corner, bx_tapw = cconv.cconv_geometry(
+                box, pos_new, box_nbrs, extent, self.kernel_size, box_plan)
+            # the fluid list feeds every fluid layer; the box list only one
+            fl_tw = cconv.cconv_tap_matrix(fl_corner, fl_tapw,
+                                           math.prod(self.kernel_size))
 
         ans_fluid = self.conv0_fluid.forward_list(
             extend_feats(fluid), fluid_nbrs, None, None, fluid_plan,

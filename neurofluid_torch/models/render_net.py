@@ -44,6 +44,7 @@ from neurofluid_torch.models.nerf import NeRF
 from neurofluid_torch.ops import ball_features as bf
 from neurofluid_torch.ops import neighbor_search as ns
 from neurofluid_torch.ops import ray_ops, segment_ops
+from neurofluid_torch.utils.profiling import span
 
 AUTO_GRID_POINTS = 4096  # search_backend='auto' takes the grid from here
 
@@ -270,14 +271,15 @@ class RenderNet(nn.Module):
         """For samples (R, S, 3): encoded features (R*S, C), num_nn
         (R*S, 1), the full-K mask (R, S, 1) and the overflow flag. The
         dense path ignores `grid`, as the JAX package's does."""
-        if self.search_mode == "dense":
-            return self._features_dense(particles, sample_xyz, rays, ro,
-                                        sigma_only=sigma_only, cull=cull)
-        nbrs, overflow = self.search(sample_xyz, particles, grid=grid,
-                                     cull=cull)
-        feats, num_nn, full_mask = self._local_features(
-            particles, sample_xyz, rays, ro, nbrs, sigma_only=sigma_only)
-        return feats, num_nn, full_mask, overflow
+        with span("render.features"):
+            if self.search_mode == "dense":
+                return self._features_dense(particles, sample_xyz, rays, ro,
+                                            sigma_only=sigma_only, cull=cull)
+            nbrs, overflow = self.search(sample_xyz, particles, grid=grid,
+                                         cull=cull)
+            feats, num_nn, full_mask = self._local_features(
+                particles, sample_xyz, rays, ro, nbrs, sigma_only=sigma_only)
+            return feats, num_nn, full_mask, overflow
 
     def _run_nerf(self, mlp, particles, sample_xyz, rays, ro,
                   sigma_only=False, grid=None, cull=True):
@@ -308,56 +310,57 @@ class RenderNet(nn.Module):
         once). Returns rgb0/depth0/opacity0/num_nn_0/mask_0,
         rgb1/depth1/opacity1/num_nn_1/mask_1 (when n_importance > 0) and
         `overflow`."""
-        n_rays, s0 = rays.shape[0], self.n_samples
-        if grid is None:
-            grid = self._shared_grid(particles)
-        z0, xyz0 = ray_ops.coarse_sample_rays(
-            self.near, self.far, rays, s0, perturb=perturb,
-            generator=generator)
-        feats0, num_nn0, mask0, overflow0 = self._features(
-            particles, xyz0, rays, ro, grid=grid)
-        rgbsigma0 = self.nerf_coarse(feats0).reshape(n_rays, s0, 4)
-        if self.use_mask:
-            rgbsigma0 = rgbsigma0 * mask0.to(rgbsigma0.dtype)
-        rgb0, depth0, weights0 = ray_ops.composite(
-            rgbsigma0, z0, rays, white_background, noise_std, generator)
-        results = dict(rgb0=rgb0, depth0=depth0, opacity0=weights0.sum(1),
-                       num_nn_0=num_nn0, mask_0=mask0.sum(dim=(1, 2)),
-                       overflow=overflow0)
-        if self.n_importance == 0:
-            return results
+        with span("render"):
+            n_rays, s0 = rays.shape[0], self.n_samples
+            if grid is None:
+                grid = self._shared_grid(particles)
+            z0, xyz0 = ray_ops.coarse_sample_rays(
+                self.near, self.far, rays, s0, perturb=perturb,
+                generator=generator)
+            feats0, num_nn0, mask0, overflow0 = self._features(
+                particles, xyz0, rays, ro, grid=grid)
+            rgbsigma0 = self.nerf_coarse(feats0).reshape(n_rays, s0, 4)
+            if self.use_mask:
+                rgbsigma0 = rgbsigma0 * mask0.to(rgbsigma0.dtype)
+            rgb0, depth0, weights0 = ray_ops.composite(
+                rgbsigma0, z0, rays, white_background, noise_std, generator)
+            results = dict(rgb0=rgb0, depth0=depth0, opacity0=weights0.sum(1),
+                           num_nn_0=num_nn0, mask_0=mask0.sum(dim=(1, 2)),
+                           overflow=overflow0)
+            if self.n_importance == 0:
+                return results
 
-        # the fine pass: the coarse features are reused, only the new
-        # samples are searched, and (z, rgbsigma) is sorted per ray
-        s1 = self.n_importance
-        z_mid = 0.5 * (z0[..., 1:] + z0[..., :-1])
-        z_new = ray_ops.sample_pdf(z_mid, weights0[:, 1:-1], s1,
-                                   det=(perturb == 0),
-                                   generator=generator).detach()
-        xyz_new = rays[:, None, :3] + rays[:, None, 3:] * z_new[..., None]
-        feats_new, num_nn_new, mask_new, overflow_new = self._features(
-            particles, xyz_new, rays, ro, grid=grid, cull=False)
-        c = feats0.shape[-1]
-        feats_all = torch.cat([feats0.reshape(n_rays, s0, c),
-                               feats_new.reshape(n_rays, s1, c)], dim=1)
-        rgbsigma1 = self.nerf_fine(feats_all.reshape(-1, c)).reshape(
-            n_rays, s0 + s1, 4)
-        mask1 = torch.cat([mask0, mask_new], dim=1)
-        if self.use_mask:
-            rgbsigma1 = rgbsigma1 * mask1.to(rgbsigma1.dtype)
-        z1, order = torch.sort(torch.cat([z0, z_new], dim=-1), dim=-1,
-                               stable=True)
-        rgbsigma1 = torch.gather(rgbsigma1, 1,
-                                 order[..., None].expand(-1, -1, 4))
-        rgb1, depth1, weights1 = ray_ops.composite(
-            rgbsigma1, z1, rays, white_background, noise_std, generator)
-        num_nn1 = torch.cat([num_nn0.reshape(n_rays, s0),
-                             num_nn_new.reshape(n_rays, s1)], dim=1)
-        results.update(rgb1=rgb1, depth1=depth1, opacity1=weights1.sum(1),
-                       num_nn_1=num_nn1.reshape(-1, 1),
-                       mask_1=mask1.sum(dim=(1, 2)),
-                       overflow=overflow0 | overflow_new)
-        return results
+            # the fine pass: the coarse features are reused, only the new
+            # samples are searched, and (z, rgbsigma) is sorted per ray
+            s1 = self.n_importance
+            z_mid = 0.5 * (z0[..., 1:] + z0[..., :-1])
+            z_new = ray_ops.sample_pdf(z_mid, weights0[:, 1:-1], s1,
+                                       det=(perturb == 0),
+                                       generator=generator).detach()
+            xyz_new = rays[:, None, :3] + rays[:, None, 3:] * z_new[..., None]
+            feats_new, num_nn_new, mask_new, overflow_new = self._features(
+                particles, xyz_new, rays, ro, grid=grid, cull=False)
+            c = feats0.shape[-1]
+            feats_all = torch.cat([feats0.reshape(n_rays, s0, c),
+                                   feats_new.reshape(n_rays, s1, c)], dim=1)
+            rgbsigma1 = self.nerf_fine(feats_all.reshape(-1, c)).reshape(
+                n_rays, s0 + s1, 4)
+            mask1 = torch.cat([mask0, mask_new], dim=1)
+            if self.use_mask:
+                rgbsigma1 = rgbsigma1 * mask1.to(rgbsigma1.dtype)
+            z1, order = torch.sort(torch.cat([z0, z_new], dim=-1), dim=-1,
+                                   stable=True)
+            rgbsigma1 = torch.gather(rgbsigma1, 1,
+                                     order[..., None].expand(-1, -1, 4))
+            rgb1, depth1, weights1 = ray_ops.composite(
+                rgbsigma1, z1, rays, white_background, noise_std, generator)
+            num_nn1 = torch.cat([num_nn0.reshape(n_rays, s0),
+                                 num_nn_new.reshape(n_rays, s1)], dim=1)
+            results.update(rgb1=rgb1, depth1=depth1, opacity1=weights1.sum(1),
+                           num_nn_1=num_nn1.reshape(-1, 1),
+                           mask_1=mask1.sum(dim=(1, 2)),
+                           overflow=overflow0 | overflow_new)
+            return results
 
     def coarse_rendering(self, particles, ro, rays,
                          generator: torch.Generator | None = None,
@@ -365,17 +368,18 @@ class RenderNet(nn.Module):
                          white_background: bool = True) -> dict:
         """The coarse pass alone (reference renderer.py:273-307): rgb0,
         depth0, opacity0, num_nn_0, mask_0, overflow."""
-        grid = self._shared_grid(particles)
-        z0, xyz0 = ray_ops.coarse_sample_rays(
-            self.near, self.far, rays, self.n_samples, perturb=perturb,
-            generator=generator)
-        rgbsigma0, num_nn0, mask0, overflow0 = self._run_nerf(
-            self.nerf_coarse, particles, xyz0, rays, ro, grid=grid)
-        rgb0, depth0, weights0 = ray_ops.composite(
-            rgbsigma0, z0, rays, white_background, noise_std, generator)
-        return dict(rgb0=rgb0, depth0=depth0, opacity0=weights0.sum(1),
-                    num_nn_0=num_nn0, mask_0=mask0.sum(dim=(1, 2)),
-                    overflow=overflow0)
+        with span("render"):
+            grid = self._shared_grid(particles)
+            z0, xyz0 = ray_ops.coarse_sample_rays(
+                self.near, self.far, rays, self.n_samples, perturb=perturb,
+                generator=generator)
+            rgbsigma0, num_nn0, mask0, overflow0 = self._run_nerf(
+                self.nerf_coarse, particles, xyz0, rays, ro, grid=grid)
+            rgb0, depth0, weights0 = ray_ops.composite(
+                rgbsigma0, z0, rays, white_background, noise_std, generator)
+            return dict(rgb0=rgb0, depth0=depth0, opacity0=weights0.sum(1),
+                        num_nn_0=num_nn0, mask_0=mask0.sum(dim=(1, 2)),
+                        overflow=overflow0)
 
     def fine_rendering(self, particles, ro, rays,
                        generator: torch.Generator | None = None,
@@ -386,28 +390,30 @@ class RenderNet(nn.Module):
         (reference renderer.py:310-369): rgb1, depth1, opacity1, num_nn_1,
         mask_1, overflow. As in the JAX package, the fine compositing gets
         no random stream, so `noise_std > 0` raises there."""
-        grid = self._shared_grid(particles)
-        z0, xyz0 = ray_ops.coarse_sample_rays(
-            self.near, self.far, rays, self.n_samples, perturb=perturb,
-            generator=generator)
-        sigmas0, _, mask0, overflow0 = self._run_nerf(
-            self.nerf_coarse, particles, xyz0, rays, ro, sigma_only=True,
-            grid=grid)
-        # weights from sigma-only compositing (the rgb channels unused)
-        dummy = torch.cat([torch.zeros_like(sigmas0).repeat(1, 1, 3),
-                           sigmas0], dim=-1)
-        _, _, weights0 = ray_ops.composite(dummy, z0, rays, False, noise_std,
-                                           generator)
-        xyz1, z1 = ray_ops.importance_sampling(
-            z0, weights0, self.n_importance, rays[:, :3], rays[:, 3:],
-            det=(perturb == 0), generator=generator)
-        rgbsigma1, num_nn1, mask1, overflow1 = self._run_nerf(
-            self.nerf_fine, particles, xyz1, rays, ro, grid=grid, cull=False)
-        rgb1, depth1, weights1 = ray_ops.composite(
-            rgbsigma1, z1, rays, white_background, noise_std)
-        return dict(rgb1=rgb1, depth1=depth1, opacity1=weights1.sum(1),
-                    num_nn_1=num_nn1, mask_1=mask1.sum(dim=(1, 2)),
-                    overflow=overflow0 | overflow1)
+        with span("render"):
+            grid = self._shared_grid(particles)
+            z0, xyz0 = ray_ops.coarse_sample_rays(
+                self.near, self.far, rays, self.n_samples, perturb=perturb,
+                generator=generator)
+            sigmas0, _, mask0, overflow0 = self._run_nerf(
+                self.nerf_coarse, particles, xyz0, rays, ro, sigma_only=True,
+                grid=grid)
+            # weights from sigma-only compositing (the rgb channels unused)
+            dummy = torch.cat([torch.zeros_like(sigmas0).repeat(1, 1, 3),
+                               sigmas0], dim=-1)
+            _, _, weights0 = ray_ops.composite(dummy, z0, rays, False,
+                                               noise_std, generator)
+            xyz1, z1 = ray_ops.importance_sampling(
+                z0, weights0, self.n_importance, rays[:, :3], rays[:, 3:],
+                det=(perturb == 0), generator=generator)
+            rgbsigma1, num_nn1, mask1, overflow1 = self._run_nerf(
+                self.nerf_fine, particles, xyz1, rays, ro, grid=grid,
+                cull=False)
+            rgb1, depth1, weights1 = ray_ops.composite(
+                rgbsigma1, z1, rays, white_background, noise_std)
+            return dict(rgb1=rgb1, depth1=depth1, opacity1=weights1.sum(1),
+                        num_nn_1=num_nn1, mask_1=mask1.sum(dim=(1, 2)),
+                        overflow=overflow0 | overflow1)
 
 
 def camera_origin(c2w: torch.Tensor) -> torch.Tensor:

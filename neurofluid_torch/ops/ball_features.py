@@ -38,6 +38,7 @@ from neurofluid_torch.cuda import Kernel, check_tensor
 from neurofluid_torch.ops.neighbor_search import (
     build_cell_grid, cell_dims, cell_ids,
 )
+from neurofluid_torch.utils.profiling import span
 
 N_SUMS = 13
 SENTINEL = 1e9
@@ -165,7 +166,9 @@ def group_queries_on(queries, points, radius: float, lower, dims: tuple,
 
     cells = torch.arange(num_cells + 1, device=dev)
     starts_cell = torch.searchsorted(qcell, cells)
-    counts = torch.diff(starts_cell, append=starts_cell.new_tensor([capacity]))
+    with span("sync.group_queries"):  # a host-to-device copy waits
+        end = starts_cell.new_tensor([capacity])
+    counts = torch.diff(starts_cell, append=end)
     gbase = torch.cat([counts.new_zeros(1), torch.cumsum(-(-counts // t), 0)])
     rank_in_cell = torch.arange(capacity, device=dev) - starts_cell[qcell]
     group_of_q = gbase[qcell] + rank_in_cell // t
@@ -376,7 +379,12 @@ class BallFeatureSums(torch.autograd.Function):
         live = grouping.rep_idx < capacity
         slot_of_sorted = torch.zeros(capacity, dtype=torch.long,
                                      device=queries.device)
-        slot_of_sorted[grouping.rep_idx[live]] = torch.nonzero(live)[:, 0]
+        with span("sync.ball_features"):
+            slots = torch.nonzero(live)[:, 0]
+        # a boolean mask index counts its rows on the host, as nonzero does
+        with span("sync.ball_features_mask"):
+            packed = grouping.rep_idx[live]
+        slot_of_sorted[packed] = slots
         r = grouping.inv_rank
         kept = r < capacity
         sums = sums_rep[slot_of_sorted[torch.clamp(r, max=capacity - 1)]]

@@ -32,6 +32,7 @@ from typing import NamedTuple
 import torch
 
 from neurofluid_torch.ops import segment_ops
+from neurofluid_torch.utils.profiling import span
 
 
 def cell_dims(lower, upper, cell_size: float) -> tuple:
@@ -45,8 +46,11 @@ def cell_ids(points: torch.Tensor, lower, dims: tuple,
              cell_size: float) -> torch.Tensor:
     """(N,) z-fastest cell id of each point; points outside the box clamp
     to border cells."""
-    lo = torch.as_tensor(lower, dtype=points.dtype, device=points.device)
-    hi = torch.as_tensor(dims, device=points.device) - 1
+    # each copy of a host constant to the device waits for the stream
+    with span("sync.cell_ids"):
+        lo = torch.as_tensor(lower, dtype=points.dtype, device=points.device)
+    with span("sync.cell_ids"):
+        hi = torch.as_tensor(dims, device=points.device) - 1
     cell = torch.floor((points - lo) / cell_size).long()
     cell = torch.minimum(torch.clamp(cell, min=0), hi)
     return (cell[:, 0] * dims[1] + cell[:, 1]) * dims[2] + cell[:, 2]

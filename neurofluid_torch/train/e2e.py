@@ -45,6 +45,7 @@ from neurofluid_torch.train.warmup import (
     build_renderer, load_renderer, render_views,
 )
 from neurofluid_torch.utils.metrics import FluidErrors, psnr as psnr_np
+from neurofluid_torch.utils.profiling import span
 
 
 def leaf_norms(tensors) -> torch.Tensor:
@@ -84,50 +85,56 @@ def make_e2e_train_step(transition, renderer, opt_r, opt_t, bounds,
     def train_step(pos, vel, box, nrm, ro_v, rays_v, rgbs_v, box_plan=None,
                    anchor_pos=None, anchor_ro_v=None, anchor_rays_v=None,
                    anchor_rgbs_v=None):
-        opt_r.zero_grad(set_to_none=True)
-        opt_t.zero_grad(set_to_none=True)
-        pred_pos, pred_vel, _, diag = transition(
-            pos.detach(), vel.detach(), box, nrm, box_plan=box_plan)
-        outs, se0, se1, overflow = render_views(renderer, pred_pos, ro_v,
-                                                rays_v, rgbs_v)
-        mse0, mse1 = se0.mean(dim=(1, 2)), se1.mean(dim=(1, 2))
-        bd = losses.boundary_loss(pred_pos, bounds)
-        loss = torch.sum(mse0 + mse1) + bd_weight * bd
-        if with_anchor:
-            _, ase0, ase1, anchor_overflow = render_views(
-                renderer, anchor_pos.detach(), anchor_ro_v, anchor_rays_v,
-                anchor_rgbs_v)
-            loss = loss + anchor_weight * (ase0.mean() + ase1.mean())
-            overflow = overflow | anchor_overflow
-        loss.backward()
+        with span("step.e2e"):
+            opt_r.zero_grad(set_to_none=True)
+            opt_t.zero_grad(set_to_none=True)
+            pred_pos, pred_vel, _, diag = transition(
+                pos.detach(), vel.detach(), box, nrm, box_plan=box_plan)
+            outs, se0, se1, overflow = render_views(renderer, pred_pos, ro_v,
+                                                    rays_v, rgbs_v)
+            mse0, mse1 = se0.mean(dim=(1, 2)), se1.mean(dim=(1, 2))
+            bd = losses.boundary_loss(pred_pos, bounds)
+            loss = torch.sum(mse0 + mse1) + bd_weight * bd
+            if with_anchor:
+                _, ase0, ase1, anchor_overflow = render_views(
+                    renderer, anchor_pos.detach(), anchor_ro_v, anchor_rays_v,
+                    anchor_rgbs_v)
+                loss = loss + anchor_weight * (ase0.mean() + ase1.mean())
+                overflow = overflow | anchor_overflow
+            with span("backward"):
+                loss.backward()
 
-        g_r, g_t = grads_or_zeros(params_r), grads_or_zeros(params_t)
-        gn_r, gn_t = global_norm(g_r), global_norm(g_t)
-        aux = {
-            "rgbloss_0": torch.sum(mse0).detach(),
-            "rgbloss_1": torch.sum(mse1).detach(),
-            "mse0_views": mse0.detach(), "mse1_views": mse1.detach(),
-            "boundary_loss": bd.detach(),
-            "search_overflow": diag["grid_overflow"] | overflow,
-            "search_cap_exceeded": diag["cap_exceeded"],
-            "num_nn_0": torch.stack([o["num_nn_0"] for o in outs]).detach(),
-            "num_nn_1": torch.stack([o["num_nn_1"] for o in outs]).detach(),
-            "grad_norm_renderer": gn_r, "grad_norm_transition": gn_t,
-        }
-        if grad_clip_value:
-            clip = torch.as_tensor(grad_clip_value, dtype=gn_r.dtype,
-                                   device=gn_r.device)
-            for name, params, grads, gn in (("renderer", params_r, g_r, gn_r),
-                                            ("transition", params_t, g_t,
-                                             gn_t)):
-                before = leaf_norms(grads)
-                aux[f"grad_hist_{name}_before"] = before
-                aux[f"grad_hist_{name}_after"] = before * torch.minimum(
-                    torch.ones_like(clip), clip / (gn + 1e-16))
-                clip_grads_(params, grads, gn, clip)
-        opt_r.step()
-        opt_t.step()
-        return loss.detach(), pred_pos.detach(), pred_vel.detach(), aux
+            with span("optimizer"):
+                g_r, g_t = grads_or_zeros(params_r), grads_or_zeros(params_t)
+                gn_r, gn_t = global_norm(g_r), global_norm(g_t)
+                aux = {
+                    "rgbloss_0": torch.sum(mse0).detach(),
+                    "rgbloss_1": torch.sum(mse1).detach(),
+                    "mse0_views": mse0.detach(), "mse1_views": mse1.detach(),
+                    "boundary_loss": bd.detach(),
+                    "search_overflow": diag["grid_overflow"] | overflow,
+                    "search_cap_exceeded": diag["cap_exceeded"],
+                    "num_nn_0": torch.stack(
+                        [o["num_nn_0"] for o in outs]).detach(),
+                    "num_nn_1": torch.stack(
+                        [o["num_nn_1"] for o in outs]).detach(),
+                    "grad_norm_renderer": gn_r, "grad_norm_transition": gn_t,
+                }
+                if grad_clip_value:
+                    clip = torch.as_tensor(grad_clip_value, dtype=gn_r.dtype,
+                                           device=gn_r.device)
+                    for name, params, grads, gn in (
+                            ("renderer", params_r, g_r, gn_r),
+                            ("transition", params_t, g_t, gn_t)):
+                        before = leaf_norms(grads)
+                        aux[f"grad_hist_{name}_before"] = before
+                        aux[f"grad_hist_{name}_after"] = before * \
+                            torch.minimum(torch.ones_like(clip),
+                                          clip / (gn + 1e-16))
+                        clip_grads_(params, grads, gn, clip)
+                opt_r.step()
+                opt_t.step()
+            return loss.detach(), pred_pos.detach(), pred_vel.detach(), aux
 
     return train_step
 

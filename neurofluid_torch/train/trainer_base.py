@@ -27,6 +27,7 @@ from neurofluid_torch.cuda import resolve_device
 from neurofluid_torch.train import losses
 from neurofluid_torch.utils import jax_random
 from neurofluid_torch.utils.logging import MetricsLogger, to8b
+from neurofluid_torch.utils.profiling import span
 
 
 class TrainerBase:
@@ -77,7 +78,9 @@ class TrainerBase:
         bad model must not stop a run whose metric reports the divergence
         anyway. Returns True when overflow was present.
         """
-        if not bool(flag):
+        with span("sync.overflow"):
+            overflow = bool(flag)
+        if not overflow:
             return False
         msg = (
             f"neighbor-search overflow at step {step} ({context}): a cell "
@@ -152,28 +155,29 @@ class TrainerBase:
             return flat[: n * (flat.shape[0] // total)]
 
         def render_full(particles, ro, rays_flat):
-            dev = particles.device
-            rays_flat = torch.as_tensor(rays_flat, dtype=torch.float32,
-                                        device=dev)
-            n = rays_flat.shape[0]
-            n_chunks = -(-n // chunk)
-            outs = []
-            with torch.no_grad():
-                grid = model._shared_grid(particles)
-                for i in range(n_chunks):
-                    part = rays_flat[i * chunk:(i + 1) * chunk]
-                    pad = chunk - part.shape[0]
-                    if pad:
-                        part = torch.cat([part, part[-1:].expand(pad, 6)])
-                    outs.append(model(particles, ro, part, grid=grid))
-            merged = {}
-            for k in outs[0]:
-                if outs[0][k].ndim == 0:
-                    merged[k] = torch.stack([o[k] for o in outs])
-                    continue
-                cat = torch.cat([o[k] for o in outs])
-                merged[k] = trim(cat, k, n, n_chunks)
-            return merged
+            with span("frame"):
+                dev = particles.device
+                rays_flat = torch.as_tensor(rays_flat, dtype=torch.float32,
+                                            device=dev)
+                n = rays_flat.shape[0]
+                n_chunks = -(-n // chunk)
+                outs = []
+                with torch.no_grad():
+                    grid = model._shared_grid(particles)
+                    for i in range(n_chunks):
+                        part = rays_flat[i * chunk:(i + 1) * chunk]
+                        pad = chunk - part.shape[0]
+                        if pad:
+                            part = torch.cat([part, part[-1:].expand(pad, 6)])
+                        outs.append(model(particles, ro, part, grid=grid))
+                merged = {}
+                for k in outs[0]:
+                    if outs[0][k].ndim == 0:
+                        merged[k] = torch.stack([o[k] for o in outs])
+                        continue
+                    cat = torch.cat([o[k] for o in outs])
+                    merged[k] = trim(cat, k, n, n_chunks)
+                return merged
 
         return render_full
 

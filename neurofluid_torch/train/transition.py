@@ -32,6 +32,7 @@ from neurofluid_torch.train import checkpoint as ckpt
 from neurofluid_torch.train import losses
 from neurofluid_torch.train.trainer_base import TrainerBase, host
 from neurofluid_torch.utils.metrics import FluidErrors
+from neurofluid_torch.utils.profiling import span
 
 
 def grads_or_zeros(params):
@@ -132,35 +133,40 @@ def make_transition_train_step(net: ParticleNet,
     params = list(net.parameters())
 
     def train_step(pos0, vel0, pos1, pos2, box, box_normals, box_plan=None):
-        optimizer.zero_grad(set_to_none=True)
-        if box_plan is None:
-            box_plan = net.make_box_plan(box)
-        pred1, v1, nn1, diag1 = net(pos0, vel0, box, box_normals,
-                                    box_plan=box_plan)
-        pred2, _, nn2, diag2 = net(pred1, v1, box, box_normals,
-                                   box_plan=box_plan)
-        l1 = losses.weighted_mse_loss(pred1, pos1, nn1)
-        l2 = losses.weighted_mse_loss(pred2, pos2, nn2)
-        b1 = losses.boundary_loss(pred1, bounds)
-        b2 = losses.boundary_loss(pred2, bounds)
-        loss = 0.5 * l1 + 0.5 * l2 + b1 + b2
-        loss.backward()
+        with span("step.transition"):
+            optimizer.zero_grad(set_to_none=True)
+            if box_plan is None:
+                box_plan = net.make_box_plan(box)
+            pred1, v1, nn1, diag1 = net(pos0, vel0, box, box_normals,
+                                        box_plan=box_plan)
+            pred2, _, nn2, diag2 = net(pred1, v1, box, box_normals,
+                                       box_plan=box_plan)
+            l1 = losses.weighted_mse_loss(pred1, pos1, nn1)
+            l2 = losses.weighted_mse_loss(pred2, pos2, nn2)
+            b1 = losses.boundary_loss(pred1, bounds)
+            b2 = losses.boundary_loss(pred2, bounds)
+            loss = 0.5 * l1 + 0.5 * l2 + b1 + b2
+            with span("backward"):
+                loss.backward()
 
-        grads = grads_or_zeros(params)
-        gnorm = global_norm(grads)
-        if grad_clip_value:
-            clip_grads_(params, grads, gnorm, torch.as_tensor(
-                grad_clip_value, dtype=gnorm.dtype, device=gnorm.device))
-        optimizer.step()
-        aux = {
-            "loss1": l1.detach(), "loss2": l2.detach(),
-            "bloss1": b1.detach(), "bloss2": b2.detach(),
-            "search_overflow": diag1["grid_overflow"] | diag2["grid_overflow"],
-            "search_cap_exceeded": (diag1["cap_exceeded"]
-                                    | diag2["cap_exceeded"]),
-            "grad_norm": gnorm,
-        }
-        return loss.detach(), aux
+            with span("optimizer"):
+                grads = grads_or_zeros(params)
+                gnorm = global_norm(grads)
+                if grad_clip_value:
+                    clip_grads_(params, grads, gnorm, torch.as_tensor(
+                        grad_clip_value, dtype=gnorm.dtype,
+                        device=gnorm.device))
+                optimizer.step()
+            aux = {
+                "loss1": l1.detach(), "loss2": l2.detach(),
+                "bloss1": b1.detach(), "bloss2": b2.detach(),
+                "search_overflow": (diag1["grid_overflow"]
+                                    | diag2["grid_overflow"]),
+                "search_cap_exceeded": (diag1["cap_exceeded"]
+                                        | diag2["cap_exceeded"]),
+                "grad_norm": gnorm,
+            }
+            return loss.detach(), aux
 
     return train_step
 

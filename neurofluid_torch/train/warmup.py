@@ -29,6 +29,7 @@ from neurofluid_torch.train import checkpoint as ckpt
 from neurofluid_torch.train import schedules
 from neurofluid_torch.train.trainer_base import TrainerBase, host
 from neurofluid_torch.utils.metrics import psnr as psnr_np
+from neurofluid_torch.utils.profiling import span
 
 def build_renderer(cfg, device="cuda",
                    generator: torch.Generator | None = None,
@@ -95,14 +96,17 @@ def make_warmup_train_step(renderer: RenderNet,
     backward, one optimizer update; the caller steps the LR schedule."""
 
     def train_step(particles, ro_v, rays_v, rgbs_v):
-        optimizer.zero_grad(set_to_none=True)
-        _, se0, se1, overflow = render_views(renderer, particles, ro_v,
-                                             rays_v, rgbs_v)
-        mse0, mse1 = se0.mean(dim=(1, 2)), se1.mean(dim=(1, 2))
-        loss = torch.sum(mse0 + mse1)
-        loss.backward()
-        optimizer.step()
-        return loss.detach(), (mse0.detach(), mse1.detach(), overflow)
+        with span("step.warmup"):
+            optimizer.zero_grad(set_to_none=True)
+            _, se0, se1, overflow = render_views(renderer, particles, ro_v,
+                                                 rays_v, rgbs_v)
+            mse0, mse1 = se0.mean(dim=(1, 2)), se1.mean(dim=(1, 2))
+            loss = torch.sum(mse0 + mse1)
+            with span("backward"):
+                loss.backward()
+            with span("optimizer"):
+                optimizer.step()
+            return loss.detach(), (mse0.detach(), mse1.detach(), overflow)
 
     return train_step
 

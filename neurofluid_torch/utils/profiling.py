@@ -1,74 +1,105 @@
-"""Profiling and timing helpers (port of neurofluid_tpu/utils/profiling.py;
-the reference has none).
+"""Profiling helpers (port of neurofluid_tpu/utils/profiling.py; the
+reference has none).
 
-`trace` records a `torch.profiler` trace (the JAX package's `xla_trace`);
-`block_and_time` waits for the card where the JAX package blocks on its
-result.
+`trace` records a `torch.profiler` trace (the JAX package's `xla_trace`).
+
+`span(name)` marks a stretch of the program: while a torch profiler is
+recording, it enters `torch.profiler.record_function(name)` (so the
+profiler's trace shows the range) and appends a `Span` to an in-memory
+record, stamped with `time.time_ns()`, the clock the profiler stamps its
+events on; otherwise it does one check and returns a shared no-op
+context. `spans()` reads the record and `reset()` clears it. There is no
+other switch: a profiler recording is the switch.
+
+The program's spans, by layer:
+- the entry points: `step.transition`, `step.e2e`, `step.warmup` (one
+  train step each) and `frame` (a chunked full-image render);
+- the model: `particle_net` (child `particle_net.plan`: the search
+  structures and sorts), `render` (children `render.features`: search,
+  ball-feature sums and encodings; `render.nerf`: an MLP call),
+  `backward` (a `loss.backward()`), `optimizer` (gradient norms, clipping
+  and the optimizer steps);
+- `sync.<site>`: one call that blocks the host until the device has
+  drained its queue (a read of a device value, or a host-to-device copy
+  from pageable memory). Their number is the port's count of host syncs.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
+from typing import NamedTuple
 
 import torch
+
+_recording = torch._C._autograd._profiler_enabled
+_OFF = contextlib.nullcontext()
+_spans: list = []
+_local = threading.local()
+
+
+class Span(NamedTuple):
+    name: str
+    start_ns: int  # time.time_ns(), the profiler's clock
+    end_ns: int
+    parent: str | None  # the enclosing span's name on the same thread
+
+
+class _Recorded:
+    __slots__ = ("name", "range", "start")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.range = torch.profiler.record_function(self.name)
+        self.range.__enter__()
+        stack = _local.__dict__.setdefault("stack", [])
+        stack.append(self.name)
+        self.start = time.time_ns()
+
+    def __exit__(self, *exc):
+        end = time.time_ns()
+        stack = _local.stack
+        stack.pop()
+        _spans.append(Span(self.name, self.start, end,
+                           stack[-1] if stack else None))
+        self.range.__exit__(*exc)
+
+
+def span(name: str):
+    """A context that records the stretch it encloses as `name` while a
+    torch profiler records, and does nothing otherwise."""
+    return _Recorded(name) if _recording() else _OFF
+
+
+def spans() -> list:
+    """The spans recorded since the last `reset`, each appended when it
+    ended (a child before its parent)."""
+    return list(_spans)
+
+
+def reset() -> None:
+    _spans.clear()
 
 
 @contextlib.contextmanager
 def trace(logdir: str):
     """Record a torch.profiler trace of the block (the CPU, and the card
     when there is one) and write it to `logdir` as a Chrome trace, which
-    TensorBoard's profiler plugin and chrome://tracing read. Yields the
-    profiler, whose `key_averages()` sums the block by operator."""
+    TensorBoard's profiler plugin and chrome://tracing read; the program's
+    spans show in it as ranges. Yields the profiler, whose
+    `key_averages()` sums the block by operator. The span record is
+    cleared on entry, so `spans()` afterwards holds the block's own."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
+    reset()
     with torch.profiler.profile(
             activities=activities,
             on_trace_ready=torch.profiler.tensorboard_trace_handler(
                 logdir)) as prof:
         yield prof
-
-
-class StepTimer:
-    """Wall-clock EMA step timer with a throughput helper."""
-
-    def __init__(self, ema: float = 0.9):
-        self.ema = ema
-        self.avg = None
-        self._t0 = None
-
-    def __enter__(self):
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        dt = time.perf_counter() - self._t0
-        self.avg = dt if self.avg is None else (
-            self.ema * self.avg + (1 - self.ema) * dt)
-
-    def rate(self, items_per_step: float) -> float:
-        return items_per_step / self.avg if self.avg else 0.0
-
-
-def _synchronize():
-    if torch.cuda.is_available() and torch.cuda.is_initialized():
-        torch.cuda.synchronize()
-
-
-def block_and_time(fn, *args, iters: int = 10, warmup: int = 2, **kwargs):
-    """(median wall seconds of `fn(*args, **kwargs)`, the last output),
-    each call timed to the end of its work on the card."""
-    times = []
-    out = None
-    for i in range(warmup + iters):
-        _synchronize()
-        t0 = time.perf_counter()
-        out = fn(*args, **kwargs)
-        _synchronize()
-        if i >= warmup:
-            times.append(time.perf_counter() - t0)
-    times.sort()
-    return times[len(times) // 2], out

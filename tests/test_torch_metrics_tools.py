@@ -8,10 +8,9 @@ against neurofluid_tpu (same seeded numpy inputs, f32 on the CPU).
   (tests/test_torch_cuda.py's `lpips_weights`), written to tmp_path, at
   32 x 32 against the JAX evaluator (1e-5 of the distance), through
   `get_evaluator` / NF_LPIPS_WEIGHTS and `metrics.lpips`;
-- `StepTimer`, `block_and_time` and `trace`."""
+- `trace`."""
 
 import os
-import time
 
 import jax.numpy as jnp
 import numpy as np
@@ -86,31 +85,6 @@ def test_lpips_matches_jax(tmp_path, monkeypatch):
         tlpips.get_evaluator(device="cpu")
     with pytest.raises(FileNotFoundError, match="not found"):
         tlpips.LPIPSEvaluator(str(tmp_path / "none.npz"), device="cpu")
-
-
-def test_step_timer_and_block_and_time():
-    timer = profiling.StepTimer(ema=0.5)
-    assert timer.rate(10) == 0.0
-    for dt in (0.02, 0.04):
-        with timer:
-            time.sleep(dt)
-    # EMA of the two sleeps: 0.5 * t1 + 0.5 * t2, at least 0.03
-    assert 0.029 <= timer.avg < 0.2
-    assert timer.rate(6) == pytest.approx(6 / timer.avg)
-
-    calls = []
-
-    def fn(x, scale=1.0):
-        calls.append(x)
-        time.sleep(0.002 * len(calls))
-        return x * scale
-
-    med, out = profiling.block_and_time(fn, torch.ones(2), iters=5, warmup=2,
-                                        scale=3.0)
-    assert len(calls) == 7 and torch.equal(out, torch.full((2,), 3.0))
-    # the median of the five timed calls is the fifth call's 10 ms sleep or
-    # more (less 1 ms of the host clock's rounding)
-    assert 0.009 <= med < 0.5
 
 
 def test_trace_writes_a_profile(tmp_path):
