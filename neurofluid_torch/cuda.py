@@ -1,4 +1,5 @@
-"""Devices, the nvcc build of `csrc/*.cu`, and the kernel launch handle.
+"""Devices and constants on them, the nvcc build of `csrc/*.cu`, and the
+kernel launch handle.
 
 Each `csrc/<name>.cu` compiles on its own into a shared library with a plain
 C interface (no PyTorch headers, so a build takes seconds); the `csrc/*.cuh`
@@ -18,6 +19,7 @@ turns into an exception.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -49,6 +51,20 @@ def resolve_device(device) -> torch.device:
             "PyTorch versions"
         )
     return dev
+
+
+@functools.lru_cache(maxsize=64)
+def device_constant(values: tuple, dtype: torch.dtype,
+                    device: torch.device) -> torch.Tensor:
+    """`values` as a 1-D `dtype` tensor on `device`, each element rounded
+    as `torch.as_tensor(values, dtype=dtype)` rounds it. It is written by
+    fills: a copy from host memory would wait until the device has drained
+    its queue. Made once per argument set and shared by every caller, so
+    it is read and never written."""
+    out = torch.empty(len(values), dtype=dtype, device=device)
+    for i, v in enumerate(values):
+        out[i].fill_(v)
+    return out
 
 
 def _nvcc() -> str:

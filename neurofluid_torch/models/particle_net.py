@@ -46,7 +46,7 @@ import math
 import torch
 from torch import nn
 
-from neurofluid_torch.cuda import resolve_device
+from neurofluid_torch.cuda import device_constant, resolve_device
 from neurofluid_torch.models.init import (
     generator_or_default, init_linear, uniform_,
 )
@@ -234,9 +234,7 @@ class ParticleNet(nn.Module):
 
     def integrate_pos_vel(self, pos, vel):
         dt = self.timestep
-        with span("sync.gravity"):  # a host-to-device copy waits
-            g = torch.as_tensor(self.gravity, dtype=pos.dtype,
-                                device=pos.device)
+        g = device_constant(self.gravity, pos.dtype, pos.device)
         vel_new = vel + g * dt
         return pos + (vel + vel_new) / 2.0 * dt, vel_new
 

@@ -38,7 +38,6 @@ from neurofluid_torch.cuda import Kernel, check_tensor
 from neurofluid_torch.ops.neighbor_search import (
     build_cell_grid, cell_dims, cell_ids,
 )
-from neurofluid_torch.utils.profiling import span
 
 N_SUMS = 13
 SENTINEL = 1e9
@@ -164,11 +163,10 @@ def group_queries_on(queries, points, radius: float, lower, dims: tuple,
     inv_rank[order] = torch.arange(n_q, device=dev)
     qcell = key_sorted[:capacity]
 
-    cells = torch.arange(num_cells + 1, device=dev)
-    starts_cell = torch.searchsorted(qcell, cells)
-    with span("sync.group_queries"):  # a host-to-device copy waits
-        end = starts_cell.new_tensor([capacity])
-    counts = torch.diff(starts_cell, append=end)
+    # every key is at most num_cells, so the run of cell num_cells + 1
+    # starts at capacity: the last count ends there
+    bounds = torch.searchsorted(qcell, torch.arange(num_cells + 2, device=dev))
+    starts_cell, counts = bounds[:-1], torch.diff(bounds)
     gbase = torch.cat([counts.new_zeros(1), torch.cumsum(-(-counts // t), 0)])
     rank_in_cell = torch.arange(capacity, device=dev) - starts_cell[qcell]
     group_of_q = gbase[qcell] + rank_in_cell // t
@@ -185,6 +183,20 @@ def group_queries_on(queries, points, radius: float, lower, dims: tuple,
                           capacity).reshape(-1)
     return BallGrouping(order, inv_rank, gcell, rep_idx, capacity, ng, t,
                         cull_overflow)
+
+
+def packed_slots(rep_idx: torch.Tensor, capacity: int) -> torch.Tensor:
+    """(capacity,) the packed slot of each kept sorted query, from the
+    grouping's `rep_idx` (the sorted query of each slot, `capacity` at
+    padded slots); 0 for a query with no slot (only a grouping capped by
+    `max_groups` leaves one). A kept query has at most one slot, so the
+    map is one scatter of fixed size, with no count of the live slots on
+    the host: the padded slots write to the extra row `capacity`, which
+    is dropped."""
+    n_slots, dev = rep_idx.shape[0], rep_idx.device
+    slot = torch.zeros(capacity + 1, dtype=torch.long, device=dev)
+    slot.scatter_(0, rep_idx, torch.arange(n_slots, device=dev))
+    return slot[:capacity]
 
 
 def build_tables(points, lower, upper, radius: float, max_per_cell: int):
@@ -375,16 +387,7 @@ class BallFeatureSums(torch.autograd.Function):
         sums_rep = fwd(q_rep, tx, ty, tz, grouping.gcell, grid.dims, radius,
                        k, grouping.group_size)
 
-        # packed slot of each kept sorted query, then of each original query
-        live = grouping.rep_idx < capacity
-        slot_of_sorted = torch.zeros(capacity, dtype=torch.long,
-                                     device=queries.device)
-        with span("sync.ball_features"):
-            slots = torch.nonzero(live)[:, 0]
-        # a boolean mask index counts its rows on the host, as nonzero does
-        with span("sync.ball_features_mask"):
-            packed = grouping.rep_idx[live]
-        slot_of_sorted[packed] = slots
+        slot_of_sorted = packed_slots(grouping.rep_idx, capacity)
         r = grouping.inv_rank
         kept = r < capacity
         sums = sums_rep[slot_of_sorted[torch.clamp(r, max=capacity - 1)]]

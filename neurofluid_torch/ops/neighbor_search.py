@@ -31,8 +31,8 @@ from typing import NamedTuple
 
 import torch
 
+from neurofluid_torch.cuda import device_constant
 from neurofluid_torch.ops import segment_ops
-from neurofluid_torch.utils.profiling import span
 
 
 def cell_dims(lower, upper, cell_size: float) -> tuple:
@@ -46,11 +46,10 @@ def cell_ids(points: torch.Tensor, lower, dims: tuple,
              cell_size: float) -> torch.Tensor:
     """(N,) z-fastest cell id of each point; points outside the box clamp
     to border cells."""
-    # each copy of a host constant to the device waits for the stream
-    with span("sync.cell_ids"):
-        lo = torch.as_tensor(lower, dtype=points.dtype, device=points.device)
-    with span("sync.cell_ids"):
-        hi = torch.as_tensor(dims, device=points.device) - 1
+    lo = device_constant(tuple(float(v) for v in lower), points.dtype,
+                         points.device)
+    hi = device_constant(tuple(int(d) - 1 for d in dims), torch.int64,
+                         points.device)
     cell = torch.floor((points - lo) / cell_size).long()
     cell = torch.minimum(torch.clamp(cell, min=0), hi)
     return (cell[:, 0] * dims[1] + cell[:, 1]) * dims[2] + cell[:, 2]

@@ -22,6 +22,8 @@ The program's spans, by layer:
 - `sync.<site>`: one call that blocks the host until the device has
   drained its queue (a read of a device value, or a host-to-device copy
   from pageable memory). Their number is the port's count of host syncs.
+  The model's units make none; the one site left is `sync.overflow`, the
+  trainers' read of the search-overflow flag after a step.
 """
 
 from __future__ import annotations

@@ -1,7 +1,8 @@
 """The port's CUDA kernels (K1-K8) against their plain versions on the
 card, at small shapes, and a gradcheck-style directional-derivative check
 of each differentiable wrapper (CompositeWeights, FusedCConv,
-BallFeatureSums, take_rows_planned) with its kernels on both sides. These
+BallFeatureSums, take_rows_planned) with its kernels on both sides, and a
+unit of each entry point that must never wait for the card. These
 need an NVIDIA GPU with nvcc: on a machine without one they skip. Run them
 on the card with
 
@@ -1218,3 +1219,25 @@ def test_world_of_one_nccl_composed_step(dev, tmp_path):
                                rtol=1e-2)
     np.testing.assert_allclose(got["next_pos"].numpy(),
                                want["next_pos"].numpy(), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("entry", ["transition", "e2e", "warmup", "frame"])
+def test_model_units_never_wait_for_the_card(dev, entry):
+    """After a warm-up unit, one more unit of each entry point runs under
+    `set_sync_debug_mode('error')`: any call that blocks the host until
+    the card drains its queue (a read of a device value, a copy from
+    pageable host memory, `torch.nonzero`) raises."""
+    from test_torch_tracing import _run_entry
+
+    run = _run_entry(entry, dev)
+    run()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = run()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    leaves = [t for t in (out.values() if isinstance(out, dict) else out)
+              if isinstance(t, torch.Tensor) and t.is_floating_point()]
+    assert leaves and all(bool(torch.isfinite(t).all()) for t in leaves)

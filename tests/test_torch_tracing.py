@@ -76,7 +76,7 @@ def test_trace_resets_the_record(tmp_path):
     assert profiling.spans() == []
 
 
-def _scene(n_views: int):
+def _scene(n_views: int, device):
     g = torch.Generator().manual_seed(3)
     n, m, r = 160, 24, 8
     pos = torch.rand(n, 3, generator=g) * 0.5 - 0.25
@@ -91,20 +91,24 @@ def _scene(n_views: int):
     rays_v = rays[None].repeat(n_views, 1, 1)
     views = (rays_v[:, 0, :3].clone(), rays_v,
              torch.rand(n_views, r, 3, generator=g))
-    return pos, vel, box, nrm, views
+    return (pos.to(device), vel.to(device), box.to(device), nrm.to(device),
+            tuple(t.to(device) for t in views))
 
 
-def _models():
+def _models(device):
     g = torch.Generator().manual_seed(0)
     net = ParticleNet(gravity=(0.0, 0.0, -9.81), search_backend="fused_cconv",
-                      device="cpu", generator=g, **TIGHT)
-    return net, RenderNet(device="cpu", generator=g, **RENDER)
+                      device=device, generator=g, **TIGHT)
+    return net, RenderNet(device=device, generator=g, **RENDER)
 
 
-def _run_entry(entry: str):
-    net, ren = _models()
-    bounds = losses.default_box_bounds(device="cpu")
-    pos, vel, box, nrm, views = _scene(4 if entry == "warmup" else 1)
+def _run_entry(entry: str, device="cpu"):
+    """One unit of an entry point at small sizes, as a closure: a
+    transition, an end-to-end or a warm-up train step, or a chunked frame
+    (also run on the card by `tests/test_torch_cuda.py`)."""
+    net, ren = _models(device)
+    bounds = losses.default_box_bounds(device=device)
+    pos, vel, box, nrm, views = _scene(4 if entry == "warmup" else 1, device)
     if entry == "transition":
         step = transition.make_transition_train_step(
             net, torch.optim.Adam(net.parameters(), 1e-5), bounds)
@@ -123,31 +127,27 @@ def _run_entry(entry: str):
 
 
 # per entry: (spans by name, as they nest under their parents), then the
-# number of `sync.*` spans: each H2D copy of `cell_ids` (2 per grid or
-# plan), K3's grouping (1), its compaction (`sync.ball_features` and the
-# mask index), the gravity copy (1 per ParticleNet step)
+# number of `sync.*` spans: none, since no unit of the model waits for the
+# device (the grid constants are fills, K3's compaction a fixed-size
+# scatter)
 EXPECTED = {
     "transition": ({("step.transition", None): 1,
                     ("particle_net", "step.transition"): 2,
                     ("particle_net.plan", "particle_net"): 2,
                     ("backward", "step.transition"): 1,
-                    ("optimizer", "step.transition"): 1}, 2 + 2 * 3),
+                    ("optimizer", "step.transition"): 1}, 0),
     "e2e": ({("step.e2e", None): 1, ("particle_net", "step.e2e"): 1,
              ("particle_net.plan", "particle_net"): 1,
              ("render", "step.e2e"): 1, ("render.features", "render"): 2,
              ("render.nerf", "render"): 2, ("backward", "step.e2e"): 1,
-             ("optimizer", "step.e2e"): 1,
-             ("sync.ball_features", "render.features"): 2},
-            2 + 3 + 2 * 7),
+             ("optimizer", "step.e2e"): 1}, 0),
     "warmup": ({("step.warmup", None): 1, ("render", "step.warmup"): 4,
                 ("render.features", "render"): 8,
                 ("render.nerf", "render"): 8, ("backward", "step.warmup"): 1,
-                ("optimizer", "step.warmup"): 1,
-                ("sync.ball_features", "render.features"): 8}, 8 * 7),
+                ("optimizer", "step.warmup"): 1}, 0),
     "frame": ({("frame", None): 1, ("render", "frame"): 2,
                ("render.features", "render"): 4,
-               ("render.nerf", "render"): 4,
-               ("sync.ball_features", "render.features"): 4}, 4 * 7),
+               ("render.nerf", "render"): 4}, 0),
 }
 
 
