@@ -427,28 +427,34 @@ class ParticleNet(nn.Module):
             extend_pos, extend_feats, valid, halo_over = self._extension(
                 pos_new)
             all_pos = extend_pos(pos_new)
-            fluid_nbrs, ov_fluid = self._search(pos_new, all_pos,
-                                                self.fluid_neighbor_k, True,
-                                                points_valid=valid)
+            with span("particle_net.search"):
+                fluid_nbrs, ov_fluid = self._search(
+                    pos_new, all_pos, self.fluid_neighbor_k, True,
+                    points_valid=valid)
+                box_nbrs, ov_box = self._search(
+                    pos_new, box, self.obstacle_neighbor_k, False,
+                    grid=box_grid if isinstance(box_grid, CellGrid)
+                    else None)
             if halo_over is not None:
                 ov_fluid = ov_fluid | halo_over
-            box_nbrs, ov_box = self._search(
-                pos_new, box, self.obstacle_neighbor_k, False,
-                grid=box_grid if isinstance(box_grid, CellGrid) else None)
 
             # the geometry and the backward plans, once per list for all
             # layers
-            fluid_plan = segment_ops.AdjointPlan(fluid_nbrs.idx,
-                                                 all_pos.shape[0])
-            box_plan = segment_ops.AdjointPlan(box_nbrs.idx, box.shape[0])
-            fl_corner, fl_tapw = cconv.cconv_geometry(
-                all_pos, pos_new, fluid_nbrs, extent, self.kernel_size,
-                fluid_plan)
-            bx_corner, bx_tapw = cconv.cconv_geometry(
-                box, pos_new, box_nbrs, extent, self.kernel_size, box_plan)
-            # the fluid list feeds every fluid layer; the box list only one
-            fl_tw = cconv.cconv_tap_matrix(fl_corner, fl_tapw,
-                                           math.prod(self.kernel_size))
+            with span("particle_net.geometry"):
+                fluid_plan = segment_ops.AdjointPlan(fluid_nbrs.idx,
+                                                     all_pos.shape[0])
+                box_plan = segment_ops.AdjointPlan(box_nbrs.idx,
+                                                   box.shape[0])
+                fl_corner, fl_tapw = cconv.cconv_geometry(
+                    all_pos, pos_new, fluid_nbrs, extent, self.kernel_size,
+                    fluid_plan)
+                bx_corner, bx_tapw = cconv.cconv_geometry(
+                    box, pos_new, box_nbrs, extent, self.kernel_size,
+                    box_plan)
+                # the fluid list feeds every fluid layer; the box list
+                # only one
+                fl_tw = cconv.cconv_tap_matrix(fl_corner, fl_tapw,
+                                               math.prod(self.kernel_size))
 
         ans_fluid = self.conv0_fluid.forward_list(
             extend_feats(fluid), fluid_nbrs, None, None, fluid_plan,

@@ -35,6 +35,7 @@ import torch
 
 from neurofluid_torch.ops import segment_ops
 from neurofluid_torch.ops.neighbor_search import NeighborList
+from neurofluid_torch.utils.profiling import sync_span
 
 EPS = 1e-8
 # the JAX package's precision names of the conv contractions
@@ -129,12 +130,15 @@ def trilinear_taps(cube_xyz: torch.Tensor, kernel_size: tuple):
     index (tz * ky + ty) * kx + tx, weight (..., 8)), corners ordered z
     outer, x inner."""
     kz, ky, kx = kernel_size
-    sizes = cube_xyz.new_tensor([kx, ky, kz])
+    # each copy of a host constant to the device waits for the stream
+    with sync_span("sync.tap_sizes", cube_xyz.device):
+        sizes = cube_xyz.new_tensor([kx, ky, kz])
     t = (cube_xyz * 0.5 + 0.5) * (sizes - 1.0)
     t = torch.minimum(torch.clamp(t, min=0.0), sizes - 1.0)
-    i0 = torch.minimum(torch.floor(t).long().clamp(min=0),
-                       torch.as_tensor([kx - 2, ky - 2, kz - 2],
-                                       device=t.device))
+    with sync_span("sync.tap_corner_max", cube_xyz.device):
+        corner_max = torch.as_tensor([kx - 2, ky - 2, kz - 2],
+                                     device=t.device)
+    i0 = torch.minimum(torch.floor(t).long().clamp(min=0), corner_max)
     frac = t - i0.to(t.dtype)
     ix, iy, iz = i0.unbind(-1)
     fx, fy, fz = frac.unbind(-1)
@@ -153,12 +157,14 @@ def trilinear_taps_vjp(cube_xyz: torch.Tensor, kernel_size: tuple,
     corner weights -> (..., 3) cotangent on the cube point. The corner
     indices are discrete."""
     kz, ky, kx = kernel_size
-    sizes = cube_xyz.new_tensor([kx, ky, kz])
+    with sync_span("sync.tap_sizes", cube_xyz.device):
+        sizes = cube_xyz.new_tensor([kx, ky, kz])
     t_raw = (cube_xyz * 0.5 + 0.5) * (sizes - 1.0)
     t = torch.minimum(torch.clamp(t_raw, min=0.0), sizes - 1.0)
-    i0 = torch.minimum(torch.floor(t).long().clamp(min=0),
-                       torch.as_tensor([kx - 2, ky - 2, kz - 2],
-                                       device=t.device))
+    with sync_span("sync.tap_corner_max", cube_xyz.device):
+        corner_max = torch.as_tensor([kx - 2, ky - 2, kz - 2],
+                                     device=t.device)
+    i0 = torch.minimum(torch.floor(t).long().clamp(min=0), corner_max)
     fx, fy, fz = (t - i0.to(t.dtype)).unbind(-1)
     g = g_weights.unbind(-1)
     g_f = [torch.zeros_like(fx) for _ in range(3)]  # x, y, z

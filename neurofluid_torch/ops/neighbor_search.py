@@ -33,6 +33,7 @@ import torch
 
 from neurofluid_torch.cuda import device_constant
 from neurofluid_torch.ops import segment_ops
+from neurofluid_torch.utils.profiling import sync_span
 
 
 def cell_dims(lower, upper, cell_size: float) -> tuple:
@@ -235,14 +236,17 @@ def _grid_chunk(q, grid: CellGrid, radius, r2, k, order, inclusive,
     dims, cap, dev = grid.dims, grid.cap, q.device
     reach = max(1, int(math.ceil(radius / grid.cell_size)))
     num_cells = dims[0] * dims[1] * dims[2]
-    origin = torch.tensor(grid.origin, dtype=q.dtype, device=dev)
+    # each copy of a host constant to the device waits for the stream
+    with sync_span("sync.grid_origin", dev):
+        origin = torch.tensor(grid.origin, dtype=q.dtype, device=dev)
     cell = torch.floor((q - origin) / grid.cell_size).long()
     span = torch.arange(-reach, reach + 1, device=dev)
     offsets = torch.stack(torch.meshgrid(span, span, span, indexing="ij"),
                           dim=-1).reshape(-1, 3)  # (O, 3), x slowest
     ncell = cell[:, None, :] + offsets[None]  # (C, O, 3)
-    in_grid = ((ncell >= 0)
-               & (ncell < torch.tensor(dims, device=dev))).all(-1)
+    with sync_span("sync.grid_dims", dev):
+        dims_t = torch.tensor(dims, device=dev)
+    in_grid = ((ncell >= 0) & (ncell < dims_t)).all(-1)
     ncell_id = (ncell[..., 0] * dims[1] + ncell[..., 1]) * dims[2] \
         + ncell[..., 2]
     # out-of-grid lookups read the all-empty sentinel row

@@ -15,15 +15,25 @@ The program's spans, by layer:
 - the entry points: `step.transition`, `step.e2e`, `step.warmup` (one
   train step each) and `frame` (a chunked full-image render);
 - the model: `particle_net` (child `particle_net.plan`: the search
-  structures and sorts), `render` (children `render.features`: search,
+  structures and sorts; on the list backends its children
+  `particle_net.search`, both searches with their grid builds, and
+  `particle_net.geometry`, the adjoint plans, the conv geometry and the
+  tap matrix), `render` (children `render.features`: search,
   ball-feature sums and encodings; `render.nerf`: an MLP call),
   `backward` (a `loss.backward()`), `optimizer` (gradient norms, clipping
   and the optimizer steps);
 - `sync.<site>`: one call that blocks the host until the device has
   drained its queue (a read of a device value, or a host-to-device copy
-  from pageable memory). Their number is the port's count of host syncs.
-  The model's units make none; the one site left is `sync.overflow`, the
-  trainers' read of the search-overflow flag after a step.
+  from pageable memory; `sync_span` records a copy only where it goes to
+  a CUDA device). Their number is the port's count of host syncs. The
+  units of the `fused_cconv` backend and of the dense render make none.
+  The list backends make four kinds: `sync.grid_origin` and
+  `sync.grid_dims` once per query chunk of the grid search
+  (`neighbor_search._grid_chunk`, the list render's too), and
+  `sync.tap_sizes` and `sync.tap_corner_max` once per conv geometry
+  (`cconv.trilinear_taps`; `trilinear_taps_vjp` on the plain fused
+  conv's backward). Outside the units, `sync.overflow` is the trainers'
+  read of the search-overflow flag after a step.
 """
 
 from __future__ import annotations
@@ -75,6 +85,13 @@ def span(name: str):
     """A context that records the stretch it encloses as `name` while a
     torch profiler records, and does nothing otherwise."""
     return _Recorded(name) if _recording() else _OFF
+
+
+def sync_span(name: str, device: torch.device):
+    """`span(name)` around a host-to-device copy from pageable memory to
+    `device`: a CUDA device, where the copy waits for the stream; on the
+    CPU nothing waits, and the context does nothing."""
+    return span(name) if device.type == "cuda" else _OFF
 
 
 def spans() -> list:
