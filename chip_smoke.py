@@ -30,6 +30,17 @@ Phases (each prints its own line; any failure raises and exits non-zero):
    inputs (GEMM_TOL, and at least 100 GEMM_TOL from the product with B
    unrounded, as tests/test_torch_split_gemm.py holds its emulation),
    timed beside cuBLAS in bf16 on the same bf16 A;
+   then K9 (`dense_phase`, csrc/dense_layer.cu: the NeRF's wide layers,
+   3xTF32 `wgmma` with bias and ReLU in the epilogue) at the NeRF's shapes,
+   DENSE_SHAPES: its forward against float64 (error relative to sum
+   |x||W|, GEMM_TOL), timed beside the plain version (`F.linear` on the
+   concatenated input, then ReLU: the port's path before K9 and its CPU
+   path) and beside cuBLAS's f32 and TF32 `torch.mm` of the same product
+   (library times, used nowhere in the port), with its bound; the backward
+   (G and its planes, dX, dW's splits and their sum, db) against float64
+   (dX relative to sum |g||W|, dW to sum |x||g|, db to sum |g|; GEMM_TOL)
+   and timed beside the plain backward; the prep of a whole NeRF's planes
+   timed alone;
 3. forward kernels: K1 (fused conv), K3 (ball sums), K5 (compositing
    weights), each called at the shapes the serving path gives it (recorded
    from one warm-up pass) and held against its plain PyTorch version on the
@@ -49,8 +60,10 @@ Phases (each prints its own line; any failure raises and exits non-zero):
    candidate tests;
 4. serving path: a 10-step ParticleNet rollout of the 14,336-particle
    scene, then the coarse (64) + fine (128) render of 1,024 rays, with
-   seeded random weights; launch counts from that run; the same path on the
-   plain versions on the card, within tolerance;
+   seeded random weights; launch counts from that run (K9's as the
+   difference of its library's count around it); the same path on the
+   plain versions on the card (the NeRF's on its plain layers for K9),
+   within tolerance;
 5. backward kernels: K2 (fused conv), K4 (ball sums), K6 (compositing
    weights) at the shapes of one recorded warm-up train step, against their
    plain backward versions, timed and bounded as in 3; K2 also once per
@@ -67,7 +80,8 @@ Phases (each prints its own line; any failure raises and exits non-zero):
    reaches the transition model; then the warm-up step again from its
    weights and state: with the kernels, with the backward kernels on their
    plain versions (each leaf's gradient within 1e-4 of its largest entry),
-   with the forward kernels on theirs, and with all six, within tolerance;
+   with the forward kernels on theirs, and with all of them (K9 too: the
+   NeRFs on their plain layers), within tolerance;
 7. list kernels: K7 (compact ball query) and K8 (segment sum) at the
    shapes of one recorded warm-up transition train step on the `fused`
    backend, against their plain versions (K7: ids and counts equal; K8:
@@ -154,7 +168,7 @@ Phases (each prints its own line; any failure raises and exits non-zero):
    of TRAIN.seed 10 and flax's per-parameter keys, on the host), built on
    the card and on the host, every tensor bitwise equal, SEED_PINS (pinned
    from JAX) met, no kernel launched;
-17. the kernels line (K1-K8, then K1d, K2d and the bf16 product), the
+17. the kernels line (K1-K8, then K1d, K2d, the bf16 product and K9), the
    card line, and the result line last.
 
 Without a CUDA device, or without the package beside it, the script exits
@@ -174,10 +188,13 @@ import tempfile
 import time
 
 ROLLOUT_STEPS = 10
-EXPECTED_LAUNCHES = {"K1": 5 * ROLLOUT_STEPS, "K3": 2, "K5": 2}
+# K9: 10 per NeRF forward, a coarse and a fine pass a render; in a train
+# step's backward dX and dW of each of both NeRFs' 10 layers (the image
+# gradient reaches the features, so layer 0 takes dX too)
+EXPECTED_LAUNCHES = {"K1": 5 * ROLLOUT_STEPS, "K3": 2, "K5": 2, "K9": 20}
 TRAIN_STEPS = 5
 STEP_LAUNCHES = {"K1": 5, "K2": 5, "K3": 2, "K4": 2, "K5": 2, "K6": 2,
-                 "K7": 0, "K8": 0}
+                 "K7": 0, "K8": 0, "K9": 20 + 2 * 20}
 LR_RENDERER, LR_TRANSITION, BD_WEIGHT = 3e-4, 1e-5, 1.0
 # the transition-only train step (two chained ParticleNet steps): launches
 # per step on each search backend. `fused`: a fluid and a box query per
@@ -511,6 +528,142 @@ SEED_PINS = {
         (0.05365024134516716, -0.030387837439775467, 0.1490926295518875,
          -0.06657557934522629)),
 }
+
+
+# K9 at the NeRF's shapes: (what, rows, k1, k2, n, relu); x is the NeRF's
+# (rows, 252) input: layer 5 reads [x[:, :198] | h] (k 454), dir_encoding
+# [feat | x[:, 198:]] (k 310 -> 128, the slice off 16 bytes); rows 131,072
+# (a coarse pass of 2,048 rays x 64 samples) and 393,216 (a fine pass of
+# 2,048 x 192)
+DENSE_SHAPES = (("256 x 256", 131072, 256, 0, 256, True),
+                ("256 x 256", 393216, 256, 0, 256, True),
+                ("skip k 454", 131072, 198, 256, 256, True),
+                ("dir_encoding k 310", 131072, 256, 54, 128, True))
+
+
+def dense_phase(torch, dev):
+    """K9 at DENSE_SHAPES: forward, dX, dW and db against float64, the
+    forward's time beside the plain version's, cuBLAS f32's and TF32's and
+    its bound; the backward's beside the plain backward's; a NeRF's prep.
+    Returns the sums over the shapes for the kernels line."""
+    from neurofluid_torch.models.nerf import NeRF
+    from neurofluid_torch.ops import dense_layer as dl
+
+    tot = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
+               library_ms=0.0, bytes=0.0, tc_ops=0.0)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    for what, m, k1, k2, n, relu in DENSE_SHAPES:
+        x = torch.rand((m, 252), device=dev, generator=gen)
+        h = torch.rand((m, 256), device=dev, generator=gen)
+        a1, a2 = ((x[:, :198], h) if k2 == 256 else
+                  (h, x[:, 198:]) if k2 == 54 else (h, None))
+        k_in = k1 + k2
+        w = torch.randn((n, k_in), device=dev, generator=gen) / k_in ** 0.5
+        b = torch.randn((n,), device=dev, generator=gen) * 0.1
+        planes = dl.prepare([(w, k1)], want_dx=True)[0]
+        got = torch.empty((m, n), device=dev)
+
+        def fwd():
+            dl.dense_chain_cuda([(a1, a2, w, b, planes, relu, got)])
+        fwd()
+        xc = a1 if a2 is None else torch.cat([a1, a2], 1)
+        rows = slice(0, 8192)
+        x64, w64 = xc[rows].double(), w.double()
+        pre = x64 @ w64.t() + b.double()
+        want = pre.clamp_min(0) if relu else pre
+        scale = x64.abs() @ w64.abs().t() + b.double().abs()
+        err = float(((got[rows].double() - want).abs() / scale).max())
+        lib_err = float(((dl.dense_layer_plain(a1[rows], None if a2 is None
+                                               else a2[rows], w, b, relu)
+                          .double() - want).abs() / scale).max())
+        ms = event_ms(torch, fwd)
+        plain_ms = event_ms(torch, lambda: dl.dense_layer_plain(a1, a2, w, b,
+                                                                relu))
+        lib_ms = event_ms(torch, lambda: torch.mm(xc, w.t()))
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf32_ms = event_ms(torch, lambda: torch.mm(xc, w.t()))
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        n_bytes = 4.0 * (m * k_in + m * n + n * k_in + n)
+        n_tc = 2.0 * m * n * k_in
+        b_ms, b_by = bound_ms(n_bytes, 0.0, n_tc)
+        # the backward of the same layer: G, dX of every input, dW, db,
+        # against float64 (dX on the rows above, dW and db over all)
+        dy = torch.randn((m, n), device=dev, generator=gen)
+        needs = (True, a2 is not None, True, True)
+        da1, da2, dw, db = dl.dense_layer_bwd_cuda(dy, a1, a2, w, got, planes,
+                                                   relu, needs)
+        g32 = torch.where(got > 0, dy, 0.0) if relu else dy
+        g64 = g32.double()
+        bwd_errs = {}
+        for name, val, want_, scale_ in (
+                ("dx", torch.cat([da1] + ([] if da2 is None else [da2]),
+                                 1)[rows], g64[rows] @ w64,
+                 g64[rows].abs() @ w64.abs()),
+                ("dw", dw, g64.t() @ xc.double(),
+                 g64.abs().t() @ xc.double().abs()),
+                ("db", db, g64.sum(0), g64.abs().sum(0))):
+            bwd_errs[name] = float(((val.double() - want_).abs()
+                                    / scale_.clamp_min(1e-30)).max())
+        plain_errs = {name: float(((val.double() - want_).abs()
+                                   / scale_.clamp_min(1e-30)).max())
+                      for name, val, want_, scale_ in (
+                          ("dx", g32[rows] @ w, g64[rows] @ w64,
+                           g64[rows].abs() @ w64.abs()),
+                          ("dw", g32.t() @ xc, g64.t() @ xc.double(),
+                           g64.abs().t() @ xc.double().abs()))}
+        del da1, da2, dw, db, g32, g64
+        bwd_ms = event_ms(torch, lambda: dl.dense_layer_bwd_cuda(
+            dy, a1, a2, w, got, planes, relu, needs))
+        # its parts: G's prep and db alone, then with dX, then with dW
+        part_ms = [event_ms(torch, lambda: dl.dense_layer_bwd_cuda(
+            dy, a1, a2, w, got, planes, relu, nd)) for nd in (
+                (False, False, False, True), (True, a2 is not None, False,
+                                              True), (False, False, True,
+                                                      True))]
+
+        def plain_bwd():
+            g_ = torch.where(got > 0, dy, 0.0) if relu else dy
+            return g_ @ w, g_.t() @ xc, g_.sum(0)
+        plain_bwd_ms = event_ms(torch, plain_bwd)
+        bwd_bound, bwd_by = bound_ms(n_bytes + 4.0 * (m * n + m * k_in),
+                                     0.0, 2.0 * n_tc)
+        print(f"K9 dense layer {what}, ({m} x {k_in}) x ({k_in} x {n})"
+              f"{', ReLU' if relu else ''}: max err / "
+              f"sum|x||W| {err:.3e} (tol {GEMM_TOL:.3e}; plain f32 "
+              f"{lib_err:.3e}) ms {ms:.4f} bound_ms {b_ms:.4f} ({b_by}; "
+              f"{100.0 * b_ms / ms:.1f}%) plain_ms {plain_ms:.4f} "
+              f"library_ms {lib_ms:.4f} (torch.mm f32, TF32 off; TF32 "
+              f"{tf32_ms:.4f}); backward ms {bwd_ms:.4f} (G and db "
+              f"{part_ms[0]:.4f}, with dX {part_ms[1]:.4f}, with dW "
+              f"{part_ms[2]:.4f}) bound_ms {bwd_bound:.4f} ({bwd_by}) "
+              f"plain_ms {plain_bwd_ms:.4f}; backward max err / sum of "
+              f"|.| "
+              + ", ".join(f"{k} {v:.3e}" for k, v in bwd_errs.items())
+              + " (plain f32 "
+              + ", ".join(f"{k} {v:.3e}" for k, v in plain_errs.items())
+              + ")", flush=True)
+        for name, e in {"forward": err, **bwd_errs}.items():
+            if not e <= GEMM_TOL:
+                raise AssertionError(f"K9 {what} {name}: error {e:.3e} > "
+                                     f"{GEMM_TOL:.3e}")
+        tot["max_abs_err"] = max(tot["max_abs_err"], err, *bwd_errs.values())
+        for key, v in (("ms", ms), ("plain_ms", plain_ms),
+                       ("bound_ms", b_ms), ("library_ms", lib_ms),
+                       ("bytes", n_bytes), ("tc_ops", n_tc)):
+            tot[key] += v
+        del x, h, a1, a2, xc, got, dy, x64, pre, want, scale
+    net = NeRF(in_channels_xyz=198, in_channels_dir=54, device=dev)
+    layers = [getattr(net, f"xyz_encoding_{i + 1}")[0] for i in range(8)]
+    layers += [net.xyz_encoding_final, net.dir_encoding[0]]
+    k1s = [198, 256, 256, 256, 198, 256, 256, 256, 256, 256]
+    prep = [(lay.weight, k1) for lay, k1 in zip(layers, k1s)]
+    prep_ms = event_ms(torch, lambda: dl.prepare(prep, want_dx=False))
+    prep_dx_ms = event_ms(torch, lambda: dl.prepare(prep, want_dx=True))
+    print(f"K9 prep of a NeRF's 10 layers in one launch: ms {prep_ms:.4f} "
+          f"(with dX's planes {prep_dx_ms:.4f})", flush=True)
+    return tot
 
 
 def bound_ms(n_bytes, n_ops, n_tc_ops=0.0, n_bf16_ops=0.0):
@@ -2077,8 +2230,10 @@ def main():
     from neurofluid_torch import scene
     from neurofluid_torch.data import BlenderDataset, synthetic
     from neurofluid_torch.models import ParticleNet, RenderNet
+    from neurofluid_torch.models.nerf import NeRF
     from neurofluid_torch.ops import ball_features as bf
     from neurofluid_torch.ops import composite as comp
+    from neurofluid_torch.ops import dense_layer as dl
     from neurofluid_torch.ops import fused_cconv as fc
     from neurofluid_torch.ops import fused_query as fq
     from neurofluid_torch.ops import neighbor_search as ns
@@ -2104,9 +2259,9 @@ def main():
     t0 = time.perf_counter()
     nf_cuda.build(["fused_cconv.cu", "fused_cconv_bf16.cu",
                    "ball_features.cu", "composite.cu", "fused_query.cu",
-                   "segment_sum.cu"])
+                   "segment_sum.cu", "dense_layer.cu"])
     build_s = time.perf_counter() - t0
-    print(f"build: 6 sources (K1-K8, K1d and K2d; headers split_gemm.cuh, "
+    print(f"build: 7 sources (K1-K9, K1d and K2d; headers split_gemm.cuh, "
           f"ball_walk.cuh, async_copy.cuh) with nvcc -gencode "
           f"arch=compute_90a,code=sm_90a in {build_s:.1f} s", flush=True)
 
@@ -2321,7 +2476,8 @@ def main():
              "K3": bf.ball_sums_plain, "K4": bf.ball_sums_bwd_plain,
              "K5": comp.composite_weights_plain,
              "K6": comp.composite_weights_bwd_plain,
-             "K7": fq.ball_query_compact_plain, "K8": so.segment_sum_plain}
+             "K7": fq.ball_query_compact_plain, "K8": so.segment_sum_plain,
+             "K9": NeRF._forward_plain}
     wrapper_names = {"K1": (fc, "fused_cconv_cuda"),
                      "K2": (fc, "fused_cconv_bwd_cuda"),
                      "K3": (bf, "ball_sums_cuda"),
@@ -2329,7 +2485,8 @@ def main():
                      "K5": (comp, "composite_weights_cuda"),
                      "K6": (comp, "composite_weights_bwd_cuda"),
                      "K7": (fq, "ball_query_compact_cuda"),
-                     "K8": (so, "segment_sum_cuda")}
+                     "K8": (so, "segment_sum_cuda"),
+                     "K9": (NeRF, "_forward_k9")}
     counters = {"K1": fc.KERNEL, "K2": fc.BWD_KERNEL, "K3": bf.KERNEL,
                 "K4": bf.BWD_KERNEL, "K5": comp.KERNEL,
                 "K6": comp.BWD_KERNEL, "K7": fq.KERNEL, "K8": so.KERNEL}
@@ -2484,6 +2641,8 @@ def main():
               kept * c * vals.element_size() + nbytes(ids, got),
               float(kept * c), library=library, in_totals=in_totals)
 
+    dense_totals = dense_phase(torch, dev)
+
     # ---- 3. forward kernels at the serving path's shapes
     calls = {"K1": [], "K3": [], "K5": []}
     with torch.no_grad(), recording(calls, calls):
@@ -2574,8 +2733,10 @@ def main():
               floor=lambda: comp.launch_floor_cuda(got.shape[0], False))
     del calls
 
-    # ---- 4. serving path, counted
+    # ---- 4. serving path, counted (K9 by its library's process-wide count,
+    # as a difference around the run)
     reset_counts()
+    k9_before = dl.gemm_launches()
     torch.cuda.synchronize()
     with torch.no_grad():
         t0 = time.perf_counter()
@@ -2586,7 +2747,9 @@ def main():
         torch.cuda.synchronize()
         t2 = time.perf_counter()
     serve_launches = {k: v for k, v in counts().items() if v}
+    serve_launches["K9"] = dl.gemm_launches() - k9_before
     total_launches = counts()
+    k9_main = serve_launches["K9"]
     print(f"serving path: launches {serve_launches}", flush=True)
     if serve_launches != EXPECTED_LAUNCHES:
         raise AssertionError(f"launches {serve_launches} != "
@@ -2631,8 +2794,8 @@ def main():
 
     # the same path on the plain versions on the card; the render is fed the
     # kernel rollout's last frame so each comparison sees the same inputs
-    before = counts()
-    with torch.no_grad(), on_plain(("K1", "K3", "K5")):
+    before, k9_before = counts(), dl.gemm_launches()
+    with torch.no_grad(), on_plain(("K1", "K3", "K5", "K9")):
         t0 = time.perf_counter()
         traj_p, _ = rollout(pos, vel, box, nrm, ROLLOUT_STEPS)
         torch.cuda.synchronize()
@@ -2640,7 +2803,7 @@ def main():
         out_p = ren(traj[-1], ro, rays)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-    if counts() != before:
+    if counts() != before or dl.gemm_launches() != k9_before:
         raise AssertionError("the plain run launched a kernel")
     diffs = {"traj": float((traj_p - traj).abs().max())}
     for key in ("rgb0", "depth0", "opacity0", "rgb1", "depth1", "opacity1"):
@@ -2794,6 +2957,7 @@ def main():
 
     # ---- 6. train path, counted: the state carried from step to step
     reset_counts()
+    k9_before = dl.gemm_launches()
     torch.cuda.synchronize()
     step_s, auxes, step_losses = [], [], []
     p, v = pos_w, vel_w
@@ -2805,6 +2969,8 @@ def main():
         auxes.append(aux)
         step_losses.append(loss)
     train_launches = counts()
+    train_launches["K9"] = dl.gemm_launches() - k9_before
+    k9_main += train_launches["K9"]
     total_launches = {k: v + train_launches[k]
                       for k, v in total_launches.items()}
     want_launches = {k: n * TRAIN_STEPS for k, n in STEP_LAUNCHES.items()}
@@ -2877,13 +3043,14 @@ def main():
         on their plain versions: those launch no kernel, the rest launch
         as in a kernel step, and every difference is within `tol`."""
         c_net, c_ren, c_step = trainer()
-        before = counts()
+        before, k9_before = counts(), dl.gemm_launches()
         with on_plain(swapped):
             t0 = time.perf_counter()
             loss_c, pos_c, _, aux_c = run_step(c_step, pos, vel)
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3
         launched = {k: v - before[k] for k, v in counts().items()}
+        launched["K9"] = dl.gemm_launches() - k9_before
         want = {k: 0 if k in swapped else STEP_LAUNCHES[k] for k in launched}
         if launched != want:
             raise AssertionError(f"{what}: launches {launched} != {want}")
@@ -3433,6 +3600,19 @@ def main():
         "bound_by": bound_ms(product_bf16["bytes"], 0.0,
                              n_bf16_ops=product_bf16["bf16_ops"])[1],
         "library_ms": product_bf16["library_ms"]})
+    line["kernels"].append({
+        "name": "K9 dense_layer (the NeRF's wide layers)", "route": "cuda",
+        "source": "neurofluid_torch/csrc/dense_layer.cu",
+        "replaces": "none (the JAX package's dense layers are XLA's)",
+        "launches": k9_main,
+        "max_abs_err": dense_totals["max_abs_err"], "ms": dense_totals["ms"],
+        "plain_ms": dense_totals["plain_ms"],
+        "bound_ms": dense_totals["bound_ms"],
+        "bound_by": bound_ms(dense_totals["bytes"], 0.0,
+                             dense_totals["tc_ops"])[1],
+        "library_ms": dense_totals["library_ms"],
+        "includes": ["neurofluid_torch/csrc/split_gemm.cuh",
+                     "neurofluid_torch/csrc/async_copy.cuh"]})
     for k in line["kernels"]:
         if not k["launches"]:
             raise AssertionError(f"{k['name']}: no launch on its path")

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1-K8) against their plain versions on the
+"""The port's CUDA kernels (K1-K9) against their plain versions on the
 card, at small shapes, and a gradcheck-style directional-derivative check
 of each differentiable wrapper (CompositeWeights, FusedCConv,
 BallFeatureSums, take_rows_planned) with its kernels on both sides, and a
@@ -19,6 +19,7 @@ import torch
 
 from neurofluid_torch.ops import ball_features as bf
 from neurofluid_torch.ops import composite as comp
+from neurofluid_torch.ops import dense_layer as dl
 from neurofluid_torch.ops import fused_cconv as fc
 from neurofluid_torch.ops import fused_query as fq
 from neurofluid_torch.ops import neighbor_search as ns
@@ -362,6 +363,185 @@ def test_split_gemm_matches_float64(dev, m, n, k, trans_a, n_split,
     assert float(((got.double() - want).abs() / scale).max()) <= 4e-7
     again = fc.split_gemm_cuda(a, b, trans_a, n_split, k_per_split)
     assert torch.equal(got, again)
+
+
+def _dense_case(dev, m, k1, k2, n, dir_slice, seed=5):
+    """Inputs of one K9 layer: a1 (m, k1) and a2 (m, k2) or None; with
+    `dir_slice` a2 is the last k2 columns of (m, k1 + k2) rows, a view off
+    16 bytes as the NeRF's direction input; weights at PyTorch's init scale,
+    activations of a ReLU net's scale."""
+    rng = np.random.default_rng(seed)
+    t = lambda *s: torch.tensor(rng.normal(size=s), dtype=torch.float32,
+                                device=dev)
+    k_in = k1 + k2
+    if dir_slice:
+        x = t(m, 198 + k2).abs()
+        a1, a2 = t(m, k1).abs(), x[:, 198:]
+    else:
+        a1, a2 = t(m, k1).abs(), (t(m, k2).abs() if k2 else None)
+    w = t(n, k_in) / k_in ** 0.5
+    b = t(n) * 0.1
+    return a1, a2, w, b
+
+
+def _max_err(got, want):
+    return float((got.detach().double() - want).abs().max())
+
+
+# the NeRF's wide layers at a warm-up chunk's rows (131,072): layer 1
+# (198), a 256-wide layer, layer 5's skip [input_xyz | h], the ReLU-less
+# `xyz_encoding_final` and `dir_encoding` [feat | x[:, 198:]] (N = 128);
+# then ragged rows and widths of the small nets the tests build
+DENSE_CASES = [(131072, 198, 0, 256, True, False),
+               (131072, 256, 0, 256, True, False),
+               (131072, 198, 256, 256, True, False),
+               (131072, 256, 0, 256, False, False),
+               (131072, 256, 54, 128, True, True),
+               (1000, 63, 32, 32, True, False), (77, 32, 27, 16, True, True)]
+
+
+@pytest.mark.parametrize("m,k1,k2,n,relu,dir_slice", DENSE_CASES)
+def test_dense_layer_matches_float64(dev, m, k1, k2, n, relu, dir_slice):
+    """K9's forward, dX, dW and db against float64 products of the same
+    inputs: each within 4x cuBLAS f32's own error and under a tenth of a
+    one-pass TF32 product's (nfbench/reference/precision.py's rounding)."""
+    from nfbench.reference.precision import rounding
+
+    tf32 = rounding("tf32")
+    a1, a2, w, b = _dense_case(dev, m, k1, k2, n, dir_slice)
+    x = a1 if a2 is None else torch.cat([a1, a2], 1)
+    planes = dl.prepare([(w, k1)], want_dx=True)[0]
+    np.testing.assert_array_equal(planes.fwd.cpu().numpy(),
+                                  dl.fwd_planes_plain(w.cpu(), k1).numpy())
+    np.testing.assert_array_equal(planes.dx.cpu().numpy(),
+                                  dl.dx_planes_plain(w.cpu()).numpy())
+    before = dl.gemm_launches()
+    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    dl.dense_chain_cuda([(a1, a2, w, b, planes, relu, out)])
+    assert dl.gemm_launches() == before + 1
+    dy = torch.tensor(np.random.default_rng(6).normal(size=(m, n)),
+                      dtype=torch.float32, device=dev)
+    da1, da2, dw, db = dl.dense_layer_bwd_cuda(
+        dy, a1, a2, w, out, planes, relu, (True, a2 is not None, True, True))
+    assert dl.gemm_launches() == before + 3  # dX and dW
+
+    x64, w64, b64 = x.double(), w.double(), b.double()
+    pre64 = x64 @ w64.t() + b64
+    want = pre64.clamp_min(0) if relu else pre64
+    pre32 = x @ w.t() + b
+    lib = pre32.clamp_min(0) if relu else pre32
+    pre_tf = (tf32(x) @ tf32(w).t() + b).double()
+    one_pass = pre_tf.clamp_min(0) if relu else pre_tf
+    g64 = dy.double() * (out.detach() > 0) if relu else dy.double()
+    g32 = g64.float()
+    grads = [  # (name, got, float64, cuBLAS f32, one-pass TF32)
+        ("out", out, want, lib, one_pass),
+        ("dx", torch.cat([da1] + ([da2] if da2 is not None else []), 1),
+         g64 @ w64, g32 @ w, (tf32(g32) @ tf32(w)).double()),
+        ("dw", dw, g64.t() @ x64, g32.t() @ x,
+         (tf32(g32).t() @ tf32(x)).double()),
+        ("db", db, g64.sum(0), g32.sum(0), None)]
+    for name, got, want_, lib_, tf_ in grads:
+        err, err_lib = _max_err(got, want_), _max_err(lib_, want_)
+        assert err <= 4.0 * err_lib, (name, err, err_lib)
+        if tf_ is not None:
+            assert err <= 0.1 * _max_err(tf_, want_), (name, err)
+
+
+def test_dense_layer_dw_is_bitwise_repeatable(dev):
+    a1, a2, w, b = _dense_case(dev, 65536, 198, 256, 256, False)
+    planes = dl.prepare([(w, 198)], want_dx=True)[0]
+    out = torch.empty((65536, 256), dtype=torch.float32, device=dev)
+    dl.dense_chain_cuda([(a1, a2, w, b, planes, True, out)])
+    dy = torch.ones((65536, 256), dtype=torch.float32, device=dev)
+    grads = [dl.dense_layer_bwd_cuda(dy, a1, a2, w, out, planes, True,
+                                     (False, False, True, True))[2:]
+             for _ in range(2)]
+    assert torch.equal(grads[0][0], grads[1][0])
+    assert torch.equal(grads[0][1], grads[1][1])
+
+
+def test_nerf_runs_its_wide_layers_on_k9(dev, monkeypatch):
+    """One f32 NeRF forward on the card: one prep launch, K9 ten times (in
+    one chain from the host) and the library's products (`F.linear`) only
+    for the sigma and rgb heads; its outputs and gradients match the same
+    weights on the CPU's plain layers."""
+    import torch.nn.functional as F
+
+    from neurofluid_torch.models.nerf import NeRF
+
+    gen = torch.Generator().manual_seed(4)
+    cpu = NeRF(in_channels_xyz=198, in_channels_dir=54, device="cpu",
+               generator=gen)
+    card = NeRF(in_channels_xyz=198, in_channels_dir=54, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    x = torch.rand((4096, 252), generator=gen)
+
+    def counts():
+        return [dl.PREP_KERNEL.launches, dl.gemm_launches(),
+                dl.CHAIN_KERNEL.launches, dl.BWD_KERNEL.launches]
+    linear, heads = F.linear, []
+    monkeypatch.setattr(F, "linear", lambda a, w, b=None: heads.append(
+        tuple(w.shape)) or linear(a, w, b))
+    before = counts()
+    with torch.no_grad():
+        card(x.to(dev))
+    torch.cuda.synchronize()
+    monkeypatch.setattr(F, "linear", linear)
+    # one prep, the 10 products in one chain from the host, no backward
+    assert [a - b for a, b in zip(counts(), before)] == [1, 10, 1, 0]
+    assert heads == [(1, 256), (3, 128)]
+
+    outs = []
+    for net, d_ in ((cpu, "cpu"), (card, dev)):
+        xi = x.detach().to(d_).clone().requires_grad_(True)
+        out = net(xi)
+        out.square().sum().backward()
+        outs.append([out.detach().cpu(), xi.grad.cpu()]
+                    + [p.grad.cpu() for p in net.parameters()])
+        net.zero_grad()
+    # the output within f32 rounding of the CPU's; each gradient as a
+    # whole, since a ReLU whose input lies within rounding of 0 may take
+    # the other branch in one of the two f32-class products (on an H100
+    # 319 of x's 1,032,192 gradient entries moved so, by up to 5e-4)
+    np.testing.assert_allclose(outs[1][0].numpy(), outs[0][0].numpy(),
+                               rtol=0, atol=2e-5)
+    for want, got in zip(outs[0][1:], outs[1][1:]):
+        assert float((got - want).norm()) <= 1e-3 * float(want.norm())
+
+
+def test_nerf_preps_its_planes_every_forward(dev):
+    """Each forward splits the weights it reads in one prep launch, so a
+    weight written in place between two forwards (a `.data` write, an
+    Adam step) is what the next one reads: it equals a fresh module with
+    the same weights."""
+    from neurofluid_torch.models.nerf import NeRF
+
+    net = NeRF(in_channels_xyz=198, in_channels_dir=54, device=dev)
+    x = torch.rand((3000, 252), device=dev)
+
+    def fresh_out():
+        other = NeRF(in_channels_xyz=198, in_channels_dir=54, device=dev)
+        other.load_state_dict(net.state_dict())
+        with torch.no_grad():
+            return other(x)
+
+    before = dl.PREP_KERNEL.launches
+    with torch.no_grad():
+        first = net(x)
+        assert torch.equal(net(x), first)
+        net.xyz_encoding_3[0].weight.data.mul_(1.5)
+        changed = net(x)
+    assert dl.PREP_KERNEL.launches == before + 3
+    assert not torch.equal(changed, first)
+    assert torch.equal(changed, fresh_out())
+    opt = torch.optim.Adam(net.parameters(), lr=1e-3)
+    net(x).square().sum().backward()
+    opt.step()
+    with torch.no_grad():
+        stepped = net(x)
+    assert not torch.equal(stepped, changed)
+    assert torch.equal(stepped, fresh_out())
 
 
 # the bf16 instantiations (precision 'default') against the plain 'default'
@@ -1226,18 +1406,23 @@ def test_model_units_never_wait_for_the_card(dev, entry):
     """After a warm-up unit, one more unit of each entry point runs under
     `set_sync_debug_mode('error')`: any call that blocks the host until
     the card drains its queue (a read of a device value, a copy from
-    pageable host memory, `torch.nonzero`) raises."""
+    pageable host memory, `torch.nonzero`) raises. The NeRFs' K9 path,
+    its prep and backward included, is on every entry but the transition
+    step."""
     from test_torch_tracing import _run_entry
 
     run = _run_entry(entry, dev)
     run()
     torch.cuda.synchronize()
+    k9 = dl.gemm_launches()
     torch.cuda.set_sync_debug_mode("error")
     try:
         out = run()
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
+    # the renderer's NeRFs run their wide layers on K9 (and its backward)
+    assert (dl.gemm_launches() > k9) == (entry != "transition")
     leaves = [t for t in (out.values() if isinstance(out, dict) else out)
               if isinstance(t, torch.Tensor) and t.is_floating_point()]
     assert leaves and all(bool(torch.isfinite(t).all()) for t in leaves)

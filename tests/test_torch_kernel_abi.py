@@ -10,7 +10,8 @@ import pytest
 
 from neurofluid_torch import cuda
 from neurofluid_torch.ops import (
-    ball_features, composite, fused_cconv, fused_query, segment_ops,
+    ball_features, composite, dense_layer, fused_cconv, fused_query,
+    segment_ops,
 )
 
 _C_TYPES = {"int": ctypes.c_int, "float": ctypes.c_float}
@@ -20,8 +21,8 @@ def _kernels():
     """Every Kernel handle of the modules, those in a dict of handles
     (`fused_cconv.BF16_KERNELS`) too."""
     found = []
-    for mod in (ball_features, composite, fused_cconv, fused_query,
-                segment_ops):
+    for mod in (ball_features, composite, dense_layer, fused_cconv,
+                fused_query, segment_ops):
         for v in vars(mod).values():
             for k in v.values() if isinstance(v, dict) else (v,):
                 if isinstance(k, cuda.Kernel):
@@ -47,7 +48,8 @@ def test_every_module_declares_its_kernels():
     assert names == sorted([
         "nf_ball_query_compact", "nf_ball_sums", "nf_ball_sums_bwd",
         "nf_composite_launch_floor", "nf_composite_weights",
-        "nf_composite_weights_bwd",
+        "nf_composite_weights_bwd", "nf_dense_layer_bwd",
+        "nf_dense_layer_chain", "nf_dense_layer_prep",
         "nf_fused_cconv_bwd", "nf_fused_cconv_bwd_bf16",
         "nf_fused_cconv_fwd", "nf_fused_cconv_fwd_bf16",
         "nf_segment_sum_accumulate", "nf_split_gemm", "nf_split_gemm_bf16"])
