@@ -1,18 +1,20 @@
 #!/usr/bin/env python3
-"""Build the PyTorch port's CUDA kernels and drive its paths on one NVIDIA
-GPU at the bench working point: the serving path (rollout + render), the
+"""The PyTorch port's correctness check on one NVIDIA GPU: build its CUDA
+kernels, hold each against its plain version at the bench working point,
+and drive its paths there: the serving path (rollout + render), the
 end-to-end train step, the transition-only train step on three search
 backends, a scene written, loaded and rendered, the stage trainers and
 evaluators at full width, the renderer's options and list path, the
-sharded paths in a world of one over NCCL, the reference-protocol run
-at a cut scene, and the trainers' draw of JAX's seeded initial weights.
+sharded paths in a world of one over NCCL, the reference-protocol run at
+a cut scene, and the trainers' draw of JAX's seeded initial weights. It
+times nothing: `python3 -m nfbench.run --trace 1` measures the port.
 
     python3 chip_smoke.py
 
 Phases (each prints its own line; any failure raises and exits non-zero):
 1. device: name and power limit (nvidia-smi), torch and CUDA versions;
    TF32 off for every matmul and convolution;
-2. build: nvcc of csrc/*.cu for sm_90a, one process per source, timed;
+2. build: nvcc of csrc/*.cu for sm_90a, one process per source;
    `cuobjdump -sass` of the built K1/K2 library: each of the 12
    instantiations of the tensor-core product holds HGMMA (`wgmma`) and no
    HMMA (`mma.sync`), TF32 HGMMA in the 6 3xTF32 ones and bf16 HGMMA
@@ -23,41 +25,26 @@ Phases (each prints its own line; any failure raises and exits non-zero):
    3xTF32 `wgmma` fed by TMA, the contractions of K1 and K2) on its own
    at the shapes of its three uses at the bench point, in the splits of k
    K1 and K2 give it, against a float64 product of the same seeded inputs
-   (error relative to sum |a||b|, held to GEMM_TOL), timed beside
-   `torch.matmul` in f32 (its library time, used nowhere in the port);
-   then its bf16 mode (conv_precision 'default') at the same shapes, A in
-   bf16 as the walks write it, against a float64 product of the bf16
-   inputs (GEMM_TOL, and at least 100 GEMM_TOL from the product with B
-   unrounded, as tests/test_torch_split_gemm.py holds its emulation),
-   timed beside cuBLAS in bf16 on the same bf16 A;
+   (error relative to sum |a||b|, held to GEMM_TOL; `torch.matmul`'s f32
+   error beside it); then its bf16 mode (conv_precision 'default') at the
+   same shapes, A in bf16 as the walks write it, against a float64
+   product of the bf16 inputs (GEMM_TOL, and at least 100 GEMM_TOL from
+   the product with B unrounded, as tests/test_torch_split_gemm.py holds
+   its emulation);
    then K9 (`dense_phase`, csrc/dense_layer.cu: the NeRF's wide layers,
    3xTF32 `wgmma` with bias and ReLU in the epilogue) at the NeRF's shapes,
    DENSE_SHAPES: its forward against float64 (error relative to sum
-   |x||W|, GEMM_TOL), timed beside the plain version (`F.linear` on the
-   concatenated input, then ReLU: the port's path before K9 and its CPU
-   path) and beside cuBLAS's f32 and TF32 `torch.mm` of the same product
-   (library times, used nowhere in the port), with its bound; the backward
-   (G and its planes, dX, dW's splits and their sum, db) against float64
-   (dX relative to sum |g||W|, dW to sum |x||g|, db to sum |g|; GEMM_TOL)
-   and timed beside the plain backward; the prep of a whole NeRF's planes
-   timed alone;
+   |x||W|, GEMM_TOL; the plain version's error beside it), and the
+   backward (G and its planes, dX, dW's splits and their sum, db) against
+   float64 (dX relative to sum |g||W|, dW to sum |x||g|, db to sum |g|;
+   GEMM_TOL);
 3. forward kernels: K1 (fused conv), K3 (ball sums), K5 (compositing
    weights), each called at the shapes the serving path gives it (recorded
    from one warm-up pass) and held against its plain PyTorch version on the
-   card, with CUDA-event times (median of 10 after a warm-up) and the least
-   time the card could take for the same work (for K5, and K6 in 5, also
-   an empty kernel's time at the same grid: the launch floor under them;
-   K5 also once at K5_LONG_SAMPLES samples a ray, its tile path, outside
-   its per-render totals);
-   where a K1 or K2 call is a walk plus tensor-core products, the
-   products' time at that call's shapes and the walk's share beside it;
+   card (K5 also once at K5_LONG_SAMPLES samples a ray, its tile path);
    K1d (K1 at conv_precision 'default', its bf16 instantiations) at the
    same calls against the plain 'default' version (TOL, and BF16_MARGIN
-   times nearer it than the plain 'highest' result), timed and bounded
-   with its contractions at the bf16 rate;
-   for each K3 (and, in 7, K7) call its staged-walk plan and the work of
-   its groups: live slots, padded slots in live groups, dead groups,
-   candidate tests;
+   times nearer it than the plain 'highest' result);
 4. serving path: a 10-step ParticleNet rollout of the 14,336-particle
    scene, then the coarse (64) + fine (128) render of 1,024 rays, with
    seeded random weights; launch counts from that run (K9's as the
@@ -66,17 +53,12 @@ Phases (each prints its own line; any failure raises and exits non-zero):
    within tolerance;
 5. backward kernels: K2 (fused conv), K4 (ball sums), K6 (compositing
    weights) at the shapes of one recorded warm-up train step, against their
-   plain backward versions, timed and bounded as in 3; K2 also once per
-   layer with every gradient asked for (its dq/dc path); K2d (K2 at
-   'default') at the same calls in both forms, held as K1d in 3; for each
-   K4 call
-   its staged-walk plan and its work beside that of a warp-per-slot design
-   (a warp per packed slot, every occupied slot of its rows tested, a
-   global atomic triple per selected pair): groups, slots walked and
-   skipped, candidate tests, selected pairs, global atomics;
-6. train path: TRAIN_STEPS timed e2e train steps (Adam 3e-4 / 1e-5, one
-   view of 1,024 rays, state carried from step to step), launch counts per
-   step, finite loss and gradient norms, no overflow, an image gradient that
+   plain backward versions; K2 also once per layer with every gradient
+   asked for (its dq/dc path); K2d (K2 at 'default') at the same calls in
+   both forms, held as K1d in 3;
+6. train path: TRAIN_STEPS e2e train steps (Adam 3e-4 / 1e-5, one view of
+   1,024 rays, state carried from step to step), launch counts per step,
+   finite loss and gradient norms, no overflow, an image gradient that
    reaches the transition model; then the warm-up step again from its
    weights and state: with the kernels, with the backward kernels on their
    plain versions (each leaf's gradient within 1e-4 of its largest entry),
@@ -85,12 +67,9 @@ Phases (each prints its own line; any failure raises and exits non-zero):
 7. list kernels: K7 (compact ball query) and K8 (segment sum) at the
    shapes of one recorded warm-up transition train step on the `fused`
    backend, against their plain versions (K7: ids and counts equal; K8:
-   1e-5 of the largest entry), timed and bounded as in 3, K8 also beside
-   `index_add_` on the same inputs (its library time); K2 timed at the
-   calls of a transition step on `fused_cconv`, whose second rollout step
-   asks it for the position gradients, and K2d at the same calls;
-8. transition train path: TRANSITION_STEPS timed 2-step train steps (clip
-   by global norm 1.0, Adam 1e-4, targets pos + 0.001 / pos + 0.002) on
+   1e-5 of the largest entry);
+8. transition train path: TRANSITION_STEPS 2-step train steps (clip by
+   global norm 1.0, Adam 1e-4, targets pos + 0.001 / pos + 0.002) on
    `fused_cconv` and on `fused`, launch counts per step, a finite loss that
    falls, a gradient, no overflow and no neighbour cap exceeded; the two
    backends' first prediction and first loss within tolerance of each
@@ -100,48 +79,46 @@ Phases (each prints its own line; any failure raises and exits non-zero):
    then TRANSITION_STEPS steps on `fused_cconv` at conv_precision
    'default' (K1d 10, K2d 10 per step and the bf16 product: their main
    path) beside as many at 'highest' from the same weights, the first
-   steps' loss and grad_norm within BF16_STEP_TOL (and not equal), both
-   medians on the host clock;
+   steps' loss and grad_norm within BF16_STEP_TOL (and not equal);
 9. transition train path on `auto`, the JAX trainers' own backend: the
    search it resolves to for the fluid and the box (both the plain grid
    search at the bench point), its first step against `fused`'s from the
    same weights (equal neighbour counts; loss, grad_norm and each
-   gradient leaf within AUTO_STEP_TOL), TRANSITION_STEPS counted and timed
-   steps as in 8 (K8 8 per step, K7 none), and the warm-up step again with
+   gradient leaf within AUTO_STEP_TOL), TRANSITION_STEPS counted steps
+   as in 8 (K8 8 per step, K7 none), and the warm-up step again with
    K8 on its plain version;
 10. search check: the fluid's lists at the bench point by
    `radius_search_grid`, `radius_search_brute` and K7 (equal counts and
    neighbour sets, grid and brute force in nearest order, no grid
-   overflow), each search's CUDA-event time as a caller sees it;
+   overflow);
 11. scene-to-render: a Blender-layout scene written by the port's
    `data.synthetic` into a temporary directory under build/, loaded by its
    `BlenderDataset`, RENDER_RAYS of frame 0's rays of one view (seeded
    choice) rendered by a seeded `RenderNet()` at its full defaults over
    that frame's particles (K3 and K5 twice each); the RGB MSE against the
-   image's pixels and the render's host-clock time;
+   image's pixels;
 12. trainers (`trainers_phase`): the warm-up, transition and e2e trainers
    and the three evaluators of `neurofluid_torch.train`, as the `cli`
    entry points build them from the shipped configs/*.yaml (counts and
    intervals set, widths as shipped), on a TRAINER_SCENE synthetic scene
-   (13,824 particles, 400 x 400 views) written under build/; per stage the
-   loop's and the step's host-clock medians beside the bare steps of 6 and
-   9, losses, full-frame s, rollout ms, peak memory, launches (K3-K6 and K8
-   on `'auto'`), PSNR and Pred2GT (finite), checkpoints written and read
-   back; the first e2e trainer step against the same step with every
-   kernel on its plain version (STEP_TOL);
+   (13,824 particles, 400 x 400 views) written under build/; per stage
+   losses, peak memory, launches (K3-K6 and K8 on `'auto'`), PSNR and
+   Pred2GT (finite), checkpoints written and read back; the first e2e
+   trainer step against the same step with every kernel on its plain
+   version (STEP_TOL);
 13. renderer options and list path (`options_phase`), at the bench point:
    the list render on 'auto' (grid) with 'approx' (K5 2, no K3; its
    counts and masks equal to 4's dense render, its fine counts equal to
-   K3's on the same samples; against itself with K5 plain;
-   host-clock medians beside the dense render's), its particle gradient
-   (K8 2) and an e2e train step with it (K1 5, K2 5, K5 2, K6 2, K8 2;
-   the first again with K8 plain, each gradient leaf within 1e-4), the
-   warm-up step of `build_renderer` with RENDERER.bf16 true and false
-   (times, peak memory, renders within BF16_TOL), `coarse_rendering`,
+   K3's on the same samples; against itself with K5 plain), its particle
+   gradient (K8 2) and an e2e train step with it (K1 5, K2 5, K5 2, K6 2,
+   K8 2; the first again with K8 plain, each gradient leaf within 1e-4),
+   the warm-up step of `build_renderer` with RENDERER.bf16 true and false
+   (peak memory, renders within BF16_TOL), `coarse_rendering`,
    `fine_rendering`, a seeded perturb=1 noise_std=1 render twice (bitwise
    equal), exclude_ray=False, the chamfer distance of 4's end state
    against its start beside scipy's cKDTree, and LPIPS of two 400 x 400
-   images on random weights written under build/;
+   images on random weights written under build/; then K8 at the list
+   render gradient's calls against its plain version;
 14. sharded paths (`parallel_phase`) in a world of one over NCCL (a
    FileStore under build/): SHARDED_STEPS steps of `make_sharded_e2e_step`
    (K1 5, K2 5, K3-K6 2 per step) against phase 6's step, the all-gather
@@ -149,10 +126,9 @@ Phases (each prints its own line; any failure raises and exits non-zero):
    13,824-particle lattice (halo 1,024) against the unsharded step, and
    SHARDED_STEPS steps of `make_spmd_e2e_step` on a 1 x 1 mesh on 'auto'
    (K3-K6 2, K8 at least 1 per step) against the replicated step, within
-   the JAX dry run's tolerances, with host-clock medians and peak memory;
-   then the native library's chamfer distance against ops/chamfer.py's on
-   the card, and a scene from `cli.generate_data` loaded by
-   `BlenderDataset`;
+   the JAX dry run's tolerances, with peak memory; then the native
+   library's chamfer distance against ops/chamfer.py's on the card, and a
+   scene from `cli.generate_data` loaded by `BlenderDataset`;
 15. the reference-protocol run (`protocol_phase`): the port's
    `cli.full_protocol_run.main` at a cut scene (PROTOCOL_SCENE: 1,728
    fluid particles, 100 x 100 images, 61 frames, one pretraining sim of
@@ -160,20 +136,22 @@ Phases (each prints its own line; any failure raises and exits non-zero):
    one e2e epoch, every 25th frame rendered) at full model width and the
    runner's conv_precision 'default' (K1d, K2d), under
    build/: every key of PROTOCOL_R5.json and `device` in its record,
-   every metric finite, per stage its wall time, peak memory and
-   launches (K7 and K8 none); `cli.reval_e2e_rollout.main` on the saved
-   e2e checkpoint and a second, resumed run, each against the first;
+   every metric finite, per stage its peak memory and launches (K7 and
+   K8 none); `cli.reval_e2e_rollout.main` on the saved e2e checkpoint and
+   a second, resumed run, each against the first;
 16. JAX's initial weights (`seed_phase`): the protocol's warm-up RenderNet
    and its ParticleNet as the seeded trainers draw them (JAX's key stream
    of TRAIN.seed 10 and flax's per-parameter keys, on the host), built on
    the card and on the host, every tensor bitwise equal, SEED_PINS (pinned
    from JAX) met, no kernel launched;
-17. the kernels line (K1-K8, then K1d, K2d, the bf16 product and K9), the
-   card line, and the result line last.
+17. the kernels line (K1-K8, then K1d, K2d, the bf16 product and K9:
+   launches and the largest error against the plain version), the card
+   line, and the result line last.
 
 Without a CUDA device, or without the package beside it, the script exits
 non-zero before printing any result.
 """
+
 
 import copy
 import json
@@ -185,7 +163,6 @@ import statistics
 import subprocess
 import sys
 import tempfile
-import time
 
 ROLLOUT_STEPS = 10
 # K9: 10 per NeRF forward, a coarse and a fine pass a render; in a train
@@ -213,39 +190,10 @@ TRANSITION_LAUNCHES = {"fused_cconv": {"K1": 10, "K2": 10},
 # `fused`
 AUTO_ROUTES = {"fluid": "grid", "box": "grid"}
 LR_TRANSITION_ONLY, TRANSITION_CLIP = 1e-4, 1.0
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth, the float32
-# rate outside the tensor cores, and the dense TF32 tensor-core rate. The
-# contractions of K1 and K2 with a filter too large for shared memory run
-# on the tensor cores in TF32_PASSES passes (hi*hi + hi*lo + lo*hi of the
-# split operands); everything else is f32 SIMT.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_PER_S = 67e12
-PEAK_TF32_PER_S = 495e12
-TF32_PASSES = 3
-# conv_precision 'default': the products of K1d and K2d (K1 and K2's bf16
-# instantiations) and the bf16 product run one bf16 pass at the dense bf16
-# tensor-core rate
-PEAK_BF16_PER_S = 989e12
 # the tensor-core product against float64, relative to sum |a||b|: 8 units
 # of f32's rounding (2^-24), the limit tests/test_torch_split_gemm.py holds
 # the split scheme's emulation to (one TF32 pass alone is ~1e-4)
 GEMM_TOL = 2.0 ** -21
-# operations per in-radius pair of K1's geometry (offsets, distance,
-# window, ball -> cube map, trilinear corners) and of K2's hand-derived
-# adjoint of it; K3's per candidate test and per selected neighbour
-# (K4 tests candidates as K3 does, up to each slot's k-th neighbour), and
-# K4's per selected neighbour (the derivative and three shared-memory
-# adds; its global atomics come once per group and selected particle);
-# K5's and K6's per sample
-K1_GEOMETRY_OPS = 70
-K2_ADJOINT_OPS = 200
-K3_TEST_OPS = 9
-K3_SELECTED_OPS = 25
-K4_SELECTED_OPS = 45
-K5_SAMPLE_OPS = 10
-K6_SAMPLE_OPS = 30
-# K7's per candidate test (the distance, two compares, ballot and rank)
-K7_TEST_OPS = 10
 # kernel vs plain on the card, same inputs: K1 sums ~50 pairs x 8 taps and
 # then 64 * Cin terms per output in another order (relative to the largest
 # output, at least 1); K3 sums <= 20 selected terms (the same); K5 weights
@@ -383,7 +331,8 @@ PARALLEL_LAUNCHES = {"ray-sharded": {"K1": 5, "K2": 5, "K3": 2, "K4": 2,
 LATTICE_HALO = 1024
 DRYRUN_TOL = {"pos": 1e-5, "lattice_pos": 1e-4, "loss": 1e-5,
               "grad_norm": 2e-3}
-# K5 once more on rays longer than a warp's 256 samples (its tile path)
+# K5 once more on rays longer than a warp's 256 samples (its tile path,
+# not on the main path)
 K5_LONG_SAMPLES = 300
 # the scene-to-render pass: a synthetic Blender-layout scene written by the
 # port's generator, loaded by its BlenderDataset, and RENDER_RAYS of frame
@@ -434,7 +383,7 @@ OPTION_LAUNCHES = {
     "fine_rendering": {"K3": 2, "K5": 2},
     "random render": {"K3": 2, "K5": 2},
     "exclude_ray=False render": {"K3": 2, "K5": 2}}
-OPTION_STEPS = 3  # timed list e2e steps and warm-up steps of each dtype
+OPTION_STEPS = 3  # list e2e steps and warm-up steps of each dtype
 # the list render against itself with K5 on its plain version: as the
 # serving path's plain comparison (phase 4)
 LIST_PLAIN_LIMITS = {"rgb0": 1e-4, "opacity0": 1e-4, "depth0": 1e-3,
@@ -543,14 +492,11 @@ DENSE_SHAPES = (("256 x 256", 131072, 256, 0, 256, True),
 
 def dense_phase(torch, dev):
     """K9 at DENSE_SHAPES: forward, dX, dW and db against float64, the
-    forward's time beside the plain version's, cuBLAS f32's and TF32's and
-    its bound; the backward's beside the plain backward's; a NeRF's prep.
-    Returns the sums over the shapes for the kernels line."""
-    from neurofluid_torch.models.nerf import NeRF
+    plain f32 version's error beside each. Returns the largest error for
+    the kernels line."""
     from neurofluid_torch.ops import dense_layer as dl
 
-    tot = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
-               library_ms=0.0, bytes=0.0, tc_ops=0.0)
+    worst = 0.0
     gen = torch.Generator(device=dev).manual_seed(21)
     for what, m, k1, k2, n, relu in DENSE_SHAPES:
         x = torch.rand((m, 252), device=dev, generator=gen)
@@ -562,10 +508,7 @@ def dense_phase(torch, dev):
         b = torch.randn((n,), device=dev, generator=gen) * 0.1
         planes = dl.prepare([(w, k1)], want_dx=True)[0]
         got = torch.empty((m, n), device=dev)
-
-        def fwd():
-            dl.dense_chain_cuda([(a1, a2, w, b, planes, relu, got)])
-        fwd()
+        dl.dense_chain_cuda([(a1, a2, w, b, planes, relu, got)])
         xc = a1 if a2 is None else torch.cat([a1, a2], 1)
         rows = slice(0, 8192)
         x64, w64 = xc[rows].double(), w.double()
@@ -576,18 +519,6 @@ def dense_phase(torch, dev):
         lib_err = float(((dl.dense_layer_plain(a1[rows], None if a2 is None
                                                else a2[rows], w, b, relu)
                           .double() - want).abs() / scale).max())
-        ms = event_ms(torch, fwd)
-        plain_ms = event_ms(torch, lambda: dl.dense_layer_plain(a1, a2, w, b,
-                                                                relu))
-        lib_ms = event_ms(torch, lambda: torch.mm(xc, w.t()))
-        torch.backends.cuda.matmul.allow_tf32 = True
-        try:
-            tf32_ms = event_ms(torch, lambda: torch.mm(xc, w.t()))
-        finally:
-            torch.backends.cuda.matmul.allow_tf32 = False
-        n_bytes = 4.0 * (m * k_in + m * n + n * k_in + n)
-        n_tc = 2.0 * m * n * k_in
-        b_ms, b_by = bound_ms(n_bytes, 0.0, n_tc)
         # the backward of the same layer: G, dX of every input, dW, db,
         # against float64 (dX on the rows above, dW and db over all)
         dy = torch.randn((m, n), device=dev, generator=gen)
@@ -613,33 +544,10 @@ def dense_phase(torch, dev):
                            g64[rows].abs() @ w64.abs()),
                           ("dw", g32.t() @ xc, g64.t() @ xc.double(),
                            g64.abs().t() @ xc.double().abs()))}
-        del da1, da2, dw, db, g32, g64
-        bwd_ms = event_ms(torch, lambda: dl.dense_layer_bwd_cuda(
-            dy, a1, a2, w, got, planes, relu, needs))
-        # its parts: G's prep and db alone, then with dX, then with dW
-        part_ms = [event_ms(torch, lambda: dl.dense_layer_bwd_cuda(
-            dy, a1, a2, w, got, planes, relu, nd)) for nd in (
-                (False, False, False, True), (True, a2 is not None, False,
-                                              True), (False, False, True,
-                                                      True))]
-
-        def plain_bwd():
-            g_ = torch.where(got > 0, dy, 0.0) if relu else dy
-            return g_ @ w, g_.t() @ xc, g_.sum(0)
-        plain_bwd_ms = event_ms(torch, plain_bwd)
-        bwd_bound, bwd_by = bound_ms(n_bytes + 4.0 * (m * n + m * k_in),
-                                     0.0, 2.0 * n_tc)
         print(f"K9 dense layer {what}, ({m} x {k_in}) x ({k_in} x {n})"
               f"{', ReLU' if relu else ''}: max err / "
               f"sum|x||W| {err:.3e} (tol {GEMM_TOL:.3e}; plain f32 "
-              f"{lib_err:.3e}) ms {ms:.4f} bound_ms {b_ms:.4f} ({b_by}; "
-              f"{100.0 * b_ms / ms:.1f}%) plain_ms {plain_ms:.4f} "
-              f"library_ms {lib_ms:.4f} (torch.mm f32, TF32 off; TF32 "
-              f"{tf32_ms:.4f}); backward ms {bwd_ms:.4f} (G and db "
-              f"{part_ms[0]:.4f}, with dX {part_ms[1]:.4f}, with dW "
-              f"{part_ms[2]:.4f}) bound_ms {bwd_bound:.4f} ({bwd_by}) "
-              f"plain_ms {plain_bwd_ms:.4f}; backward max err / sum of "
-              f"|.| "
+              f"{lib_err:.3e}); backward max err / sum of |.| "
               + ", ".join(f"{k} {v:.3e}" for k, v in bwd_errs.items())
               + " (plain f32 "
               + ", ".join(f"{k} {v:.3e}" for k, v in plain_errs.items())
@@ -648,130 +556,10 @@ def dense_phase(torch, dev):
             if not e <= GEMM_TOL:
                 raise AssertionError(f"K9 {what} {name}: error {e:.3e} > "
                                      f"{GEMM_TOL:.3e}")
-        tot["max_abs_err"] = max(tot["max_abs_err"], err, *bwd_errs.values())
-        for key, v in (("ms", ms), ("plain_ms", plain_ms),
-                       ("bound_ms", b_ms), ("library_ms", lib_ms),
-                       ("bytes", n_bytes), ("tc_ops", n_tc)):
-            tot[key] += v
+        worst = max(worst, err, *bwd_errs.values())
         del x, h, a1, a2, xc, got, dy, x64, pre, want, scale
-    net = NeRF(in_channels_xyz=198, in_channels_dir=54, device=dev)
-    layers = [getattr(net, f"xyz_encoding_{i + 1}")[0] for i in range(8)]
-    layers += [net.xyz_encoding_final, net.dir_encoding[0]]
-    k1s = [198, 256, 256, 256, 198, 256, 256, 256, 256, 256]
-    prep = [(lay.weight, k1) for lay, k1 in zip(layers, k1s)]
-    prep_ms = event_ms(torch, lambda: dl.prepare(prep, want_dx=False))
-    prep_dx_ms = event_ms(torch, lambda: dl.prepare(prep, want_dx=True))
-    print(f"K9 prep of a NeRF's 10 layers in one launch: ms {prep_ms:.4f} "
-          f"(with dX's planes {prep_dx_ms:.4f})", flush=True)
-    return tot
-
-
-def bound_ms(n_bytes, n_ops, n_tc_ops=0.0, n_bf16_ops=0.0):
-    """n_ops: f32 SIMT operations; n_tc_ops: operations of a contraction
-    that runs on the tensor cores in 3xTF32, once (the passes are counted
-    here); n_bf16_ops: of one that runs as one bf16 pass."""
-    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = (n_ops / PEAK_F32_PER_S
-             + TF32_PASSES * n_tc_ops / PEAK_TF32_PER_S
-             + n_bf16_ops / PEAK_BF16_PER_S) * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
-
-
-def nbytes(*tensors):
-    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
-
-
-def ball_bytes(bf, q_rep, tables, gcell, dims, t, walked, *whole):
-    """Bytes a ball-sum kernel (K3, K4) has to move: each of `tables` at its
-    occupied slots of the distinct rows around the groups that hold a
-    walked slot (an empty slot is padding of the tables' fixed width), the
-    queries of the walked slots, and `whole` entire."""
-    groups = walked.reshape(-1, t).any(1)
-    rows = bf.neighbor_rows(gcell, dims)[groups].unique()
-    occupied = int((tables[0][rows] < 0.5 * bf.SENTINEL).sum())
-    return (occupied * sum(a.element_size() for a in tables)
-            + int(walked.sum()) * 3 * q_rep.element_size() + nbytes(*whole))
-
-
-def walk_work(bf, q_rep, tx, gcell, dims, t, n_arrays, state_words,
-              threads):
-    """One line on a staged-walk call (K3, K7): its plan (`walk_plan`) and
-    its groups' work. A group of the sentinel cell is dead (it only writes
-    its outputs); a live group stages its 27 rows once, its padded slots
-    write their outputs and its live slots walk; a candidate test is one
-    live slot against one occupied slot of its group's rows."""
-    cap = tx.shape[1]
-    stage, n_stages = bf.walk_plan(cap, n_arrays, t, state_words)
-    smem = bf.walk_smem_bytes(stage, n_stages, n_arrays, t, state_words)
-    live = (q_rep[:, 0] < 0.5 * bf.SENTINEL).reshape(-1, t)
-    in_cell = gcell.long() < dims[0] * dims[1] * dims[2]
-    occupied = (tx < 0.5 * bf.SENTINEL).sum(1)
-    extent = occupied[bf.neighbor_rows(gcell, dims)].sum(1)
-    n_live = live.sum(1) * in_cell
-    tests = int((extent * n_live).sum())
-    batches = (-(-extent // stage))[in_cell]
-    return (f"plan: {threads} threads, stage {stage} candidates x {n_stages}, "
-            f"{smem} B dynamic shared memory; groups {gcell.shape[0]}: live "
-            f"{int(in_cell.sum())}, dead {int((~in_cell).sum())}; slots: live "
-            f"{int(n_live.sum())}, padded in live groups "
-            f"{int((t - live.sum(1))[in_cell].sum())}; candidates per live "
-            f"group mean {float(extent[in_cell].float().mean()):.1f} max "
-            f"{int(extent[in_cell].max())}, batches max {int(batches.max())}; "
-            f"candidate tests {tests}"), tests
-
-
-def bwd_work(bf, args, threads):
-    """One line on a K4 call: its plan (`bwd_walk_plan`) and its work, each
-    count beside that of a warp-per-slot design (a warp per packed slot,
-    every occupied slot of its 27 rows tested, a global atomic triple per
-    selected pair), on this call's data. A slot walks if it is live (in a
-    cell, below the sentinel) and carries a cotangent in columns 3-12; a
-    group with such a slot stages its rows; a walked slot tests candidates
-    in selection order up to its k-th in-radius particle; the accumulator
-    sends one global triple per group and selected candidate. Returns
-    (line, candidate tests, selected pairs)."""
-    (q_rep, cot_rep, tx, ty, tz, _, gcell, dims, radius, k, t, _) = args
-    import numpy as np
-    stage, n_stages = bf.bwd_walk_plan(tx.shape[1], t)
-    smem = bf.walk_smem_bytes(stage, n_stages, bf.BWD_ARRAYS, t,
-                              bf.BWD_STATE_WORDS, bf.BWD_ACC_ARRAYS)
-    ng = gcell.shape[0]
-    in_cell = gcell.long() < dims[0] * dims[1] * dims[2]
-    live = (q_rep[:, 0] < 0.5 * bf.SENTINEL).reshape(ng, t) & in_cell[:, None]
-    walked = live & (cot_rep[:, 3:] != 0).any(1).reshape(ng, t)
-    staging = walked.any(1)
-    rows = bf.neighbor_rows(gcell, dims)
-    occupied = (tx < 0.5 * bf.SENTINEL).sum(1)
-    tests_per_slot = int((occupied[rows].sum(1) * walked.sum(1)).sum())
-    r2 = float(np.float32(radius * radius))
-    qg = q_rep.reshape(ng, t, 3)
-    tests = pairs = distinct = 0
-    for chunk in staging.nonzero()[:, 0].split(64):
-        rc = rows[chunk]
-        cx, cy, cz = (a[rc][:, None] for a in (tx, ty, tz))
-        *_, within, sel = bf._select(qg[chunk], cx, cy, cz, r2, k)
-        w = walked[chunk]
-        sel = sel & w[:, :, None, None]
-        pairs += int(sel.sum())
-        distinct += int(sel.any(1).sum())
-        # occupied slots up to the k-th in-radius one, in selection order
-        occ = ((cx < 0.5 * bf.SENTINEL).reshape(len(chunk), 1, -1).int()
-               .cumsum(-1).expand(-1, t, -1))
-        reached = within.reshape(len(chunk), t, -1).int().cumsum(-1) >= k
-        first = reached.int().argmax(-1, keepdim=True)
-        need = occ.gather(-1, first)[..., 0].where(reached.any(-1),
-                                                   occ[..., -1])
-        tests += int((need * w).sum())
-    line = (f"plan: {threads} threads, stage {stage} candidates x {n_stages}, "
-            f"{smem} B dynamic shared memory; groups {ng}: dead "
-            f"{int((~in_cell).sum())}, live {int(in_cell.sum())}, staging "
-            f"{int(staging.sum())} (a warp per slot: {ng * t} warps); slots "
-            f"walked {int(walked.sum())}, live slots skipped for a zero "
-            f"cotangent {int((live & ~walked).sum())}; candidate tests "
-            f"{tests} (a warp per slot, whole rows: {tests_per_slot}); "
-            f"selected pairs {pairs}; global atomics {3 * distinct} (a "
-            f"triple per pair: {3 * pairs})")
-    return line, tests, pairs
+        del da1, da2, dw, db, g32, g64
+    return worst
 
 
 def bench_weights(gen, *modules):
@@ -865,24 +653,6 @@ def f32_sass_digests(sections, targets=True):
     return out
 
 
-def event_ms(torch, fn, reps=10):
-    """Median CUDA-event time of fn() after one warm-up call. A spin kernel
-    runs ahead of each timed call so the launch is queued before the start
-    event fires and host overhead stays out of the interval."""
-    fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(2_000_000)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 class Recorder:
     """Swap a module's CUDA wrapper for one that records its arguments,
     or for the plain version, and put the original back."""
@@ -902,41 +672,25 @@ class Recorder:
             setattr(mod, attr, orig)
 
 
-class Timed:
+class Counted:
     """Wraps a trainer's callable (its train step, full-image render or
-    rollout): each call synchronised with the card on entry and exit, its
-    start and end on the host clock kept, and the kernel launches of its
-    first call. `first(args, out)`, when given, sees the first call."""
+    rollout): its calls counted, and the kernel launches of its first call.
+    `first(args, out)`, when given, sees the first call."""
 
-    def __init__(self, torch, fn, counts, first=None):
-        self.torch, self.fn, self.counts, self.first = torch, fn, counts, first
-        self.spans, self.launches, self.losses = [], None, []
+    def __init__(self, fn, counts, first=None):
+        self.fn, self.counts, self.first = fn, counts, first
+        self.calls, self.launches, self.losses = 0, None, []
 
     def __call__(self, *args):
-        self.torch.cuda.synchronize()
         before = self.counts()
-        t0 = time.perf_counter()
         out = self.fn(*args)
-        self.torch.cuda.synchronize()
-        self.spans.append((t0, time.perf_counter()))
+        self.calls += 1
         if self.launches is None:
             self.launches = {k: v - before[k] for k, v in self.counts().items()
                              if v - before[k]}
             if self.first is not None:
                 self.first(args, out)
         return out
-
-    def call_ms(self):
-        """Median ms of a call, entry to exit."""
-        return statistics.median((b - a) * 1e3 for a, b in self.spans)
-
-    def loop_ms(self):
-        """Median ms between consecutive calls' ends: one iteration of the
-        caller's loop, its host work included (None with one call)."""
-        ends = [b for _, b in self.spans]
-        if len(ends) < 2:
-            return None
-        return statistics.median((b - a) * 1e3 for a, b in zip(ends, ends[1:]))
 
 
 def write_trainer_scene(tmp, scene_kw=TRAINER_SCENE):
@@ -980,7 +734,7 @@ def trainer_config(tmp, ds_yaml, stage, name, over, resume=""):
     return cfg
 
 
-def trainers_phase(torch, build_dir, counts, on_plain, bare_ms,
+def trainers_phase(torch, build_dir, counts, on_plain,
                    scene_kw=TRAINER_SCENE):
     """The port's stage trainers and evaluators through the classes the
     `neurofluid_torch.cli` entry points build, on the card, with configs
@@ -992,12 +746,10 @@ def trainers_phase(torch, build_dir, counts, on_plain, bare_ms,
     a checkpoint; its first step held against the same step with every
     kernel on its plain version, to STEP_TOL), a second e2e trainer resumed
     from that checkpoint taking one step, then E2EEvaluator,
-    TransitionEvaluator and RendererEvaluator. Prints per stage the step's
-    host-clock median (the loop's iteration and the step alone, beside the
-    bare step of the earlier phases), the first and last loss, the s per
-    full frame, the eval rollout's ms, the peak memory, the launches per
-    step and per stage, PSNR and Pred2GT, and the checkpoints written and
-    read back. Returns the phase's launches."""
+    TransitionEvaluator and RendererEvaluator. Prints per stage the steps
+    taken, the first and last loss, the peak memory, the launches per step
+    and per stage, PSNR and Pred2GT, and the checkpoints written and read
+    back. Returns the phase's launches."""
     from neurofluid_torch.train import checkpoint as ckpt
     from neurofluid_torch.train.e2e import E2ETrainer
     from neurofluid_torch.train.evaluation import (
@@ -1006,16 +758,13 @@ def trainers_phase(torch, build_dir, counts, on_plain, bare_ms,
     from neurofluid_torch.train.transition import TransitionTrainer
     from neurofluid_torch.train.warmup import WarmupTrainer
 
-    phase_t0 = time.perf_counter()
     phase_before = counts()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_trainers_", dir=build_dir)
     try:
-        t0 = time.perf_counter()
         root, ds_yaml = write_trainer_scene(tmp, scene_kw)
         print(f"trainers phase: scene of {scene_kw['n_side'] ** 3} fluid "
               f"particles, {scene_kw['n_frames']} frames, 5 views at "
-              f"{scene_kw['img_wh']} written in "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
+              f"{scene_kw['img_wh']} written", flush=True)
 
         def config(stage, name, over, resume=""):
             return trainer_config(tmp, ds_yaml, stage, name, over, resume)
@@ -1049,31 +798,22 @@ def trainers_phase(torch, build_dir, counts, on_plain, bare_ms,
         def run_stage(stage, fn):
             torch.cuda.reset_peak_memory_stats()
             before = counts()
-            t0 = time.perf_counter()
             out = fn()
             torch.cuda.synchronize()
             launched = {k: v - before[k] for k, v in counts().items()}
             check_launches(stage, launched)
             return out, (f"launches {({k: v for k, v in launched.items() if v})}"
                          f", peak {torch.cuda.max_memory_allocated() / 1e9:.2f}"
-                         f" GB, {time.perf_counter() - t0:.1f} s")
+                         f" GB")
 
-        def step_line(what, timed, bare=None):
-            loop = timed.loop_ms()
-            line = (f"{what}: {len(timed.spans)} steps, loop iteration "
-                    f"median {loop:.2f} ms, step alone median "
-                    f"{timed.call_ms():.2f} ms")
-            if bare is not None:
-                line += f" (bare step {bare[0]} {bare[1]:.2f} ms)"
-            return (line + f"; launches per step {timed.launches}; loss "
-                    f"first {timed.losses[0]:.6f} last {timed.losses[-1]:.6f}")
-
-        def frame_s(timed):
-            return statistics.median(b - a for a, b in timed.spans)
+        def step_line(what, counted):
+            return (f"{what}: {counted.calls} steps; launches per step "
+                    f"{counted.launches}; loss first {counted.losses[0]:.6f} "
+                    f"last {counted.losses[-1]:.6f}")
 
         def instrument(tr, step_first=None):
-            """Timed train step (its loss kept), render and rollout."""
-            step = Timed(torch, tr.train_step, counts, step_first)
+            """Counted train step (its loss kept), render and rollout."""
+            step = Counted(tr.train_step, counts, step_first)
 
             def step_with_loss(*args):
                 out = step(*args)
@@ -1081,12 +821,12 @@ def trainers_phase(torch, build_dir, counts, on_plain, bare_ms,
                 return out
 
             tr.train_step = step_with_loss
-            timed = {"step": step}
+            counted = {"step": step}
             for name in ("render_full", "rollout"):
                 if hasattr(tr, name):
-                    timed[name] = Timed(torch, getattr(tr, name), counts)
-                    setattr(tr, name, timed[name])
-            return timed
+                    counted[name] = Counted(getattr(tr, name), counts)
+                    setattr(tr, name, counted[name])
+            return counted
 
         # -- warm-up
         w_cfg = config("warmup", "warmup", {"TRAIN": dict(
@@ -1095,11 +835,11 @@ def trainers_phase(torch, build_dir, counts, on_plain, bare_ms,
 
         def warmup():
             tr = WarmupTrainer(w_cfg)
-            timed = instrument(tr)
+            counted = instrument(tr)
             eval_ = tr.eval
             tr.eval = lambda step: evals.append(eval_(step))
             tr.train()
-            return tr, timed
+            return tr, counted
 
         (w_tr, w_t), line = run_stage("warm-up", warmup)
         psnr = evals[0]["view_5"]
@@ -1107,9 +847,9 @@ def trainers_phase(torch, build_dir, counts, on_plain, bare_ms,
         finite("warm-up PSNR", psnr["psnr_0"], psnr["psnr_1"])
         print("trainers phase, warm-up: " + step_line(
             f"{len(w_tr.train_views)} views x {w_cfg.RENDERER.ray.ray_chunk} "
-            "rays", w_t["step"]) + f"; full-frame eval "
-            f"{frame_s(w_t['render_full']):.2f} s per {w_cfg.TEST.imgW} x "
-            f"{w_cfg.TEST.imgH} frame "
+            "rays", w_t["step"]) + f"; full-frame eval of "
+            f"{w_t['render_full'].calls} {w_cfg.TEST.imgW} x "
+            f"{w_cfg.TEST.imgH} frame(s) "
             f"(chunks of {w_tr.eval_chunk_size()}), PSNR coarse "
             f"{psnr['psnr_0']:.3f} fine {psnr['psnr_1']:.3f}; {line}; "
             f"checkpoints {read_back(w_tr, {'renderer': w_tr.model})}",
@@ -1124,22 +864,20 @@ def trainers_phase(torch, build_dir, counts, on_plain, bare_ms,
 
         def transition():
             tr = TransitionTrainer(t_cfg)
-            timed = instrument(tr)
+            counted = instrument(tr)
             eval_ = tr.eval
             tr.eval = lambda step: t_evals.append(eval_(step))
             tr.train()
-            return tr, timed
+            return tr, counted
 
         (t_tr, t_t), line = run_stage("transition", transition)
         finite("transition loss", *t_t["step"].losses)
         finite("transition Pred2GT", *t_evals)
         print("trainers phase, transition (search "
               f"{t_tr.net.search_backend}): " + step_line(
-                  "one epoch", t_t["step"],
-                  ("auto", bare_ms["transition auto"]))
-              + f"; eval rollout {len(t_t['rollout'].spans)} x "
-              f"{t_tr.test_dataset.sequence_lengths[0]} steps "
-              f"{t_t['rollout'].call_ms():.2f} ms, avg Pred2GT "
+                  "one epoch", t_t["step"])
+              + f"; eval rollout {t_t['rollout'].calls} x "
+              f"{t_tr.test_dataset.sequence_lengths[0]} steps, avg Pred2GT "
               f"{t_evals[0]:.4f} mm; {line}; checkpoints "
               f"{read_back(t_tr, {'transition': t_tr.net})}", flush=True)
 
@@ -1175,11 +913,9 @@ def trainers_phase(torch, build_dir, counts, on_plain, bare_ms,
         print("trainers phase, e2e (search "
               f"{e_tr.transition.search_backend}, warm-started): "
               + step_line(f"one epoch, {len(e_tr.train_views)} view x "
-                          f"{e_cfg.RENDERER.ray.ray_chunk} rays", e_t["step"],
-                          ("e2e fused_cconv", bare_ms["e2e fused_cconv"]))
-              + f"; eval rollout {e_t['rollout'].call_ms():.2f} ms, avg "
-              f"Pred2GT {avg:.4f} mm, full frame "
-              f"{frame_s(e_t['render_full']):.2f} s, PSNR "
+                          f"{e_cfg.RENDERER.ray.ray_chunk} rays", e_t["step"])
+              + f"; eval avg Pred2GT {avg:.4f} mm, full frames "
+              f"{e_t['render_full'].calls}, PSNR "
               + ", ".join(f"{k} {p0:.3f} / {p1:.3f}"
                           for k, (p0, p1) in psnrs.items())
               + f"; {line}; checkpoints "
@@ -1234,20 +970,20 @@ def trainers_phase(torch, build_dir, counts, on_plain, bare_ms,
 
         def resumed():
             tr = E2ETrainer(r_cfg)
-            timed = instrument(tr)
+            counted = instrument(tr)
             tr.train()
-            return tr, timed
+            return tr, counted
 
         (r_tr, r_t), line = run_stage("e2e", resumed)
         saved = ckpt.latest_step(e_tr.modelpath)
-        if r_tr.start_step != saved + 1 or len(r_t["step"].spans) != 1:
+        if r_tr.start_step != saved + 1 or r_t["step"].calls != 1:
             raise AssertionError(f"resumed e2e trainer: start step "
                                  f"{r_tr.start_step} from checkpoint {saved}, "
-                                 f"{len(r_t['step'].spans)} steps")
+                                 f"{r_t['step'].calls} steps")
         finite("resumed e2e loss", *r_t["step"].losses)
         print(f"trainers phase, e2e resumed from checkpoint {saved}: start "
-              f"step {r_tr.start_step}, one step {r_t['step'].call_ms():.2f} "
-              f"ms, loss {r_t['step'].losses[0]:.6f}; {line}", flush=True)
+              f"step {r_tr.start_step}, one step, loss "
+              f"{r_t['step'].losses[0]:.6f}; {line}", flush=True)
         e_models = e_tr.modelpath
         del e_tr, r_tr
 
@@ -1256,46 +992,40 @@ def trainers_phase(torch, build_dir, counts, on_plain, bare_ms,
             out = {}
             ev = E2EEvaluator(config("end2end", "eval_e2e", {},
                                      resume=e_models))
-            ev.rollout = Timed(torch, ev.rollout, counts)
-            ev.render_full = Timed(torch, ev.render_full, counts)
-            out["e2e"] = ev.eval(), ev.rollout, ev.render_full
+            ev.render_full = Counted(ev.render_full, counts)
+            out["e2e"] = ev.eval(), ev.render_full
             tev = TransitionEvaluator(config(
                 "transmodel", "eval_transmodel",
                 {"TEST": dict(datapath=root, end_index=TRAINER_TEST_END)},
                 resume=e_models))
-            tev.rollout = Timed(torch, tev.rollout, counts)
-            out["transition"] = tev.eval(), tev.rollout, len(tev.dataset)
+            out["transition"] = tev.eval(), len(tev.dataset)
             rev = RendererEvaluator(config("warmup", "eval_renderer", {},
                                            resume=w_tr.modelpath))
-            rev.render_full = Timed(torch, rev.render_full, counts)
+            rev.render_full = Counted(rev.render_full, counts)
             outdir = rev.eval(max_frames=RENDERER_EVAL_FRAMES)
             out["renderer"] = sorted(os.listdir(outdir)), rev.render_full
             return out
 
         out, line = run_stage("evaluators", evaluators)
-        (dists, psnrs), roll, render = out["e2e"]
+        (dists, psnrs), render = out["e2e"]
         finite("E2EEvaluator Pred2GT, PSNR", *dists, *psnrs)
-        (t_dists, t_clipped), t_roll, n_windows = out["transition"]
+        (t_dists, t_clipped), n_windows = out["transition"]
         finite("TransitionEvaluator Pred2GT", *t_dists, *t_clipped)
         files, r_render = out["renderer"]
         if len(files) != 2 * RENDERER_EVAL_FRAMES:
             raise AssertionError(f"RendererEvaluator wrote {files}")
         print(f"trainers phase, evaluators: E2EEvaluator rollout "
-              f"{len(dists)} steps {roll.call_ms():.2f} ms, "
-              f"{len(render.spans)} frames at {frame_s(render):.2f} s each, "
+              f"{len(dists)} steps, {render.calls} frames, "
               f"Pred2GT " + ", ".join(f"{x:.4f}" for x in dists)
               + " mm, fine PSNR " + ", ".join(f"{x:.3f}" for x in psnrs)
-              + f"; TransitionEvaluator rollout {n_windows} steps "
-              f"{t_roll.call_ms():.2f} ms, Pred2GT mean "
-              f"{statistics.mean(t_dists):.4f} mm (clipped "
+              + f"; TransitionEvaluator rollout {n_windows} steps, Pred2GT "
+              f"mean {statistics.mean(t_dists):.4f} mm (clipped "
               f"{statistics.mean(t_clipped):.4f}); RendererEvaluator "
-              f"{len(r_render.spans)} frames at {frame_s(r_render):.2f} s "
-              f"each, {files}; {line}", flush=True)
+              f"{r_render.calls} frames, {files}; {line}", flush=True)
     finally:
         shutil.rmtree(tmp)
     launched = {k: v - phase_before[k] for k, v in counts().items()}
-    print(f"trainers phase: launches {launched} in "
-          f"{time.perf_counter() - phase_t0:.1f} s", flush=True)
+    print(f"trainers phase: launches {launched}", flush=True)
     return launched
 
 
@@ -1333,25 +1063,23 @@ def options_phase(torch, dev, problem, init_state, reset_counts, counts,
     problem: the bench point's (pos, vel, box, nrm, ro_v, rays_v, rgbs_v)
     and `end`, the kernel rollout's last frame; init_state: the seeded
     (ParticleNet, RenderNet) weights; dense_ref: phase 4's dense render of
-    `end` (its num_nn_0, mask_0, num_nn_1, mask_1, rgb0, rgb1, host-clock
-    ms) and phase 6's dense e2e step ms.
+    `end` (its num_nn_0, mask_0, num_nn_1, mask_1, rgb0, rgb1).
     (a) the list render on 'auto' (the grid) with 'approx': finite, no
         overflow, num_nn_* and mask_* equal to the dense render's, the
         exact counts of its fine searches equal to K3's on the same
-        samples, against itself with K5 plain; host-clock medians beside
-        the dense render's, both in this phase;
+        samples, against itself with K5 plain;
     (b) the particle gradient of that render (finite, non-zero) and an e2e
-        train step with it: launches, losses, grad norms, timed steps, and
-        the first step again with K8 plain (loss bitwise, each gradient
-        leaf within 1e-4 of its largest entry);
+        train step with it: launches, losses, grad norms, and the first
+        step again with K8 plain (loss bitwise, each gradient leaf within
+        1e-4 of its largest entry);
     (c) the warm-up step of `build_renderer` with RENDERER.bf16 true and
         false, from the same weights: the renders within BF16_TOL, the
-        steps' host-clock medians and peak memory;
+        steps' peak memory;
     (d) coarse_rendering, fine_rendering, a seeded perturb=1, noise_std=1
         render twice from one seed (bitwise equal), exclude_ray=False;
     (e) the chamfer distance of `end` against the start within CHAMFER_TOL
         of scipy's cKDTree, and LPIPS of two 400 x 400 images on random
-        weights written under build/ (finite, repeatable), with times.
+        weights written under build/ (finite, repeatable).
     Returns the phase's launches and the arguments of the K8 calls of the
     list render's gradient pass."""
     import numpy as np
@@ -1374,17 +1102,12 @@ def options_phase(torch, dev, problem, init_state, reset_counts, counts,
     pos, vel, box, nrm, ro_v, rays_v, rgbs_v, end = problem
     ro, rays = ro_v[0], rays_v[0]
     phase = {k: 0 for k in counts()}
-    phase_t0 = time.perf_counter()
 
     def run(what, fn):
-        """fn() with every count set to 0 just before and read just after:
-        (its result, its host-clock ms)."""
-        torch.cuda.synchronize()
+        """fn()'s result, every count set to 0 just before and read just
+        after."""
         reset_counts()
-        t0 = time.perf_counter()
         out = fn()
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
         launched = counts()
         want = {k: OPTION_LAUNCHES[what].get(k, 0) for k in launched}
         if launched != want:
@@ -1392,7 +1115,7 @@ def options_phase(torch, dev, problem, init_state, reset_counts, counts,
                                  f"{launched} != {want}")
         for k, v in launched.items():
             phase[k] += v
-        return out, ms
+        return out
 
     def finite(what, out):
         for key, v in out.items():
@@ -1406,16 +1129,6 @@ def options_phase(torch, dev, problem, init_state, reset_counts, counts,
         r.load_state_dict(init_state[1])
         return r
 
-    def median_ms(fn, n=OPTION_STEPS):
-        times = []
-        for _ in range(n):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        return statistics.median(times)
-
     # ---- (a) the list render
     lst = renderer(search_mode="list")
     fine = []
@@ -1428,7 +1141,7 @@ def options_phase(torch, dev, problem, init_state, reset_counts, counts,
 
     with torch.no_grad():
         with Recorder([(ns, "radius_search_grid", spy)]):
-            out_l, _ = run("list render", lambda: lst(end, ro, rays))
+            out_l = run("list render", lambda: lst(end, ro, rays))
         finite("list render", out_l)
         if bool(out_l["overflow"]):
             raise AssertionError("options phase: the list render's search "
@@ -1451,12 +1164,10 @@ def options_phase(torch, dev, problem, init_state, reset_counts, counts,
         if count_mism:
             raise AssertionError(f"options phase: {count_mism} fine "
                                  f"samples' counts differ from K3's")
-        list_ms = median_ms(lambda: lst(end, ro, rays))
         d_ren = renderer()
-        _, _ = run("dense render", lambda: d_ren(end, ro, rays))
-        dense_ms = median_ms(lambda: d_ren(end, ro, rays))
+        run("dense render", lambda: d_ren(end, ro, rays))
         with on_plain(("K5",)):
-            out_p, _ = run("list render, K5 plain", lambda: lst(end, ro, rays))
+            out_p = run("list render, K5 plain", lambda: lst(end, ro, rays))
     diffs = {}
     for key in ("rgb0", "depth0", "opacity0", "rgb1", "depth1", "opacity1"):
         d = (out_p[key] - out_l[key]).abs()
@@ -1464,10 +1175,9 @@ def options_phase(torch, dev, problem, init_state, reset_counts, counts,
     bad = {k: diffs[k] for k, lim in LIST_PLAIN_LIMITS.items()
            if not diffs[k] <= lim}
     print(f"options phase (a), list render on 'auto' (grid) with 'approx', "
-          f"{rays.shape[0]} rays, 64 + 128 samples: host-clock median "
-          f"{list_ms:.2f} ms beside the dense render's {dense_ms:.2f} ms "
-          f"(phase 4: {dense_ref['ms']:.2f} ms); num_nn_0, mask_0, num_nn_1 "
-          f"and mask_1 equal to phase 4's dense render; the fine pass's "
+          f"{rays.shape[0]} rays, 64 + 128 samples: num_nn_0, mask_0, "
+          f"num_nn_1 and mask_1 equal to phase 4's dense render; the fine "
+          f"pass's "
           f"{q_f.shape[0]} exact counts equal to K3's; samples with K "
           f"neighbours coarse {int(out_l['mask_0'].sum())} fine "
           f"{int(out_l['mask_1'].sum())}; rgb1 against the "
@@ -1492,7 +1202,7 @@ def options_phase(torch, dev, problem, init_state, reset_counts, counts,
         return k8_cuda(vals, plan)
 
     with Recorder([(so, "segment_sum_cuda", k8_record)]):
-        _, grad_ms = run("list render gradient", grad_pass)
+        run("list render gradient", grad_pass)
     g = p_g.grad
     if not (bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0):
         raise AssertionError("options phase: the list render's particle "
@@ -1520,14 +1230,13 @@ def options_phase(torch, dev, problem, init_state, reset_counts, counts,
     def step_from(step, p, v):
         return step(p, v, box, nrm, ro_v, rays_v, rgbs_v, box_plan=box_plan)
 
-    (loss, p, v, aux), first_ms = run("list e2e step",
-                                      lambda: step_from(l_step, pos, vel))
+    loss, p, v, aux = run("list e2e step",
+                          lambda: step_from(l_step, pos, vel))
     ref = dict(loss=float(loss), grads=grads_of(l_net, l_ren))
-    step_ms, step_losses = [], [float(loss)]
+    step_losses = [float(loss)]
     for _ in range(OPTION_STEPS):
-        (loss, p, v, aux), ms = run("list e2e step",
-                                    lambda: step_from(l_step, p, v))
-        step_ms.append(ms)
+        loss, p, v, aux = run("list e2e step",
+                              lambda: step_from(l_step, p, v))
         step_losses.append(float(loss))
         gn_r = float(aux["grad_norm_renderer"])
         gn_t = float(aux["grad_norm_transition"])
@@ -1540,21 +1249,18 @@ def options_phase(torch, dev, problem, init_state, reset_counts, counts,
                                  "overflow flag is set")
     c_net, c_ren, c_step = list_trainer()
     with on_plain(("K8",)):
-        (loss_c, _, _, _), plain_ms = run("list e2e step, K8 plain",
-                                          lambda: step_from(c_step, pos, vel))
+        loss_c, _, _, _ = run("list e2e step, K8 plain",
+                              lambda: step_from(c_step, pos, vel))
     got = grads_of(c_net, c_ren)
     rel = {n: float((got[n] - w).abs().max())
            / max(float(w.abs().max()), 1e-30) for n, w in ref["grads"].items()}
     worst = max(rel, key=rel.get)
     print(f"options phase (b), list render particle gradient: max |g| "
-          f"{float(g.abs().max()):.4e} ({grad_ms:.2f} ms, K5 K6 K8 2 each); "
-          f"list e2e train step: first {first_ms:.2f} ms, then "
-          f"{OPTION_STEPS} steps median {statistics.median(step_ms):.2f} ms "
-          f"(min {min(step_ms):.2f}, max {max(step_ms):.2f}; phase 6's "
-          f"dense step {dense_ref['step_ms']:.2f} ms), losses "
+          f"{float(g.abs().max()):.4e} (K5 K6 K8 2 each); list e2e train "
+          f"step: {1 + OPTION_STEPS} steps, losses "
           + ", ".join(f"{x:.6f}" for x in step_losses)
           + f", grad norms renderer {gn_r:.4e} transition {gn_t:.4e}; with "
-          f"K8 plain ({plain_ms:.2f} ms): loss diff "
+          f"K8 plain: loss diff "
           f"{abs(float(loss_c) - ref['loss']):.3e}, worst leaf {worst} "
           f"{rel[worst]:.3e} of its largest entry", flush=True)
     if float(loss_c) != ref["loss"] or not rel[worst] <= 1e-4:
@@ -1572,12 +1278,12 @@ def options_phase(torch, dev, problem, init_state, reset_counts, counts,
         r = build_renderer(c, dev, torch.Generator().manual_seed(0))
         r.load_state_dict(init_state[1])
         with torch.no_grad():
-            out, _ = run("dense render", lambda: r(end, ro, rays))
+            out = run("dense render", lambda: r(end, ro, rays))
         finite(f"{name} render", out)
         opt = torch.optim.Adam(r.parameters(),
                                lr=float(c.TRAIN.LR.lr))
         warm[name] = dict(out=out, step=make_warmup_train_step(r, opt),
-                          ms=[], peak=0, losses=[])
+                          peak=0, losses=[])
     diffs = {key: float((warm["bf16"]["out"][key]
                          - warm["f32"]["out"][key]).abs().max())
              for key in ("rgb0", "opacity0", "depth0", "rgb1", "opacity1",
@@ -1586,7 +1292,7 @@ def options_phase(torch, dev, problem, init_state, reset_counts, counts,
         for name in (("f32", "bf16") if i % 2 == 0 else ("bf16", "f32")):
             w = warm[name]
             torch.cuda.reset_peak_memory_stats()
-            (loss, (_, _, overflow)), ms = run(
+            loss, (_, _, overflow) = run(
                 "warm-up step",
                 lambda: w["step"](end, ro_v, rays_v, rgbs_v))
             w["peak"] = max(w["peak"], torch.cuda.max_memory_allocated())
@@ -1595,13 +1301,9 @@ def options_phase(torch, dev, problem, init_state, reset_counts, counts,
                                      f"loss {float(loss)}, overflow "
                                      f"{bool(overflow)}")
             w["losses"].append(float(loss))
-            if i:  # the first step of each warms up
-                w["ms"].append(ms)
     print("options phase (c), the warm-up step of build_renderer, "
           "RENDERER.bf16 true against false, from the same weights: "
-          + "; ".join(f"{n} median {statistics.median(w['ms']):.2f} ms "
-                      f"(min {min(w['ms']):.2f}, max {max(w['ms']):.2f}), "
-                      f"peak {w['peak'] / 2 ** 30:.3f} GiB, losses "
+          + "; ".join(f"{n} peak {w['peak'] / 2 ** 30:.3f} GiB, losses "
                       + ", ".join(f"{x:.6f}" for x in w["losses"])
                       for n, w in warm.items())
           + "; render bf16 vs f32 max abs diffs "
@@ -1621,9 +1323,8 @@ def options_phase(torch, dev, problem, init_state, reset_counts, counts,
                  lambda: d_ren.coarse_rendering(end, ro, rays)),
                 ("fine_rendering",
                  lambda: d_ren.fine_rendering(end, ro, rays))):
-            outs[what], ms = run(what, fn)
+            outs[what] = run(what, fn)
             finite(what, outs[what])
-            outs[what + " ms"] = ms
         coarse_diff = float((outs["coarse_rendering"]["rgb0"]
                              - dense_ref["rgb0"]).abs().max())
         if not (torch.equal(outs["coarse_rendering"]["num_nn_0"],
@@ -1637,26 +1338,24 @@ def options_phase(torch, dev, problem, init_state, reset_counts, counts,
             return d_ren(end, ro, rays, generator=gen, perturb=1.0,
                          noise_std=1.0)
 
-        a, _ = run("random render", seeded)
-        b, random_ms = run("random render", seeded)
+        a = run("random render", seeded)
+        b = run("random render", seeded)
         finite("random render", a)
         same = all(torch.equal(a[k], b[k]) for k in a)
         if not same or torch.equal(a["rgb1"], dense_ref["rgb1"]):
             raise AssertionError("the seeded random render does not repeat "
                                  "bitwise, or equals the deterministic one")
         x_ren = renderer(exclude_ray=False)
-        out_x, x_ms = run("exclude_ray=False render",
-                          lambda: x_ren(end, ro, rays))
+        out_x = run("exclude_ray=False render", lambda: x_ren(end, ro, rays))
         finite("exclude_ray=False render", out_x)
-    print(f"options phase (d): coarse_rendering "
-          f"{outs['coarse_rendering ms']:.2f} ms (num_nn_0 equal to the "
+    print(f"options phase (d): coarse_rendering (num_nn_0 equal to the "
           f"full render's, rgb0 within {coarse_diff:.3e}), fine_rendering "
-          f"{outs['fine_rendering ms']:.2f} ms (opacity1 mean "
+          f"(opacity1 mean "
           f"{float(outs['fine_rendering']['opacity1'].mean()):.4f}), seeded "
-          f"perturb=1 noise_std=1 render {random_ms:.2f} ms, bitwise equal "
-          f"from one seed (rgb1 against the deterministic render max "
+          f"perturb=1 noise_std=1 render bitwise equal from one seed (rgb1 "
+          f"against the deterministic render max "
           f"{float((a['rgb1'] - dense_ref['rgb1']).abs().max()):.3e}), "
-          f"exclude_ray=False {x_ms:.2f} ms (rgb1 against exclude_ray=True "
+          f"exclude_ray=False (rgb1 against exclude_ray=True "
           f"max {float((out_x['rgb1'] - dense_ref['rgb1']).abs().max()):.3e}"
           f")", flush=True)
     del outs, a, b, out_x, d_ren, x_ren, lst
@@ -1664,11 +1363,8 @@ def options_phase(torch, dev, problem, init_state, reset_counts, counts,
     # ---- (e) chamfer and LPIPS
     cd = float(chamfer.chamfer_distance(end, pos))
     e64, p64 = end.double().cpu().numpy(), pos.double().cpu().numpy()
-    t0 = time.perf_counter()
     want = float(np.mean(cKDTree(p64).query(e64)[0] ** 2)
                  + np.mean(cKDTree(e64).query(p64)[0] ** 2))
-    tree_ms = (time.perf_counter() - t0) * 1e3
-    cd_ms = event_ms(torch, lambda: chamfer.chamfer_distance(end, pos))
     tmp = tempfile.mkdtemp(prefix="chip_smoke_lpips_", dir=build_dir)
     try:
         path = write_lpips_weights(os.path.join(tmp, "lpips_vgg.npz"))
@@ -1676,35 +1372,26 @@ def options_phase(torch, dev, problem, init_state, reset_counts, counts,
         img_a = rng.uniform(size=LPIPS_WH + (3,)).astype(np.float32)
         img_b = np.clip(img_a + rng.normal(size=img_a.shape) * 0.1, 0, 1
                         ).astype(np.float32)
-        t0 = time.perf_counter()
         ev = lpips.LPIPSEvaluator(path, device=dev)
         d1 = ev(img_a, img_b)
-        first_ms = (time.perf_counter() - t0) * 1e3
         d2 = ev(img_a, img_b)
-        a_t, b_t = (torch.from_numpy(x * 2 - 1).permute(2, 0, 1)[None].to(dev)
-                    for x in (img_a, img_b))
-        lp_ms = event_ms(torch, lambda: ev.distance(a_t, b_t))
     finally:
         shutil.rmtree(tmp)
     print(f"options phase (e): chamfer of the rollout's end state against "
           f"its start ({end.shape[0]} x {pos.shape[0]}) {cd:.9e}, cKDTree "
           f"float64 {want:.9e}, diff {abs(cd - want):.3e} (tol "
-          f"{CHAMFER_TOL:.0e}); {cd_ms:.4f} ms on the card (CUDA events), "
-          f"cKDTree {tree_ms:.1f} ms on the host; LPIPS of two "
-          f"{LPIPS_WH[0]} x {LPIPS_WH[1]} images, random weights: {d1:.6e} "
-          f"then {d2:.6e}, first call (weights loaded) {first_ms:.1f} ms, "
-          f"then {lp_ms:.3f} ms a distance (CUDA events)", flush=True)
+          f"{CHAMFER_TOL:.0e}); LPIPS of two {LPIPS_WH[0]} x {LPIPS_WH[1]} "
+          f"images, random weights: {d1:.6e} then {d2:.6e}", flush=True)
     if not abs(cd - want) <= CHAMFER_TOL:
         raise AssertionError(f"chamfer {cd} vs cKDTree {want}")
     if not (math.isfinite(d1) and d1 > 0 and d1 == d2):
         raise AssertionError(f"LPIPS {d1}, {d2}: not finite and repeatable")
-    print(f"options phase: launches {phase} in "
-          f"{time.perf_counter() - phase_t0:.1f} s", flush=True)
+    print(f"options phase: launches {phase}", flush=True)
     return phase, k8_calls
 
 
 def parallel_phase(torch, problem, init_state, reset_counts, counts,
-                   build_dir, step_ms):
+                   build_dir):
     """Phase 14: the sharded paths of `neurofluid_torch.parallel` in a world
     of one over NCCL (a FileStore in a temporary directory under build/,
     rank 0 of 1, destroyed at the end): every collective is a real NCCL
@@ -1726,12 +1413,12 @@ def parallel_phase(torch, problem, init_state, reset_counts, counts,
         gradient norms, next positions within DRYRUN_TOL), launches per
         step PARALLEL_LAUNCHES["spmd"] and K8 at least once; the replicas'
         parameters and Adam states compared bitwise;
-    host-clock medians beside phase 6's step (`step_ms`) and peak memory;
-    then the host tools: the native library built, its chamfer distance of
-    the rollout's end state against the start within CHAMFER_TOL of
-    ops/chamfer.py's on the card, and `cli.generate_data` writing a scene
-    under build/ that `BlenderDataset` loads. Returns the phase's launches
-    (the sharded steps'; the references' are comparisons)."""
+    peak memory; then the host tools: the native library built, its
+    chamfer distance of the rollout's end state against the start within
+    CHAMFER_TOL of ops/chamfer.py's on the card, and `cli.generate_data`
+    writing a scene under build/ that `BlenderDataset` loads. Returns the
+    phase's launches (the sharded steps'; the references' are
+    comparisons)."""
     import numpy as np
     import torch.distributed as dist
 
@@ -1752,7 +1439,6 @@ def parallel_phase(torch, problem, init_state, reset_counts, counts,
 
     pos, vel, box, nrm, ro_v, rays_v, rgbs_v, end = problem
     phase = {k: 0 for k in counts()}
-    phase_t0 = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_world_", dir=build_dir)
     dev = init_world(0, 1, f"file://{os.path.join(tmp, 'store')}", "cuda")
     print(f"parallel phase: world of {dist.get_world_size()} over "
@@ -1774,18 +1460,14 @@ def parallel_phase(torch, problem, init_state, reset_counts, counts,
 
     def steps(what, step, args, want=None, at_least=(), box_plan=None):
         """SHARDED_STEPS steps, the state carried: per step the loss, next
-        state, grad norms and host-clock ms; with `want`, each step's
-        launches held to it (those named in `at_least` to at least one)
-        and added to the phase's."""
+        state and grad norms; with `want`, each step's launches held to it
+        (those named in `at_least` to at least one) and added to the
+        phase's."""
         p, v = args[:2]
         out = []
         for i in range(SHARDED_STEPS):
-            torch.cuda.synchronize()
             reset_counts()
-            t0 = time.perf_counter()
             loss, p, v, aux = step(p, v, *args[2:], box_plan=box_plan)
-            torch.cuda.synchronize()
-            ms = (time.perf_counter() - t0) * 1e3
             launched = counts()
             if want is not None:
                 bad = {k: n for k, n in launched.items()
@@ -1802,20 +1484,9 @@ def parallel_phase(torch, problem, init_state, reset_counts, counts,
                                      f"{bool(aux['search_overflow'])}")
             out.append(dict(loss=float(loss), pos=p,
                             gn_r=float(aux["grad_norm_renderer"]),
-                            gn_t=float(aux["grad_norm_transition"]), ms=ms,
+                            gn_t=float(aux["grad_norm_transition"]),
                             launched={k: n for k, n in launched.items() if n}))
         return out
-
-    def timed3(fn):
-        """fn() three times: (the last result, the host-clock median ms)."""
-        times = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            res = fn()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        return res, statistics.median(times)
 
     def compare(what, got, want, tol):
         worst = {"loss": 0.0, "next_pos": 0.0, "grad_norm": 0.0}
@@ -1828,16 +1499,12 @@ def parallel_phase(torch, problem, init_state, reset_counts, counts,
                 worst["grad_norm"] = max(worst["grad_norm"],
                                          abs(g[key] - w[key]) / w[key])
         bad = {k: v for k, v in worst.items() if k in tol and not v <= tol[k]}
-        ms = statistics.median(g["ms"] for g in got)
-        ref_ms = statistics.median(w["ms"] for w in want)
         print(f"parallel phase, {what}: {SHARDED_STEPS} steps, losses "
               + ", ".join(f"{g['loss']:.6f}" for g in got)
               + f" (reference " + ", ".join(f"{w['loss']:.6f}" for w in want)
               + "); worst diffs " + ", ".join(f"{k} {v:.3e}"
                                               for k, v in worst.items())
-              + f" (tol {tol}); host-clock median {ms:.2f} ms a step "
-              f"(reference in this phase {ref_ms:.2f} ms, phase 6's step "
-              f"{step_ms:.2f} ms); launches per step {got[0]['launched']}",
+              + f" (tol {tol}); launches per step {got[0]['launched']}",
               flush=True)
         if bad:
             raise AssertionError(f"parallel phase, {what}: {bad}")
@@ -1886,19 +1553,16 @@ def parallel_phase(torch, problem, init_state, reset_counts, counts,
             b_plan = nets[0].make_box_plan(args[2])
             rows = particle_rows(mesh_p)
             with torch.no_grad():
-                sh, sh_ms = timed3(lambda: step(
-                    rows.local(args[0]), rows.local(args[1]), *args[2:],
-                    box_plan=b_plan))
-                un, un_ms = timed3(lambda: nets[1](*args, box_plan=b_plan))
+                sh = step(rows.local(args[0]), rows.local(args[1]), *args[2:],
+                          box_plan=b_plan)
+                un = nets[1](*args, box_plan=b_plan)
             mism = int((sh[2] != un[2]).sum())
             d_pos = float((sh[0] - un[0]).abs().max())
             flags = {k: bool(v) for k, v in sh[3].items()}
             print(f"parallel phase (b), particle-sharded step, {what} "
                   f"({args[0].shape[0]} particles): neighbour counts that "
                   f"differ {mism}, max |pos diff| {d_pos:.3e} (tol "
-                  f"{tol:.0e}), flags {flags}; host-clock medians sharded "
-                  f"{sh_ms:.2f} ms, unsharded {un_ms:.2f} ms",
-                  flush=True)
+                  f"{tol:.0e}), flags {flags}", flush=True)
             if mism or not d_pos <= tol or any(flags.values()):
                 raise AssertionError(f"parallel phase (b), {what}: counts "
                                      f"{mism}, pos {d_pos:.3e}, {flags}")
@@ -1937,43 +1601,36 @@ def parallel_phase(torch, problem, init_state, reset_counts, counts,
         shutil.rmtree(tmp)
 
     # ---- host tools: the native library, generate_data
-    t0 = time.perf_counter()
     if not native.available():
         raise AssertionError("the native library did not build")
-    build_s = time.perf_counter() - t0
     e_np, p_np = end.cpu().numpy(), pos.cpu().numpy()
-    t0 = time.perf_counter()
     cd_native = native.chamfer(e_np, p_np)
-    native_ms = (time.perf_counter() - t0) * 1e3
     cd_card = float(chamfer.chamfer_distance(end, pos))
     scene_dir = tempfile.mkdtemp(prefix="chip_smoke_generate_", dir=build_dir)
     try:
-        t0 = time.perf_counter()
         generate_data.main(["--out", os.path.join(scene_dir, "scene"),
                             "--frames", "2", "--img-size", "64",
                             "--n-side", "8"])
         ds = BlenderDataset(os.path.join(scene_dir, "scene"), img_wh=(64, 64),
                             view_names=["view_1"], end_index=2)
         sample = ds[0]
-        gen_s = time.perf_counter() - t0
     finally:
         shutil.rmtree(scene_dir)
     print(f"parallel phase, host tools: native library "
-          f"({native.library_path().name}) built and loaded in {build_s:.2f}"
-          f" s; its chamfer of the rollout's end state against the start "
-          f"{cd_native:.9e} in {native_ms:.1f} ms on the host, ops/chamfer.py"
-          f" on the card {cd_card:.9e}, diff {abs(cd_native - cd_card):.3e} "
+          f"({native.library_path().name}) built and loaded; its chamfer of "
+          f"the rollout's end state against the start {cd_native:.9e} on the "
+          f"host, ops/chamfer.py on the card {cd_card:.9e}, diff "
+          f"{abs(cd_native - cd_card):.3e} "
           f"(tol {CHAMFER_TOL:.0e}); generate_data wrote a 2-frame 64 x 64 "
           f"scene of {sample['particles_pos'].shape[0]} particles that "
           f"BlenderDataset loaded ({len(ds)} samples, rays "
-          f"{tuple(sample['rays'].shape)}) in {gen_s:.2f} s", flush=True)
+          f"{tuple(sample['rays'].shape)})", flush=True)
     if not abs(cd_native - cd_card) <= CHAMFER_TOL:
         raise AssertionError(f"native chamfer {cd_native} vs {cd_card}")
     if sample["particles_pos"].shape != (512, 3) or not np.isfinite(
             sample["rays"]).all():
         raise AssertionError("generate_data's scene did not load")
-    print(f"parallel phase: launches {phase} in "
-          f"{time.perf_counter() - phase_t0:.1f} s", flush=True)
+    print(f"parallel phase: launches {phase}", flush=True)
     return phase
 
 
@@ -1982,7 +1639,7 @@ def protocol_phase(torch, build_dir, counts):
     run, on the card at PROTOCOL_SCENE with PROTOCOL_KNOBS (the runner's
     roots in a temporary directory under build/, its record there too):
     every key of PROTOCOL_R5.json and `device` in the record, every metric
-    finite; per stage its wall time, peak memory and launches, the set of
+    finite; per stage its peak memory and launches, the set of
     kernels launched as PROTOCOL_KERNELS says and the counts the stage
     implies (transition K1 = K2 = 10 a window, each rollout K1 5 a step, an
     e2e step K1 = K2 = 5, the warm-up K6 8 a step, a full frame K3 = K5 2
@@ -2000,7 +1657,6 @@ def protocol_phase(torch, build_dir, counts):
         r5_keys = set(json.load(f))
     img = PROTOCOL_SCENE["img"]
     phase_before = counts()
-    phase_t0 = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_protocol_", dir=build_dir)
     record = os.path.join(tmp, "PROTOCOL_TORCH.json")
     env = dict(PROTOCOL_KNOBS, PROTO_ROOT=os.path.join(tmp, "root"),
@@ -2070,16 +1726,13 @@ def protocol_phase(torch, build_dir, counts):
             raise AssertionError(f"protocol phase, {what}: launches (got, "
                                  f"expected) {bad}, e2e steps {e2e_steps}, "
                                  f"frames {rendered}")
-        print(f"protocol phase, {what}, per stage (wall s, peak GiB, "
-              f"launches): " + "; ".join(
-                  f"{n} {st['wall_s']:.2f} s, {st['peak_gib']:.3f} GiB, "
-                  f"{st['launches']}" for n, st in stages.items())
+        print(f"protocol phase, {what}, per stage (peak GiB, launches): "
+              + "; ".join(f"{n} {st['peak_gib']:.3f} GiB, {st['launches']}"
+                          for n, st in stages.items())
               + f"; e2e steps {e2e_steps}", flush=True)
 
     try:
-        t0 = time.perf_counter()
         first = fpr.main(**PROTOCOL_SCENE, record=record)
-        run_s = time.perf_counter() - t0
         with open(record) as f:
             rec = json.load(f)
         if set(rec) != r5_keys | {"device"}:
@@ -2093,7 +1746,7 @@ def protocol_phase(torch, build_dir, counts):
         check_stages(rec, "first run")
         summary = rec["image_metrics_summary"]
         print(f"protocol phase, first run ({PROTOCOL_SCENE}, "
-              f"{PROTOCOL_KNOBS}) in {run_s:.1f} s on {rec['device']['name']}"
+              f"{PROTOCOL_KNOBS}) on {rec['device']['name']}"
               f" ({rec['device']['power_limit']}): warm-up PSNR fine "
               f"{rec['warmup']['psnr_fine']:.3f}, transition loss "
               f"{rec['transition']['final_loss']:.6f} over "
@@ -2105,10 +1758,8 @@ def protocol_phase(torch, build_dir, counts):
               f"{summary}", flush=True)
 
         before = counts()
-        t0 = time.perf_counter()
         row = reval_e2e_rollout.main(n_frames=PROTOCOL_SCENE["n_frames"],
                                      img=img, record=record)
-        reval_s = time.perf_counter() - t0
         reval_launches = {k: v - before[k] for k, v in counts().items()
                           if v - before[k]}
         d_reval = rows_diff(row, first["pred2gt_mm"])
@@ -2120,9 +1771,7 @@ def protocol_phase(torch, build_dir, counts):
             raise AssertionError("protocol phase: the re-evaluation changed "
                                  "more than pred2gt_mm")
 
-        t0 = time.perf_counter()
         second = fpr.main(**PROTOCOL_SCENE, record=record)
-        resume_s = time.perf_counter() - t0
         if (second["warmup"]["final_loss"] is not None
                 or second["transition"]["final_loss"] is not None):
             raise AssertionError("protocol phase: the resumed run trained "
@@ -2131,10 +1780,10 @@ def protocol_phase(torch, build_dir, counts):
         d_resume = rows_diff(second["pred2gt_mm_pretrained"],
                              first["pred2gt_mm_pretrained"])
         print(f"protocol phase, re-evaluation of the saved e2e checkpoint "
-              f"in {reval_s:.1f} s (launches {reval_launches}): pred2gt_mm "
+              f"(launches {reval_launches}): pred2gt_mm "
               f"within {d_reval:.3e} of the first run's "
               f"({'bitwise' if d_reval == 0 else 'not bitwise'}); resumed "
-              f"run in {resume_s:.1f} s: warm-up and transition trained "
+              f"run: warm-up and transition trained "
               f"nothing, pretrained row within {d_resume:.3e} "
               f"({'bitwise' if d_resume == 0 else 'not bitwise'}); "
               f"tolerance {PROTOCOL_RESUME_TOL:.0e}", flush=True)
@@ -2151,8 +1800,7 @@ def protocol_phase(torch, build_dir, counts):
                 os.environ[k] = v
         shutil.rmtree(tmp)
     launched = {k: v - phase_before[k] for k, v in counts().items()}
-    print(f"protocol phase: launches {launched} in "
-          f"{time.perf_counter() - phase_t0:.1f} s", flush=True)
+    print(f"protocol phase: launches {launched}", flush=True)
     return launched
 
 
@@ -2192,7 +1840,6 @@ def seed_phase(torch, counts):
     """Phase 16: `seed_models` on the card and on the host, every tensor
     bitwise equal (the draw is the host's), SEED_PINS met, no launch."""
     before = counts()
-    t0 = time.perf_counter()
     on_card, on_host = seed_models("cuda"), seed_models("cpu")
     states, n_tensors = {}, 0
     for card, hosted in zip(on_card, on_host):
@@ -2213,8 +1860,8 @@ def seed_phase(torch, counts):
         raise AssertionError(f"seed phase: launches {launched}")
     print(f"seed phase: JAX's seed-{SEED} draw of the warm-up RenderNet "
           f"and the ParticleNet, {n_tensors} tensors equal on the card and "
-          f"the host, {len(SEED_PINS)} pins of JAX's draw met, no launch, "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+          f"the host, {len(SEED_PINS)} pins of JAX's draw met, no launch",
+          flush=True)
 
 
 def main():
@@ -2256,14 +1903,12 @@ def main():
           flush=True)
 
     # ---- 2. build
-    t0 = time.perf_counter()
     nf_cuda.build(["fused_cconv.cu", "fused_cconv_bf16.cu",
                    "ball_features.cu", "composite.cu", "fused_query.cu",
                    "segment_sum.cu", "dense_layer.cu"])
-    build_s = time.perf_counter() - t0
-    print(f"build: 7 sources (K1-K9, K1d and K2d; headers split_gemm.cuh, "
-          f"ball_walk.cuh, async_copy.cuh) with nvcc -gencode "
-          f"arch=compute_90a,code=sm_90a in {build_s:.1f} s", flush=True)
+    print("build: 7 sources (K1-K9, K1d and K2d; headers split_gemm.cuh, "
+          "ball_walk.cuh, async_copy.cuh) with nvcc -gencode "
+          "arch=compute_90a,code=sm_90a", flush=True)
 
     # the K1/K2 library holds the 3xTF32 product, the K1d/K2d library the
     # bf16 one: split_gemm_kernel<BN, TRANS_A, BF16>, mangled
@@ -2357,17 +2002,11 @@ def main():
         scale = a_op.double().abs() @ b_g.double().abs()
         err = float(((got.double() - want).abs() / scale).max())
         err_lib = float((((a_op @ b_g).double() - want).abs() / scale).max())
-        ms = event_ms(torch, lambda: fc.split_gemm_cuda(a_g, b_g, **kw))
-        lib_ms = event_ms(torch, lambda: a_op @ b_g)
         m_g, k_g = a_op.shape
-        b_ms, b_by = bound_ms(nbytes(a_g, b_g, got), 0.0,
-                              2.0 * m_g * k_g * b_g.shape[1])
         print(f"tensor-core product, {use} ({m_g} x {k_g}) x ({k_g} x "
               f"{b_g.shape[1]}){', %d splits' % kw['n_split'] if 'n_split' in kw else ''}: "
               f"max err / sum|a||b| {err:.3e} (tol {GEMM_TOL:.3e}; "
-              f"torch.matmul f32 {err_lib:.3e}) ms {ms:.4f} bound_ms "
-              f"{b_ms:.4f} ({b_by}) library_ms {lib_ms:.4f} (torch.matmul, "
-              f"f32, TF32 off)", flush=True)
+              f"torch.matmul f32 {err_lib:.3e})", flush=True)
         if not err <= GEMM_TOL:
             raise AssertionError(f"tensor-core product {use}: error {err:.3e} "
                                  f"> {GEMM_TOL:.3e}")
@@ -2375,14 +2014,10 @@ def main():
 
     # the bf16 product (precision 'default') at the same shapes, against a
     # float64 product of the bf16-rounded inputs (the products of bf16
-    # values are exact: only the f32 sums differ), beside cuBLAS in bf16:
-    # torch.mm with out_dtype f32 where this torch has it, else
-    # torch.matmul on bf16 tensors (a bf16 result); its line's numbers are
-    # the sums over the five shapes
-    product_bf16 = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
-                        library_ms=0.0, bytes=0.0, bf16_ops=0.0)
+    # values are exact: only the f32 sums differ); the kernels line gives
+    # its largest absolute error over the five shapes
+    product_bf16_err = 0.0
     gen_g = torch.Generator(device=dev).manual_seed(3)
-    lib_name = None
     for use, n_rows, cin_g, cout_g in (("K1 fold", 14336, 96, 64),
                                        ("K1 fold", 14336, 64, 64),
                                        ("K2 d_acc", 14336, 96, 64),
@@ -2411,45 +2046,19 @@ def main():
         off_f32 = float(((got.double() - a_op.double() @ b_g.double()).abs()
                          / scale).max())
         abs_err = float((got.double() - want).abs().max())
-        a_bf, b_bf = a_op, b_g.to(torch.bfloat16)
-        if lib_name is None:
-            try:
-                torch.mm(a_bf, b_bf, out_dtype=torch.float32)
-                lib_name = "torch.mm bf16 -> f32"
-            except (TypeError, RuntimeError):
-                lib_name = "torch.matmul bf16 -> bf16"
-        if lib_name.startswith("torch.mm"):
-            def lib_call():
-                torch.mm(a_bf, b_bf, out_dtype=torch.float32)
-        else:
-            def lib_call():
-                torch.matmul(a_bf, b_bf)
-        ms = event_ms(torch, lambda: fc.split_gemm_cuda(a_g, b_g, **kw))
-        plain_ms = event_ms(torch, lambda: fc.split_gemm_plain(
-            a_g, b_g, kw.get("trans_a", False), "default"))
-        lib_ms = event_ms(torch, lib_call)
         m_g, k_g = a_op.shape
-        n_b, n_ops = nbytes(a_g, b_g, got), 2.0 * m_g * k_g * b_g.shape[1]
-        b_ms, b_by = bound_ms(n_b, 0.0, n_bf16_ops=n_ops)
         print(f"bf16 product, {use} ({m_g} x {k_g}) x ({k_g} x "
               f"{b_g.shape[1]}){', %d splits' % kw['n_split'] if 'n_split' in kw else ''}: "
               f"A bf16, max err / sum|a||b| {err:.3e} against float64 of the "
               f"bf16 inputs (tol {GEMM_TOL:.3e}; {off_f32:.3e} from the "
-              f"product with B unrounded) max_abs_err {abs_err:.3e} ms "
-              f"{ms:.4f} plain_ms "
-              f"{plain_ms:.4f} bound_ms {b_ms:.4f} ({b_by}) library_ms "
-              f"{lib_ms:.4f} ({lib_name})", flush=True)
+              f"product with B unrounded) max_abs_err {abs_err:.3e}",
+              flush=True)
         if not (err <= GEMM_TOL and off_f32 > 100.0 * GEMM_TOL):
             raise AssertionError(f"bf16 product {use}: error {err:.3e} "
                                  f"(tol {GEMM_TOL:.3e}), {off_f32:.3e} from "
                                  f"the f32 product")
-        for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b_ms),
-                       ("library_ms", lib_ms), ("bytes", n_b),
-                       ("bf16_ops", n_ops)):
-            product_bf16[key] += v
-        product_bf16["max_abs_err"] = max(product_bf16["max_abs_err"],
-                                          abs_err)
-        del a_g, b_g, got, want, scale, a_op, a_r, b_r, a_bf, b_bf
+        product_bf16_err = max(product_bf16_err, abs_err)
+        del a_g, b_g, got, want, scale, a_op, a_r, b_r
 
     # ---- scene and models
     pos, vel, box, nrm, ro_v, rays_v, rgbs_v = (
@@ -2517,40 +2126,15 @@ def main():
         for c in counters.values():
             c.launches = 0
 
-    kernels = {}
+    kernels = {}  # the largest error of each kernel against its plain
 
-    def gemm_ms(shapes):
-        """CUDA-event time of the tensor-core products of one K1 or K2
-        call: (M, K, N, trans_a) per product, then its precision where it
-        is not 'highest', on random operands."""
-        total = 0.0
-        for shape in shapes:
-            a_, b_, kw = product_operands(*shape[:4])
-            if len(shape) > 4:
-                kw["precision"] = shape[4]
-                if fc.conv_bf16(shape[4]):  # A in bf16, as the walks write it
-                    a_ = a_.to(torch.bfloat16)
-            total += event_ms(torch, lambda: fc.split_gemm_cuda(a_, b_, **kw))
-        return total
-
-    def chunks_of(n, klen):
-        rows = fc.scratch_chunk_rows(n, klen)
-        return [min(rows, n - lo) for lo in range(0, n, rows)]
-
-    def check(name, i, args, outputs, n_bytes, n_ops, exact=None,
-              timed=True, library=None, n_tc_ops=0.0, products=(),
-              floor=None, in_totals=True, n_bf16_ops=0.0, highest=()):
+    def check(name, i, outputs, exact=None, highest=()):
         """outputs: (label, got, want) float outputs, each held to TOL
         scaled as RELATIVE says; exact: integer-valued outputs that must
-        agree exactly (in-radius counts, selection counts, ids); library:
-        one PyTorch call that computes the same function, timed beside the
-        kernel and used nowhere else; floor: an empty kernel at the
-        kernel's grid, timed beside it; in_totals: add the call's times to
-        the kernel's per-step totals (False for a call the main path does
-        not make); n_bf16_ops: bf16 tensor-core operations (K1d, K2d);
-        highest: (label, plain 'highest' result) of each output of a K1d or
-        K2d call, from which its mean deviation must be BF16_MARGIN times
-        that from its plain 'default' result."""
+        agree exactly (in-radius counts, selection counts, ids); highest:
+        (label, plain 'highest' result) of each output of a K1d or K2d
+        call, from which its mean deviation must be BF16_MARGIN times that
+        from its plain 'default' result."""
         err = 0.0
         want_of = {label: (got, want) for label, got, want in outputs}
         far = []
@@ -2587,61 +2171,20 @@ def main():
             if mismatch:
                 raise AssertionError(f"{name} call {i}: {mismatch} integer "
                                      f"sums differ from the plain version")
-        k = kernels.setdefault(name, dict(max_abs_err=0.0, ms=0.0,
-                                          plain_ms=0.0, bound_ms=0.0,
-                                          ops=0.0, bytes=0.0, tc_ops=0.0,
-                                          bf16_ops=0.0, library_ms=None))
-        k["max_abs_err"] = max(k["max_abs_err"], err)
-        if not timed:
-            print(f"kernel {name} call {i}: max_abs_err {err:.3e} (tol "
-                  f"{KERNEL_TOL[name]:.0e}, {KERNEL_RELATIVE[name]})",
-                  flush=True)
-            return
-        ms = event_ms(torch, lambda: originals[name](*args))
-        plain_ms = event_ms(torch, lambda: plain[name](*args))
-        b_ms, b_by = bound_ms(n_bytes, n_ops, n_tc_ops, n_bf16_ops)
-        lib = ""
-        if products:  # a walk plus tensor-core products
-            g_ms = gemm_ms(products)
-            lib = f" products_ms {g_ms:.4f} walk_ms {ms - g_ms:.4f}"
-        if library is not None:
-            lib_ms = event_ms(torch, library)
-            if in_totals:
-                k["library_ms"] = (k["library_ms"] or 0.0) + lib_ms
-            lib += f" library_ms {lib_ms:.4f}"
-        if floor is not None:
-            lib += f" launch_floor_ms {event_ms(torch, floor):.4f}"
+        kernels[name] = max(kernels.get(name, 0.0), err)
         print(f"kernel {name} call {i}: max_abs_err {err:.3e} (tol "
-              f"{KERNEL_TOL[name]:.0e}, {KERNEL_RELATIVE[name]}) ms "
-              f"{ms:.4f} plain_ms "
-              f"{plain_ms:.3f} bound_ms {b_ms:.4f} ({b_by}){lib}", flush=True)
-        if not in_totals:
-            return
-        for key, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b_ms),
-                       ("ops", n_ops), ("bytes", n_bytes),
-                       ("tc_ops", n_tc_ops), ("bf16_ops", n_bf16_ops)):
-            k[key] += v
+              f"{KERNEL_TOL[name]:.0e}, {KERNEL_RELATIVE[name]})", flush=True)
 
-    def check_k8(i, vals, plan, in_totals=True):
-        """K8 at one recorded call against its plain version, timed,
-        bounded and beside `index_add_`."""
+    def check_k8(i, vals, plan):
+        """K8 at one recorded call against its plain version."""
         got, want = so.segment_sum_cuda(vals, plan), \
             so.segment_sum_plain(vals, plan)
         m, c = vals.shape
-        ids = plan.ids
+        # kept: the rows outside the trash segment (the lists' padding slots)
+        kept = int((plan.ids < plan.n).sum())
+        check("K8", f"{i} (M {m}, kept {kept}, C {c})", [("sums", got, want)])
 
-        def library():
-            vals.new_zeros((plan.n + 1, c)).index_add_(0, ids, vals)
-
-        # the rows of the trash segment (the lists' padding slots) need not
-        # be read: only their ids
-        kept = int((ids < plan.n).sum())
-        check("K8", f"{i} (M {m}, kept {kept}, C {c})", (vals, plan),
-              [("sums", got, want)],
-              kept * c * vals.element_size() + nbytes(ids, got),
-              float(kept * c), library=library, in_totals=in_totals)
-
-    dense_totals = dense_phase(torch, dev)
+    dense_err = dense_phase(torch, dev)
 
     # ---- 3. forward kernels at the serving path's shapes
     calls = {"K1": [], "K3": [], "K5": []}
@@ -2652,71 +2195,29 @@ def main():
 
     with torch.no_grad():
         for i, args in enumerate(calls["K1"]):
-            w, qplan, qpos_s, cplan, cpos_s, feats_s, radius, _, _ = args
             got = fc.fused_cconv_cuda(*args)
             want = fc.fused_cconv_plain(*args)
-            kz, ky, kx, cin, cout = w.shape
-            pairs = float(want[1].sum())
-            klen = kz * ky * kx * cin
-            ops = pairs * (K1_GEOMETRY_OPS + 16 * cin)
-            fold_ops = 2.0 * qplan.n * klen * cout
-            in_walk = fc.w_fits_shared(kz * ky * kx, cin, cout)
-            n_b = (nbytes(qpos_s[: qplan.n], cpos_s[: cplan.n],
-                          feats_s[: cplan.n], w, qplan.gcol, qplan.gzlo,
-                          qplan.gzhi, qplan.gstart, cplan.pstarts)
-                   + nbytes(*got))
-            check("K1", f"{i} (Cin {cin}, Cout {cout})", args,
-                  [("out", got[0], want[0])], n_b,
-                  ops + (fold_ops if in_walk else 0.0),
-                  exact=(got[1], want[1]),
-                  n_tc_ops=0.0 if in_walk else fold_ops,
-                  products=() if in_walk else [
-                      (m_, klen, cout, False)
-                      for m_ in chunks_of(qplan.n, klen)])
-        # K1d: the same calls at precision 'default'; its tap-feature
-        # contraction (8 taps x Cin per pair) and both folds are bf16
-        # tensor-core work
+            cin, cout = args[0].shape[-2:]
+            check("K1", f"{i} (Cin {cin}, Cout {cout})",
+                  [("out", got[0], want[0])], exact=(got[1], want[1]))
+        # K1d: the same calls at precision 'default'
         for i, args in enumerate(calls["K1"]):
-            w, qplan, qpos_s, cplan, cpos_s, feats_s, radius, _, _ = args
             args_d = args[:8] + ("default",)
             got = fc.fused_cconv_cuda(*args_d)
             want = fc.fused_cconv_plain(*args_d)
             want_h = fc.fused_cconv_plain(*args[:8])
-            kz, ky, kx, cin, cout = w.shape
-            pairs = float(want[1].sum())
-            klen = kz * ky * kx * cin
-            fold_ops = 2.0 * qplan.n * klen * cout
-            in_walk = fc.w_fits_shared(kz * ky * kx, cin, cout)
-            n_b = (nbytes(qpos_s[: qplan.n], cpos_s[: cplan.n],
-                          feats_s[: cplan.n], w, qplan.gcol, qplan.gzlo,
-                          qplan.gzhi, qplan.gstart, cplan.pstarts)
-                   + nbytes(*got))
-            check("K1d", f"{i} (Cin {cin}, Cout {cout})", args_d,
-                  [("out", got[0], want[0])], n_b, pairs * K1_GEOMETRY_OPS,
-                  exact=(got[1], want[1]),
-                  n_bf16_ops=pairs * 16 * cin + fold_ops,
-                  products=() if in_walk else [
-                      (m_, klen, cout, False, "default")
-                      for m_ in chunks_of(qplan.n, klen)],
+            cin, cout = args[0].shape[-2:]
+            check("K1d", f"{i} (Cin {cin}, Cout {cout})",
+                  [("out", got[0], want[0])], exact=(got[1], want[1]),
                   highest=[("out", want_h[0])])
         for i, args in enumerate(calls["K3"]):
-            q_rep, tx, ty, tz, gcell, dims, radius, k, t = args
             got, want = bf.ball_sums_cuda(*args), bf.ball_sums_plain(*args)
-            live = q_rep[:, 0] < 0.5 * bf.SENTINEL
-            work, tests = walk_work(bf, q_rep, tx, gcell, dims, t, 3,
-                                    bf.N_SUMS, bf.THREADS)
-            print(f"kernel K3 call {i} {work}", flush=True)
-            ops = tests * K3_TEST_OPS + float(want[:, 1].sum()) * K3_SELECTED_OPS
-            n_b = ball_bytes(bf, q_rep, (tx, ty, tz), gcell, dims, t, live,
-                             gcell, got)
-            check("K3", i, args, [("sums", got[:, 3:], want[:, 3:])], n_b,
-                  ops, exact=(got[:, :3], want[:, :3]))
+            check("K3", i, [("sums", got[:, 3:], want[:, 3:])],
+                  exact=(got[:, :3], want[:, :3]))
         for i, args in enumerate(calls["K5"]):
             got = comp.composite_weights_cuda(*args)
             want = comp.composite_weights_plain(*args)
-            check("K5", i, args, [("w", got, want)], nbytes(*args, got),
-                  K5_SAMPLE_OPS * got.numel(),
-                  floor=lambda: comp.launch_floor_cuda(got.shape[0], False))
+            check("K5", i, [("w", got, want)])
         # K5 on longer rays (tiles of 256, the carry in a register): the
         # fine call's sigmas, depths and ray norms, sorted depths extended
         sig, z, dn = calls["K5"][-1]
@@ -2728,24 +2229,16 @@ def main():
         got = comp.composite_weights_cuda(*args)
         want = comp.composite_weights_plain(*args)
         check("K5", f"S {K5_LONG_SAMPLES} (tiles of 256; not on the main "
-              "path)", args, [("w", got, want)], nbytes(*args, got),
-              K5_SAMPLE_OPS * got.numel(), in_totals=False,
-              floor=lambda: comp.launch_floor_cuda(got.shape[0], False))
+              "path)", [("w", got, want)])
     del calls
 
     # ---- 4. serving path, counted (K9 by its library's process-wide count,
     # as a difference around the run)
     reset_counts()
     k9_before = dl.gemm_launches()
-    torch.cuda.synchronize()
     with torch.no_grad():
-        t0 = time.perf_counter()
         traj, flags = rollout(pos, vel, box, nrm, ROLLOUT_STEPS)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
         out = ren(traj[-1], ro, rays)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
     serve_launches = {k: v for k, v in counts().items() if v}
     serve_launches["K9"] = dl.gemm_launches() - k9_before
     total_launches = counts()
@@ -2769,26 +2262,8 @@ def main():
     if int(out["mask_0"].sum()) == 0 or float(out["opacity1"].max()) < 0.5:
         raise AssertionError("the render is empty: no opaque sample")
 
-    # steadier times: two more runs of each, not counted
-    roll_s, render_s = [t1 - t0], [t2 - t1]
-    with torch.no_grad():
-        for _ in range(2):
-            t0 = time.perf_counter()
-            rollout(pos, vel, box, nrm, ROLLOUT_STEPS)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            ren(traj[-1], ro, rays)
-            torch.cuda.synchronize()
-            render_s.append(time.perf_counter() - t1)
-            roll_s.append(t1 - t0)
-    roll_med, render_med = statistics.median(roll_s), statistics.median(render_s)
-    psteps = ROLLOUT_STEPS * scene.N_PARTICLES / roll_med
-    rays_s = scene.N_RAYS / render_med
-    print(f"serving path: rollout {ROLLOUT_STEPS} steps {roll_med * 1e3:.2f} ms "
-          f"(min {min(roll_s) * 1e3:.2f}, max {max(roll_s) * 1e3:.2f}; "
-          f"{psteps:.0f} particle-steps/s), render {render_med * 1e3:.2f} ms "
-          f"(min {min(render_s) * 1e3:.2f}, max {max(render_s) * 1e3:.2f}; "
-          f"{rays_s:.1f} rays/s), opacity1 mean "
+    print(f"serving path: rollout {ROLLOUT_STEPS} steps, render of "
+          f"{scene.N_RAYS} rays, opacity1 mean "
           f"{float(out['opacity1'].mean()):.4f}, mask_0 {int(out['mask_0'].sum())}",
           flush=True)
 
@@ -2796,13 +2271,8 @@ def main():
     # kernel rollout's last frame so each comparison sees the same inputs
     before, k9_before = counts(), dl.gemm_launches()
     with torch.no_grad(), on_plain(("K1", "K3", "K5", "K9")):
-        t0 = time.perf_counter()
         traj_p, _ = rollout(pos, vel, box, nrm, ROLLOUT_STEPS)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
         out_p = ren(traj[-1], ro, rays)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
     if counts() != before or dl.gemm_launches() != k9_before:
         raise AssertionError("the plain run launched a kernel")
     diffs = {"traj": float((traj_p - traj).abs().max())}
@@ -2810,8 +2280,7 @@ def main():
         diffs[key] = float((out_p[key] - out[key]).abs().max())
         diffs[key + "_mean"] = float((out_p[key] - out[key]).abs().mean())
     diffs["num_nn_0_mismatch"] = int((out_p["num_nn_0"] != out["num_nn_0"]).sum())
-    print(f"plain serving path on the card: rollout {(t1 - t0) * 1e3:.1f} ms, "
-          f"render {(t2 - t1) * 1e3:.1f} ms; max abs diffs "
+    print(f"plain serving path on the card: max abs diffs "
           + ", ".join(f"{k} {v:.3e}" for k, v in diffs.items()), flush=True)
     # tolerances: f32 sums in another order compound over 10 steps; the
     # coarse pass sees identical inputs; the fine samples move with K5's
@@ -2826,7 +2295,6 @@ def main():
     serve_end = traj[-1].clone()
     dense_ref = {k: out[k] for k in ("num_nn_0", "mask_0", "num_nn_1",
                                      "mask_1", "rgb0", "rgb1")}
-    dense_ref["ms"] = render_med * 1e3
     del traj, traj_p, out, out_p
 
     # ---- 5. backward kernels at the shapes of one recorded train step
@@ -2869,53 +2337,12 @@ def main():
         # K2 at the step's calls, then K2d: the same at precision 'default'
         for (i, args), prec in [(c, p) for p in ("highest", "default")
                                 for c in enumerate(calls["K2"])]:
-            (w, qplan, qpos_s, cplan, cpos_s, feats_s, ct, radius, excl,
-             needs, _) = args
-            kz, ky, kx, cin, cout = w.shape
-            klen = kz * ky * kx * cin
-            pairs = float(fc.fused_cconv_cuda(w, qplan, qpos_s, cplan, cpos_s,
-                                              feats_s, radius, excl)[1].sum())
+            cin, cout = args[0].shape[-2:]
             bf16 = prec == "default"
-            for form, nd in (("step", needs), ("all", (True,) * 4)):
+            for form, nd in (("step", args[9]), ("all", (True,) * 4)):
                 a = args[:9] + (nd, prec)
                 got = fc.fused_cconv_bwd_cuda(*a)
                 want = fc.fused_cconv_bwd_plain(*a)
-                need_w, need_q, need_c, need_f = nd
-                in_walk = fc.w_fits_shared(kz * ky * kx, cin, cout)
-                ops, tc_ops, products = pairs * K1_GEOMETRY_OPS, 0.0, []
-                tail = (prec,) if bf16 else ()
-                # tensor-core work: the contractions with W (K2d's in-walk
-                # d_acc too), and K2d's tap-feature rows and tap cotangents
-                bf16_ops = 0.0
-                if need_q or need_c or need_f:  # d_acc = ct W^T
-                    if in_walk and not bf16:
-                        ops += 2.0 * qplan.n * klen * cout
-                    else:
-                        tc_ops += 2.0 * qplan.n * klen * cout
-                    if not in_walk:
-                        products += [(m_, cout, klen, False) + tail
-                                     for m_ in chunks_of(qplan.n, klen)]
-                if need_w:  # the tap-feature rows again, and A^T ct
-                    if bf16:
-                        bf16_ops += pairs * 16 * cin
-                    else:
-                        ops += pairs * 16 * cin
-                    tc_ops += 2.0 * qplan.n * klen * cout
-                    products += [(klen, m_, cout, True) + tail
-                                 for m_ in chunks_of(qplan.n, klen)]
-                if need_f:
-                    ops += pairs * 16 * cin
-                if need_q or need_c:  # 8 Cin-long dots and the adjoint
-                    if bf16:
-                        bf16_ops += pairs * 16 * cin
-                        ops += pairs * K2_ADJOINT_OPS
-                    else:
-                        ops += pairs * (16 * cin + K2_ADJOINT_OPS)
-                n_b = (nbytes(qpos_s[: qplan.n], cpos_s[: cplan.n],
-                              feats_s[: cplan.n], w, ct, qplan.gcol,
-                              qplan.gzlo, qplan.gzhi, qplan.gstart,
-                              cplan.pstarts)
-                       + nbytes(*got))
                 labels = ("dW", "dq", "dc", "dfeats")
                 highest = ()
                 if bf16:
@@ -2923,49 +2350,24 @@ def main():
                         *args[:9], nd)))
                 check("K2d" if bf16 else "K2", f"{i} (Cin {cin}, Cout "
                       f"{cout}, {form} {''.join(str(int(x)) for x in nd)})",
-                      a, list(zip(labels, got, want)), n_b, ops,
-                      timed=form == "step",
-                      n_tc_ops=0.0 if bf16 else tc_ops,
-                      n_bf16_ops=tc_ops + bf16_ops if bf16 else 0.0,
-                      products=products,
+                      list(zip(labels, got, want)),
                       highest=[(lb, h) for lb, h in highest if h is not None])
         for i, args in enumerate(calls["K4"]):
-            (q_rep, cot_rep, tx, ty, tz, table_idx, gcell, dims, radius, k,
-             t, n_points) = args
             got, want = bf.ball_sums_bwd_cuda(*args), bf.ball_sums_bwd_plain(*args)
-            work, tests, selected = bwd_work(bf, args, bf.BWD_THREADS)
-            print(f"kernel K4 call {i} {work}", flush=True)
-            # the slots the kernel walks: live, with a cotangent (the slots
-            # of a group of the sentinel cell carry none)
-            walked = ((cot_rep[:, 3:] != 0).any(1)
-                      & (q_rep[:, 0] < 0.5 * bf.SENTINEL))
-            ops = tests * K3_TEST_OPS + selected * K4_SELECTED_OPS
-            # the cotangent's gradient-carrying columns 3-12, of the slots
-            # of groups in a cell (the rest are zero by construction)
-            in_cell = gcell.long() < dims[0] * dims[1] * dims[2]
-            cot_read = cot_rep[in_cell.repeat_interleave(t), 3:]
-            n_b = ball_bytes(bf, q_rep, (tx, ty, tz, table_idx), gcell, dims,
-                             t, walked, gcell, cot_read, got)
-            check("K4", i, args, [("d_points", got, want)], n_b, ops)
+            check("K4", i, [("d_points", got, want)])
         for i, args in enumerate(calls["K6"]):
             got = comp.composite_weights_bwd_cuda(*args)
             want = comp.composite_weights_bwd_plain(*args)
-            check("K6", i, args, [("d_sigma", got, want)],
-                  nbytes(*args, got), K6_SAMPLE_OPS * got.numel(),
-                  floor=lambda: comp.launch_floor_cuda(got.shape[0], True))
+            check("K6", i, [("d_sigma", got, want)])
     del calls
 
     # ---- 6. train path, counted: the state carried from step to step
     reset_counts()
     k9_before = dl.gemm_launches()
-    torch.cuda.synchronize()
-    step_s, auxes, step_losses = [], [], []
+    auxes, step_losses = [], []
     p, v = pos_w, vel_w
     for _ in range(TRAIN_STEPS):
-        t0 = time.perf_counter()
         loss, p, v, aux = run_step(step, p, v)
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
         auxes.append(aux)
         step_losses.append(loss)
     train_launches = counts()
@@ -2992,12 +2394,7 @@ def main():
                                  f"image gradient reaches the simulator")
     if p.shape != (scene.N_PARTICLES, 3) or not bool(torch.isfinite(p).all()):
         raise AssertionError("non-finite or misshapen carried state")
-    step_med = statistics.median(step_s)
-    bare_ms = {"e2e fused_cconv": step_med * 1e3}
-    print(f"train path: {TRAIN_STEPS} steps, median {step_med * 1e3:.2f} ms "
-          f"(min {min(step_s) * 1e3:.2f}, max {max(step_s) * 1e3:.2f}); "
-          f"{scene.N_RAYS / step_med:.1f} rays/s, "
-          f"{scene.N_PARTICLES / step_med:.0f} particle-steps/s; losses "
+    print(f"train path: {TRAIN_STEPS} steps, losses "
           + ", ".join(f"{float(x):.6f}" for x in step_losses)
           + f"; grad norms renderer {float(auxes[-1]['grad_norm_renderer']):.4e}"
           f" transition {float(auxes[-1]['grad_norm_transition']):.4e}",
@@ -3045,17 +2442,14 @@ def main():
         c_net, c_ren, c_step = trainer()
         before, k9_before = counts(), dl.gemm_launches()
         with on_plain(swapped):
-            t0 = time.perf_counter()
             loss_c, pos_c, _, aux_c = run_step(c_step, pos, vel)
-            torch.cuda.synchronize()
-            ms = (time.perf_counter() - t0) * 1e3
         launched = {k: v - before[k] for k, v in counts().items()}
         launched["K9"] = dl.gemm_launches() - k9_before
         want = {k: 0 if k in swapped else STEP_LAUNCHES[k] for k in launched}
         if launched != want:
             raise AssertionError(f"{what}: launches {launched} != {want}")
         d, worst, mism = step_diffs(loss_c, pos_c, aux_c, c_net, c_ren)
-        show(f"{what} ({ms:.1f} ms)", d, worst, mism)
+        show(what, d, worst, mism)
         bad = {k: v for k, v in d.items() if k in tol and not v <= tol[k]}
         if bad:
             raise AssertionError(f"{what} disagrees beyond tolerance: {bad}")
@@ -3073,7 +2467,6 @@ def main():
     # the forward's rounding, not the backward, moves the gradients here
     compare("train step with plain K1, K3, K5", ("K1", "K3", "K5"), STEP_TOL)
     compare("plain train step on the card", tuple(STEP_LAUNCHES), STEP_TOL)
-
 
     # ---- 7. list kernels at the shapes of one recorded transition step
     pos1, pos2 = pos + 0.001, pos + 0.002
@@ -3120,46 +2513,17 @@ def main():
 
     with torch.no_grad():
         for i, args in enumerate(calls["K7"]):
-            (q_rep, tx, ty, tz, ti, gcell, dims, radius, k, t, excl,
-             emit) = args
+            k, excl = args[8], args[10]
             got = fq.ball_query_compact_cuda(*args)
             want = fq.ball_query_compact_plain(*args)
-            live = ((q_rep[:, 0] < 0.5 * bf.SENTINEL)
-                    & (gcell.long() < dims[0] * dims[1] * dims[2])
-                    .repeat_interleave(t))
-            work, tests = walk_work(bf, q_rep, tx, gcell, dims, t, 4, 0,
-                                    fq.THREADS)
-            print(f"kernel K7 call {i} {work}", flush=True)
-            n_b = ball_bytes(bf, q_rep, (tx, ty, tz, ti), gcell, dims, t,
-                             live, gcell, *got)
             mask = [torch.arange(k, device=dev)[None, :]
                     < torch.clamp(c, max=k)[:, None] for c in (got[1], want[1])]
-            check("K7", f"{i} (k {k}, exclude_self {int(excl)})", args, [],
-                  n_b, tests * K7_TEST_OPS,
+            check("K7", f"{i} (k {k}, exclude_self {int(excl)})", [],
                   exact=tuple(torch.cat([o[0].reshape(-1), o[1],
                                          m.reshape(-1).int()])
                               for o, m in zip((got, want), mask)))
         for i, (vals, plan) in enumerate(calls["K8"]):
             check_k8(i, vals, plan)
-        # K2 as the transition step calls it on fused_cconv: autograd runs
-        # the second rollout step's backward first, and that one asks for
-        # the position gradients too
-        # (and K2d: the same calls at precision 'default')
-        for kid, prec in (("K2", "highest"), ("K2d", "default")):
-            k2_ms = []
-            for i, args in enumerate(calls["K2"]):
-                a = args[:10] + (prec,)
-                ms = event_ms(torch, lambda: fc.fused_cconv_bwd_cuda(*a))
-                needs = "".join(str(int(x)) for x in args[9])
-                cin, cout = args[0].shape[-2:]
-                k2_ms.append(ms)
-                print(f"transition step {kid} call {i}: Cin {cin} Cout {cout} "
-                      f"needs (dW, dq, dc, dfeats) {needs} ms {ms:.4f}",
-                      flush=True)
-            print(f"transition step {kid}: second rollout step "
-                  f"{sum(k2_ms[:5]):.4f} ms, first rollout step "
-                  f"{sum(k2_ms[5:]):.4f} ms, {sum(k2_ms):.4f} ms per train "
-                  f"step", flush=True)
     del calls
 
     # ---- 8. transition train path, counted, on each search backend
@@ -3178,22 +2542,17 @@ def main():
         raise AssertionError(f"the two backends disagree beyond tolerance: "
                              f"{bad}")
 
-    def timed_transition(backend, t_step, plan):
-        """TRANSITION_STEPS counted, timed steps of `backend` from its
-        warm-up state: launches per step as TRANSITION_LAUNCHES says, finite
-        losses that fall, gradients, no flag set. Returns the launches; the
-        median step time goes to `bare_ms`."""
+    def counted_transition(backend, t_step, plan):
+        """TRANSITION_STEPS counted steps of `backend` from its warm-up
+        state: launches per step as TRANSITION_LAUNCHES says, finite losses
+        that fall, gradients, no flag set. Returns the launches."""
         per_step = {k: TRANSITION_LAUNCHES[backend].get(k, 0)
                     for k in counters}
         reset_counts()
-        torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        step_s, step_losses, auxes = [], [], []
+        step_losses, auxes = [], []
         for _ in range(TRANSITION_STEPS):
-            t0 = time.perf_counter()
             loss, aux = run_transition(t_step, plan)
-            torch.cuda.synchronize()
-            step_s.append(time.perf_counter() - t0)
             step_losses.append(float(loss))
             auxes.append(aux)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -3216,19 +2575,15 @@ def main():
         if not step_losses[-1] < warm_t[backend]["loss"]:
             raise AssertionError(f"{backend}: the loss does not fall: "
                                  f"{warm_t[backend]['loss']} -> {step_losses}")
-        med = statistics.median(step_s)
-        bare_ms[f"transition {backend}"] = med * 1e3
         print(f"transition train path ({backend}): {TRANSITION_STEPS} steps, "
-              f"median {med * 1e3:.2f} ms (min {min(step_s) * 1e3:.2f}, max "
-              f"{max(step_s) * 1e3:.2f}); "
-              f"{2 * scene.N_PARTICLES / med:.0f} particle-steps/s; peak "
-              f"memory {peak_gb:.2f} GB; losses {warm_t[backend]['loss']:.6f} "
-              "(warm-up), " + ", ".join(f"{x:.6f}" for x in step_losses)
+              f"peak memory {peak_gb:.2f} GB; losses "
+              f"{warm_t[backend]['loss']:.6f} (warm-up), "
+              + ", ".join(f"{x:.6f}" for x in step_losses)
               + f"; grad_norm {float(auxes[-1]['grad_norm']):.4e}", flush=True)
         return launched
 
     for backend, (t_net, t_step, plan) in trainers.items():
-        launched = timed_transition(backend, t_step, plan)
+        launched = counted_transition(backend, t_step, plan)
         total_launches = {k: v + launched[k]
                           for k, v in total_launches.items()}
 
@@ -3239,10 +2594,7 @@ def main():
         c_net, c_step, c_plan = transition_trainer(backend)
         before = counts()
         with on_plain(swapped):
-            t0 = time.perf_counter()
             loss_c, aux_c = run_transition(c_step, c_plan)
-            torch.cuda.synchronize()
-            ms = (time.perf_counter() - t0) * 1e3
         launched = {k: v - before[k] for k, v in counts().items()}
         want = {k: 0 if k in swapped
                 else TRANSITION_LAUNCHES[backend].get(k, 0) for k in launched}
@@ -3260,7 +2612,7 @@ def main():
              "grads": max(errs.values()) / max(
                  float(g.abs().max()) for g in ref["grads"].values()),
              "leaf": rel[worst]}
-        print(f"{what} ({ms:.1f} ms): diffs "
+        print(f"{what}: diffs "
               + ", ".join(f"{k} {v:.3e}" for k, v in d.items())
               + " (loss, grad_norm relative; grads relative to the model's "
               f"largest entry, leaf to the leaf's own); worst leaf {worst}",
@@ -3282,22 +2634,18 @@ def main():
 
     # the `fused_cconv` transition step at 'default' (K1d, K2d and the bf16
     # product: their main path) beside 'highest', from the same weights:
-    # TRANSITION_STEPS counted, timed steps each, the counts set to 0 just
+    # TRANSITION_STEPS counted steps each, the counts set to 0 just
     # before the 'default' steps and read just after; the first steps'
     # loss and grad_norm within BF16_STEP_TOL, and not equal
     prec_runs = {}
     for prec in ("highest", "default"):
         p_net, p_step, p_plan = transition_trainer("fused_cconv", prec)
-        torch.cuda.synchronize()
         reset_counts()
         fc.BF16_KERNELS["K1"].launches = fc.BF16_KERNELS["K2"].launches = 0
         before_d = bf16_counts()
-        step_s, step_losses, gns = [], [], []
+        step_losses, gns = [], []
         for _ in range(TRANSITION_STEPS):
-            t0 = time.perf_counter()
             loss, aux = run_transition(p_step, p_plan)
-            torch.cuda.synchronize()
-            step_s.append(time.perf_counter() - t0)
             step_losses.append(float(loss))
             gns.append(float(aux["grad_norm"]))
         launched = {k: v for k, v in counts().items() if v}
@@ -3307,11 +2655,9 @@ def main():
                 if prec == "highest" else
                 {"K1d": 10 * TRANSITION_STEPS, "K2d": 10 * TRANSITION_STEPS,
                  "product": launched.get("product", 0)})
-        med = statistics.median(step_s)
         print(f"transition train path (fused_cconv, conv_precision "
               f"'{prec}'): launches {launched} in {TRANSITION_STEPS} steps; "
-              f"median {med * 1e3:.2f} ms (min {min(step_s) * 1e3:.2f}, max "
-              f"{max(step_s) * 1e3:.2f}); losses "
+              f"losses "
               + ", ".join(f"{x:.6f}" for x in step_losses)
               + f"; grad_norm first {gns[0]:.6e} last {gns[-1]:.6e}",
               flush=True)
@@ -3323,7 +2669,7 @@ def main():
             raise AssertionError(f"{prec} transition steps: loss "
                                  f"{step_losses}, grad_norm {gns}")
         prec_runs[prec] = dict(loss=step_losses[0], grad_norm=gns[0],
-                               ms=med * 1e3, launched=launched)
+                               launched=launched)
     bf16_launches = {k: prec_runs["default"]["launched"][k]
                      for k in ("K1d", "K2d", "product")}
     d_prec = {k: abs(prec_runs["default"][k] - prec_runs["highest"][k])
@@ -3331,9 +2677,7 @@ def main():
     print("fused_cconv transition step, 'default' against 'highest' from "
           "the same weights, first step: diffs "
           + ", ".join(f"{k} {v:.3e}" for k, v in d_prec.items())
-          + f" (relative; tolerance {BF16_STEP_TOL}); median ms "
-          f"{prec_runs['default']['ms']:.2f} / "
-          f"{prec_runs['highest']['ms']:.2f} (host clock)", flush=True)
+          + f" (relative; tolerance {BF16_STEP_TOL})", flush=True)
     if not all(0.0 < d_prec[k] <= tol for k, tol in BF16_STEP_TOL.items()):
         raise AssertionError(f"'default' against 'highest': {d_prec} not "
                              f"within (0, {BF16_STEP_TOL}]")
@@ -3341,7 +2685,7 @@ def main():
 
     # ---- 9. the transition train path on 'auto' (the JAX trainers' own
     # search backend): which search it runs, its first step against
-    # `fused`'s from the same weights, then counted and timed as in 8
+    # `fused`'s from the same weights, then counted as in 8
     a_net, a_step, a_plan = transition_trainer("auto")
     routes = {"fluid": a_net.search_route(scene.N_PARTICLES),
               "box": a_net.search_route(box.shape[0], a_plan)}
@@ -3383,7 +2727,7 @@ def main():
     if mism or bad or not d_pos <= BACKEND_TOL["pred_pos"]:
         raise AssertionError(f"auto disagrees with fused: {bad}, pred_pos "
                              f"{d_pos:.3e}, {mism} counts")
-    launched = timed_transition("auto", a_step, a_plan)
+    launched = counted_transition("auto", a_step, a_plan)
     total_launches = {k: v + launched[k] for k, v in total_launches.items()}
     compare_transition("auto", "auto transition step rerun", (), {})
     compare_transition("auto", "auto transition step with plain K8",
@@ -3422,17 +2766,12 @@ def main():
     if not (torch.equal(g_sq, b_sq) and nearest):
         raise AssertionError("search check: grid and brute force are not "
                              "both in nearest order")
-    with torch.no_grad():
-        search_ms = {n: event_ms(torch, fn) for n, fn in searches.items()}
     print(f"search check, the fluid at the bench point (k {k_s}, exclude "
           f"self): counts and neighbour sets equal across grid, brute and "
           f"K7; grid and brute in nearest order (slots whose ids differ, "
           f"ties: {int((lists['grid'].idx != lists['brute'].idx).sum())}); "
           f"grid overflow False; largest count "
-          f"{int(lists['grid'].count.max())}; ms "
-          + ", ".join(f"{n} {v:.3f}" for n, v in search_ms.items())
-          + " (radius_search_grid, radius_search_brute, ball_query_compact "
-          "as called; plain torch, plain torch, K7)", flush=True)
+          f"{int(lists['grid'].count.max())}", flush=True)
     del lists, sets, g_sq, b_sq, grid_s
 
     # ---- 11. a scene written by the port's generator, loaded by its
@@ -3442,12 +2781,10 @@ def main():
     os.makedirs(build_dir, exist_ok=True)
     scene_dir = tempfile.mkdtemp(prefix="chip_smoke_scene_", dir=build_dir)
     try:
-        t0 = time.perf_counter()
         synthetic.generate_blender_scene(scene_dir, **SCENE_KW)
         dataset = BlenderDataset(scene_dir, img_wh=SCENE_KW["img_wh"],
                                  view_names=SCENE_KW["train_views"][:1],
                                  end_index=SCENE_KW["n_frames"])
-        scene_s = time.perf_counter() - t0
     finally:
         shutil.rmtree(scene_dir)
     frame = dataset[0]
@@ -3460,12 +2797,8 @@ def main():
     ro_s = torch.from_numpy(frame["cw"][0][:, 3].copy()).to(dev)
     s_ren = RenderNet(device=dev, generator=torch.Generator().manual_seed(6))
     reset_counts()
-    torch.cuda.synchronize()
     with torch.no_grad():
-        t0 = time.perf_counter()
         out_s = s_ren(particles_s, ro_s, rays_s)
-        torch.cuda.synchronize()
-        render_ms = (time.perf_counter() - t0) * 1e3
     launched = counts()
     total_launches = {k: v + launched[k] for k, v in total_launches.items()}
     want = {k: {"K3": 2, "K5": 2}.get(k, 0) for k in counters}
@@ -3480,39 +2813,34 @@ def main():
                              f"{bool(out_s['overflow'])}")
     print(f"scene-to-render: {SCENE_KW['n_frames']} frames of "
           f"{particles_s.shape[0]} particles, {len(SCENE_KW['train_views'])}"
-          f" views at {SCENE_KW['img_wh']} written and loaded in "
-          f"{scene_s:.2f} s; {RENDER_RAYS} rays of frame 0, view 1, rendered "
-          f"in {render_ms:.2f} ms (launches "
+          f" views at {SCENE_KW['img_wh']} written and loaded; "
+          f"{RENDER_RAYS} rays of frame 0, view 1, rendered (launches "
           f"{ {k: v for k, v in launched.items() if v} }); RGB MSE against "
           f"the pixels {mse:.6f} (random weights); samples with K neighbours "
           f"{int(out_s['mask_1'].sum())}", flush=True)
 
     # ---- 12. the trainers and evaluators behind their entry points, at
     # full width, on a synthetic scene written under build/
-    launched = trainers_phase(torch, build_dir, counts, on_plain, bare_ms)
+    launched = trainers_phase(torch, build_dir, counts, on_plain)
     total_launches = {k: v + launched[k] for k, v in total_launches.items()}
 
     # ---- 13. the renderer's options and its list path at the bench point
-    dense_ref["step_ms"] = bare_ms["e2e fused_cconv"]
     launched, k8_calls = options_phase(
         torch, dev, (pos, vel, box, nrm, ro_v, rays_v, rgbs_v, serve_end),
         init_state, reset_counts, counts, on_plain, build_dir, dense_ref)
     total_launches = {k: v + launched[k] for k, v in total_launches.items()}
     # K8 at the list render's shapes: the adjoint of its coarse and fine
-    # row gathers, (R S K, 3) into the particles (not in the per-step
-    # totals, which are the `fused` transition step's)
+    # row gathers, (R S K, 3) into the particles
     with torch.no_grad():
         for i, (vals, plan) in enumerate(k8_calls):  # fine pass first
-            check_k8(f"list render gradient {i}", vals, plan,
-                     in_totals=False)
+            check_k8(f"list render gradient {i}", vals, plan)
     del k8_calls
 
     # ---- 14. the sharded paths in a world of one over NCCL, and the host
     # tools
     launched = parallel_phase(
         torch, (pos, vel, box, nrm, ro_v, rays_v, rgbs_v, serve_end),
-        init_state, reset_counts, counts, build_dir,
-        bare_ms["e2e fused_cconv"])
+        init_state, reset_counts, counts, build_dir)
     total_launches = {k: v + launched[k] for k, v in total_launches.items()}
 
     # ---- 15. the reference-protocol run of the port's runner, cut (at the
@@ -3530,9 +2858,8 @@ def main():
     # runs (the serving path once, the e2e train path TRAIN_STEPS times, the
     # transition train path TRANSITION_STEPS times on each backend, the
     # scene render once, the trainers phase, the options phase, the
-    # parallel phase's sharded steps, the protocol phase); the times
-    # are per serving pass (K1: per rollout step), per e2e train step (K2,
-    # K4, K6) or per transition train step on `fused` (K7, K8)
+    # parallel phase's sharded steps, the protocol phase); max_abs_err: the
+    # largest over every call held against the plain version
     sources = {
         "K1": ("fused_cconv", "fused_cconv.cu",
                "neurofluid_tpu/ops/fused_cconv.py:622"),
@@ -3558,35 +2885,24 @@ def main():
     line = {"kernels": [
         {"name": f"{kid} {name}", "route": "cuda",
          "source": f"neurofluid_torch/csrc/{src}", "replaces": replaces,
-         "launches": total_launches[kid],
-         "max_abs_err": kernels[kid]["max_abs_err"],
-         "ms": kernels[kid]["ms"], "plain_ms": kernels[kid]["plain_ms"],
-         "bound_ms": kernels[kid]["bound_ms"],
-         "bound_by": bound_ms(kernels[kid]["bytes"], kernels[kid]["ops"],
-                              kernels[kid]["tc_ops"])[1],
-         "library_ms": kernels[kid]["library_ms"],
+         "launches": total_launches[kid], "max_abs_err": kernels[kid],
          "includes": [f"neurofluid_torch/csrc/{h}"
                       for h in includes.get(src, ())]}
         for kid, (name, src, replaces) in sources.items()]}
     # K1 and K2 at conv_precision 'default' (launches: phase 8's 'default'
-    # steps and phase 15; times per call of phases 3 and 5), and the bf16
-    # product inside them (launches counted by the library where it
-    # launches them; its numbers the sums over phase 2's five shapes)
+    # steps and phase 15; errors of phases 3 and 5), and the bf16 product
+    # inside them (launches counted by the library where it launches them;
+    # its error over phase 2's five shapes)
     for kid, name, replaces in (
             ("K1d", "fused_cconv (conv_precision 'default', bf16)",
              "neurofluid_tpu/ops/fused_cconv.py:622"),
             ("K2d", "fused_cconv_bwd (conv_precision 'default', bf16)",
              "neurofluid_tpu/ops/fused_cconv.py:698")):
-        k = kernels[kid]
         line["kernels"].append({
             "name": f"{kid} {name}", "route": "cuda",
             "source": "neurofluid_torch/csrc/fused_cconv_bf16.cu",
             "replaces": replaces, "launches": bf16_launches[kid],
-            "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-            "bound_by": bound_ms(k["bytes"], k["ops"], k["tc_ops"],
-                                 k["bf16_ops"])[1],
-            "library_ms": k["library_ms"],
+            "max_abs_err": kernels[kid],
             "includes": [f"neurofluid_torch/csrc/{h}"
                          for h in includes["fused_cconv_bf16.cu"]]})
     line["kernels"].append({
@@ -3594,23 +2910,12 @@ def main():
         "route": "cuda", "source": "neurofluid_torch/csrc/split_gemm.cuh",
         "replaces": "neurofluid_tpu/ops/fused_cconv.py:509",
         "launches": bf16_launches["product"],
-        "max_abs_err": product_bf16["max_abs_err"], "ms": product_bf16["ms"],
-        "plain_ms": product_bf16["plain_ms"],
-        "bound_ms": product_bf16["bound_ms"],
-        "bound_by": bound_ms(product_bf16["bytes"], 0.0,
-                             n_bf16_ops=product_bf16["bf16_ops"])[1],
-        "library_ms": product_bf16["library_ms"]})
+        "max_abs_err": product_bf16_err})
     line["kernels"].append({
         "name": "K9 dense_layer (the NeRF's wide layers)", "route": "cuda",
         "source": "neurofluid_torch/csrc/dense_layer.cu",
         "replaces": "none (the JAX package's dense layers are XLA's)",
-        "launches": k9_main,
-        "max_abs_err": dense_totals["max_abs_err"], "ms": dense_totals["ms"],
-        "plain_ms": dense_totals["plain_ms"],
-        "bound_ms": dense_totals["bound_ms"],
-        "bound_by": bound_ms(dense_totals["bytes"], 0.0,
-                             dense_totals["tc_ops"])[1],
-        "library_ms": dense_totals["library_ms"],
+        "launches": k9_main, "max_abs_err": dense_err,
         "includes": ["neurofluid_torch/csrc/split_gemm.cuh",
                      "neurofluid_torch/csrc/async_copy.cuh"]})
     for k in line["kernels"]:

@@ -300,9 +300,6 @@ __global__ void composite_weights_bwd_kernel(const float* __restrict__ sigma,
   }
 }
 
-// An empty kernel, timed at K5's or K6's grid: the launch floor under them.
-__global__ void empty_kernel() {}
-
 }  // namespace
 
 // K5. per_lane: samples each lane holds, as ops/composite.samples_per_lane
@@ -355,14 +352,5 @@ extern "C" int nf_composite_weights_bwd(const float* sigma, const float* z,
   const int blocks = (n_rays + kBwdWarps - 1) / kBwdWarps;
   kernel<<<blocks, kBwdWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
       sigma, z, dnorm, g, d_sigma, n_rays, n_samples);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The empty kernel at the grid K6 (backward != 0) or K5 takes for n_rays.
-extern "C" int nf_composite_launch_floor(int n_rays, int backward,
-                                         void* stream) {
-  const int warps = backward ? kBwdWarps : kWarpsPerBlock;
-  empty_kernel<<<(n_rays + warps - 1) / warps, warps * 32, 0,
-                 static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }

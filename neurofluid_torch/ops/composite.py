@@ -28,7 +28,6 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = Kernel("composite.cu", "nf_composite_weights", [_P] * 4 + [_I] * 3)
 BWD_KERNEL = Kernel("composite.cu", "nf_composite_weights_bwd",
                     [_P] * 5 + [_I] * 3)
-FLOOR_KERNEL = Kernel("composite.cu", "nf_composite_launch_floor", [_I] * 2)
 
 # K5 and K6 hold a ray in registers, a run of samples per lane of one warp:
 # the fewest of PER_LANE that cover the ray, else tiles of 32 * 8 samples
@@ -132,13 +131,6 @@ def composite_weights_bwd_cuda(sigmas, z_vals, dnorm, g) -> torch.Tensor:
         BWD_KERNEL(sigmas.data_ptr(), z_vals.data_ptr(), dnorm.data_ptr(),
                    g.data_ptr(), d_sigma.data_ptr(), n_rays, n_s, per_lane)
     return d_sigma
-
-
-def launch_floor_cuda(n_rays: int, backward: bool) -> None:
-    """An empty kernel at the grid K6 (`backward`) or K5 takes for
-    `n_rays` rays, on the current CUDA device: the launch floor under their
-    times. Computes nothing."""
-    FLOOR_KERNEL(int(n_rays), int(backward))
 
 
 class CompositeWeights(torch.autograd.Function):

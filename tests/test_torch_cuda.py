@@ -874,8 +874,7 @@ def test_composite_kernel_refuses_another_plan(dev):
 
 
 def test_composite_bwd_kernel_refuses_longer_rays(dev):
-    """2,049 samples are refused, by the wrapper and by the C side; the
-    launch-floor kernel launches at K5's and K6's grids."""
+    """2,049 samples are refused, by the wrapper and by the C side."""
     sig, z, dn, g = (t.to(dev) for t in _composite_bwd_inputs(
         np.random.default_rng(9), 5, 2049))
     with pytest.raises(ValueError):
@@ -887,9 +886,6 @@ def test_composite_bwd_kernel_refuses_longer_rays(dev):
     with pytest.raises(RuntimeError):  # a plan that is not the ray's
         comp.BWD_KERNEL(sig.data_ptr(), z.data_ptr(), dn.data_ptr(),
                         g.data_ptr(), out.data_ptr(), 5, 64, 4)
-    comp.launch_floor_cuda(1024, False)
-    comp.launch_floor_cuda(1024, True)
-    torch.cuda.synchronize()
 
 
 def test_composite_weights_gradcheck(dev):

@@ -47,9 +47,8 @@ def test_every_module_declares_its_kernels():
     names = sorted(k.symbol for k in _kernels())
     assert names == sorted([
         "nf_ball_query_compact", "nf_ball_sums", "nf_ball_sums_bwd",
-        "nf_composite_launch_floor", "nf_composite_weights",
-        "nf_composite_weights_bwd", "nf_dense_layer_bwd",
-        "nf_dense_layer_chain", "nf_dense_layer_prep",
+        "nf_composite_weights", "nf_composite_weights_bwd",
+        "nf_dense_layer_bwd", "nf_dense_layer_chain", "nf_dense_layer_prep",
         "nf_fused_cconv_bwd", "nf_fused_cconv_bwd_bf16",
         "nf_fused_cconv_fwd", "nf_fused_cconv_fwd_bf16",
         "nf_segment_sum_accumulate", "nf_split_gemm", "nf_split_gemm_bf16"])

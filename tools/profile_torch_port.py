@@ -1,39 +1,34 @@
-"""Device-time breakdown of the PyTorch port's serving path and train steps
-on one GPU.
+"""Kernel-design probes of the PyTorch port on one GPU, and a trace of its
+stage trainers' loops. A step's or a frame's time and its device-time
+breakdown come from the benchmark: `python3 -m nfbench.run --workload
+<cell> --seed <n> --seconds 20 --trace 1`.
 
-Usage: python tools/profile_torch_port.py [--steps 10] [--rows 20]
-       python tools/profile_torch_port.py --walk-phases [--precision default]
+Usage: python tools/profile_torch_port.py --walk-phases [--precision default]
                                           [--root DIR]
        python tools/profile_torch_port.py --conv-steps [--root DIR]
        python tools/profile_torch_port.py --ball-walk-sweep
-       python tools/profile_torch_port.py --trainers
+       python tools/profile_torch_port.py --trainers [--rows 20]
 
-Builds the bench-point scene and the seeded models exactly as chip_smoke.py
-does, runs one warm-up pass, then traces a rollout of `--steps` steps, one
-1,024-ray render and, after one warm-up step, TRAIN_TRACES end-to-end
-train steps (Adam 3e-4 / 1e-5), each traced on its own, with torch.profiler
-(CPU + CUDA activities); the train step reported is the one with the median
-wall time; then, in the same way, the transition-only train step of
-chip_smoke.py (clip 1.0, Adam 1e-4) on each search backend it counts
-(`chip_smoke.TRANSITION_LAUNCHES`: `fused_cconv`, `fused` and `auto`, which
-searches by the plain grid at the bench point). Prints, for each pass, the wall time, the summed device time
-of its kernels, the device idle share (1 - device time / wall time), that
-device time split by kind (the port's kernels K1-K8, matrix products, sorts,
-the rest) and the kernels with the most device time. Needs a CUDA device;
-the kernels build at first use.
+The probes build the bench-point scene and seeded models as chip_smoke.py
+does and time kernels at the calls they record there by CUDA events
+(`event_ms`, median of 10). Each needs a CUDA device; the kernels build at
+first use.
 
-With --trainers it instead traces the port's stage trainers at the shipped
+With --trainers it traces the port's stage trainers at the shipped
 configs' widths on chip_smoke.py's trainers scene (13,824 particles,
 400 x 400 views; `chip_smoke.write_trainer_scene`, `trainer_config`, logging
 every step, no eval, no checkpoint but the transition trainer's one per
-epoch): TRAIN_TRACES single iterations of the warm-up trainer's loop (4
-views), one full-frame eval render, then one epoch each of the transition
-trainer (20 iterations) and of the e2e trainer (5 frames), each after a
-warm-up epoch; the same report per pass, so the idle share is that of the
-trainers' loops, host work included.
+epoch) with torch.profiler (CPU + CUDA activities): TRAIN_TRACES single
+iterations of the warm-up trainer's loop (4 views; the one with the median
+wall time is reported), one full-frame eval render, then one epoch each of
+the transition trainer (20 iterations) and of the e2e trainer (5 frames),
+each after a warm-up epoch. For each pass it prints the wall time, the
+summed device time of its kernels, the device idle share (1 - device time
+/ wall time, the trainers' host work included) and the `--rows` kernels
+with the most device time, each by its own name.
 
-With --walk-phases it instead times K1 (CUDA events, median of 10) at the
-five calls of one ParticleNet step with parts of the forward walk taken out,
+With --walk-phases it times K1 (CUDA events, median of 10) at the five
+calls of one ParticleNet step with parts of the forward walk taken out,
 in patched temporary copies of csrc/fused_cconv.cu: what a part costs is the
 time that goes with it. The patched kernels compute wrong results; only
 their time is read, and the package's own build is not touched. With
@@ -44,12 +39,12 @@ instantiation). --root imports the package and chip_smoke.py from another
 checkout (for example a `git archive` of the parent under the git-ignored
 build/), so that two trees are timed by one script in one call.
 
-With --conv-steps it instead times K1 and K1d (conv_precision 'highest'
+With --conv-steps it times K1 and K1d (conv_precision 'highest'
 and 'default') at the calls of one ParticleNet step, and K2 and K2d at the
 calls of one transition train step on `fused_cconv` (CUDA events, median of
 10), per call and per step; --root as above.
 
-With --ball-walk-sweep it instead times K3 at the two calls of one render,
+With --ball-walk-sweep it times K3 at the two calls of one render,
 K7 at the two calls of one ParticleNet step on `search_backend='fused'` and
 K4 at the two calls of one e2e train step's backward (CUDA events, median
 of 10): as built; on the leading live groups alone (a probe of what the
@@ -63,10 +58,9 @@ rebuild).
 """
 
 import argparse
-import copy
 import os
-import re
 import shutil
+import statistics
 import sys
 import tempfile
 import time
@@ -74,8 +68,27 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-# train steps traced, each on its own; the median-wall one is reported
+# warm-up trainer iterations traced, each on its own; the median-wall one
+# is reported
 TRAIN_TRACES = 3
+
+
+def event_ms(torch, fn, reps=10):
+    """Median CUDA-event time of fn() after one warm-up call. A spin kernel
+    runs ahead of each timed call so the launch is queued before the start
+    event fires and host overhead stays out of the interval."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
 
 
 def traced(torch, fn):
@@ -91,34 +104,6 @@ def traced(torch, fn):
     return wall, prof
 
 
-# device kernels by kind, first match wins. K1 is the forward walk plus, for
-# the wide layers, the tensor-core fold; K2 is the backward walk, the
-# forward walk again (the rows of dW) and the tensor-core products d_acc and
-# dW with the sum of its splits. The two share kernels, so a train step's
-# device time is split by kernel, not by entry point: in a rollout all of it
-# is K1's.
-KINDS = (
-    ("K1/K2 walk_fwd", r"walk_fwd_kernel"),
-    ("K2 walk_bwd", r"walk_bwd_kernel"),
-    ("K1/K2 split_gemm", r"split_gemm_kernel|sum_splits_kernel"),
-    ("K3", r"ball_sums_kernel"),
-    ("K4", r"ball_sums_bwd_kernel"),
-    ("K5", r"composite_weights_kernel"),
-    ("K6", r"composite_weights_bwd_kernel"),
-    ("K7", r"ball_query_compact_kernel"),
-    ("K8", r"segment_sum_kernel"),
-    ("matmul", r"gemm|cutlass|sm90_xmma|splitK"),
-    ("sort", r"[Ss]ort|radix"),
-)
-
-
-def kind_of(key):
-    for kind, pattern in KINDS:
-        if re.search(pattern, key):
-            return kind
-    return "other"
-
-
 def report(name, wall_ms, prof, rows):
     # a user annotation on the device timeline (Adam's optimizer-step range)
     # spans kernels that are counted on their own
@@ -128,13 +113,6 @@ def report(name, wall_ms, prof, rows):
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
     print(f"{name}: wall {wall_ms:.2f} ms, device {device_ms:.2f} ms, idle "
           f"share {1 - device_ms / wall_ms:.3f}")
-    split = {}
-    for e in events:
-        kind = kind_of(e.key)
-        split[kind] = split.get(kind, 0.0) + e.self_device_time_total / 1e3
-    print("  by kind: " + ", ".join(
-        f"{k} {v:.3f} ms" for k, v in sorted(split.items(),
-                                             key=lambda kv: -kv[1])))
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:rows]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  "
               f"{e.key[:110]}")
@@ -214,7 +192,7 @@ WALK_PATCHES_BF16 = {
 }
 
 
-def conv_steps(torch, chip_smoke, k1_calls, k2_calls):
+def conv_steps(torch, k1_calls, k2_calls):
     from neurofluid_torch.ops import fused_cconv as fc
 
     for name, fn, calls, n_args, per in (
@@ -226,7 +204,7 @@ def conv_steps(torch, chip_smoke, k1_calls, k2_calls):
             for i, a in enumerate(calls):
                 args = a[:n_args] + (prec,)
                 with torch.no_grad():
-                    ms.append(chip_smoke.event_ms(torch, lambda: fn(*args)))
+                    ms.append(event_ms(torch, lambda: fn(*args)))
                 cin, cout = a[0].shape[-2:]
                 needs = ("" if name == "K1" else " needs (dW, dq, dc, dfeats) "
                          + "".join(str(int(x)) for x in a[9]))
@@ -246,7 +224,7 @@ def walk_patches(precision):
     return "fused_cconv.cu", WALK_PATCHES
 
 
-def walk_phases(torch, chip_smoke, calls, precision="highest"):
+def walk_phases(torch, calls, precision="highest"):
     from neurofluid_torch.ops import fused_cconv as fc
 
     name_k = "K1d" if precision == "default" else "K1"
@@ -257,8 +235,7 @@ def walk_phases(torch, chip_smoke, calls, precision="highest"):
         out = []
         with torch.no_grad():
             for a in calls:
-                out.append(chip_smoke.event_ms(
-                    torch, lambda: fc.fused_cconv_cuda(*a)))
+                out.append(event_ms(torch, lambda: fc.fused_cconv_cuda(*a)))
         return out
 
     def show(name, ms, base=None):
@@ -319,13 +296,13 @@ def live_groups_only(args, gi, n_slot_args=1):
             *args[n_slot_args:gi], gcell[:n], *args[gi + 1:])
 
 
-def ball_walk_sweep(torch, chip_smoke, k3_calls, k7_calls, k4_calls):
+def ball_walk_sweep(torch, k3_calls, k7_calls, k4_calls):
     from neurofluid_torch.ops import ball_features as bf
     from neurofluid_torch.ops import fused_query as fq
 
     def show(name, fn, calls, what):
         with torch.no_grad():
-            ms = [chip_smoke.event_ms(torch, lambda: fn(*a)) for a in calls]
+            ms = [event_ms(torch, lambda: fn(*a)) for a in calls]
         print(f"{name} {what}: " + ", ".join(f"{m:.4f}" for m in ms)
               + f" ms (sum {sum(ms):.4f})", flush=True)
 
@@ -452,16 +429,17 @@ def main():
     import torch
 
     parser = argparse.ArgumentParser()
-    parser.add_argument("--steps", type=int, default=10)
-    parser.add_argument("--rows", type=int, default=20)
-    parser.add_argument("--walk-phases", action="store_true",
-                        help="time K1 with parts of its walk taken out")
-    parser.add_argument("--ball-walk-sweep", action="store_true",
-                        help="time K3, K7 and K4 across staged-walk plans")
-    parser.add_argument("--trainers", action="store_true",
-                        help="trace the stage trainers' loops")
-    parser.add_argument("--conv-steps", action="store_true",
-                        help="time K1/K1d and K2/K2d at a step's calls")
+    mode = parser.add_mutually_exclusive_group(required=True)
+    mode.add_argument("--walk-phases", action="store_true",
+                      help="time K1 with parts of its walk taken out")
+    mode.add_argument("--ball-walk-sweep", action="store_true",
+                      help="time K3, K7 and K4 across staged-walk plans")
+    mode.add_argument("--trainers", action="store_true",
+                      help="trace the stage trainers' loops")
+    mode.add_argument("--conv-steps", action="store_true",
+                      help="time K1/K1d and K2/K2d at a step's calls")
+    parser.add_argument("--rows", type=int, default=20,
+                        help="--trainers: the kernels listed per pass")
     parser.add_argument("--precision", default="highest",
                         choices=("highest", "default"),
                         help="--walk-phases: the conv precision timed")
@@ -500,8 +478,6 @@ def main():
     with torch.no_grad():
         for nerf in (ren.nerf_coarse, ren.nerf_fine):
             nerf.sigma.bias.fill_(chip_smoke.SIGMA_BIAS)
-    init_state = (copy.deepcopy(net.state_dict()),
-                  copy.deepcopy(ren.state_dict()))
     rollout = make_rollout_fn(net)
 
     if args.conv_steps:
@@ -517,7 +493,7 @@ def main():
         k2_calls = record(torch, fc, "fused_cconv_bwd_cuda",
                           lambda: t_step(pos, vel, pos + 0.001, pos + 0.002,
                                          box, nrm, box_plan=plan), grad=True)
-        conv_steps(torch, chip_smoke, k1_calls, k2_calls)
+        conv_steps(torch, k1_calls, k2_calls)
         print(f"card: {torch.cuda.get_device_name(0)}")
         return 0
     if args.walk_phases:
@@ -525,98 +501,34 @@ def main():
         calls = record(torch, fc, "fused_cconv_cuda",
                        lambda: rollout(pos, vel, box, nrm, 1))
         print(f"root: {os.path.dirname(os.path.dirname(fc.__file__))}")
-        walk_phases(torch, chip_smoke, calls, args.precision)
+        walk_phases(torch, calls, args.precision)
         print(f"card: {torch.cuda.get_device_name(0)}")
         return 0
-    if args.ball_walk_sweep:
-        from neurofluid_torch.ops import ball_features as bf
-        from neurofluid_torch.ops import fused_query as fq
-        with torch.no_grad():
-            traj, _ = rollout(pos, vel, box, nrm, 1)
-        k3_calls = record(torch, bf, "ball_sums_cuda",
-                          lambda: ren(traj[-1], ro, rays))
-        l_net = ParticleNet(**scene.particle_net_kwargs(),
-                            search_backend="fused", device=dev,
-                            generator=torch.Generator().manual_seed(1))
-        l_plan = l_net.make_box_plan(box)
-        k7_calls = record(torch, fq, "ball_query_compact_cuda",
-                          lambda: l_net(pos, vel, box, nrm, box_plan=l_plan))
-        step = make_e2e_train_step(
-            net, ren, torch.optim.Adam(ren.parameters(),
-                                       lr=chip_smoke.LR_RENDERER),
-            torch.optim.Adam(net.parameters(), lr=chip_smoke.LR_TRANSITION),
-            losses.default_box_bounds(device=dev), chip_smoke.BD_WEIGHT)
-        box_plan = net.make_box_plan(box)
-        k4_calls = record(
-            torch, bf, "ball_sums_bwd_cuda",
-            lambda: step(pos, vel, box, nrm, ro_v, rays_v, rgbs_v,
-                         box_plan=box_plan), grad=True)
-        ball_walk_sweep(torch, chip_smoke, k3_calls, k7_calls, k4_calls)
-        print(f"card: {torch.cuda.get_device_name(0)}")
-        return 0
-
+    from neurofluid_torch.ops import ball_features as bf
+    from neurofluid_torch.ops import fused_query as fq
     with torch.no_grad():
-        traj, _ = rollout(pos, vel, box, nrm, args.steps)  # warm-up
-        ren(traj[-1], ro, rays)
-        wall, prof = traced(torch, lambda: rollout(pos, vel, box, nrm,
-                                                   args.steps))
-        report(f"rollout ({args.steps} steps)", wall, prof, args.rows)
-        wall, prof = traced(torch, lambda: ren(traj[-1], ro, rays))
-        report("render (1024 rays)", wall, prof, args.rows)
-
-    # the train step of chip_smoke.py, from the same initial weights
-    net.load_state_dict(init_state[0])
-    ren.load_state_dict(init_state[1])
+        traj, _ = rollout(pos, vel, box, nrm, 1)
+    k3_calls = record(torch, bf, "ball_sums_cuda",
+                      lambda: ren(traj[-1], ro, rays))
+    l_net = ParticleNet(**scene.particle_net_kwargs(),
+                        search_backend="fused", device=dev,
+                        generator=torch.Generator().manual_seed(1))
+    l_plan = l_net.make_box_plan(box)
+    k7_calls = record(torch, fq, "ball_query_compact_cuda",
+                      lambda: l_net(pos, vel, box, nrm, box_plan=l_plan))
     step = make_e2e_train_step(
-        net, ren, torch.optim.Adam(ren.parameters(), lr=chip_smoke.LR_RENDERER),
+        net, ren, torch.optim.Adam(ren.parameters(),
+                                   lr=chip_smoke.LR_RENDERER),
         torch.optim.Adam(net.parameters(), lr=chip_smoke.LR_TRANSITION),
         losses.default_box_bounds(device=dev), chip_smoke.BD_WEIGHT)
     box_plan = net.make_box_plan(box)
-
-    def train_step(p, v):
-        return step(p, v, box, nrm, ro_v, rays_v, rgbs_v, box_plan=box_plan)
-
-    def report_median(name, runs):
-        """One traced step's wall time is a single sample of the host, which
-        can stall for hundreds of ms on a shared machine: of a few traced
-        steps, report the one with the median wall time."""
-        walls = sorted(w for w, _ in runs)
-        print(f"{name} traced walls (ms): "
-              + ", ".join(f"{w:.2f}" for w in walls))
-        wall, prof = next(r for r in runs if r[0] == walls[len(walls) // 2])
-        report(f"{name}, the median traced step", wall, prof, args.rows)
-
-    _, p, v, _ = train_step(pos, vel)  # warm-up
-    runs = []
-    for _ in range(TRAIN_TRACES):  # the state carried
-        out = []
-        runs.append(traced(torch, lambda: out.append(train_step(p, v))))
-        _, p, v, _ = out[0]
-    report_median("train step (1024 rays)", runs)
-
-    # the transition-only train step of chip_smoke.py on each backend
-    pos1, pos2 = pos + 0.001, pos + 0.002
-    for backend in chip_smoke.TRANSITION_LAUNCHES:
-        t_net = ParticleNet(**scene.particle_net_kwargs(),
-                            search_backend=backend, device=dev,
-                            generator=torch.Generator().manual_seed(1))
-        t_net.load_state_dict(init_state[0])
-        t_step = make_transition_train_step(
-            t_net, torch.optim.Adam(t_net.parameters(),
-                                    lr=chip_smoke.LR_TRANSITION_ONLY),
-            losses.default_box_bounds(device=dev), chip_smoke.TRANSITION_CLIP)
-        plan = t_net.make_box_plan(box)
-
-        def transition_step():
-            return t_step(pos, vel, pos1, pos2, box, nrm, box_plan=plan)
-
-        transition_step()  # warm-up
-        report_median(f"transition train step ({backend})",
-                      [traced(torch, transition_step)
-                       for _ in range(TRAIN_TRACES)])
+    k4_calls = record(
+        torch, bf, "ball_sums_bwd_cuda",
+        lambda: step(pos, vel, box, nrm, ro_v, rays_v, rgbs_v,
+                     box_plan=box_plan), grad=True)
+    ball_walk_sweep(torch, k3_calls, k7_calls, k4_calls)
     print(f"card: {torch.cuda.get_device_name(0)}")
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())
