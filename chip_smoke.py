@@ -44,13 +44,16 @@ Phases (each prints its own line; any failure raises and exits non-zero):
    card (K5 also once at K5_LONG_SAMPLES samples a ray, its tile path);
    K1d (K1 at conv_precision 'default', its bf16 instantiations) at the
    same calls against the plain 'default' version (TOL, and BF16_MARGIN
-   times nearer it than the plain 'highest' result);
+   times nearer it than the plain 'highest' result); K10 (the feature
+   encoding) at the render's two calls against the plain composition, and
+   its backward from a seeded cotangent against the plain VJP in float64
+   (ENCODE_BWD_TOL);
 4. serving path: a 10-step ParticleNet rollout of the 14,336-particle
    scene, then the coarse (64) + fine (128) render of 1,024 rays, with
    seeded random weights; launch counts from that run (K9's as the
    difference of its library's count around it); the same path on the
-   plain versions on the card (the NeRF's on its plain layers for K9),
-   within tolerance;
+   plain versions on the card (the NeRF's on its plain layers for K9, the
+   encoding on its plain composition for K10), within tolerance;
 5. backward kernels: K2 (fused conv), K4 (ball sums), K6 (compositing
    weights) at the shapes of one recorded warm-up train step, against their
    plain backward versions; K2 also once per layer with every gradient
@@ -144,7 +147,7 @@ Phases (each prints its own line; any failure raises and exits non-zero):
    of TRAIN.seed 10 and flax's per-parameter keys, on the host), built on
    the card and on the host, every tensor bitwise equal, SEED_PINS (pinned
    from JAX) met, no kernel launched;
-17. the kernels line (K1-K8, then K1d, K2d, the bf16 product and K9:
+17. the kernels line (K1-K8, then K1d, K2d, the bf16 product, K9 and K10:
    launches and the largest error against the plain version), the card
    line, and the result line last.
 
@@ -167,11 +170,15 @@ import tempfile
 ROLLOUT_STEPS = 10
 # K9: 10 per NeRF forward, a coarse and a fine pass a render; in a train
 # step's backward dX and dW of each of both NeRFs' 10 layers (the image
-# gradient reaches the features, so layer 0 takes dX too)
-EXPECTED_LAUNCHES = {"K1": 5 * ROLLOUT_STEPS, "K3": 2, "K5": 2, "K9": 20}
+# gradient reaches the features, so layer 0 takes dX too). K10: the
+# encoding, once a pass (the fine pass's rows from both sources in one
+# call), and in a train step's backward once a pass (its forward's and
+# its backward's launches counted together)
+EXPECTED_LAUNCHES = {"K1": 5 * ROLLOUT_STEPS, "K3": 2, "K5": 2, "K9": 20,
+                     "K10": 2}
 TRAIN_STEPS = 5
 STEP_LAUNCHES = {"K1": 5, "K2": 5, "K3": 2, "K4": 2, "K5": 2, "K6": 2,
-                 "K7": 0, "K8": 0, "K9": 20 + 2 * 20}
+                 "K7": 0, "K8": 0, "K9": 20 + 2 * 20, "K10": 2 + 2}
 LR_RENDERER, LR_TRANSITION, BD_WEIGHT = 3e-4, 1e-5, 1.0
 # the transition-only train step (two chained ParticleNet steps): launches
 # per step on each search backend. `fused`: a fluid and a box query per
@@ -205,10 +212,17 @@ GEMM_TOL = 2.0 ** -21
 # products and sums.
 # K7 emits integers and copies of table entries: equal, no tolerance. K8
 # sums <= 64 rows per segment in another order than the plain version.
+# K10's rows are the plain composition's bits but for the smoothed
+# direction's block, whose norm may sum in another order: 2^-20 absolute
+# (its values are sines and cosines of at most 8 times a unit vector's
+# entries); its backward is held against float64 (`ENCODE_BWD_TOL`)
 TOL = {"K1": 1e-4, "K3": 1e-5, "K5": 1e-5, "K2": 1e-4, "K4": 1e-5,
-       "K6": 1e-5, "K7": 0.0, "K8": 1e-5}
+       "K6": 1e-5, "K7": 0.0, "K8": 1e-5, "K10": 2.0 ** -20}
 RELATIVE = {"K1": "max1", "K3": "max1", "K5": "abs", "K2": "max", "K4": "max",
-            "K6": "max", "K7": "abs", "K8": "max"}
+            "K6": "max", "K7": "abs", "K8": "max", "K10": "abs"}
+# K10's backward against the plain VJP in float64: f32 sums of up to 21
+# terms of up to 2^9 |g|, relative to the sum of the terms' magnitudes
+ENCODE_BWD_TOL = 1e-6
 # K1d and K2d (K1 and K2 at precision 'default') against their plain
 # 'default' versions: the same bf16-rounded operands summed in another f32
 # order, so a sum on the edge of a bf16 rounding step (bf(acc), bf(d_acc))
@@ -1881,6 +1895,7 @@ def main():
     from neurofluid_torch.ops import ball_features as bf
     from neurofluid_torch.ops import composite as comp
     from neurofluid_torch.ops import dense_layer as dl
+    from neurofluid_torch.ops import encode as enc
     from neurofluid_torch.ops import fused_cconv as fc
     from neurofluid_torch.ops import fused_query as fq
     from neurofluid_torch.ops import neighbor_search as ns
@@ -1905,8 +1920,8 @@ def main():
     # ---- 2. build
     nf_cuda.build(["fused_cconv.cu", "fused_cconv_bf16.cu",
                    "ball_features.cu", "composite.cu", "fused_query.cu",
-                   "segment_sum.cu", "dense_layer.cu"])
-    print("build: 7 sources (K1-K9, K1d and K2d; headers split_gemm.cuh, "
+                   "segment_sum.cu", "dense_layer.cu", "encode.cu"])
+    print("build: 8 sources (K1-K10, K1d and K2d; headers split_gemm.cuh, "
           "ball_walk.cuh, async_copy.cuh) with nvcc -gencode "
           "arch=compute_90a,code=sm_90a", flush=True)
 
@@ -2079,14 +2094,15 @@ def main():
                  "K5": comp.composite_weights_cuda,
                  "K6": comp.composite_weights_bwd_cuda,
                  "K7": fq.ball_query_compact_cuda, "K8": so.segment_sum_cuda,
-                 "K1d": fc.fused_cconv_cuda, "K2d": fc.fused_cconv_bwd_cuda}
+                 "K1d": fc.fused_cconv_cuda, "K2d": fc.fused_cconv_bwd_cuda,
+                 "K10": enc.encode_features_cuda}
     plain = {"K1": fc.fused_cconv_plain, "K2": fc.fused_cconv_bwd_plain,
              "K1d": fc.fused_cconv_plain, "K2d": fc.fused_cconv_bwd_plain,
              "K3": bf.ball_sums_plain, "K4": bf.ball_sums_bwd_plain,
              "K5": comp.composite_weights_plain,
              "K6": comp.composite_weights_bwd_plain,
              "K7": fq.ball_query_compact_plain, "K8": so.segment_sum_plain,
-             "K9": NeRF._forward_plain}
+             "K9": NeRF._forward_plain, "K10": enc.encode_features_plain}
     wrapper_names = {"K1": (fc, "fused_cconv_cuda"),
                      "K2": (fc, "fused_cconv_bwd_cuda"),
                      "K3": (bf, "ball_sums_cuda"),
@@ -2095,7 +2111,8 @@ def main():
                      "K6": (comp, "composite_weights_bwd_cuda"),
                      "K7": (fq, "ball_query_compact_cuda"),
                      "K8": (so, "segment_sum_cuda"),
-                     "K9": (NeRF, "_forward_k9")}
+                     "K9": (NeRF, "_forward_k9"),
+                     "K10": (enc, "encode_features_cuda")}
     counters = {"K1": fc.KERNEL, "K2": fc.BWD_KERNEL, "K3": bf.KERNEL,
                 "K4": bf.BWD_KERNEL, "K5": comp.KERNEL,
                 "K6": comp.BWD_KERNEL, "K7": fq.KERNEL, "K8": so.KERNEL}
@@ -2125,6 +2142,10 @@ def main():
     def reset_counts():
         for c in counters.values():
             c.launches = 0
+
+    def k10_launches():
+        """K10's launches so far, forward and backward."""
+        return enc.KERNEL.launches + enc.BWD_KERNEL.launches
 
     kernels = {}  # the largest error of each kernel against its plain
 
@@ -2187,7 +2208,7 @@ def main():
     dense_err = dense_phase(torch, dev)
 
     # ---- 3. forward kernels at the serving path's shapes
-    calls = {"K1": [], "K3": [], "K5": []}
+    calls = {"K1": [], "K3": [], "K5": [], "K10": []}
     with torch.no_grad(), recording(calls, calls):
         traj, _ = rollout(pos, vel, box, nrm, 1)
         ren(traj[-1], ro, rays)
@@ -2218,6 +2239,40 @@ def main():
             got = comp.composite_weights_cuda(*args)
             want = comp.composite_weights_plain(*args)
             check("K5", i, [("w", got, want)])
+        # K10 (the coarse pass's rows, then the fine pass's from both
+        # sources), and its backward from a seeded cotangent against the
+        # plain VJP in float64
+        gen_e = torch.Generator(device=dev).manual_seed(5)
+        for i, args in enumerate(calls["K10"]):
+            got = enc.encode_features_cuda(*args)
+            check("K10", f"{i} ({tuple(got.shape)})",
+                  [("rows", got, enc.encode_features_plain(*args))])
+            sources, rays_e, ro_e, encoding, sigma_only = args
+            g_e = torch.randn(got.shape, device=dev, generator=gen_e)
+            grads = enc.encode_features_bwd_cuda(*args, g_e)
+            args64 = ([enc.Geometry(*(None if t is None else t.double()
+                                      for t in s)) for s in sources],
+                      rays_e.double(), ro_e.double(), encoding, sigma_only,
+                      g_e.double())
+            want = enc.encode_features_bwd_plain(*args64)
+            scale = enc.encode_features_bwd_plain(*args64, absolute=True)
+            worst, worst_abs = 0.0, 0.0
+            for gs, ws, ss in zip(grads, want, scale):
+                for d, w, sc in zip(gs, ws, ss):
+                    if w is None:
+                        continue
+                    worst = max(worst, float(((d.double() - w).abs()
+                                              / sc).max()))
+                    worst_abs = max(worst_abs,
+                                    float((d.double() - w).abs().max()))
+            print(f"kernel K10 backward call {i}: max err / sum of the "
+                  f"terms' magnitudes {worst:.3e} (tol "
+                  f"{ENCODE_BWD_TOL:.0e}), max_abs_err {worst_abs:.3e}",
+                  flush=True)
+            if not worst <= ENCODE_BWD_TOL:
+                raise AssertionError(f"K10 backward call {i}: error "
+                                     f"{worst:.3e} > {ENCODE_BWD_TOL:.0e}")
+            kernels["K10"] = max(kernels["K10"], worst_abs)
         # K5 on longer rays (tiles of 256, the carry in a register): the
         # fine call's sigmas, depths and ray norms, sorted depths extended
         sig, z, dn = calls["K5"][-1]
@@ -2235,14 +2290,15 @@ def main():
     # ---- 4. serving path, counted (K9 by its library's process-wide count,
     # as a difference around the run)
     reset_counts()
-    k9_before = dl.gemm_launches()
+    k9_before, k10_before = dl.gemm_launches(), k10_launches()
     with torch.no_grad():
         traj, flags = rollout(pos, vel, box, nrm, ROLLOUT_STEPS)
         out = ren(traj[-1], ro, rays)
     serve_launches = {k: v for k, v in counts().items() if v}
     serve_launches["K9"] = dl.gemm_launches() - k9_before
+    serve_launches["K10"] = k10_launches() - k10_before
     total_launches = counts()
-    k9_main = serve_launches["K9"]
+    k9_main, k10_main = serve_launches["K9"], serve_launches["K10"]
     print(f"serving path: launches {serve_launches}", flush=True)
     if serve_launches != EXPECTED_LAUNCHES:
         raise AssertionError(f"launches {serve_launches} != "
@@ -2269,11 +2325,11 @@ def main():
 
     # the same path on the plain versions on the card; the render is fed the
     # kernel rollout's last frame so each comparison sees the same inputs
-    before, k9_before = counts(), dl.gemm_launches()
-    with torch.no_grad(), on_plain(("K1", "K3", "K5", "K9")):
+    before = counts(), dl.gemm_launches(), k10_launches()
+    with torch.no_grad(), on_plain(("K1", "K3", "K5", "K9", "K10")):
         traj_p, _ = rollout(pos, vel, box, nrm, ROLLOUT_STEPS)
         out_p = ren(traj[-1], ro, rays)
-    if counts() != before or dl.gemm_launches() != k9_before:
+    if (counts(), dl.gemm_launches(), k10_launches()) != before:
         raise AssertionError("the plain run launched a kernel")
     diffs = {"traj": float((traj_p - traj).abs().max())}
     for key in ("rgb0", "depth0", "opacity0", "rgb1", "depth1", "opacity1"):
@@ -2363,7 +2419,7 @@ def main():
 
     # ---- 6. train path, counted: the state carried from step to step
     reset_counts()
-    k9_before = dl.gemm_launches()
+    k9_before, k10_before = dl.gemm_launches(), k10_launches()
     auxes, step_losses = [], []
     p, v = pos_w, vel_w
     for _ in range(TRAIN_STEPS):
@@ -2372,7 +2428,9 @@ def main():
         step_losses.append(loss)
     train_launches = counts()
     train_launches["K9"] = dl.gemm_launches() - k9_before
+    train_launches["K10"] = k10_launches() - k10_before
     k9_main += train_launches["K9"]
+    k10_main += train_launches["K10"]
     total_launches = {k: v + train_launches[k]
                       for k, v in total_launches.items()}
     want_launches = {k: n * TRAIN_STEPS for k, n in STEP_LAUNCHES.items()}
@@ -2440,11 +2498,13 @@ def main():
         on their plain versions: those launch no kernel, the rest launch
         as in a kernel step, and every difference is within `tol`."""
         c_net, c_ren, c_step = trainer()
-        before, k9_before = counts(), dl.gemm_launches()
+        before = counts()
+        k9_before, k10_before = dl.gemm_launches(), k10_launches()
         with on_plain(swapped):
             loss_c, pos_c, _, aux_c = run_step(c_step, pos, vel)
         launched = {k: v - before[k] for k, v in counts().items()}
         launched["K9"] = dl.gemm_launches() - k9_before
+        launched["K10"] = k10_launches() - k10_before
         want = {k: 0 if k in swapped else STEP_LAUNCHES[k] for k in launched}
         if launched != want:
             raise AssertionError(f"{what}: launches {launched} != {want}")
@@ -2918,6 +2978,12 @@ def main():
         "launches": k9_main, "max_abs_err": dense_err,
         "includes": ["neurofluid_torch/csrc/split_gemm.cuh",
                      "neurofluid_torch/csrc/async_copy.cuh"]})
+    line["kernels"].append({
+        "name": "K10 encode (the render's feature encoding, and its "
+                "backward)", "route": "cuda",
+        "source": "neurofluid_torch/csrc/encode.cu",
+        "replaces": "none (the JAX package's encoding is XLA's)",
+        "launches": k10_main, "max_abs_err": kernels["K10"]})
     for k in line["kernels"]:
         if not k["launches"]:
             raise AssertionError(f"{k['name']}: no launch on its path")

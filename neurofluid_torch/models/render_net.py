@@ -4,12 +4,13 @@ neurofluid_tpu/models/render_net.py).
 Per sample point, the particles within the search radius give the local
 geometry: density, smoothed position and neighbour-offset variance. They are
 positionally encoded with the sample position, the ray direction and the
-smoothed direction (each `encode_*` flag drops one), and a NeRF MLP maps
-them to (rgb, sigma). With `use_mask`, samples with fewer than K in-radius
-particles get zero rgb and sigma. The coarse pass renders `n_samples`
-samples; the fine pass adds `n_importance` samples from the coarse weights,
-reuses the coarse features, searches only the new samples, and sorts
-(z, rgbsigma) per ray before compositing (K5 on the card).
+smoothed direction (each `encode_*` flag drops one; `ops/encode.py`, K10 on
+the card), and a NeRF MLP maps them to (rgb, sigma). With `use_mask`,
+samples with fewer than K in-radius particles get zero rgb and sigma. The
+coarse pass renders `n_samples` samples; the fine pass adds `n_importance`
+samples from the coarse weights, reuses the coarse geometry, searches only
+the new samples, encodes the coarse and new samples' rows ray by ray in one
+call, and sorts (z, rgbsigma) per ray before compositing (K5 on the card).
 
 Two search modes compute the local geometry:
 - 'dense' (default): the 13 ball-query sums (K3 on the card, K4 its
@@ -36,12 +37,10 @@ import torch
 from torch import nn
 
 from neurofluid_torch.cuda import resolve_device
-from neurofluid_torch.models.embedding import (
-    embedding_channels, positional_encoding,
-)
 from neurofluid_torch.models.init import generator_or_default
 from neurofluid_torch.models.nerf import NeRF
 from neurofluid_torch.ops import ball_features as bf
+from neurofluid_torch.ops import encode as enc
 from neurofluid_torch.ops import neighbor_search as ns
 from neurofluid_torch.ops import ray_ops, segment_ops
 from neurofluid_torch.utils.profiling import span
@@ -104,22 +103,19 @@ class RenderNet(nn.Module):
         self.nerf_fine = NeRF(**kwargs)
 
     @property
+    def encoding(self) -> enc.Encoding:
+        return enc.Encoding(self.xyz_freqs, self.density_freqs,
+                            self.dir_freqs, self.encode_density,
+                            self.encode_smoothed_pos, self.encode_var,
+                            self.encode_smoothed_dir)
+
+    @property
     def in_channels_xyz(self) -> int:
-        c = embedding_channels(3, self.xyz_freqs)
-        if self.encode_density:
-            c += embedding_channels(1, self.density_freqs)
-        if self.encode_smoothed_pos:
-            c += embedding_channels(3, self.xyz_freqs)
-        if self.encode_var:
-            c += embedding_channels(3, self.xyz_freqs)
-        return c
+        return self.encoding.width(sigma_only=True)
 
     @property
     def in_channels_dir(self) -> int:
-        c = embedding_channels(3, self.dir_freqs)
-        if self.encode_smoothed_dir:
-            c += embedding_channels(3, self.dir_freqs)
-        return c
+        return self.encoding.width(sigma_only=False) - self.in_channels_xyz
 
     # ------------------------------------------------------------------
     # search + local geometry features
@@ -169,12 +165,10 @@ class RenderNet(nn.Module):
         return (ns.radius_search_brute(flat, particles, radius, k, **kw),
                 torch.zeros((), dtype=torch.bool, device=flat.device))
 
-    def _local_features(self, particles, sample_xyz, rays, ro, nbrs,
-                        sigma_only=False):
-        """The list path's features (reference models/renderer.py:96-179)
-        from the neighbour lists: (features (R*S, C), num_nn (R*S, 1),
-        full-K mask (R, S, 1))."""
-        n_s = sample_xyz.shape[1]
+    def _local_geometry(self, particles, sample_xyz, nbrs):
+        """The list path's local geometry (reference
+        models/renderer.py:96-179) from the neighbour lists: (Geometry of
+        the R*S samples, num_nn (R*S, 1), in-radius count (R*S,))."""
         flat = sample_xyz.reshape(-1, 3)
         radius = self.search_radius
         # num_nn and the full-K mask come from the exact in-radius count
@@ -210,48 +204,32 @@ class RenderNet(nn.Module):
                 v = torch.where(nn_mask, (vec - vec_mean) ** 2, 0.0)
                 axes.append(v.sum(-1) / num_nn_k[:, 0])
             var = torch.stack(axes, dim=-1)
-        return self._encode(flat, w_sum, smoothed_pos, var, num_nn, count,
-                            rays, ro, n_s, sigma_only)
+        return enc.Geometry(flat, w_sum, smoothed_pos, var), num_nn, count
 
-    def _encode(self, flat, density, smoothed_pos, var, num_nn, count, rays,
-                ro, n_s, sigma_only):
-        """Positional encodings and the full-K mask from the local geometry
-        (both search modes)."""
-        if not self.exclude_ray:
-            # blend of the sample and the smoothed position (reference
-            # models/renderer.py:98-109): larger_alpha, or smaller_alpha
-            # where num_nn <= 20 unless same_smooth_factor. The 20 is the
-            # reference's literal, not num_neighbors: with K = 20 slots
-            # num_nn never exceeds it, so the blend is smaller_alpha
-            # everywhere; copied as it is.
-            if self.same_smooth_factor:
-                alpha = torch.full_like(num_nn, self.larger_alpha)
-            else:
-                alpha = torch.where(num_nn <= 20.0, self.smaller_alpha,
-                                    self.larger_alpha)
-            smoothed_pos = flat * (1.0 - alpha) + smoothed_pos * alpha
-        pos_feats = [positional_encoding(flat, self.xyz_freqs)]
-        if self.encode_density:
-            pos_feats.append(positional_encoding(density, self.density_freqs))
-        if self.encode_smoothed_pos:
-            pos_feats.append(positional_encoding(smoothed_pos, self.xyz_freqs))
-        if self.encode_var:
-            pos_feats.append(positional_encoding(var, self.xyz_freqs))
-        full_mask = (count >= self.num_neighbors).reshape(-1, n_s, 1)
-        if sigma_only:
-            return torch.cat(pos_feats, dim=-1), num_nn, full_mask
-        hit_dir = positional_encoding(rays[:, 3:], self.dir_freqs)
-        dir_feats = [torch.repeat_interleave(hit_dir, n_s, dim=0)]
-        if self.encode_smoothed_dir:
-            sd = smoothed_pos - ro[None, :]
-            sd = sd / (torch.linalg.norm(sd, dim=-1, keepdim=True) + 1e-12)
-            dir_feats.append(positional_encoding(sd, self.dir_freqs))
-        return torch.cat(pos_feats + dir_feats, dim=-1), num_nn, full_mask
+    def _blend(self, geom: enc.Geometry, num_nn) -> enc.Geometry:
+        """The geometry as it is encoded (both search modes): with
+        `exclude_ray` off, the smoothed position blended with the
+        sample's."""
+        if self.exclude_ray:
+            return geom
+        flat, smoothed_pos = geom.xyz, geom.smoothed_pos
+        # blend of the sample and the smoothed position (reference
+        # models/renderer.py:98-109): larger_alpha, or smaller_alpha
+        # where num_nn <= 20 unless same_smooth_factor. The 20 is the
+        # reference's literal, not num_neighbors: with K = 20 slots
+        # num_nn never exceeds it, so the blend is smaller_alpha
+        # everywhere; copied as it is.
+        if self.same_smooth_factor:
+            alpha = torch.full_like(num_nn, self.larger_alpha)
+        else:
+            alpha = torch.where(num_nn <= 20.0, self.smaller_alpha,
+                                self.larger_alpha)
+        smoothed_pos = flat * (1.0 - alpha) + smoothed_pos * alpha
+        return geom._replace(smoothed_pos=smoothed_pos)
 
-    def _features_dense(self, particles, sample_xyz, rays, ro,
-                        sigma_only=False, cull=True):
-        """The dense path: the ball-feature sums (K3 on the card, K4 its
-        backward), no neighbour lists."""
+    def _geometry_dense(self, particles, sample_xyz, cull=True):
+        """The dense path's local geometry: the ball-feature sums (K3 on
+        the card, K4 its backward), no neighbour lists."""
         flat = sample_xyz.reshape(-1, 3)
         sums, overflow = bf.ball_feature_sums(
             flat, particles, self.search_radius, self.num_neighbors,
@@ -261,29 +239,37 @@ class RenderNet(nn.Module):
                            if cull and self.cull_capacity > 0 else 1.0))
         density, smoothed_pos, var, num_nn, count = bf.assemble_features(
             sums, flat, self.search_radius, self.num_neighbors)
-        feats, num_nn, full_mask = self._encode(
-            flat, density, smoothed_pos, var, num_nn, count, rays, ro,
-            sample_xyz.shape[1], sigma_only)
-        return feats, num_nn, full_mask, overflow
+        return (enc.Geometry(flat, density, smoothed_pos, var), num_nn, count,
+                overflow)
 
     def _features(self, particles, sample_xyz, rays, ro, sigma_only=False,
-                  grid=None, cull=True):
-        """For samples (R, S, 3): encoded features (R*S, C), num_nn
-        (R*S, 1), the full-K mask (R, S, 1) and the overflow flag. The
-        dense path ignores `grid`, as the JAX package's does."""
+                  grid=None, cull=True, before=None):
+        """For samples (R, S, 3): the NeRF's input rows (R*S, C), the
+        samples' geometry as encoded, num_nn (R*S, 1), the full-K mask
+        (R, S, 1) and the overflow flag. `before`: the geometry of samples
+        encoded ahead of these on each ray (the fine pass's coarse ones),
+        whose rows then come first on each ray: (R*(S0+S), C). The dense
+        path ignores `grid`, as the JAX package's does."""
         with span("render.features"):
             if self.search_mode == "dense":
-                return self._features_dense(particles, sample_xyz, rays, ro,
-                                            sigma_only=sigma_only, cull=cull)
-            nbrs, overflow = self.search(sample_xyz, particles, grid=grid,
-                                         cull=cull)
-            feats, num_nn, full_mask = self._local_features(
-                particles, sample_xyz, rays, ro, nbrs, sigma_only=sigma_only)
-            return feats, num_nn, full_mask, overflow
+                geom, num_nn, count, overflow = self._geometry_dense(
+                    particles, sample_xyz, cull=cull)
+            else:
+                nbrs, overflow = self.search(sample_xyz, particles, grid=grid,
+                                             cull=cull)
+                geom, num_nn, count = self._local_geometry(
+                    particles, sample_xyz, nbrs)
+            geom = self._blend(geom, num_nn)
+            full_mask = (count >= self.num_neighbors).reshape(
+                -1, sample_xyz.shape[1], 1)
+            feats = enc.encode_features(
+                [geom] if before is None else [before, geom], rays, ro,
+                self.encoding, sigma_only)
+            return feats, geom, num_nn, full_mask, overflow
 
     def _run_nerf(self, mlp, particles, sample_xyz, rays, ro,
                   sigma_only=False, grid=None, cull=True):
-        feats, num_nn, full_mask, overflow = self._features(
+        feats, _, num_nn, full_mask, overflow = self._features(
             particles, sample_xyz, rays, ro, sigma_only=sigma_only, grid=grid,
             cull=cull)
         out = mlp(feats, sigma_only=sigma_only)
@@ -317,7 +303,7 @@ class RenderNet(nn.Module):
             z0, xyz0 = ray_ops.coarse_sample_rays(
                 self.near, self.far, rays, s0, perturb=perturb,
                 generator=generator)
-            feats0, num_nn0, mask0, overflow0 = self._features(
+            feats0, geom0, num_nn0, mask0, overflow0 = self._features(
                 particles, xyz0, rays, ro, grid=grid)
             rgbsigma0 = self.nerf_coarse(feats0).reshape(n_rays, s0, 4)
             if self.use_mask:
@@ -330,7 +316,7 @@ class RenderNet(nn.Module):
             if self.n_importance == 0:
                 return results
 
-            # the fine pass: the coarse features are reused, only the new
+            # the fine pass: the coarse geometry is reused, only the new
             # samples are searched, and (z, rgbsigma) is sorted per ray
             s1 = self.n_importance
             z_mid = 0.5 * (z0[..., 1:] + z0[..., :-1])
@@ -338,13 +324,10 @@ class RenderNet(nn.Module):
                                        det=(perturb == 0),
                                        generator=generator).detach()
             xyz_new = rays[:, None, :3] + rays[:, None, 3:] * z_new[..., None]
-            feats_new, num_nn_new, mask_new, overflow_new = self._features(
-                particles, xyz_new, rays, ro, grid=grid, cull=False)
-            c = feats0.shape[-1]
-            feats_all = torch.cat([feats0.reshape(n_rays, s0, c),
-                                   feats_new.reshape(n_rays, s1, c)], dim=1)
-            rgbsigma1 = self.nerf_fine(feats_all.reshape(-1, c)).reshape(
-                n_rays, s0 + s1, 4)
+            feats_all, _, num_nn_new, mask_new, overflow_new = self._features(
+                particles, xyz_new, rays, ro, grid=grid, cull=False,
+                before=geom0)
+            rgbsigma1 = self.nerf_fine(feats_all).reshape(n_rays, s0 + s1, 4)
             mask1 = torch.cat([mask0, mask_new], dim=1)
             if self.use_mask:
                 rgbsigma1 = rgbsigma1 * mask1.to(rgbsigma1.dtype)

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1-K9) against their plain versions on the
+"""The port's CUDA kernels (K1-K10) against their plain versions on the
 card, at small shapes, and a gradcheck-style directional-derivative check
 of each differentiable wrapper (CompositeWeights, FusedCConv,
 BallFeatureSums, take_rows_planned) with its kernels on both sides, and a
@@ -542,6 +542,151 @@ def test_nerf_preps_its_planes_every_forward(dev):
         stepped = net(x)
     assert not torch.equal(stepped, changed)
     assert torch.equal(stepped, fresh_out())
+
+
+# K10's cases: every encoding, none, and two mixes; the geometry at the
+# render's magnitudes (samples up to 12 from the origin, densities up to
+# 20), each source's rows strided as K3's sums give them
+ENCODE_FLAGS = [(True,) * 4, (False,) * 4, (True, False, False, True),
+                (False, True, True, False)]
+
+
+def _encode_case(dev, flags, n_rays=300, samples=(64, 128), seed=0,
+                 dtype=torch.float32):
+    """(sources, rays, ro, Encoding) of K10 on `dev`, seeded; `flags`:
+    density, var, smoothed_pos, smoothed_dir."""
+    from neurofluid_torch.ops import encode as enc
+
+    rng = np.random.default_rng(seed)
+    encoding = enc.Encoding(10, 4, 4, flags[0], flags[2], flags[1], flags[3])
+    sources = []
+    for s in samples:
+        n = n_rays * s
+        xyz = rng.uniform(-12.0, 12.0, (n, 3))
+        wide = np.zeros((n, 16))
+        wide[:, 0:3], wide[:, 3] = xyz, rng.uniform(0.0, 20.0, n)
+        wide[:, 5:8] = xyz + rng.normal(0.0, 0.05, (n, 3))
+        wide[:, 9:12] = rng.uniform(0.0, 1e-2, (n, 3))
+        w = torch.tensor(wide, dtype=dtype, device=dev)
+        sources.append(enc.Geometry(w[:, 0:3], w[:, 3:4], w[:, 5:8],
+                                    w[:, 9:12] if encoding.var else None))
+    d = rng.normal(size=(n_rays, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    ro = np.asarray([0.3, -0.4, 11.0])
+    rays = np.concatenate([np.tile(ro, (n_rays, 1)), d], 1)
+    return (sources, torch.tensor(rays, dtype=dtype, device=dev),
+            torch.tensor(ro, dtype=dtype, device=dev), encoding)
+
+
+@pytest.mark.parametrize("n_sources", [1, 2])
+@pytest.mark.parametrize("sigma_only", [False, True])
+@pytest.mark.parametrize("flags", ENCODE_FLAGS,
+                         ids=lambda f: "".join(str(int(x)) for x in f))
+def test_encode_kernel_matches_plain(dev, flags, sigma_only, n_sources):
+    """K10's rows against the plain composition on the card: bitwise in
+    every column but the smoothed direction's (the last 27 where it is
+    encoded), where the norm's sum may run in another order: within
+    2^-20."""
+    from neurofluid_torch.ops import encode as enc
+
+    sources, rays, ro, encoding = _encode_case(
+        dev, flags, samples=(64, 128) if n_sources == 2 else (192,))
+    want = enc.encode_features_plain(sources, rays, ro, encoding, sigma_only)
+    before = enc.KERNEL.launches
+    got = enc.encode_features(sources, rays, ro, encoding, sigma_only)
+    torch.cuda.synchronize()
+    assert enc.KERNEL.launches == before + 1
+    assert got.shape == want.shape
+    sd = 27 if encoding.smoothed_dir and not sigma_only else 0
+    width = got.shape[1]
+    assert torch.equal(got[:, :width - sd], want[:, :width - sd])
+    if sd:
+        assert float((got[:, -sd:] - want[:, -sd:]).abs().max()) <= 2.0 ** -20
+
+
+@pytest.mark.parametrize("n_sources", [1, 2])
+@pytest.mark.parametrize("sigma_only", [False, True])
+@pytest.mark.parametrize("flags", ENCODE_FLAGS,
+                         ids=lambda f: "".join(str(int(x)) for x in f))
+def test_encode_bwd_kernel_matches_float64(dev, flags, sigma_only,
+                                           n_sources):
+    """K10's backward against the plain VJP in float64 of the same inputs:
+    each cotangent within 1e-6 of the sum of its terms' magnitudes; an
+    input that is not encoded gets none."""
+    from neurofluid_torch.ops import encode as enc
+
+    samples = (64, 128) if n_sources == 2 else (192,)
+    sources, rays, ro, encoding = _encode_case(dev, flags, samples=samples)
+    g = torch.randn((rays.shape[0] * sum(samples),
+                     encoding.width(sigma_only)), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(1))
+    before = enc.BWD_KERNEL.launches
+    got = enc.encode_features_bwd_cuda(sources, rays, ro, encoding,
+                                       sigma_only, g)
+    torch.cuda.synchronize()
+    assert enc.BWD_KERNEL.launches == before + 1
+    src64 = [enc.Geometry(*(None if t is None else t.double() for t in s))
+             for s in sources]
+    args = (src64, rays.double(), ro.double(), encoding, sigma_only,
+            g.double())
+    want = enc.encode_features_bwd_plain(*args)
+    scale = enc.encode_features_bwd_plain(*args, absolute=True)
+    for gs, ws, ss in zip(got, want, scale):
+        for name, d, w, sc in zip(enc.Geometry._fields, gs, ws, ss):
+            assert (d is None) == (w is None), name
+            if w is not None:
+                err = float(((d.double() - w).abs() / sc).max())
+                assert err <= 1e-6, (name, err)
+
+
+def test_render_encodes_on_k10(dev, monkeypatch):
+    """A render forward on the card makes 2 K10 launches and no sin or cos
+    kernel (the profiler's kernel names), its backward 2 more; against
+    the same render with the plain composition in K10's place, the outputs
+    and the particles' gradient agree (the smoothed direction's norm and
+    K4's atomics aside: within 1e-5, and 1e-4 of the gradient's largest
+    entry)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from neurofluid_torch.ops import encode as enc
+
+    _, card, (p, ro, rays) = _small_render_case()
+    p, ro, rays = p.to(dev), ro.to(dev), rays.to(dev)
+    with torch.no_grad():
+        card(p, ro, rays)  # builds the library outside the trace
+    torch.cuda.synchronize()
+    before = enc.KERNEL.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with torch.no_grad():
+            card(p, ro, rays)
+        torch.cuda.synchronize()
+    assert enc.KERNEL.launches == before + 2
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum("encode_fwd_kernel" in n for n in names) == 2
+    assert not [n for n in names if "sin_kernel" in n or "cos_kernel" in n]
+
+    outs = []
+    for swap in (False, True):
+        if swap:
+            monkeypatch.setattr(enc, "encode_features_cuda",
+                                enc.encode_features_plain)
+        pt = p.detach().clone().requires_grad_(True)
+        counts = (enc.KERNEL.launches, enc.BWD_KERNEL.launches)
+        out = card(pt, ro, rays)
+        (out["rgb0"].sum() + out["rgb1"].sum()).backward()
+        torch.cuda.synchronize()
+        assert (enc.KERNEL.launches - counts[0],
+                enc.BWD_KERNEL.launches - counts[1]) == ((0, 0) if swap
+                                                         else (2, 2))
+        outs.append(({k: v.detach() for k, v in out.items()}, pt.grad))
+    (got, g_got), (want, g_want) = outs
+    for key in ("rgb0", "opacity0", "rgb1", "opacity1"):
+        assert float((got[key] - want[key]).abs().max()) <= 1e-5, key
+    top = float(g_want.abs().max())
+    assert top > 0
+    assert float((g_got - g_want).abs().max()) <= 1e-4 * top
 
 
 # the bf16 instantiations (precision 'default') against the plain 'default'

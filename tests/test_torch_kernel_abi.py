@@ -10,7 +10,7 @@ import pytest
 
 from neurofluid_torch import cuda
 from neurofluid_torch.ops import (
-    ball_features, composite, dense_layer, fused_cconv, fused_query,
+    ball_features, composite, dense_layer, encode, fused_cconv, fused_query,
     segment_ops,
 )
 
@@ -21,7 +21,7 @@ def _kernels():
     """Every Kernel handle of the modules, those in a dict of handles
     (`fused_cconv.BF16_KERNELS`) too."""
     found = []
-    for mod in (ball_features, composite, dense_layer, fused_cconv,
+    for mod in (ball_features, composite, dense_layer, encode, fused_cconv,
                 fused_query, segment_ops):
         for v in vars(mod).values():
             for k in v.values() if isinstance(v, dict) else (v,):
@@ -49,6 +49,7 @@ def test_every_module_declares_its_kernels():
         "nf_ball_query_compact", "nf_ball_sums", "nf_ball_sums_bwd",
         "nf_composite_weights", "nf_composite_weights_bwd",
         "nf_dense_layer_bwd", "nf_dense_layer_chain", "nf_dense_layer_prep",
+        "nf_encode_bwd", "nf_encode_fwd",
         "nf_fused_cconv_bwd", "nf_fused_cconv_bwd_bf16",
         "nf_fused_cconv_fwd", "nf_fused_cconv_fwd_bf16",
         "nf_segment_sum_accumulate", "nf_split_gemm", "nf_split_gemm_bf16"])
