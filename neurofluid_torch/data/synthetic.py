@@ -306,6 +306,74 @@ def render_particle_image(
     return out
 
 
+def write_blender_scene(
+    root: str,
+    positions: np.ndarray,
+    velocities: np.ndarray,
+    box: np.ndarray,
+    box_normals: np.ndarray,
+    cameras: dict,
+    images: dict,
+    *,
+    test_views: tuple,
+    camera_angle_x: float,
+) -> None:
+    """Write given frames as a Blender-layout scene (reference
+    datasets/dataset.py's layout, which `BlenderDataset` reads).
+
+    positions, velocities: (F, N, 3) particle frames; box, box_normals:
+    (M, 3) boundary particles and their normals; cameras: {view: c2w
+    (3, 4)} in the Blender convention, one static camera a view, the views
+    in order; images: {view: F RGBA or RGB uint8 images (H, W, 4|3)}. A
+    view in `test_views` keeps its images under `test/`, any other under
+    `train/`; each view gets both split files and both splits' particle
+    files, so that train and test readers work on any view."""
+    from PIL import Image
+
+    os.makedirs(root, exist_ok=True)
+    np.savez(
+        osp.join(root, "box.npz"),
+        box=np.asarray(box, np.float32),
+        box_normals=np.asarray(box_normals, np.float32),
+    )
+    n_frames = len(positions)
+    for view, c2w in cameras.items():
+        view_dir = osp.join(root, view)
+        split = "test" if view in test_views else "train"
+        for actual_split in ("train", "test"):
+            os.makedirs(osp.join(view_dir, actual_split, "particles"), exist_ok=True)
+
+        mat = np.concatenate(
+            [np.asarray(c2w, np.float32), np.asarray([[0, 0, 0, 1]], np.float32)], 0
+        ).tolist()
+        frames = []
+        for f in range(n_frames):
+            file_path = f"{split}/r_{f}"
+            Image.fromarray(np.asarray(images[view][f], np.uint8)).save(
+                osp.join(view_dir, f"{file_path}.png"))
+            frames.append(
+                {
+                    "file_path": file_path,
+                    "particle_path": f"particles/{f}.npz",
+                    "transform_matrix": mat,
+                }
+            )
+        meta = {
+            "camera_angle_x": camera_angle_x,
+            "bounding_box": "box.npz",
+            "frames": frames,
+        }
+        for actual_split in (split, "train" if split == "test" else "test"):
+            for f in range(n_frames):
+                np.savez(
+                    osp.join(view_dir, actual_split, f"particles/{f}.npz"),
+                    pos=positions[f],
+                    vel=velocities[f],
+                )
+            with open(osp.join(view_dir, f"transforms_{actual_split}.json"), "w") as fp:
+                json.dump(meta, fp)
+
+
 def generate_blender_scene(
     root: str,
     n_frames: int = 12,
@@ -318,26 +386,20 @@ def generate_blender_scene(
     seed: int = 10,
     method: str = "ballistic",
 ) -> dict:
-    """Write a full Blender-layout scene; returns scene metadata.
+    """Simulate a fluid blob, render it from cameras on a circle and write
+    the full Blender-layout scene (`write_blender_scene`); returns scene
+    metadata.
 
     method: 'ballistic' (fast, for tests) or 'pbf' (fluid-realistic
     position-based fluids; use for protocol/quality runs)."""
-    from PIL import Image
-
     pos0, vel0 = make_fluid_blob(n_side=n_side, seed=seed)
     sim = simulate_pbf if method == "pbf" else simulate
     positions, velocities = sim(pos0, vel0, n_frames, seed=seed)
     box, box_normals = make_box()
 
-    os.makedirs(root, exist_ok=True)
-    np.savez(
-        osp.join(root, "box.npz"),
-        box=box.astype(np.float32),
-        box_normals=box_normals.astype(np.float32),
-    )
-
     focal = 0.5 * img_wh[0] / np.tan(0.5 * camera_angle_x)
     all_views = list(train_views) + list(test_views)
+    cameras, images = {}, {}
     for vi, view in enumerate(all_views):
         angle = 2 * np.pi * vi / max(len(all_views), 1)
         cam_pos = np.asarray(
@@ -348,51 +410,12 @@ def generate_blender_scene(
             ]
         )
         cam_pos *= camera_distance / np.linalg.norm(cam_pos - np.asarray([0, 0, 0.5]))
-        c2w = look_at_c2w(cam_pos)
-
-        view_dir = osp.join(root, view)
-        split = "test" if view in test_views else "train"
-        for actual_split in ("train", "test"):
-            os.makedirs(osp.join(view_dir, actual_split, "particles"), exist_ok=True)
-        os.makedirs(osp.join(view_dir, split), exist_ok=True)
-
-        frames = []
-        for f in range(n_frames):
-            img = render_particle_image(positions[f], c2w, focal, img_wh)
-            file_path = f"{split}/r_{f}"
-            Image.fromarray(img).save(osp.join(view_dir, f"{file_path}.png"))
-            pname = f"particles/{f}.npz"
-            np.savez(
-                osp.join(view_dir, split, pname),
-                pos=positions[f],
-                vel=velocities[f],
-            )
-            mat = np.concatenate([c2w, np.asarray([[0, 0, 0, 1]], np.float32)], 0)
-            frames.append(
-                {
-                    "file_path": file_path,
-                    "particle_path": pname,
-                    "transform_matrix": mat.tolist(),
-                }
-            )
-        meta = {
-            "camera_angle_x": camera_angle_x,
-            "bounding_box": "box.npz",
-            "frames": frames,
-        }
-        with open(osp.join(view_dir, f"transforms_{split}.json"), "w") as fp:
-            json.dump(meta, fp)
-        # both split files exist so train/test readers work on any view
-        other = "train" if split == "test" else "test"
-        other_frames = []
-        for f in range(n_frames):
-            pname = f"particles/{f}.npz"
-            np.savez(
-                osp.join(view_dir, other, pname), pos=positions[f], vel=velocities[f]
-            )
-            other_frames.append(dict(frames[f], particle_path=pname))
-        with open(osp.join(view_dir, f"transforms_{other}.json"), "w") as fp:
-            json.dump(dict(meta, frames=other_frames), fp)
+        cameras[view] = look_at_c2w(cam_pos)
+        images[view] = [render_particle_image(positions[f], cameras[view], focal, img_wh)
+                        for f in range(n_frames)]
+    write_blender_scene(root, positions, velocities, box, box_normals, cameras,
+                        images, test_views=tuple(test_views),
+                        camera_angle_x=camera_angle_x)
 
     return {
         "positions": positions,

@@ -45,7 +45,7 @@ from neurofluid_torch.train.warmup import (
     build_renderer, load_renderer, render_views,
 )
 from neurofluid_torch.utils.metrics import FluidErrors, psnr as psnr_np
-from neurofluid_torch.utils.profiling import span
+from neurofluid_torch.utils.profiling import span, sync_span
 
 
 def leaf_norms(tensors) -> torch.Tensor:
@@ -150,6 +150,11 @@ class E2ETrainer(TrainerBase):
         self.eval_count = 0
         if cfg.get("resume_from"):
             self.resume(cfg.resume_from)
+        # the loop's state: the step counter, the Pred2GT record of the
+        # epoch and the carried particles (set at a sequence's start)
+        self.global_step = self.start_step
+        self.fluid_errors = FluidErrors()
+        self.state_pos = self.state_vel = None
 
     # ------------------------------------------------------------------
 
@@ -298,34 +303,52 @@ class E2ETrainer(TrainerBase):
 
     def train(self, n_epochs: int | None = None,
               eval_during_training: bool = True):
+        """`train_iteration` over every frame of the sequence, `n_epochs`
+        times (cfg.TRAIN.epochs), from the start step; returns the last
+        loss."""
+        n_epochs = int(n_epochs if n_epochs is not None
+                       else self.cfg.TRAIN.epochs)
+        self.global_step = self.start_step
+        last_loss = None
+        for _epoch in range(n_epochs):
+            self.fluid_errors = FluidErrors()
+            for data_idx in range(len(self.dataset)):
+                last_loss, _ = self.train_iteration(data_idx,
+                                                    eval_during_training)
+        return float(last_loss) if last_loss is not None else None
+
+    def train_iteration(self, data_idx: int,
+                        eval_during_training: bool = True):
+        """One step of the loop on frame `data_idx` of the sequence: the
+        frame's arrays, a pixel draw per view (the center crop until
+        precrop_iters), the copies to the device, the box check, the
+        train step from the carried state (reset to the frame's particles
+        at the sequence's start, reference :192-193), the schedules' step,
+        the log every log_interval steps; then the eval and checkpoint
+        every save_interval steps. Returns (loss, aux) of the step."""
         cfg = self.cfg
-        n_epochs = int(n_epochs if n_epochs is not None else cfg.TRAIN.epochs)
         h = int(cfg.TRAIN.imgH // cfg.TRAIN.scale)
         w = int(cfg.TRAIN.imgW // cfg.TRAIN.scale)
         ray_chunk = int(cfg.RENDERER.ray.ray_chunk)
         precrop = int(cfg.TRAIN.get("precrop_iters", 500))
         log_interval = int(cfg.TRAIN.get("log_interval", 10))
         save_interval = int(cfg.TRAIN.get("save_interval", 500))
+        step = self.global_step
 
-        global_step = self.start_step
-        last_loss = None
-        for _epoch in range(n_epochs):
-            fluid_errors = FluidErrors()
-            for data_idx in range(len(self.dataset)):
+        with span("step.e2e"):
+            with span("loop.data"):
                 data = self.dataset[data_idx]
                 if data_idx == 0:
-                    # state reset at sequence start (reference :192-193)
-                    state_pos = self.to_device(data["particles_pos"])
-                    state_vel = self.to_device(data["particles_vel"])
-
-                idx = [self.sample_pixel_indices(h, w, global_step, ray_chunk,
+                    self.state_pos = self._copy(data["particles_pos"])
+                    self.state_vel = self._copy(data["particles_vel"])
+                idx = [self.sample_pixel_indices(h, w, step, ray_chunk,
                                                  precrop)
                        for _ in self.train_views]
-                rays_v = self.to_device([data["rays_1"][v][i]
-                                         for v, i in enumerate(idx)])
-                rgbs_v = self.to_device([data["rgb_1"][v][i]
-                                         for v, i in enumerate(idx)])
-                ro_v = self.to_device(data["cw_1"][:, :, 3])
+                rays_v = self._copy([data["rays_1"][v][i]
+                                     for v, i in enumerate(idx)])
+                rgbs_v = self._copy([data["rgb_1"][v][i]
+                                     for v, i in enumerate(idx)])
+                ro_v = self._copy(data["cw_1"][:, :, 3])
 
                 if self.box_plan is not None and not np.array_equal(
                         np.asarray(data["box"]), self._box_plan_src):
@@ -339,65 +362,78 @@ class E2ETrainer(TrainerBase):
                     a = self.anchor_data
                     # the anchor samples with precrop 0, as the JAX trainer
                     # does (its own quirk: the warm-up's crop is not reused)
-                    a_idx = [self.sample_pixel_indices(h, w, global_step,
+                    a_idx = [self.sample_pixel_indices(h, w, step,
                                                        self.anchor_rays, 0)
                              for _ in a["rays"]]
                     anchor = (
                         a["pos"], a["ro_v"],
-                        self.to_device([a["rays"][v][i]
-                                        for v, i in enumerate(a_idx)]),
-                        self.to_device([a["rgb"][v][i]
-                                        for v, i in enumerate(a_idx)]),
+                        self._copy([a["rays"][v][i]
+                                    for v, i in enumerate(a_idx)]),
+                        self._copy([a["rgb"][v][i]
+                                    for v, i in enumerate(a_idx)]),
                     )
-                loss, state_pos, state_vel, aux = self.train_step(
-                    state_pos, state_vel, self.to_device(data["box"]),
-                    self.to_device(data["box_normals"]), ro_v, rays_v, rgbs_v,
-                    self.box_plan, *anchor,
-                )
-                for s in self.lr_scheds:
-                    s.step()
-                last_loss = loss
+                box = self._copy(data["box"])
+                box_normals = self._copy(data["box_normals"])
+            loss, self.state_pos, self.state_vel, aux = self.train_step(
+                self.state_pos, self.state_vel, box, box_normals, ro_v,
+                rays_v, rgbs_v, self.box_plan, *anchor,
+            )
+            for s in self.lr_scheds:
+                s.step()
 
-                if (global_step + 1) % log_interval == 0:
-                    self.log_step(global_step, data_idx, data, loss, aux,
-                                  state_pos, fluid_errors)
-                global_step += 1
-                if eval_during_training and global_step % save_interval == 0:
-                    self.eval(global_step)
-                    self.save_checkpoint(global_step)
-        return float(last_loss) if last_loss is not None else None
+            if (step + 1) % log_interval == 0:
+                with span("loop.log"):
+                    self.log_step(step, data_idx, data, loss, aux)
+            self.global_step = step + 1
+        if eval_during_training and self.global_step % save_interval == 0:
+            self.eval(self.global_step)
+            self.save_checkpoint(self.global_step)
+        return loss, aux
 
-    def log_step(self, step, data_idx, data, loss, aux, state_pos,
-                 fluid_errors):
-        """The overflow check and the scalars and histograms of one logged
-        step (reference trainer_e2e.py:247-302)."""
+    def _copy(self, x) -> torch.Tensor:
+        """`to_device` of a host array: a copy from pageable memory, which
+        waits for the card's queue."""
+        with sync_span("sync.data", self.device):
+            return self.to_device(x)
+
+    def log_step(self, step, data_idx, data, loss, aux):
+        """The overflow check, the scalars and histograms and the Pred2GT
+        of the carried state of one logged step (reference
+        trainer_e2e.py:247-302). Each read of a device value waits for the
+        card (`sync.log`)."""
+        def read(x) -> np.ndarray:
+            with span("sync.log"):
+                return host(x)
+
         self.check_search_overflow(aux["search_overflow"], step, "e2e-train")
-        self.logger.scalar("train/loss", float(loss), step)
+        self.logger.scalar("train/loss", float(read(loss)), step)
         for k in ("rgbloss_0", "rgbloss_1", "boundary_loss",
                   "grad_norm_renderer", "grad_norm_transition",
                   "search_cap_exceeded"):
-            self.logger.scalar(f"train/{k}", float(aux[k]), step)
+            self.logger.scalar(f"train/{k}", float(read(aux[k])), step)
         # per-view scalars + neighbor-count histograms
-        mse0, mse1 = host(aux["mse0_views"]), host(aux["mse1_views"])
+        mse0, mse1 = read(aux["mse0_views"]), read(aux["mse1_views"])
         for v, name in enumerate(self.train_views):
             self.logger.scalar(f"{name}/rgbloss_0", float(mse0[v]), step)
             self.logger.scalar(f"{name}/rgbloss", float(mse0[v] + mse1[v]),
                                step)
             self.logger.histogram(f"{name}/num_neighbors_0",
-                                  host(aux["num_nn_0"][v]), step)
+                                  read(aux["num_nn_0"][v]), step)
             self.logger.histogram(f"{name}/num_neighbors_1",
-                                  host(aux["num_nn_1"][v]), step)
+                                  read(aux["num_nn_1"][v]), step)
         # grad-norm histograms before/after the clip
         if "grad_hist_renderer_before" in aux:
             for tag in ("grad_hist_renderer_before", "grad_hist_renderer_after",
                         "grad_hist_transition_before",
                         "grad_hist_transition_after"):
-                self.logger.histogram(f"train/{tag}", host(aux[tag]), step)
+                self.logger.histogram(f"train/{tag}", read(aux[tag]), step)
         self.logger.scalar("train/lr_renderer", float(self.sched_r(step)), step)
         self.logger.scalar("train/lr_transition", float(self.sched_t(step)),
                            step)
-        d = fluid_errors.cal_errors(host(state_pos), data["particles_pos_1"],
-                                    data_idx + 1)
+        pred = read(self.state_pos)
+        with span("loop.pred2gt"):
+            d = self.fluid_errors.cal_errors(pred, data["particles_pos_1"],
+                                             data_idx + 1)
         if d is not None:
             self.logger.scalar("train/pred2gt_distance", d, step)
 

@@ -14,6 +14,12 @@ other switch: a profiler recording is the switch.
 The program's spans, by layer:
 - the entry points: `step.transition`, `step.e2e`, `step.warmup` (one
   train step each) and `frame` (a chunked full-image render);
+  `E2ETrainer.train_iteration` opens `step.e2e` around the whole
+  iteration, its train step's inside it recording none of its own;
+- the e2e trainer's loop, inside its iteration: `loop.data` (the frame's
+  arrays, the pixel draw, the copies to the device and the box check),
+  `loop.log` (`log_step`) and, inside it, `loop.pred2gt` (the host's
+  nearest-neighbour Pred2GT);
 - the model: `particle_net` (child `particle_net.plan`: the search
   structures and sorts; on the list backends its children
   `particle_net.search`, both searches with their grid builds, and
@@ -33,7 +39,11 @@ The program's spans, by layer:
   `sync.tap_sizes` and `sync.tap_corner_max` once per conv geometry
   (`cconv.trilinear_taps`; `trilinear_taps_vjp` on the plain fused
   conv's backward). Outside the units, `sync.overflow` is the trainers'
-  read of the search-overflow flag after a step.
+  read of the search-overflow flag after a step. The e2e trainer's
+  iteration makes two more kinds, inside its unit: `sync.data`, each copy
+  of a host array to the card in `loop.data`, and `sync.log`, each read
+  of a device value in `log_step` (its overflow read stays
+  `sync.overflow`).
 """
 
 from __future__ import annotations
@@ -83,8 +93,13 @@ class _Recorded:
 
 def span(name: str):
     """A context that records the stretch it encloses as `name` while a
-    torch profiler records, and does nothing otherwise."""
-    return _Recorded(name) if _recording() else _OFF
+    torch profiler records, and does nothing otherwise. Inside an open
+    span of the same name on this thread it records nothing: a train
+    step called by a trainer's iteration, which opens `step.e2e` itself,
+    makes one span of the unit."""
+    if not _recording() or name in getattr(_local, "stack", ()):
+        return _OFF
+    return _Recorded(name)
 
 
 def sync_span(name: str, device: torch.device):
